@@ -84,7 +84,7 @@ class Lease:
 
     def __init__(self, lease_id: int, devices: list, nodes: list[int]):
         self.lease_id = lease_id
-        self.devices = devices  # jax devices (compute plugins)
+        self.devices = devices  # torch.device entries (compute plugins)
         self.nodes = nodes  # logical host slots (broker plugin)
 
     def __repr__(self) -> str:  # pragma: no cover

@@ -1,5 +1,11 @@
 """Streaming Mini-Apps (paper §5): MASS sources + MASA processors."""
-from repro_torch.miniapps.masa import PROCESSORS, AppStats, ReconstructionApp, StreamingKMeans
+from repro_torch.miniapps.masa import (
+    PROCESSORS,
+    AppStats,
+    LMServeApp,
+    ReconstructionApp,
+    StreamingKMeans,
+)
 from repro_torch.miniapps.mass import (
     SOURCES,
     KMeansClusterSource,
@@ -7,6 +13,7 @@ from repro_torch.miniapps.mass import (
     LightsourceTemplateSource,
     SourceConfig,
     StreamSource,
+    TokenSource,
 )
 from repro_torch.miniapps.state import state_from_jax
 
@@ -14,6 +21,7 @@ __all__ = [
     "AppStats",
     "KMeansClusterSource",
     "KMeansStaticSource",
+    "LMServeApp",
     "LightsourceTemplateSource",
     "PROCESSORS",
     "ReconstructionApp",
@@ -21,5 +29,6 @@ __all__ = [
     "SourceConfig",
     "StreamSource",
     "StreamingKMeans",
+    "TokenSource",
     "state_from_jax",
 ]

@@ -4,6 +4,7 @@ Pluggable processors for the micro-batch engine:
 
 * ``StreamingKMeans``   — score + decayed centroid update (paper Table 1)
 * ``ReconstructionApp`` — GridRec / ML-EM per frame (paper §3.2.2, Fig. 9)
+* ``LMServeApp``        — streaming LM inference (prefill/decode)
 
 Each exposes ``process(state, msgs) -> state`` for
 ``MicroBatchPlugin.stream``. Each works on the device it is given
@@ -26,7 +27,10 @@ import torch
 from repro_torch.core.service import resolve_device
 from repro_torch.kernels import kmeans as kmeans_ops
 from repro_torch.kernels import tomo as tomo_ops
-from repro_torch.streaming.dispatch import AsyncWindow, LatencyWindow
+from repro_torch.models import build_model
+from repro_torch.models.common import first_argmax
+from repro_torch.serving import ContinuousBatcher, Request
+from repro_torch.streaming.dispatch import AsyncWindow, LatencyWindow, ShapeBuckets, pad_rows
 
 
 @dataclass
@@ -204,8 +208,134 @@ class ReconstructionApp(_HotPathApp):
         return recon  # last reconstruction = state (exposed for inspection)
 
 
+class LMServeApp(_HotPathApp):
+    """Streaming LM inference: prefill each request batch, decode n tokens.
+
+    ``mode="lockstep"`` (default): the whole micro-batch's requests are
+    stacked into one prefill (rows padded to a bucket) whose cache is
+    allocated at ``prompt_len + gen_tokens`` positions, and the decode loop
+    writes into it in place — every row enters and exits together.
+
+    ``mode="continuous"``: requests go through the in-flight batching
+    scheduler (``repro_torch.serving.ContinuousBatcher``) — prompts prefill
+    into paged KV-cache slots and join the live decode batch mid-stream,
+    finished rows exit per step and free their pages immediately. Same
+    greedy tokens.
+
+    The state the stream carries is the model's params (as stored, f32 at
+    full width); the matmul weights are cast to the compute dtype once per
+    params object. On ``device`` (CUDA unless a CPU device is named) the
+    prefill runs the flash kernel and every decode step the decode kernel.
+    The JAX app's compile counts have no counterpart.
+    """
+
+    def __init__(self, cfg, *, prompt_len: int = 32, gen_tokens: int = 8, batch: int = 4,
+                 async_depth: int = 2, metrics: Any = None,
+                 row_buckets: ShapeBuckets | None = None, mode: str = "lockstep",
+                 n_pages: int = 256, page_size: int = 16,
+                 device: torch.device | str = "cuda"):
+        if mode not in ("lockstep", "continuous"):
+            raise ValueError(f"mode must be 'lockstep' or 'continuous', got {mode!r}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = build_model(cfg)
+        self.prompt_len = prompt_len
+        self.gen_tokens = gen_tokens
+        self.batch = batch
+        self.mode = mode
+        self.row_buckets = row_buckets or ShapeBuckets(min_size=batch, max_size=batch * 8)
+        self._init_hotpath(async_depth=async_depth, metrics=metrics, name="lm_serve")
+        self._params_src: Any = None
+        self._params: Any = None
+        self._batcher = None
+        if mode == "continuous":
+            self._batcher = ContinuousBatcher(
+                self.model, n_pages=n_pages, page_size=page_size,
+                max_queue=max(64, batch * 16), metrics=metrics, device=self.device)
+            self._rid = 0
+            self._now = 0.0
+
+    def _compute_params(self, params):
+        if params is not self._params_src:
+            self._params_src = params
+            self._params = self.model.compute_params(params)
+        return self._params
+
+    def _stack_requests(self, msgs) -> np.ndarray:
+        """(sum_i b_i, prompt_len) int32: every message's requests in one
+        batch, right-padded to prompt_len columns."""
+        rows = []
+        for m in msgs:
+            t = np.asarray(m.value)[: self.batch, : self.prompt_len].astype(np.int32)
+            if t.shape[1] < self.prompt_len:
+                t = np.pad(t, [(0, 0), (0, self.prompt_len - t.shape[1])])
+            rows.append(t)
+        return np.concatenate(rows)
+
+    def _serve_batch(self, params, msgs):
+        """One stacked prefill + the decode loop for a whole micro-batch.
+        Returns (seq (gen_tokens, B, 1) greedy tokens, n_req live rows)."""
+        toks = self._stack_requests(msgs)
+        n_req = toks.shape[0]
+        tok_in = torch.from_numpy(pad_rows(toks, self.row_buckets.fit(n_req))).to(self.device)
+        p = self._compute_params(params)
+        logits, cache = self.model.prefill(p, {"tokens": tok_in},
+                                           cache_len=self.prompt_len + self.gen_tokens)
+        tok = first_argmax(logits[:, -1:], dim=-1).to(torch.int32)  # (B, 1)
+        pos = torch.full((tok_in.shape[0],), self.prompt_len - 1, dtype=torch.int32,
+                         device=self.device)
+        seq = [tok]
+        for _ in range(self.gen_tokens - 1):
+            pos = pos + 1
+            logits, cache = self.model.decode(p, cache, {"tokens": tok, "positions": pos})
+            tok = first_argmax(logits, dim=-1).to(torch.int32)
+            seq.append(tok)
+        return torch.stack(seq), n_req
+
+    def _serve_continuous(self, params, msgs) -> np.ndarray:
+        """Route a micro-batch through the in-flight scheduler; returns
+        (n_req, gen_tokens) greedy tokens in request order."""
+        b = self._batcher
+        b.params = params
+        toks = self._stack_requests(msgs)
+        rids = []
+        for row in toks:
+            r = Request(self._rid, self._now, tuple(int(t) for t in row), self.gen_tokens)
+            self._rid += 1
+            verdict = b.submit(r, self._now)
+            if verdict == "reject":
+                raise RuntimeError(f"request {r.rid} rejected: drop-in mode must not shed requests")
+            rids.append(r.rid)
+            self._now += b.step(self._now)
+        self._now = b.drain(self._now)
+        return np.array([b.results[r]["tokens"] for r in rids], np.int32)
+
+    def process(self, state, msgs):
+        params = state  # serving state = model params
+        t0 = time.monotonic()
+        if self.mode == "continuous":
+            out = self._serve_continuous(params, msgs)
+            n_req = out.shape[0]
+        else:
+            out, n_req = self._serve_batch(params, msgs)
+        self.stats.messages += len(msgs)
+        self.stats.items += n_req * self.gen_tokens
+        self.stats.batches += 1
+        self._submit(out, t0=t0)
+        return params
+
+    def generate_tokens(self, params, msgs) -> np.ndarray:
+        """Greedy tokens for a message batch: (n_req, gen_tokens) int32.
+        Convenience/inspection path; ``process`` is the streaming hot path."""
+        if self.mode == "continuous":
+            return self._serve_continuous(params, msgs)
+        seq, n_req = self._serve_batch(params, msgs)
+        return seq[:, :n_req, 0].T.cpu().numpy()
+
+
 PROCESSORS = {
     "kmeans": StreamingKMeans,
     "gridrec": lambda **kw: ReconstructionApp("gridrec", **kw),
     "mlem": lambda **kw: ReconstructionApp("mlem", **kw),
+    "lm_serve": LMServeApp,
 }

@@ -4,7 +4,8 @@ Pluggable, tunable data producers: message rate, message size, serialization
 and compression are all configuration. The two base source types of the
 paper — ``cluster`` (random points around centroids, for streaming-ML
 workloads) and ``template`` (replays a payload, e.g. an APS-format
-light-source frame). Sources are host-side: they make numpy payloads and
+light-source frame) — plus a ``tokens`` source for the LM serving path.
+Sources are host-side: they make numpy payloads and
 publish them to the broker.
 """
 from __future__ import annotations
@@ -144,8 +145,25 @@ class LightsourceTemplateSource(StreamSource):
         return self._payload
 
 
+class TokenSource(StreamSource):
+    """LM token stream: (seqs_per_msg, seq_len) int32 batches — here the
+    serving path's request prompts."""
+
+    def __init__(self, cluster, config, *, vocab_size: int, seq_len: int, seqs_per_msg: int = 8):
+        super().__init__(cluster, config)
+        self.vocab_size = vocab_size
+        self.seq_len = seq_len
+        self.seqs_per_msg = seqs_per_msg
+
+    def make_message(self, rng, i):
+        # zipfian-ish synthetic text: heavy head, long tail
+        z = rng.zipf(1.3, size=(self.seqs_per_msg, self.seq_len))
+        return np.minimum(z - 1, self.vocab_size - 1).astype(np.int32)
+
+
 SOURCES: dict[str, type[StreamSource]] = {
     "cluster": KMeansClusterSource,
     "static": KMeansStaticSource,
     "lightsource": LightsourceTemplateSource,
+    "tokens": TokenSource,
 }

@@ -12,9 +12,11 @@ complete when the call returns.
 :class:`LatencyWindow` tracks rolling per-batch completion latency and
 exposes p50/p99 for the ``MetricsBus``.
 
-PyTorch runs eagerly and does not recompile per input shape, so the JAX
-package's shape buckets (which bounded jit compiles by padding batches)
-have no counterpart here: batches go to the device at their own size.
+PyTorch runs eagerly and does not recompile per input shape, so the
+Mini-App processors send batches to the device at their own size. The
+serving engine still needs :class:`ShapeBuckets` and :func:`pad_rows`:
+its admission reserves pages for a prompt's whole bucket, so the buckets
+decide which requests are admitted when (``serving/batcher.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,51 @@ from typing import Any
 
 import numpy as np
 import torch
+
+
+def next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+class ShapeBuckets:
+    """Quantize variable sizes to a fixed power-of-two bucket set.
+
+    Sizes above ``max_size`` round up to the next multiple of ``max_size``.
+    """
+
+    def __init__(self, min_size: int = 256, max_size: int = 65536):
+        self.min_size = next_pow2(min_size)
+        self.max_size = max(next_pow2(max_size), self.min_size)
+        sizes, s = [], self.min_size
+        while s <= self.max_size:
+            sizes.append(s)
+            s *= 2
+        self.sizes: tuple[int, ...] = tuple(sizes)
+
+    def fit(self, n: int) -> int:
+        """Smallest bucket that holds ``n`` rows."""
+        for s in self.sizes:
+            if n <= s:
+                return s
+        return -(-n // self.max_size) * self.max_size
+
+    def __len__(self) -> int:
+        return len(self.sizes)
+
+    def __iter__(self):
+        return iter(self.sizes)
+
+    def __repr__(self) -> str:
+        return f"ShapeBuckets({list(self.sizes)})"
+
+
+def pad_rows(arr: np.ndarray, size: int) -> np.ndarray:
+    """Zero-pad axis 0 of ``arr`` up to ``size`` rows (host-side, cheap)."""
+    if arr.shape[0] >= size:
+        return arr
+    out = np.zeros((size,) + arr.shape[1:], arr.dtype)
+    out[: arr.shape[0]] = arr
+    return out
 
 
 class LatencyWindow:

@@ -16,10 +16,15 @@ import torch
 import repro_torch.core as core
 from repro_torch.broker import BrokerCluster, Consumer, ConsumerGroup, Producer
 from repro_torch.engines.microbatch import MicroBatchStream
+from repro_torch.configs import get_arch
 from repro_torch.kernels import KERNELS, _build
+from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.kmeans import ops as kmeans_ops
 from repro_torch.kernels.tomo import ops as tomo_ops
-from repro_torch.miniapps import ReconstructionApp, StreamingKMeans, state_from_jax
+from repro_torch.launch import serve
+from repro_torch.miniapps import LMServeApp, ReconstructionApp, StreamingKMeans, state_from_jax
+from repro_torch.models import build_model, params_from_jax
+from repro_torch.serving import ContinuousBatcher, PagedKVCache
 
 # the suite runs in parallel worker processes; these tensors are tiny, so one
 # intra-op thread keeps torch from oversubscribing the cores
@@ -52,13 +57,14 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_wrappers_have_no_fallback_paths():
     """No ``try`` in the wrapper modules: a CUDA launch that fails raises,
     it is never retried on the plain version."""
-    for mod in (kmeans_ops, tomo_ops):
+    for mod in (kmeans_ops, tomo_ops, attn_ops):
         tree = ast.parse(Path(mod.__file__).read_text())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], mod.__name__
 
 
 def test_every_kernel_has_a_source_and_entry_point():
-    assert [k.name for k in KERNELS] == ["kmeans_assign", "tomo_backproject", "tomo_project"]
+    assert [k.name for k in KERNELS] == ["kmeans_assign", "tomo_backproject", "tomo_project",
+                                         "flash_attention", "decode_attention"]
     for k in KERNELS:
         src = k.source.read_text()
         assert k.source.parent == _build.CSRC
@@ -92,13 +98,35 @@ def test_apps_need_cuda_or_a_cpu_device(no_cuda):
     assert ReconstructionApp("mlem", device="cpu").device.type == "cpu"
 
 
+def test_serving_path_needs_cuda_or_a_cpu_device(no_cuda):
+    cfg = get_arch("smollm-135m").reduced()
+    model = build_model(cfg)
+    for mode in ("lockstep", "continuous"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            LMServeApp(cfg, mode=mode)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousBatcher(model, n_pages=4, page_size=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedKVCache.from_model(model, n_pages=4, page_size=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({"embed": [[0.0]]}, "cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--reduced", "--requests", "1"])
+    assert LMServeApp(cfg, mode="continuous", n_pages=4, page_size=4,
+                      device="cpu")._batcher.cache.k.device.type == "cpu"
+
+
 class _FakeCuda:
     """Stands in for a CUDA tensor (there is no card here): the wrappers
-    only look at ``.device`` before they hand it on."""
+    only look at ``.device``, and make it contiguous and cast it, before
+    they hand it on."""
 
     device = torch.device("cuda", 0)
 
-    def to(self, device):
+    def to(self, *args, **kwargs):
+        return self
+
+    def contiguous(self):
         return self
 
 
@@ -114,11 +142,17 @@ def test_cuda_tensor_goes_to_the_kernel_not_the_plain_version(monkeypatch):
     monkeypatch.setattr(tomo_ops, "project_plain", plain)
     monkeypatch.setattr(tomo_ops, "backproject_cuda", lambda *a: calls.append("bp") or "k")
     monkeypatch.setattr(tomo_ops, "project_cuda", lambda *a: calls.append("fp") or "k")
+    monkeypatch.setattr(attn_ops, "flash_attention_plain", plain)
+    monkeypatch.setattr(attn_ops, "decode_attention_plain", plain)
+    monkeypatch.setattr(attn_ops, "flash_attention_cuda", lambda *a, **k: calls.append("fa") or "k")
+    monkeypatch.setattr(attn_ops, "decode_attention_cuda", lambda *a: calls.append("da") or "k")
     x = _FakeCuda()
     assert kmeans_ops.assign(x, x) == "k"
     assert tomo_ops.backproject_batch(x, x, 8) == "k"
     assert tomo_ops.project_batch(x, x, 8) == "k"
-    assert calls == ["assign", "bp", "fp"]
+    assert attn_ops.flash_attention(x, x, x) == "k"
+    assert attn_ops.decode_attention(x, x, x, x) == "k"
+    assert calls == ["assign", "bp", "fp", "fa", "da"]
 
 
 def test_kernel_launchers_refuse_non_cuda_tensors():
@@ -130,7 +164,22 @@ def test_kernel_launchers_refuse_non_cuda_tensors():
         tomo_ops.backproject_cuda(torch.zeros(1, 4, 6), cos_t, sin_t, 5)
     with pytest.raises(ValueError, match="CUDA"):
         tomo_ops.project_cuda(torch.zeros(1, 5, 5), cos_t, sin_t, 6)
+    q, kv = torch.zeros(1, 4, 2, 32), torch.zeros(1, 4, 1, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        attn_ops.flash_attention_cuda(q, kv, kv)
+    with pytest.raises(ValueError, match="CUDA"):
+        attn_ops.decode_attention_cuda(q[:, :1], kv, kv, torch.zeros(1, dtype=torch.int32))
     assert all(k.launches == 0 for k in KERNELS)
+
+
+def test_attention_wrappers_refuse_cpu_and_cuda_mixed():
+    """A CPU tensor beside a CUDA one is refused before anything runs."""
+    q = torch.zeros(1, 4, 2, 32)
+    x = _FakeCuda()
+    with pytest.raises(ValueError, match="one device"):
+        attn_ops.flash_attention(q, x, x)
+    with pytest.raises(ValueError, match="one device"):
+        attn_ops.decode_attention(x, x, x, torch.zeros(1, dtype=torch.int32))
 
 
 def test_build_needs_nvcc(monkeypatch):

@@ -100,7 +100,16 @@ def test_pipeline_rescale_moves_kmeans_state():
         app = torch_miniapps.StreamingKMeans(4, 3, device=ctx.devices[0])
         stream = ctx.stream(cluster, "t", group="g", process_fn=app.process,
                             batch_interval=0.02, max_batch_records=1)
-        stream.on_rescale = lambda devices: app.on_rescale(devices)(stream.state)
+        in_flight_at_move = []
+
+        def rescale(devices):
+            # the stream drained the app before calling the hook; read it
+            # here, under the stream's state lock, since the batch loop
+            # dispatches new batches as soon as the rescale returns
+            in_flight_at_move.append(app.in_flight)
+            return app.on_rescale(devices)(stream.state)
+
+        stream.on_rescale = rescale
         assert stream.sync_fn == app.sync
         source = _kmeans_source(torch_miniapps, cluster)
         stream.start()
@@ -108,7 +117,7 @@ def test_pipeline_rescale_moves_kmeans_state():
         stream.await_batches(2, timeout=60)
         svc.submit_pilot(torch_core.PilotComputeDescription(
             number_of_nodes=1, framework="spark", parent=spark))
-        assert len(ctx.devices) == 2 and app.in_flight == 0
+        assert len(ctx.devices) == 2 and in_flight_at_move == [0]
         stream.await_batches(4, timeout=60)
         stream.stop()
         source.stop()

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's Mini-App path, on one GPU.
+"""Where the time goes on the port's main paths, on one GPU.
 
-    python3 tools/trace_path.py
+    python3 tools/trace_path.py [kmeans] [lightsource] [serve]
 
-Runs the K-Means and light-source paths of ``chip_smoke.py`` once to warm
-up (kernel build, cuFFT plans, allocator) and once more under
-``torch.profiler``, each on a fresh ``PilotComputeService``. For every path
-it prints one JSON line: the wall-clock seconds of the profiled run (service
-start and stop, the streams, and for the light-source path the checks
-against the plain versions), each stream's own wall-clock seconds, the
+Runs the K-Means, light-source and LM serving paths of ``chip_smoke.py``
+(all three unless some are named) once to warm up (kernel build, cuFFT
+plans, cuBLAS, allocator) and once more under ``torch.profiler``, each on a
+fresh ``PilotComputeService`` (the serving path with 4 of its 16 messages,
+which keeps the profiler's event list small). For every path it
+prints one JSON line: the
+wall-clock seconds of the profiled run (service start and stop, the
+streams, and for the light-source path the checks against the plain
+versions), each stream's own wall-clock seconds, the
 device-busy seconds (the union of all kernel and copy intervals on the
 card), the busy share of the run's wall clock, and the device seconds of
 the top operations by name. Numbers are taken with the profiler on;
@@ -49,6 +52,10 @@ def main() -> None:
     from repro_torch.core import PilotComputeService
     from repro_torch.kernels import tomo
 
+    paths = sys.argv[1:] or ["kmeans", "lightsource", "serve"]
+    unknown = set(paths) - {"kmeans", "lightsource", "serve"}
+    if unknown:
+        sys.exit(f"trace_path: unknown paths {sorted(unknown)}")
     print(cs.card_line())
     kernels.build_all()
 
@@ -59,11 +66,14 @@ def main() -> None:
             ctx = svc.submit_pilot({"number_of_nodes": 1, "type": "spark"}).get_context()
             if path == "kmeans":
                 return cs.kmeans_path(torch, kernels, miniapps, cluster, ctx, ctx.devices[0])
+            if path == "serve":  # 4 of the smoke run's 16 messages: ~140 decode steps
+                return cs.serve_path(torch, kernels, miniapps, cluster, ctx, ctx.devices[0],
+                                     n_msgs=4)
             return cs.recon_path(torch, kernels, miniapps, tomo, cluster, ctx, ctx.devices[0])
         finally:
             svc.cancel()
 
-    for path in ("kmeans", "lightsource"):
+    for path in paths:
         run(path)  # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
