@@ -10,7 +10,9 @@
    be told apart), then holds every kernel against its plain PyTorch
    version at the main path's shapes, on the same inputs, with the
    tolerance printed (for the attention kernels per element, and shown to
-   fail a mask off by one), and times kernel, plain version and (where one
+   fail a mask off by one; for ``tomo_project`` also on sparse images,
+   where a dropped pixel shows; flash attention also at B=1 S=2048, where
+   the work is operations), and times kernel, plain version and (where one
    exists) a single PyTorch library call that computes the same function:
    by device time, replaying a CUDA graph of many calls, where a call is
    short (K-Means, attention; the host's per-call time is printed beside
@@ -275,6 +277,42 @@ def check_tomo(torch, tomo, gen) -> tuple[dict, dict]:
         res["plain_ms"] = time_ms(torch, lambda: plain(x, cos_t, sin_t, size), 2, 1)
         res["library_ms"] = None  # no single PyTorch call computes a projector
     return results[0], results[1]
+
+
+def check_project_sparse(torch, tomo, gen) -> dict:
+    """``tomo_project`` at the path's shapes on images that are zero but
+    for unit pixels: 64 seeded ones per frame, the four corners, the centre,
+    and pixels beside both diagonals and beside the image edges, which at
+    the angles around 45 and 135 degrees (where the walk switches between
+    rows and columns) lie at the ends of a line's candidate window. Each
+    bin then sums a few terms, so a window that drops a pixel shows as an
+    error of that pixel's weight: the tolerance, (lit pixels) eps_f32
+    max|ref| per element, is what two orders of such a sum allow."""
+    dev = torch.device("cuda", 0)
+    b, a, n_det, n = 8, FRAME_ANGLES, FRAME_BINS, RECON_N
+    cos_t, sin_t = tomo.trig(torch.from_numpy(tomo.angle_grid(a)).to(dev))
+    imgs = torch.zeros((b, n, n), device=dev)
+    i = torch.arange(1, n - 1, 97, device=dev)
+    one, inner = torch.ones_like(i), torch.full_like(i, n - 2)
+    # corners, centre; beside the diagonal, the anti-diagonal and the edges
+    rows = [torch.tensor([0, 0, n - 1, n - 1, n // 2], device=dev), i, i, i, i, i, i, one, inner]
+    cols = [torch.tensor([0, n - 1, 0, n - 1, n // 2], device=dev),
+            i - 1, i + 1, n - 2 - i, n - i, one, inner, i, i]
+    imgs[:, torch.cat(rows), torch.cat(cols)] = 1.0
+    for f in range(b):
+        lit = torch.randint(0, n * n, (64,), generator=gen, device=dev)
+        imgs[f].view(-1)[lit] = 1.0
+    lit = int((imgs > 0).flatten(1).sum(1).max())
+    out = tomo.project_cuda(imgs, cos_t, sin_t, n_det)
+    ref = tomo.project_plain(imgs, cos_t, sin_t, n_det)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    tol = lit * F32_EPS * float(ref.abs().max())
+    if not bool(torch.isfinite(out).all()) or float(err.max()) > tol:
+        raise AssertionError(f"tomo_project sparse images: max err {float(err.max())} > tol {tol}")
+    return {"lit_pixels_per_frame": lit, "max_abs_err": float(err.max()), "tol": tol,
+            "tol_rule": "lit eps_f32 max|ref| per element",
+            "nonzero_bins": int((ref != 0).sum())}
 
 
 def check_quality(torch, tomo) -> dict:
@@ -637,6 +675,8 @@ def main() -> None:
     bp, fp = check_tomo(torch, tomo, gen)
     print("check tomo_backproject 8x360x1448 n=1448 " + json.dumps(bp))
     print("check tomo_project 8x1448x1448 A=360 " + json.dumps(fp))
+    print("check tomo_project sparse 8x1448x1448 A=360 "
+          + json.dumps(check_project_sparse(torch, tomo, gen)))
     print("check quality " + json.dumps(check_quality(torch, tomo)))
     decode_main = check_decode(torch, attention, SERVE_BATCH, 256, gen, True)
     print(f"check decode_attention B={SERVE_BATCH} S=256 bf16 " + json.dumps(decode_main))
@@ -645,7 +685,7 @@ def main() -> None:
               + json.dumps(check_decode(torch, attention, b, 256, gen, b == 64)))
     flash_main = check_flash(torch, attention, 1, PROMPT_LEN, gen, True)
     print(f"check flash_attention B=1 S={PROMPT_LEN} causal bf16 " + json.dumps(flash_main))
-    for b, s in ((4, 128), (4, 512)):
+    for b, s in ((4, 128), (4, 512), (1, 2048)):
         print(f"check flash_attention B={b} S={s} causal bf16 "
               + json.dumps(check_flash(torch, attention, b, s, gen, True)))
 

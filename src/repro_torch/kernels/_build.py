@@ -48,12 +48,14 @@ def find_nvcc() -> str:
 
 
 class CudaLibrary:
-    """One ``csrc`` source, built into one shared library."""
+    """One ``csrc`` source, built into one shared library; ``flags`` are
+    extra ``nvcc`` flags (``-D`` overrides of a source's tile sizes)."""
 
-    def __init__(self, source: str, signatures: dict[str, list]):
+    def __init__(self, source: str, signatures: dict[str, list], flags: tuple[str, ...] = ()):
         self.source = CSRC / source
         #: C entry point -> ctypes argtypes (each returns an int error code)
         self.signatures = signatures
+        self.flags = tuple(flags)
         self._lib: ctypes.CDLL | None = None
         self._tmp: Path | None = None  # where a running nvcc writes
         self._lock = threading.Lock()
@@ -61,7 +63,7 @@ class CudaLibrary:
     @property
     def path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(NVCC_FLAGS + self.flags).encode())
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     @property
@@ -77,7 +79,8 @@ class CudaLibrary:
         self._tmp = self.path.with_name(f"{self.path.stem}.{os.getpid()}.tmp.so")
         log = open(self.log_path, "w")
         try:
-            return subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", str(self._tmp), str(self.source)],
+            return subprocess.Popen([find_nvcc(), *NVCC_FLAGS, *self.flags, "-o", str(self._tmp),
+                                     str(self.source)],
                                     stdout=log, stderr=subprocess.STDOUT)
         finally:
             log.close()

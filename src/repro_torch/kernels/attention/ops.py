@@ -10,10 +10,16 @@ q (B, S, H, hd), k and v (B, S, KV, hd), H a multiple of KV.
 Kernel notes (each source opens with the full note):
 
 * ``flash_attention`` replaces ``repro/kernels/attention/kernel.py``
-  (``flash_attention_pallas``). Bound by operations at prefill lengths; it
-  runs its products on the CUDA cores in f32, one block per 64 query rows
-  of one head, K/V tiles of the head's KV group in shared memory, causal
-  blocks stopping at their last row.
+  (``flash_attention_pallas``). Bound by operations at prefill lengths of
+  a few hundred tokens and more, by latency at the serving path's 128. In
+  bf16 its products run on the tensor cores (``mma.sync`` m16n8k16, f32
+  accumulate): the G query heads of a KV head are packed as the rows of
+  one block, so they share every K/V tile, which comes into shared memory
+  by ``cp.async``, double-buffered, and stays bf16; P is kept at about 16
+  bits as bf16 hi + lo parts, since a bf16 P alone leaves the per-element
+  tolerance against the f32-P reference. Causal blocks stop at their last
+  row. The f32 instantiation stays on the CUDA cores (f32 products, no
+  path runs it) to keep its 2e-5 agreement with the reference.
 * ``decode_attention`` replaces ``repro/kernels/attention/decode_kernel.py``
   (``decode_attention_pallas``). Bound by the bytes of the live cache
   entries (launch-bound at the serving path's sizes); one block per

@@ -4,21 +4,29 @@
 tensors take the plain versions (``ref.py``), CUDA tensors launch
 ``tomo_backproject`` / ``tomo_project`` (``kernels/csrc/tomo.cu``) or
 raise. There is no fallback between the two. The batch axis is a grid
-dimension of the kernels, so the single-frame forms are a batch of one.
+dimension of the kernels (in chunks of 8 frames for ``tomo_project``), so
+the single-frame forms are a batch of one.
 GridRec's ramp filter stays a library FFT (``torch.fft``), as the JAX
 package leaves it to XLA.
 
 Kernel note — ``tomo_backproject`` replaces the Pallas TPU kernel
 ``repro/kernels/tomo/kernel.py`` (``backproject_pallas`` / ``_bp_kernel``)
-and ``tomo_project`` replaces ``project_pallas`` / ``_fp_kernel``. On the
-H100 both are bound by their interpolation arithmetic and the gather's
-cache traffic (a sinogram frame is 2 MB and stays in L2), not by device
-memory. The TPU kernels' one-hot weight matmul is not carried over: the
-backprojection gathers two bins per (pixel, angle) in one thread per
-pixel, and the projection gathers, per (angle, bin), the few pixels of
-each image line whose footprint reaches the bin — no atomics, so the sum
-order is fixed. Both take s, floor(s) and f from one device function, so
-they stay exact adjoints (ML-EM depends on it).
+and ``tomo_project`` replaces ``project_pallas`` / ``_fp_kernel``. The TPU
+kernels' one-hot weight matmul is not carried over: both gather, with no
+atomics, so the sum order is fixed, and both take s, floor(s) and f from
+one device function, so they stay exact adjoints (ML-EM depends on it).
+
+* ``tomo_backproject``: one thread per (frame, pixel) gathers two bins per
+  angle; bound by its interpolation arithmetic and the gather's cache
+  traffic (a sinogram frame is 2 MB and stays in L2), not by device memory.
+* ``tomo_project``: one thread per (angle, bin) carries up to 8 frames,
+  walks the image line by line and gathers the few pixels of each line
+  whose footprint reaches its bin; the geometry is computed once per
+  candidate pixel for all frames. Angles that walk columns read a
+  transposed copy of the images, made at the start of each call into
+  scratch that :func:`project_cuda` allocates, so every gather coalesces.
+  Bound by issuing the gathers (a load and a fused multiply-add per kept
+  pixel and frame); the candidate tests are under a tenth of its time.
 """
 from __future__ import annotations
 
@@ -37,8 +45,10 @@ from repro_torch.kernels.tomo.ref import (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
-TOMO_LIB = CudaLibrary("tomo.cu", {"tomo_backproject": _SIG, "tomo_project": _SIG})
+TOMO_LIB = CudaLibrary("tomo.cu", {
+    "tomo_backproject": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tomo_project": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+})
 TOMO_BACKPROJECT = CudaKernel("tomo_backproject", TOMO_LIB, "tomo_backproject")
 TOMO_PROJECT = CudaKernel("tomo_project", TOMO_LIB, "tomo_project")
 
@@ -74,7 +84,8 @@ def backproject_cuda(sinos: torch.Tensor, cos_t: torch.Tensor, sin_t: torch.Tens
 def project_cuda(imgs: torch.Tensor, cos_t: torch.Tensor, sin_t: torch.Tensor,
                  n_det: int) -> torch.Tensor:
     """Launch ``tomo_project``: images (B, n, n) f32 -> sinograms
-    (B, A, n_det) f32, on precomputed cos/sin (A,)."""
+    (B, A, n_det) f32, on precomputed cos/sin (A,). The kernel writes a
+    transposed copy of the images into a (B, n, n) scratch tensor first."""
     _check_cuda_f32("tomo_project", imgs, cos_t, sin_t)
     if imgs.ndim != 3 or imgs.shape[1] != imgs.shape[2] or cos_t.ndim != 1 \
             or sin_t.shape != cos_t.shape:
@@ -83,10 +94,11 @@ def project_cuda(imgs: torch.Tensor, cos_t: torch.Tensor, sin_t: torch.Tensor,
     b, n = imgs.shape[0], imgs.shape[-1]
     a = cos_t.shape[0]
     out = torch.empty((b, a, n_det), dtype=torch.float32, device=imgs.device)
+    scratch = torch.empty_like(imgs)
     with torch.cuda.device(imgs.device):
         stream = torch.cuda.current_stream(imgs.device).cuda_stream
-        TOMO_PROJECT.launch(imgs.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
-                            out.data_ptr(), b, a, n_det, n, stream)
+        TOMO_PROJECT.launch(imgs.data_ptr(), scratch.data_ptr(), cos_t.data_ptr(),
+                            sin_t.data_ptr(), out.data_ptr(), b, a, n_det, n, stream)
     return out
 
 

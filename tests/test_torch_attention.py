@@ -7,6 +7,8 @@ Tolerances are those of ``tests/test_kernels.py`` for the flash kernel:
 of unit scale; one bf16 rounding of each output, 2^-8 relative, plus the
 order of the f32 sums before it).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,6 +99,56 @@ def test_decode_plain_matches_pallas_kernel_and_jax_path(dtype, H, KV):
     assert out.dtype == getattr(torch, dtype) and out.shape == (B, 1, H, hd)
     np.testing.assert_allclose(_np(out), _np(ker), atol=tol)
     np.testing.assert_allclose(_np(out), _np(plain), atol=tol)
+
+
+def _flash_kernel_arithmetic(q, k, v, p_bits, tile=64):
+    """The bf16 flash kernel's arithmetic in plain torch, causal: S in f32
+    from the bf16 inputs, scaled in f32; an online softmax over 64-key
+    tiles with P in f32 for the row sums; P V with P rounded as ``p_bits``
+    says — "bf16" (one bf16 P) or "hilo" (P = bf16 hi + bf16 lo, the
+    kernel's choice) — and V exact in f32 (bf16 products are exact)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qf = q.float().reshape(B, S, KV, H // KV, hd)
+    kf, vf = k.float(), v.float()
+    m = torch.full((B, KV, H // KV, S), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KV, H // KV, S, hd))
+    rows = torch.arange(S)
+    for k0 in range(0, S, tile):
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf[:, k0:k0 + tile]) * (1.0 / math.sqrt(hd))
+        keys = torch.arange(k0, k0 + s.shape[-1])
+        s = torch.where(rows[:, None] >= keys[None, :], s, torch.full_like(s, -math.inf))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        parts = [hi] if p_bits == "bf16" else [hi, (p - hi).bfloat16().float()]
+        acc = acc * alpha[..., None]
+        for part in parts:
+            acc = acc + torch.einsum("bkgqs,bskd->bkgqd", part, vf[:, k0:k0 + tile])
+        m = m_new
+    out = (acc / l[..., None]).permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("B,S", [(1, 128), (4, 512)])
+def test_flash_kernel_keeps_p_at_16_bits_to_meet_the_per_element_rule(B, S):
+    """The serving path's head layout (9 query heads over 3 KV heads of
+    64), unit-normal bf16 inputs from a numpy seed, against the plain
+    version under the rule the card checks use: per element 2^-7 |ref| +
+    2^-15 max|v|. A bf16 P fails it by more than 5x; the kernel's hi/lo
+    split of P passes it."""
+    rng = np.random.default_rng(B * S)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+               for shape in ((B, S, 9, 64), (B, S, 3, 64), (B, S, 3, 64)))
+    ref = attn_ref.flash_attention_plain(q, k, v, causal=True).float()
+    tol = 2.0 ** -7 * ref.abs() + 2.0 ** -15 * float(v.float().abs().max())
+    worst = {bits: float(((_flash_kernel_arithmetic(q, k, v, bits).float() - ref).abs() / tol).max())
+             for bits in ("bf16", "hilo")}
+    assert worst["bf16"] > 5, worst
+    assert worst["hilo"] <= 1, worst
 
 
 def test_model_attention_routes_match_jax_on_cpu():

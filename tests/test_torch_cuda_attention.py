@@ -88,6 +88,27 @@ def test_flash_kernel_matches_plain(dev, B, Sq, Skv, H, KV, hd, causal, dtype):
     _close(out, R.flash_attention_plain(q, k, v, causal=causal, block_q=64, block_kv=64), v)
 
 
+@pytest.mark.parametrize("Sq,Skv", [(1, 1), (17, 17), (63, 65), (65, 63), (200, 200),
+                                     (1, 200), (200, 17)])
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_tensor_core_tiles_at_ragged_edges(dev, Sq, Skv, G, hd, causal):
+    """The bf16 kernel packs the G query heads of a KV head as rows of one
+    block and stages K/V in 64-key tiles: lengths off every tile edge (1,
+    17, 63, 65, 200), groups of 1, 3 and 8 heads (packed tiles that end
+    inside a position's group), every head dim, causal or not, each against
+    the plain version under the per-element rule."""
+    KV = 2
+    g = _gen(dev, Sq * 1000 + Skv * 10 + G + hd)
+    q = torch.randn((2, Sq, G * KV, hd), generator=g, device=dev).bfloat16()
+    k = torch.randn((2, Skv, KV, hd), generator=g, device=dev).bfloat16()
+    v = torch.randn((2, Skv, KV, hd), generator=g, device=dev).bfloat16()
+    out = A.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _close(out, R.flash_attention_plain(q, k, v, causal=causal, block_q=64, block_kv=64), v)
+
+
 def test_kernels_use_the_current_stream_and_count_launches(dev):
     g = _gen(dev, 9)
     q = torch.randn((2, 64, 9, 64), generator=g, device=dev, dtype=torch.bfloat16)

@@ -143,6 +143,56 @@ def test_projectors_match_plain(dev, b, a, n_det, n, kind):
     assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
 
 
+@pytest.mark.parametrize("b", [1, 3, 8, 9])
+def test_project_frame_chunks_both_walks_and_sparse_images(dev, b):
+    """``tomo_project`` carries 8 frames per thread: 1, 3, 8 and 9 frames
+    (a full chunk and one more). Angles just below, at and just above 45
+    and 135 degrees walk rows on one side and columns (the transposed copy)
+    on the other. Dense images under the sum rule; sparse images (a few
+    unit pixels: corners, centre, seeded ones), where a window that drops a
+    pixel would show as an error of its weight, under (lit pixels) eps_f32
+    max|ref|; the projectors adjoint to 1e-4."""
+    n, n_det = 96, 110
+    deg = np.array([0, 30, 44.9, 45, 45.1, 60, 90, 134.9, 135, 135.1, 170, 200])
+    angles = torch.from_numpy(np.deg2rad(deg).astype(np.float32)).to(dev)
+    cos_t, sin_t = T.trig(angles)
+    g = _gen(dev, 40 + b)
+    dense = torch.rand((b, n, n), generator=g, device=dev)
+    sparse = torch.zeros((b, n, n), device=dev)
+    for f in range(b):
+        sparse[f].view(-1)[torch.randint(0, n * n, (16,), generator=g, device=dev)] = 1.0
+    sparse[:, [0, 0, n - 1, n - 1, n // 2], [0, n - 1, 0, n - 1, n // 2]] = 1.0
+    lit = int((sparse > 0).flatten(1).sum(1).max())
+    for imgs, terms, slack in ((dense, 4 * n, 1e-6), (sparse, lit, 0.0)):
+        fp, ref = T.project_batch(imgs, angles, n_det), T.project_plain(imgs, cos_t, sin_t, n_det)
+        torch.cuda.synchronize()
+        assert fp.shape == (b, len(deg), n_det)
+        assert float((fp - ref).abs().max()) <= terms * F32_EPS * float(ref.abs().max()) + slack
+    sinos = torch.rand((b, len(deg), n_det), generator=g, device=dev)
+    lhs = float((T.project_batch(dense, angles, n_det).double() * sinos.double()).sum())
+    rhs = float((dense.double() * T.backproject_batch(sinos, angles, n).double()).sum())
+    assert abs(lhs - rhs) <= 1e-4 * abs(lhs)
+
+
+def test_project_takes_directions_of_any_length(dev):
+    """``project_cuda`` takes cos/sin as given: scaled to |(cos, sin)| = 0.6,
+    a line holds up to 5 kept pixels for a bin (2 / |slope| > 3), which the
+    kernel gathers on its general path; it must still equal the plain
+    version and stay adjoint to the backprojection."""
+    n, n_det = 64, 90
+    cos_t, sin_t = (0.6 * t for t in T.trig(_angles("grid", 24, dev)))
+    g = _gen(dev, 77)
+    imgs = torch.rand((3, n, n), generator=g, device=dev)
+    sinos = torch.rand((3, 24, n_det), generator=g, device=dev)
+    fp, ref = T.project_cuda(imgs, cos_t, sin_t, n_det), T.project_plain(imgs, cos_t, sin_t, n_det)
+    bp = T.backproject_cuda(sinos, cos_t, sin_t, n)
+    torch.cuda.synchronize()
+    assert float((fp - ref).abs().max()) <= 4 * n * F32_EPS * float(ref.abs().max()) + 1e-6
+    lhs = float((fp.double() * sinos.double()).sum())
+    rhs = float((imgs.double() * bp.double()).sum())
+    assert abs(lhs - rhs) <= 1e-4 * abs(lhs)
+
+
 def test_projectors_use_the_current_stream_and_count_launches(dev):
     g = _gen(dev, 3)
     angles = _angles("grid", 30, dev)
