@@ -10,13 +10,19 @@
    be told apart), then holds every kernel against its plain PyTorch
    version at the main path's shapes, on the same inputs, with the
    tolerance printed (for the attention kernels per element, and shown to
-   fail a mask off by one; for ``tomo_project`` also on sparse images,
-   where a dropped pixel shows; flash attention also at B=1 S=2048, where
-   the work is operations), and times kernel, plain version and (where one
+   fail a mask off by one; decode also, untimed, at the edges of the
+   chunks it splits the cache into and bitwise across repeated calls and
+   CUDA-graph replays, while its timed inputs have fixed positions and a
+   generator of their own; for ``tomo_project`` also on sparse images and for
+   ``tomo_backproject`` on sparse sinograms, where a dropped pixel or bin
+   shows; flash attention also at B=1 S=2048, where the work is
+   operations), and times kernel, plain version and (where one
    exists) a single PyTorch library call that computes the same function:
    by device time, replaying a CUDA graph of many calls, where a call is
-   short (K-Means, attention; the host's per-call time is printed beside
-   it as ``call_ms``), by CUDA events around calls for the projectors;
+   short (K-Means, attention at B = 1, 4 and 64; the host's per-call time
+   is printed beside it as ``call_ms``, and beside decode's bound the
+   device time of the least kernel, ``launch_floor_ms``), by CUDA events
+   around calls for the projectors;
 4. drives the main paths through the port's entry points: a
    ``PilotComputeService`` on the card with a ``kafka`` pilot (2 broker
    nodes) and a ``spark`` pilot, then (a) a K-Means cluster stream of
@@ -315,6 +321,33 @@ def check_project_sparse(torch, tomo, gen) -> dict:
             "nonzero_bins": int((ref != 0).sum())}
 
 
+def check_backproject_sparse(torch, tomo, gen) -> dict:
+    """``tomo_backproject`` at the path's shapes on sinograms that are zero
+    but for unit bins: 0, 1, the centre, n_det - 2, n_det - 1 and 8 seeded
+    bins per row. A pixel then sums a few non-zero terms of non-negative
+    weight, so the tolerance is per element, 2 A eps_f32 |ref| (a sum of up
+    to 2 A such terms in two orders), and zero where the plain version is
+    zero: a bin dropped from a tile's window, or staged at the wrong offset
+    or frame, shows as an error of its weight."""
+    dev = torch.device("cuda", 0)
+    b, a, n_det, n = 8, FRAME_ANGLES, FRAME_BINS, RECON_N
+    cos_t, sin_t = tomo.trig(torch.from_numpy(tomo.angle_grid(a)).to(dev))
+    sinos = torch.zeros((b, a, n_det), device=dev)
+    sinos[..., [0, 1, n_det // 2, n_det - 2, n_det - 1]] = 1.0
+    sinos.scatter_(2, torch.randint(0, n_det, (b, a, 8), generator=gen, device=dev), 1.0)
+    out = tomo.backproject_cuda(sinos, cos_t, sin_t, n)
+    ref = tomo.backproject_plain(sinos, cos_t, sin_t, n)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    tol = 2 * a * F32_EPS * ref.abs()
+    if not bool(torch.isfinite(out).all()) or bool((err > tol).any()):
+        raise AssertionError(f"tomo_backproject sparse sinograms: max err {float(err.max())}, "
+                             f"{int((err > tol).sum())} pixels over 2 A eps_f32 |ref|")
+    return {"lit_bins_per_row": int((sinos > 0).sum(-1).max()), "max_abs_err": float(err.max()),
+            "worst_err_over_tol": float((err / tol.clamp_min(1e-30)).max()),
+            "tol_rule": "per element 2 A eps_f32 |ref|", "nonzero_pixels": int((ref != 0).sum())}
+
+
 def check_quality(torch, tomo) -> dict:
     """The repo's own reconstruction check, on the card and through the
     kernels: on a small phantom ML-EM beats GridRec and stays within half
@@ -371,18 +404,80 @@ def _off_by_one(torch, attn, name: str, out, q, k, v, rows, pos) -> dict:
             "least_off_by_one_over_tol": float(wrong.min())}
 
 
-def check_decode(torch, attn, b: int, s: int, gen, timing: bool) -> dict:
-    """``decode_attention`` at the serving path's head layout, bf16: rows at
-    scattered positions, chunk edges (0, 15, 16, 127, 128) and the last
-    entry among them; where rows hold LONG_ROW or more keys, a mask off by
-    one must fail the check."""
+def launch_floor_ms(torch) -> float:
+    """Device time of the least kernel: a one-element in-place add, timed
+    as ``graph_ms`` times the short kernels. A kernel's time cannot fall
+    below it, however small its bound."""
+    x = torch.zeros(1, device="cuda")
+    return graph_ms(torch, lambda: x.add_(1), 100)
+
+
+def _bitwise_repeatable(torch, name: str, fn, out) -> None:
+    """``fn()`` called again, then captured in a CUDA graph that is replayed
+    three times: every result bitwise equal to ``out``."""
+    again = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    replays = []
+    for _ in range(3):
+        graph.replay()
+        replays.append(captured.clone())
+    torch.cuda.synchronize()
+    if not all(torch.equal(out, r) for r in (again, *replays)):
+        raise AssertionError(f"{name}: repeated calls or graph replays differ bitwise")
+
+
+def decode_inputs(torch, b: int, s: int):
+    """q, k, v (bf16, the serving path's head layout) and positions of a
+    timed decode case, from a generator of their own (seeded SEED + b), so
+    that no other check's draws shift them: the first rows at the last
+    entry, 0, 15, 16, 127 and 128, the rest scattered. They do not follow
+    any kernel's own tiling, so a kernel retuned later is timed on the same
+    work."""
     dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + b)
     q = torch.randn((b, 1, HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
     k = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
     v = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
     pos = torch.randint(0, s, (b,), generator=gen, device=dev, dtype=torch.int32)
     edges = torch.tensor([s - 1, 0, 15, 16, 127, 128], dtype=torch.int32, device=dev)[:b]
     pos[: len(edges)] = edges
+    return q, k, v, pos
+
+
+def check_decode_split(torch, attn, b: int, s: int, gen) -> dict:
+    """``decode_attention`` (untimed) with rows at the edges of the chunks
+    the split kernel takes at these sizes (C - 1, 2 C, C, C + 1 for its
+    chunk C), the last entry, 0 and past the cache, the rest scattered:
+    held to the per-element rule, and two more calls and three replays of
+    a captured call must give bitwise the same output."""
+    dev = torch.device("cuda", 0)
+    q = torch.randn((b, 1, HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
+    pos = torch.randint(0, s, (b,), generator=gen, device=dev, dtype=torch.int32)
+    chunk = attn.decode_chunk(attn.DECODE_LIB, dev, b, s, HEADS, KV_HEADS, HEAD_DIM, 1)
+    edges = [min(p, s + 3) for p in (chunk - 1, 2 * chunk, chunk, chunk + 1, s - 1, 0, s + 3)]
+    pos[: min(b, len(edges))] = torch.tensor(edges, dtype=torch.int32, device=dev)[:b]
+    out = attn.decode_attention_cuda(q, k, v, pos)
+    name = f"decode_attention split edges B={b} S={s}"
+    res = _bf16_close(torch, name, out, attn.decode_attention_plain(q, k, v, pos), v)
+    _bitwise_repeatable(torch, name, lambda: attn.decode_attention_cuda(q, k, v, pos), out)
+    return {"chunk": chunk, "positions": pos[: len(edges)].tolist(), "bitwise_repeatable": True,
+            **res}
+
+
+def check_decode(torch, attn, b: int, s: int) -> dict:
+    """``decode_attention`` on :func:`decode_inputs`, timed; where rows hold
+    LONG_ROW or more keys, a mask off by one must fail the check."""
+    dev = torch.device("cuda", 0)
+    q, k, v, pos = decode_inputs(torch, b, s)
     out = attn.decode_attention_cuda(q, k, v, pos)
     name = f"decode_attention B={b} S={s}"
     res = _bf16_close(torch, name, out, attn.decode_attention_plain(q, k, v, pos), v)
@@ -390,21 +485,21 @@ def check_decode(torch, attn, b: int, s: int, gen, timing: bool) -> dict:
     if len(rows):
         res["off_by_one"] = _off_by_one(torch, attn, name, out[rows], q[rows], k[rows], v[rows],
                                         rows, pos[rows])
-    if timing:
-        live = int(torch.clamp(pos + 1, max=s).sum())  # cache entries the rows attend to
-        n_bytes = 2 * live * KV_HEADS * HEAD_DIM * 2 + 2 * q.numel() * 2 + b * 4
-        res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * live * HEADS * HEAD_DIM, BF16_OPS_PER_S)
-        res["ms"] = graph_ms(torch, lambda: attn.decode_attention_cuda(q, k, v, pos), 100)
-        res["plain_ms"] = graph_ms(torch, lambda: attn.decode_attention_plain(q, k, v, pos), 20)
-        # SDPA with a boolean mask: K/V repeated to the 9 query heads and
-        # everything put in (B, heads, S, hd) outside the timed call
-        qt = q.transpose(1, 2).contiguous()
-        kt, vt = (x.transpose(1, 2).repeat_interleave(HEADS // KV_HEADS, dim=1).contiguous()
-                  for x in (k, v))
-        mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        res["library_ms"] = graph_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask), 100)
-        res["call_ms"] = time_ms(torch, lambda: attn.decode_attention_cuda(q, k, v, pos), 200, 10)
+    res["chunk"] = attn.decode_chunk(attn.DECODE_LIB, dev, b, s, HEADS, KV_HEADS, HEAD_DIM, 1)
+    live = int(torch.clamp(pos + 1, max=s).sum())  # cache entries the rows attend to
+    n_bytes = 2 * live * KV_HEADS * HEAD_DIM * 2 + 2 * q.numel() * 2 + b * 4
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * live * HEADS * HEAD_DIM, BF16_OPS_PER_S)
+    res["ms"] = graph_ms(torch, lambda: attn.decode_attention_cuda(q, k, v, pos), 100)
+    res["plain_ms"] = graph_ms(torch, lambda: attn.decode_attention_plain(q, k, v, pos), 20)
+    # SDPA with a boolean mask: K/V repeated to the 9 query heads and
+    # everything put in (B, heads, S, hd) outside the timed call
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(HEADS // KV_HEADS, dim=1).contiguous()
+              for x in (k, v))
+    mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res["library_ms"] = graph_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask), 100)
+    res["call_ms"] = time_ms(torch, lambda: attn.decode_attention_cuda(q, k, v, pos), 200, 10)
     return res
 
 
@@ -675,14 +770,21 @@ def main() -> None:
     bp, fp = check_tomo(torch, tomo, gen)
     print("check tomo_backproject 8x360x1448 n=1448 " + json.dumps(bp))
     print("check tomo_project 8x1448x1448 A=360 " + json.dumps(fp))
+    print("check tomo_backproject sparse 8x360x1448 n=1448 "
+          + json.dumps(check_backproject_sparse(torch, tomo, gen)))
     print("check tomo_project sparse 8x1448x1448 A=360 "
           + json.dumps(check_project_sparse(torch, tomo, gen)))
     print("check quality " + json.dumps(check_quality(torch, tomo)))
-    decode_main = check_decode(torch, attention, SERVE_BATCH, 256, gen, True)
+    decode_main = check_decode(torch, attention, SERVE_BATCH, 256)
+    # decode's bound lies below any launch: the least kernel's time beside it
+    decode_main["launch_floor_ms"] = launch_floor_ms(torch)
     print(f"check decode_attention B={SERVE_BATCH} S=256 bf16 " + json.dumps(decode_main))
     for b in (1, 64):
         print(f"check decode_attention B={b} S=256 bf16 "
-              + json.dumps(check_decode(torch, attention, b, 256, gen, b == 64)))
+              + json.dumps(check_decode(torch, attention, b, 256)))
+    for b in (1, SERVE_BATCH, 64):
+        print(f"check decode_attention split edges B={b} S=256 bf16 "
+              + json.dumps(check_decode_split(torch, attention, b, 256, gen)))
     flash_main = check_flash(torch, attention, 1, PROMPT_LEN, gen, True)
     print(f"check flash_attention B=1 S={PROMPT_LEN} causal bf16 " + json.dumps(flash_main))
     for b, s in ((4, 128), (4, 512), (1, 2048)):

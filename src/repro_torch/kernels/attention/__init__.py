@@ -1,9 +1,11 @@
 from repro_torch.kernels.attention.ops import (
     DECODE_ATTENTION,
+    DECODE_LIB,
     FLASH_ATTENTION,
     HEAD_DIMS,
     decode_attention,
     decode_attention_cuda,
+    decode_chunk,
     flash_attention,
     flash_attention_cuda,
 )
@@ -15,12 +17,14 @@ from repro_torch.kernels.attention.ref import (
 
 __all__ = [
     "DECODE_ATTENTION",
+    "DECODE_LIB",
     "FLASH_ATTENTION",
     "HEAD_DIMS",
     "attention_ref",
     "decode_attention",
     "decode_attention_cuda",
     "decode_attention_plain",
+    "decode_chunk",
     "flash_attention",
     "flash_attention_cuda",
     "flash_attention_plain",

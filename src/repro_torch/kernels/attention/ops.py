@@ -21,14 +21,23 @@ Kernel notes (each source opens with the full note):
   row. The f32 instantiation stays on the CUDA cores (f32 products, no
   path runs it) to keep its 2e-5 agreement with the reference.
 * ``decode_attention`` replaces ``repro/kernels/attention/decode_kernel.py``
-  (``decode_attention_pallas``). Bound by the bytes of the live cache
-  entries (launch-bound at the serving path's sizes); one block per
-  (row, KV head) walks the cache only up to the row's position with
-  16-byte loads.
+  (``decode_attention_pallas``). Its bound is the bytes of the live cache
+  entries, but at the serving path's sizes that bound is far below one
+  launch, and latency sets the time: the chain of memory round trips and
+  the launches. So when (row, KV head) pairs are fewer than the SMs, the
+  cache is split into chunks of at least 64 keys, a block each
+  (:func:`decode_chunk` chooses once per device and sizes; the wrapper
+  sizes the workspace from it and passes it to the kernel); each block
+  issues all its K and V loads (and the row's position) at once, and a
+  second kernel, launched as the first one's programmatic dependent,
+  merges the chunks' partials in chunk order (deterministic). With as many
+  pairs as SMs (B=64) there is no split. Blocks past a row's position
+  exit at once.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,7 +50,8 @@ FLASH_LIB = CudaLibrary("flash_attention.cu", {
 })
 FLASH_ATTENTION = CudaKernel("flash_attention", FLASH_LIB, "flash_attention")
 DECODE_LIB = CudaLibrary("decode_attention.cu", {
-    "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "decode_attention_chunk": [_I, _I, _I, _I, _I, _I, _I],
 })
 DECODE_ATTENTION = CudaKernel("decode_attention", DECODE_LIB, "decode_attention")
 
@@ -99,6 +109,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def decode_chunk(library: CudaLibrary, device: torch.device, B: int, S: int, H: int, KV: int,
+                 hd: int, code: int) -> int:
+    """Keys per block the decode kernel of ``library`` takes at these sizes
+    on ``device`` (its SM count sets the split): the cache is split into
+    ceil(S / chunk) chunks per (row, head group), not at all when
+    chunk >= S."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    chunk = library.load().decode_attention_chunk(B, S, H, KV, hd, code, sms)
+    if chunk < 1:
+        raise ValueError(f"decode_attention takes no B={B} S={S} H={H} KV={KV} hd={hd}")
+    return chunk
+
+
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                           positions: torch.Tensor) -> torch.Tensor:
     """Launch ``decode_attention``: q (B, 1, H, hd), caches (B, S, KV, hd),
@@ -121,11 +145,17 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     if hd not in HEAD_DIMS:
         raise ValueError(f"decode_attention takes head dims {HEAD_DIMS}, got {hd}")
     out = torch.empty((B, 1, H, hd), dtype=v_cache.dtype, device=q.device)
+    code = _DTYPE_CODE[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        chunk = decode_chunk(DECODE_ATTENTION.library, q.device, B, S, H, KV, hd, code)
+        splits = -(-S // chunk)
+        # partial (acc, m, l) of every (row, head, chunk); none without a split
+        ws = torch.empty(B * H * splits * (hd + 2) if splits > 1 else 0, dtype=torch.float32,
+                         device=q.device)
         DECODE_ATTENTION.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                                positions.data_ptr(), out.data_ptr(), B, S, H, KV, hd,
-                                _DTYPE_CODE[q.dtype], stream)
+                                positions.data_ptr(), out.data_ptr(), ws.data_ptr(), B, S, H, KV,
+                                hd, code, chunk, stream)
     return out
 
 

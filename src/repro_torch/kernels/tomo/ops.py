@@ -4,8 +4,8 @@
 tensors take the plain versions (``ref.py``), CUDA tensors launch
 ``tomo_backproject`` / ``tomo_project`` (``kernels/csrc/tomo.cu``) or
 raise. There is no fallback between the two. The batch axis is a grid
-dimension of the kernels (in chunks of 8 frames for ``tomo_project``), so
-the single-frame forms are a batch of one.
+dimension of the kernels (in chunks of 8 frames), so the single-frame
+forms are a batch of one.
 GridRec's ramp filter stays a library FFT (``torch.fft``), as the JAX
 package leaves it to XLA.
 
@@ -16,9 +16,14 @@ kernels' one-hot weight matmul is not carried over: both gather, with no
 atomics, so the sum order is fixed, and both take s, floor(s) and f from
 one device function, so they stay exact adjoints (ML-EM depends on it).
 
-* ``tomo_backproject``: one thread per (frame, pixel) gathers two bins per
-  angle; bound by its interpolation arithmetic and the gather's cache
-  traffic (a sinogram frame is 2 MB and stays in L2), not by device memory.
+* ``tomo_backproject``: one thread per pixel carries 8 frames and computes
+  the geometry once per (pixel, angle) for all of them; a block of 32 x 16
+  pixels stages, per chunk of 16 angles, only the window of bins its tile
+  can reach (39 bins, zero-filled outside the detector, so no range
+  tests) for all its frames into shared memory by double-buffered
+  ``cp.async``, and each pixel reads its two bins from there, 4 frames per
+  16-byte load. Bound by those shared-memory loads and the per-(pixel,
+  angle) geometry, not by device memory.
 * ``tomo_project``: one thread per (angle, bin) carries up to 8 frames,
   walks the image line by line and gathers the few pixels of each line
   whose footprint reaches its bin; the geometry is computed once per

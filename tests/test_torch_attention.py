@@ -200,3 +200,59 @@ def test_wrappers_refuse_mixed_devices_and_unknown_devices():
     m = torch.zeros(1, 4, 2, 16, device="meta")
     with pytest.raises(ValueError, match="no flash attention"):
         attn_ops.flash_attention(m, m, m)
+
+
+def _split_decode(q, k, v, pos, chunk):
+    """The split decode kernel's arithmetic in plain torch: base-2 scores
+    from q scaled by log2(e) / sqrt(hd) in f32; per chunk of ``chunk`` keys
+    a partial (m, l, acc) over the row's live keys; the partials of the
+    live chunks merged in chunk order by the log-sum-exp rule, as its merge
+    kernel does; one rounding to v's dtype at the end."""
+    B, _, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, KV, H // KV, hd) * (math.log2(math.e) / math.sqrt(hd))
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k.float())
+    n = torch.where(pos >= S, torch.full_like(pos, S), pos + 1).long()
+    live = torch.clamp((n + chunk - 1) // chunk, min=1)
+    neg = torch.tensor(-1e30)
+    m = torch.full((B, KV, H // KV), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KV, H // KV, hd))
+    for c in range(-(-S // chunk)):
+        keys = torch.arange(c * chunk, min((c + 1) * chunk, S))
+        valid = (keys[None, :] < n[:, None])[:, None, None, :]  # (B, 1, 1, C)
+        sc = torch.where(valid, s[..., keys], neg)
+        m_c = sc.amax(-1)
+        p = torch.where(valid, torch.exp2(sc - m_c[..., None]), torch.zeros(()))
+        l_c = p.sum(-1)
+        a_c = torch.einsum("bkgs,bskd->bkgd", p, v[:, keys].float())
+        take = (c < live)[:, None, None]
+        mn = torch.maximum(m, m_c)
+        f_old, f_new = torch.exp2(m - mn), torch.exp2(m_c - mn)
+        l = torch.where(take, l * f_old + l_c * f_new, l)
+        acc = torch.where(take[..., None], acc * f_old[..., None] + a_c * f_new[..., None], acc)
+        m = torch.where(take, mn, m)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(B, 1, H, hd).to(v.dtype)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64, 100, 256])
+@pytest.mark.parametrize("G", [1, 3, 8])
+def test_split_decode_merge_matches_plain_under_the_per_element_rule(chunk, G):
+    """The chunked, fixed-order merge of the split decode kernel against
+    ``decode_attention_plain`` on bf16 inputs from a numpy seed, under the
+    rule the card checks use (per element 2^-7 |ref| + 2^-15 max|v|), at
+    ragged positions: 0, the chunk's edges (C - 1, C, C + 1), the last
+    entry, past the cache, and scattered ones."""
+    B, S, KV, hd = 10, 256, 3, 64
+    rng = np.random.default_rng(chunk * 10 + G)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+               for shape in ((B, 1, G * KV, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    pos = torch.tensor([0, chunk - 1, chunk, chunk + 1, S - 1, S + 7, *rng.integers(0, S, 4)],
+                       dtype=torch.int32).clamp(max=S + 7)
+    ref = attn_ref.decode_attention_plain(q, k, v, pos)
+    out = _split_decode(q, k, v, pos, chunk)
+    tol = 2.0 ** -7 * ref.float().abs() + 2.0 ** -15 * float(v.float().abs().max())
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    worst = float(((out.float() - ref.float()).abs() / tol).max())
+    assert worst <= 1, worst

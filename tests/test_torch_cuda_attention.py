@@ -188,3 +188,83 @@ def test_serving_on_the_card_matches_the_cpu(dev):
                                        for k, v in params.items()}, msgs)
         assert A.FLASH_ATTENTION.launches > before[0] and A.DECODE_ATTENTION.launches > before[1]
         np.testing.assert_array_equal(got, on_cpu.generate_tokens(params, msgs))
+
+
+def _decode_chunk(q, k):
+    B, _, H, hd = q.shape
+    code = {torch.float32: 0, torch.bfloat16: 1}[q.dtype]
+    return A.decode_chunk(A.DECODE_LIB, q.device, B, k.shape[1], H, k.shape[2], hd, code)
+
+
+@pytest.mark.parametrize("B", [1, 4, 64])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8, 12])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_at_chunk_edges(dev, B, G, hd, dtype):
+    """The split kernel: positions at C - 1, C and C + 1 for the chunk C
+    the launcher picks, 0, S - 1 and past S, cycled over the rows; B from 1
+    (split) to 64 (no split at G <= 8), G = 1 to 12 (12: two blocks of 6
+    query heads), every head dim, f32 and bf16."""
+    S, KV = 256, 2
+    g = _gen(dev, B * 100 + G * 10 + hd)
+    q = torch.randn((B, 1, G * KV, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    C = _decode_chunk(q, k)
+    edges = [min(p, S + 3) for p in (C - 1, C, C + 1, 0, S - 1, S, S + 3, 2 * C + 1)]
+    pos = torch.tensor([edges[i % len(edges)] for i in range(B)], dtype=torch.int32, device=dev)
+    out = A.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    _close(out, R.decode_attention_plain(q, k, v, pos), v)
+
+
+@pytest.mark.parametrize("B,S", [(1, 256), (4, 256), (4, 1000), (64, 256)])
+def test_decode_is_bitwise_repeatable_across_calls_and_graph_replays(dev, B, S):
+    """Two calls, then a CUDA graph of one call replayed three times: all
+    five outputs bitwise equal. The split kernel's partials are merged in
+    chunk order by a second kernel, launched as its programmatic dependent,
+    which the capture must keep."""
+    g = _gen(dev, B + S)
+    q = torch.randn((B, 1, 9, 64), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, S, 3, 64), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, S, 3, 64), generator=g, device=dev).bfloat16()
+    pos = torch.randint(0, S + 8, (B,), generator=g, device=dev, dtype=torch.int32)
+    first = A.decode_attention_cuda(q, k, v, pos)
+    second = A.decode_attention_cuda(q, k, v, pos)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        A.decode_attention_cuda(q, k, v, pos)  # warm-up outside the capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = A.decode_attention_cuda(q, k, v, pos)
+    replays = []
+    for _ in range(3):
+        graph.replay()
+        replays.append(captured.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    for r in replays:
+        assert torch.equal(first, r)
+    _close(first, R.decode_attention_plain(q, k, v, pos), v)
+
+
+def test_decode_entry_point_checks_the_chunk_it_is_given(dev):
+    """The wrapper makes the split choice once (``decode_chunk``, per device)
+    and passes it on; the C entry point refuses a chunk that is not a
+    positive multiple of its round instead of indexing the workspace with
+    a split count of its own."""
+    B, S, H, KV, hd = 4, 256, 9, 3, 64
+    q = torch.zeros((B, 1, H, hd), device=dev).bfloat16()
+    kv = torch.zeros((B, S, KV, hd), device=dev).bfloat16()
+    pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    out = torch.empty_like(q)
+    chunk = _decode_chunk(q, kv)
+    ws = torch.empty(B * H * S * (hd + 2), device=dev)  # room for any split
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for bad in (0, -chunk, chunk + 1):
+        with pytest.raises(RuntimeError, match="decode_attention"):
+            A.DECODE_ATTENTION.launch(q.data_ptr(), kv.data_ptr(), kv.data_ptr(), pos.data_ptr(),
+                                      out.data_ptr(), ws.data_ptr(), B, S, H, KV, hd, 1, bad,
+                                      stream)

@@ -126,7 +126,7 @@ def _angles(kind, a, dev):
 def test_projectors_match_plain(dev, b, a, n_det, n, kind):
     """Non-negative inputs, so max|ref| bounds each sum's terms: a sum of m
     f32 terms in two orders differs by at most ~m eps_f32 of it. The
-    1100-angle case crosses the backprojection's 1024-angle smem chunk."""
+    1100-angle case stages 69 chunks of 16 angles, the last partly empty."""
     g = _gen(dev, b * a + n)
     angles = _angles(kind, a, dev)
     cos_t, sin_t = T.trig(angles)
@@ -244,3 +244,93 @@ def test_apps_on_the_card_match_the_cpu(dev):
     peak = float(rec_cpu.abs().max())
     assert float((rec_card.cpu() - rec_cpu).abs().max()) <= 1e-3 * peak
     assert math.isfinite(peak)
+
+
+def _backproject_checked(sinos, cos_t, sin_t, n, terms):
+    """``tomo_backproject`` against the plain version under the sum rule
+    (``terms`` f32 terms per pixel in two orders), twice, bitwise equal."""
+    out = T.backproject_cuda(sinos, cos_t, sin_t, n)
+    again = T.backproject_cuda(sinos, cos_t, sin_t, n)
+    ref = T.backproject_plain(sinos, cos_t, sin_t, n)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert torch.equal(out, again)
+    err = float((out - ref).abs().max())
+    assert err <= terms * F32_EPS * float(ref.abs().max()) + 1e-6, err
+    return out, ref
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 17])
+@pytest.mark.parametrize("n,n_det,a", [(37, 50, 7), (100, 90, 360)])
+def test_backproject_frame_chunks(dev, b, n, n_det, a):
+    """The backprojector carries 8 frames per thread: 1, 3, 8, 9 and 17
+    frames (chunks that are not a multiple of 8), on dense sinograms."""
+    g = _gen(dev, 500 + b * n + a)
+    cos_t, sin_t = T.trig(_angles("grid", a, dev))
+    _backproject_checked(torch.rand((b, a, n_det), generator=g, device=dev), cos_t, sin_t, n,
+                         2 * a)
+
+
+@pytest.mark.parametrize("n,n_det", [(37, 30), (37, 50), (100, 90), (100, 130), (1448, 1400),
+                                     (1448, 1500)])
+@pytest.mark.parametrize("a", [1, 7, 360])
+def test_backproject_sizes_and_angle_counts(dev, n, n_det, a):
+    """Images of 37, 100 and 1448 pixels (tiles cut by the image's edge),
+    detectors narrower and wider than the image, 1, 7 and 360 angles (a
+    staged chunk of 16 angles partly empty, and many chunks), 9 frames."""
+    g = _gen(dev, n * 7 + n_det + a)
+    cos_t, sin_t = T.trig(_angles("grid", a, dev))
+    _backproject_checked(torch.rand((9, a, n_det), generator=g, device=dev), cos_t, sin_t, n,
+                         2 * a)
+
+
+def _sparse_sinograms(b, a, n_det, dev, g):
+    """Zero but for unit bins at 0, 1, n_det - 2, n_det - 1, every 13th bin
+    (some at the edge of every tile's window) and 8 seeded bins per row."""
+    sinos = torch.zeros((b, a, n_det), device=dev)
+    sinos[..., [0, 1, n_det - 2, n_det - 1]] = 1.0
+    sinos[..., ::13] = 1.0
+    idx = torch.randint(0, n_det, (b, a, 8), generator=g, device=dev)
+    sinos.scatter_(2, idx, 1.0)
+    return sinos
+
+
+@pytest.mark.parametrize("b", [1, 9])
+@pytest.mark.parametrize("n,n_det", [(100, 110), (64, 40), (150, 150)])
+def test_backproject_exact_angles_and_sparse_sinograms(dev, b, n, n_det):
+    """Angles at exactly 0, 45, 90, 135 and 180 degrees and just beside
+    them; sparse sinograms, where a bin dropped from a tile's window, or
+    staged at the wrong offset or frame, shows as an error of its weight
+    against a tolerance of (2 A) eps_f32 max|ref| over A = 13 angles; dense
+    ones under the sum rule; adjoint to the projector within 1e-4."""
+    deg = np.array([0, 0.1, 30, 44.9, 45, 45.1, 90, 120, 134.9, 135, 135.1, 179.9, 180])
+    angles = torch.from_numpy(np.deg2rad(deg).astype(np.float32)).to(dev)
+    cos_t, sin_t = T.trig(angles)
+    g = _gen(dev, 900 + b + n)
+    a = len(deg)
+    _backproject_checked(_sparse_sinograms(b, a, n_det, dev, g), cos_t, sin_t, n, 2 * a)
+    dense = torch.rand((b, a, n_det), generator=g, device=dev)
+    bp, _ = _backproject_checked(dense, cos_t, sin_t, n, 2 * a)
+    imgs = torch.rand((b, n, n), generator=g, device=dev)
+    lhs = float((T.project_cuda(imgs, cos_t, sin_t, n_det).double() * dense.double()).sum())
+    rhs = float((imgs.double() * bp.double()).sum())
+    assert abs(lhs - rhs) <= 1e-4 * abs(lhs)
+
+
+def test_backproject_at_the_path_shape_on_sparse_sinograms(dev):
+    """8 x 360 x 1448 -> 8 x 1448^2, as the light-source path runs it, on
+    sparse sinograms (the smoke run's ``check tomo_backproject sparse``)."""
+    g = _gen(dev, 1448)
+    cos_t, sin_t = T.trig(_angles("grid", 360, dev))
+    _backproject_checked(_sparse_sinograms(8, 360, 1448, dev, g), cos_t, sin_t, 1448, 720)
+
+
+def test_backproject_takes_directions_longer_than_unit(dev):
+    """cos/sin scaled to length 1.7: a tile then reaches more bins than its
+    staged window holds, and those angles read the sinograms directly; the
+    result must still equal the plain version."""
+    n, n_det, a = 70, 160, 24
+    cos_t, sin_t = (1.7 * t for t in T.trig(_angles("grid", a, dev)))
+    g = _gen(dev, 17)
+    _backproject_checked(torch.rand((9, a, n_det), generator=g, device=dev), cos_t, sin_t, n,
+                         2 * a)

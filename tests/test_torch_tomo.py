@@ -2,6 +2,8 @@
 inputs and the same numpy f32 angles (CPU: the port's wrappers take their
 plain versions here; the CUDA kernels are held against those versions on
 the card by chip_smoke.py)."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -155,3 +157,55 @@ def test_wrappers_count_no_launch_on_cpu():
     before = (T.TOMO_PROJECT.launches, T.TOMO_BACKPROJECT.launches)
     T.backproject(T.project(T.shepp_logan(8), ta, 10), ta, 8)
     assert (T.TOMO_PROJECT.launches, T.TOMO_BACKPROJECT.launches) == before
+
+
+# tomo.cu's backprojection tile (TOMO_BP_TILE_X x TOMO_BP_TILE_Y) and the
+# bins its staged window holds, ceil(hypot(X - 1, Y - 1)) + 4
+BP_TILE_X, BP_TILE_Y = 32, 16
+BP_WINDOW = math.ceil(math.hypot(BP_TILE_X - 1, BP_TILE_Y - 1)) + 4
+
+
+def _window_misses(n, n_det, cos_t, sin_t):
+    """The backprojector's window rule with its f32 roundings
+    (``detector_coords``): per tile (cut by the image's edge) and angle the
+    window starts one bin below the least floor(s) of the tile's four
+    corners and holds BP_WINDOW bins. Returns the (angle, tile) pairs whose
+    corners span too many bins for it, and those with a pixel whose bins
+    s0 or s0 + 1 fall outside the window."""
+    from repro_torch.kernels.tomo.ref import detector_coords
+
+    r0 = torch.arange(0, n, BP_TILE_Y)
+    c0 = torch.arange(0, n, BP_TILE_X)
+    r1 = (r0 + BP_TILE_Y - 1).clamp(max=n - 1)
+    c1 = (c0 + BP_TILE_X - 1).clamp(max=n - 1)
+    pool = torch.nn.functional.max_pool2d
+    tile = (BP_TILE_Y, BP_TILE_X)
+    too_wide = outside = 0
+    for a0 in range(0, cos_t.shape[0], 8):
+        s0 = detector_coords(n, n_det, cos_t[a0:a0 + 8], sin_t[a0:a0 + 8])[0]
+        s0 = s0.reshape(-1, 1, n, n).to(torch.float32)  # exact: |s0| < 2^24
+        # every pixel's least and largest s0 per tile
+        px_hi = pool(s0, tile, tile, ceil_mode=True)[:, 0]
+        px_lo = -pool(-s0, tile, tile, ceil_mode=True)[:, 0]
+        s0 = s0[:, 0]
+        corners = torch.stack([s0[:, r][:, :, c] for r in (r0, r1) for c in (c0, c1)])
+        lo, hi = corners.amin(0), corners.amax(0)
+        too_wide += int((hi - lo > BP_WINDOW - 4).sum())
+        first = lo - 1
+        outside += int(((px_lo < first) | (px_hi + 1 > first + BP_WINDOW - 1)).sum())
+    return too_wide, outside
+
+
+@pytest.mark.parametrize("n,n_det,a", [(1448, 1448, 360), (37, 30, 7), (37, 50, 7),
+                                       (100, 90, 13), (100, 130, 13)])
+def test_backprojection_windows_hold_every_pixels_bins(n, n_det, a):
+    """Every pixel's bins s0 and s0 + 1 lie in its tile's staged window at
+    the light-source path's shape (n = n_det = 1448, ``angle_grid(360)``)
+    and at small sizes with odd angles, so the kernel never leaves its
+    shared-memory path for unit directions."""
+    ang = torch.from_numpy(T.angle_grid(a))
+    if a == 13:  # exact and near-exact multiples of 45 degrees
+        ang = torch.from_numpy(np.deg2rad(np.array(
+            [0, 0.1, 30, 44.9, 45, 45.1, 90, 120, 134.9, 135, 135.1, 179.9, 180])).astype(np.float32))
+    cos_t, sin_t = T.trig(ang)
+    assert _window_misses(n, n_det, cos_t, sin_t) == (0, 0)

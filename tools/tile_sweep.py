@@ -1,27 +1,41 @@
 #!/usr/bin/env python3
-"""Tile sizes of flash attention (bf16) and the forward projector, side by
-side on one GPU.
+"""Tile sizes of flash attention (bf16), both projectors and the split
+decode kernel, side by side on one GPU.
 
-    python3 tools/tile_sweep.py
+    python3 tools/tile_sweep.py [flash] [project] [backproject] [decode]
+        [--parent-decode OTHER/decode_attention.cu]
 
-Builds ``flash_attention.cu`` as it is (rows per block chosen per launch)
-and with 32 and with 64 packed query rows per block fixed
-(``-DFLASH_ROWS``), and ``tomo.cu`` with several (frames per
-``tomo_project`` thread, adjacent angles per block) pairs (``-DTOMO_FRAMES``,
-``-DTOMO_ANGLES``), all at once, and points the
-wrappers at each build in turn. Every variant is first held against the
-plain version (``chip_smoke``'s per-element rule for attention, its sum
-rule for the projector), then timed at the main paths' shapes in the order
-a, b, ..., b, a: flash attention causal bf16, 9 heads over 3 KV heads of 64, at
-B=1 and S = 64 to 2048 (the slope over S is the time per 64-key tile of
-the longest blocks) and at B=4 S=512, by device time from a replayed CUDA
-graph (``chip_smoke.graph_ms``); ``tomo_project`` at 8 x 1448^2 -> 8 x 360
-x 1448 by CUDA events around back-to-back calls (``chip_smoke.time_ms``,
-the transpose included). Prints the card line, then one JSON line per
-(kernel, variant, shape) with both timings of the variant.
+(all four parts without arguments). Builds ``flash_attention.cu`` as it is
+(rows per block chosen per launch) and with 32 and with 64 packed query
+rows per block fixed (``-DFLASH_ROWS``); ``tomo.cu`` with several (frames
+per ``tomo_project`` thread, adjacent angles per block) pairs
+(``-DTOMO_FRAMES``, ``-DTOMO_ANGLES``) and several (frames per thread, tile
+columns x rows, angles per staged chunk) of ``tomo_backproject``
+(``-DTOMO_BP_FRAMES``, ``-DTOMO_BP_TILE_X``, ``-DTOMO_BP_TILE_Y``,
+``-DTOMO_BP_ANGLES``); ``decode_attention.cu`` as it is (chunk chosen per
+launch) and with fixed chunks (``-DDECODE_CHUNK``), and, with
+``--parent-decode``, another checkout's ``decode_attention.cu`` that has
+the one-kernel C interface (no workspace, no chunk argument) of the
+kernel before the split — all at once, and points the wrappers at each
+build in turn (the other checkout's kernel is called through that
+interface). Every variant is first held
+against the plain version (``chip_smoke``'s per-element rule for
+attention, its sum rule for the projectors), then timed at the main
+paths' shapes in the order a, b, ..., b, a: flash attention causal bf16, 9
+heads over 3 KV heads of 64, at B=1 and S = 64 to 2048 (the slope over S
+is the time per 64-key tile of the longest blocks) and at B=4 S=512, and
+decode at B = 1, 4 and 64 over S = 256 on ``chip_smoke.decode_inputs``
+(the inputs ``chip_smoke.py`` times: fixed positions, a generator of
+their own), by device time from a replayed CUDA graph (``chip_smoke.graph_ms``); the
+projectors at 8 x 1448^2 <-> 8 x 360 x 1448 by CUDA events around
+back-to-back calls (``chip_smoke.time_ms``, the transpose included).
+Prints the card line, then one JSON line per (kernel, variant, shape) with
+both timings of the variant.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import sys
 from contextlib import contextmanager
@@ -34,6 +48,16 @@ sys.path.insert(0, str(ROOT / "src"))
 FLASH_ROWS = ("chosen", 32, 64)  # rows per block: the launcher's choice, or fixed
 TOMO_VARIANTS = ((8, 1), (4, 4), (8, 4), (8, 8))  # (frames, angles)
 FLASH_SHAPES = ((1, 64), (1, 128), (1, 256), (1, 512), (1, 1024), (1, 2048), (4, 512))
+# (frames per thread, tile columns, tile rows, angles per staged chunk)
+BP_VARIANTS = ((8, 32, 16, 16), (8, 16, 16, 16), (8, 32, 8, 16), (8, 32, 16, 8), (8, 32, 32, 16),
+               (4, 32, 16, 16))
+# decode builds: the launcher's choice, fixed chunks (256: no split at S=256)
+DECODE_VARIANTS = (("chosen", ()), ("chunk=64", ("-DDECODE_CHUNK=64",)),
+                   ("chunk=128", ("-DDECODE_CHUNK=128",)), ("chunk=256", ("-DDECODE_CHUNK=256",)))
+DECODE_BATCHES = (1, 4, 64)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# decode_attention(q, k, v, pos, out, B, S, H, KV, hd, dtype, stream) before the split
+PARENT_DECODE_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 
 
 @contextmanager
@@ -60,6 +84,12 @@ def main() -> None:
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.tomo import ops as tomo_ops
 
+    ap = argparse.ArgumentParser(description="tile sizes of the port's kernels, side by side")
+    ap.add_argument("parts", nargs="*", choices=("flash", "project", "backproject", "decode"))
+    ap.add_argument("--parent-decode", type=Path, help="another checkout's decode_attention.cu "
+                    "with the one-kernel interface, timed beside the decode builds")
+    args = ap.parse_args()
+    parts = set(args.parts) or {"flash", "project", "backproject", "decode"}
     print(cs.card_line())
     flash = {r: _build.CudaKernel(f"flash_attention[rows={r}]", _build.CudaLibrary(
         "flash_attention.cu", attn_ops.FLASH_LIB.signatures,
@@ -67,12 +97,47 @@ def main() -> None:
     project = {(f, a): _build.CudaKernel(f"tomo_project[frames={f},angles={a}]", _build.CudaLibrary(
         "tomo.cu", tomo_ops.TOMO_LIB.signatures, (f"-DTOMO_FRAMES={f}", f"-DTOMO_ANGLES={a}")),
         "tomo_project") for f, a in TOMO_VARIANTS}
-    libs = [k.library for k in (*flash.values(), *project.values())]
+    backproject = {var: _build.CudaKernel(f"tomo_backproject[{var}]", _build.CudaLibrary(
+        "tomo.cu", tomo_ops.TOMO_LIB.signatures,
+        tuple(f"-DTOMO_BP_{k}={x}" for k, x in zip(("FRAMES", "TILE_X", "TILE_Y", "ANGLES"), var))),
+        "tomo_backproject") for var in BP_VARIANTS}
+    decode = {name: _build.CudaKernel(f"decode_attention[{name}]", _build.CudaLibrary(
+        "decode_attention.cu", attn_ops.DECODE_LIB.signatures, flags), "decode_attention")
+        for name, flags in DECODE_VARIANTS}
+    if args.parent_decode:
+        decode["parent"] = _build.CudaKernel("decode_attention[parent]", _build.CudaLibrary(
+            str(args.parent_decode.resolve()), {"decode_attention": PARENT_DECODE_ARGS}),
+            "decode_attention")
+    libs = [k.library for part, kernels in (("flash", flash), ("project", project),
+                                              ("backproject", backproject), ("decode", decode))
+            if part in parts for k in kernels.values()]
     for lib, proc in [(lib, lib.start_build()) for lib in libs]:
         lib.finish_build(proc)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    if "flash" in parts:
+        sweep_flash(torch, cs, attn, attn_ops, flash, gen)
+    if "decode" in parts:
+        sweep_decode(torch, cs, attn, attn_ops, decode)
+    a, n_det, n = cs.FRAME_ANGLES, cs.FRAME_BINS, cs.RECON_N
+    cos_t, sin_t = tomo.trig(torch.from_numpy(tomo.angle_grid(a)).to(dev))
+    if "project" in parts:
+        imgs = torch.rand((8, n, n), generator=gen, device=dev)
+        sweep_tomo(torch, cs, tomo_ops, "TOMO_PROJECT", project,
+                   lambda: tomo_ops.project_cuda(imgs, cos_t, sin_t, n_det),
+                   tomo.project_plain(imgs, cos_t, sin_t, n_det), 4 * n,
+                   ("frames_per_thread", "angles_per_block"))
+    if "backproject" in parts:
+        sinos = torch.rand((8, a, n_det), generator=gen, device=dev)
+        sweep_tomo(torch, cs, tomo_ops, "TOMO_BACKPROJECT", backproject,
+                   lambda: tomo_ops.backproject_cuda(sinos, cos_t, sin_t, n),
+                   tomo.backproject_plain(sinos, cos_t, sin_t, n), a,
+                   ("frames_per_thread", "tile_x", "tile_y", "angles_per_chunk"))
+
+
+def sweep_flash(torch, cs, attn, attn_ops, flash, gen) -> None:
+    dev = torch.device("cuda", 0)
     for b, s in FLASH_SHAPES:
         q = torch.randn((b, s, cs.HEADS, cs.HEAD_DIM), generator=gen, device=dev).bfloat16()
         k = torch.randn((b, s, cs.KV_HEADS, cs.HEAD_DIM), generator=gen, device=dev).bfloat16()
@@ -91,25 +156,70 @@ def main() -> None:
             print(json.dumps({"kernel": "flash_attention", "rows_per_block": r, "B": b, "S": s,
                               **res[r]}))
 
-    a, n_det, n = cs.FRAME_ANGLES, cs.FRAME_BINS, cs.RECON_N
-    cos_t, sin_t = tomo.trig(torch.from_numpy(tomo.angle_grid(a)).to(dev))
-    imgs = torch.rand((8, n, n), generator=gen, device=dev)
-    ref = tomo.project_plain(imgs, cos_t, sin_t, n_det)
-    tol = 4 * n * cs.F32_EPS * float(ref.abs().max())
-    run = lambda: tomo_ops.project_cuda(imgs, cos_t, sin_t, n_det)  # noqa: E731
+
+def sweep_decode(torch, cs, attn, attn_ops, decode) -> None:
+    """Each decode build at B = 1, 4, 64 over S = 256, on the inputs
+    ``chip_smoke.py`` times: held to the per-element rule, then timed in
+    turns."""
+    dev = torch.device("cuda", 0)
+    s = 256
+    for b in DECODE_BATCHES:
+        q, k, v, pos = cs.decode_inputs(torch, b, s)
+        ref = attn.decode_attention_plain(q, k, v, pos)
+        runs = {}
+        for name, kernel in decode.items():
+            if name == "parent":
+                runs[name] = lambda kernel=kernel: _parent_decode(torch, kernel, q, k, v, pos)
+            else:
+                runs[name] = lambda kernel=kernel: _with_kernel(
+                    attn_ops, kernel, lambda: attn_ops.decode_attention_cuda(q, k, v, pos))
+        res = {}
+        for name, run in runs.items():
+            res[name] = cs._bf16_close(torch, f"decode {name} B={b}", run(), ref, v)
+            if name != "parent":
+                res[name]["chunk"] = attn_ops.decode_chunk(decode[name].library, dev, b, s,
+                                                           cs.HEADS, cs.KV_HEADS, cs.HEAD_DIM, 1)
+            res[name]["ms"] = []
+        for name in (*runs, *reversed(runs)):
+            res[name]["ms"].append(cs.graph_ms(torch, runs[name], 100))
+        for name in runs:
+            print(json.dumps({"kernel": "decode_attention", "variant": name, "B": b, "S": s,
+                              "positions": pos[:6].tolist(), **res[name]}))
+
+
+def _with_kernel(module, kernel, fn):
+    with swapped(module, "DECODE_ATTENTION", kernel):
+        return fn()
+
+
+def _parent_decode(torch, kernel, q, k, v, pos):
+    """The kernel before the split, through its own C interface."""
+    B, _, H, hd = q.shape
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(), B,
+                  k.shape[1], H, k.shape[2], hd, 1, stream)
+    return out
+
+
+def sweep_tomo(torch, cs, tomo_ops, attr: str, kernels: dict, run, ref, terms: int,
+               keys: tuple[str, ...]) -> None:
+    """Each build of one projector held to the sum rule (``terms`` f32 terms
+    in two orders) against ``ref``, then timed in turns."""
+    tol = terms * cs.F32_EPS * float(ref.abs().max())
     res = {}
-    for var in TOMO_VARIANTS:
-        with swapped(tomo_ops, "TOMO_PROJECT", project[var]):
+    for var, kernel in kernels.items():
+        with swapped(tomo_ops, attr, kernel):
             err = float((run() - ref).abs().max())
             if err > tol:
-                raise AssertionError(f"tomo_project {var}: max err {err} > tol {tol}")
+                raise AssertionError(f"{kernel.name}: max err {err} > tol {tol}")
             res[var] = {"max_abs_err": err, "tol": tol, "ms": []}
-    for var in (*TOMO_VARIANTS, *reversed(TOMO_VARIANTS)):
-        with swapped(tomo_ops, "TOMO_PROJECT", project[var]):
+    for var in (*kernels, *reversed(kernels)):
+        with swapped(tomo_ops, attr, kernels[var]):
             res[var]["ms"].append(cs.time_ms(torch, run, 5, 1))
-    for (f, a) in TOMO_VARIANTS:
-        print(json.dumps({"kernel": "tomo_project", "frames_per_thread": f, "angles_per_block": a,
-                          "B": 8, "n": n, **res[(f, a)]}))
+    for var in kernels:
+        print(json.dumps({"kernel": attr.lower(), **dict(zip(keys, var)), "B": 8,
+                          "n": cs.RECON_N, **res[var]}))
 
 
 if __name__ == "__main__":
