@@ -10,7 +10,10 @@
    be told apart), then holds every kernel against its plain PyTorch
    version at the main path's shapes, on the same inputs, with the
    tolerance printed (for the attention kernels per element, and shown to
-   fail a mask off by one; decode also, untimed, at the edges of the
+   fail a mask off by one; ``kmeans_assign`` in each regime its plan
+   chooses, narrow 80 000 x 3 x 10 and wide 65 536 x 128 x 1024, f32 and
+   bf16, with the regime and the least kernel's time printed; decode
+   also, untimed, at the edges of the
    chunks it splits the cache into and bitwise across repeated calls and
    CUDA-graph replays, while its timed inputs have fixed positions and a
    generator of their own; for ``tomo_project`` also on sparse images and for
@@ -26,7 +29,9 @@
 4. drives the main paths through the port's entry points: a
    ``PilotComputeService`` on the card with a ``kafka`` pilot (2 broker
    nodes) and a ``spark`` pilot, then (a) a K-Means cluster stream of
-   5000 x 3 points per message into ``StreamingKMeans(10, 3)``, (b) a
+   5000 x 3 points per message into ``StreamingKMeans(10, 3)`` and a wide
+   one, 4096 x 128 points per message, 16 messages per batch, into
+   ``StreamingKMeans(1024, 128)``, (b) a
    light-source stream of 360 x 1448 sinograms reconstructed at n = 1448 by
    GridRec and by ML-EM, and (c) the LM serving stream: 16 messages of 4
    prompts of 128 tokens into ``LMServeApp`` on ``smollm-135m`` at full
@@ -48,6 +53,7 @@ import json
 import math
 import os
 import platform
+import re
 import subprocess
 import sys
 import time
@@ -57,11 +63,14 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 rate outside
-# the tensor cores, and the bf16 tensor-core rate. A kernel's operations are
-# held against the peak for its inputs' type: f32 for K-Means and the
-# projectors, bf16 for the attention kernels at the serving path's width.
+# the tensor cores, and the TF32 and bf16 tensor-core rates (dense). A
+# kernel's operations are held against the peak for its inputs' type: f32
+# for K-Means and the projectors, bf16 for the attention kernels at the
+# serving path's width and the bf16 K-Means checks; the wide f32 K-Means
+# check also against the TF32 rate for the 3 products its design issues
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 494.5e12
 BF16_OPS_PER_S = 989e12
 F32_EPS = 2.0 ** -23
 BF16_STEP = 2.0 ** -7  # one bf16 step, relative (8 significant bits)
@@ -76,6 +85,11 @@ LONG_ROW = 64
 # the light-source stream: one 360 x 1448 f32 sinogram per message,
 # reconstructed at one pixel per detector bin; ML-EM at the app's default
 FRAME_ANGLES, FRAME_BINS, RECON_N, MLEM_ITERS = 360, 1448, 1448, 4
+
+# the wide K-Means stream: 1024 centres in 128 dimensions, 4096 points per
+# message (f64, 4 MB), 16 messages per batch (N = 65 536, the wide check's
+# shape), WIDE_BATCHES batches
+WIDE_K, WIDE_D, WIDE_POINTS_PER_MSG, WIDE_MSGS_PER_BATCH, WIDE_BATCHES = 1024, 128, 4096, 16, 4
 
 # the serving stream: messages of SERVE_BATCH prompts, one message per
 # micro-batch, as launch/serve.py runs it; smollm-135m's attention is
@@ -186,19 +200,26 @@ def host_probe(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_assign(torch, kmeans, n: int, d: int, k: int, dtype, clustered: bool,
-                 gen, timing: bool) -> dict:
+def assign_inputs(torch, n: int, d: int, k: int, dtype, clustered: bool, gen):
+    """Points (n, d) and centroids (k, d) on the card: standard normals, or
+    the cluster source's data (centres in [-10, 10]^d, spread 0.5) with
+    standard-normal centroids."""
     dev = torch.device("cuda", 0)
-    if clustered:  # the cluster source's data: 10 centres in [-10, 10]^3, spread 0.5
+    if clustered:
         centers = torch.rand((k, d), generator=gen, device=dev) * 20 - 10
         idx = torch.randint(0, k, (n,), generator=gen, device=dev)
         points = centers[idx] + 0.5 * torch.randn((n, d), generator=gen, device=dev)
     else:
         points = torch.randn((n, d), generator=gen, device=dev)
     centroids = torch.randn((k, d), generator=gen, device=dev)
-    points, centroids = points.to(dtype).contiguous(), centroids.to(dtype).contiguous()
+    return points.to(dtype).contiguous(), centroids.to(dtype).contiguous()
 
-    labels, dist = kmeans.assign_cuda(points, centroids)
+
+def assign_close(torch, kmeans, name: str, points, centroids, labels, dist) -> dict:
+    """Hold (labels, dist) of ``points`` x ``centroids`` against the plain
+    version; raises where they differ by more than f32 rounding allows."""
+    n, d = points.shape
+    k = centroids.shape[0]
     ref_labels, ref_dist = kmeans.assign_ref(points, centroids)
     torch.cuda.synchronize()
     # rounding of |p|^2 - 2 p.c + |c|^2 in f32, summed over D terms in two
@@ -208,7 +229,7 @@ def check_assign(torch, kmeans, n: int, d: int, k: int, dtype, clustered: bool,
     tol = 8 * (d + 2) * 2.0 ** -24 * scale
     err = (dist - ref_dist).abs()
     if not bool(torch.isfinite(dist).all()) or bool((err > tol).any()):
-        raise AssertionError(f"kmeans_assign {n}x{d}x{k} {dtype}: max err "
+        raise AssertionError(f"{name} {n}x{d}x{k} {points.dtype}: max err "
                              f"{float(err.max())}, worst err/tol {float((err / tol).max())}")
     # labels must agree wherever the best and second-best d^2 differ by
     # more than twice the tolerance
@@ -217,15 +238,32 @@ def check_assign(torch, kmeans, n: int, d: int, k: int, dtype, clustered: bool,
     clear = (two[:, 1] - two[:, 0] > 2 * tol) if two is not None else torch.ones_like(tol, dtype=torch.bool)
     bad = int(((labels != ref_labels) & clear).sum())
     if bad:
-        raise AssertionError(f"kmeans_assign {n}x{d}x{k}: {bad} labels differ where the gap is clear")
-    out = {"max_abs_err": float(err.max()), "tol": "8 (D+2) 2^-24 (|p| + max|c|)^2 per point",
-           "worst_err_over_tol": float((err / tol).max()),
-           "labels_differing_in_near_ties": int((labels != ref_labels).sum())}
+        raise AssertionError(f"{name} {n}x{d}x{k}: {bad} labels differ where the gap is clear")
+    return {"max_abs_err": float(err.max()), "tol": "8 (D+2) 2^-24 (|p| + max|c|)^2 per point",
+            "worst_err_over_tol": float((err / tol).max()),
+            "labels_differing_in_near_ties": int((labels != ref_labels).sum())}
+
+
+def check_assign(torch, kmeans, n: int, d: int, k: int, dtype, clustered: bool,
+                 gen, timing: bool, floor_ms: float) -> dict:
+    """``kmeans_assign`` in the regime ``assign_plan`` chooses for the shape,
+    held to :func:`assign_close`; timed, with its bound (wide f32: also the
+    bound of the 3 TF32 products its design issues) and ``floor_ms``, the
+    least kernel's device time, beside it."""
+    points, centroids = assign_inputs(torch, n, d, k, dtype, clustered, gen)
+    labels, dist = kmeans.assign_cuda(points, centroids)
+    plan = kmeans.assign_plan(d, k, dtype)
+    out = {"regime": plan.regime, "launch_floor_ms": floor_ms,
+           **assign_close(torch, kmeans, "kmeans_assign", points, centroids, labels, dist)}
     if timing:
         elem = points.element_size()
         n_bytes = n * d * elem + k * d * elem + n * 8
         n_ops = 2 * n * k * d + 3 * n * k + 2 * n * d
-        out["bound_ms"], out["bound_by"] = bound(n_bytes, n_ops)
+        out["bound_ms"], out["bound_by"] = bound(
+            n_bytes, n_ops, BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S)
+        if plan.regime == "wide" and dtype == torch.float32:
+            out["tf32x3_bound_ms"], out["tf32x3_bound_by"] = bound(
+                n_bytes, 3 * 2 * n * k * d, TF32_OPS_PER_S)
         out["ms"] = graph_ms(torch, lambda: kmeans.assign_cuda(points, centroids), 50)
         out["plain_ms"] = graph_ms(torch, lambda: kmeans.assign_ref(points, centroids), 20)
         out["library_ms"] = graph_ms(torch, lambda: torch.cdist(points, centroids).min(1), 20)
@@ -597,6 +635,58 @@ def kmeans_path(torch, kernels, miniapps, cluster, ctx, device) -> dict:
     return {"report": out, "launches": launches}
 
 
+def kmeans_wide_path(torch, kernels, miniapps, cluster, ctx, device) -> dict:
+    """The K-Means stream at 1024 centres in 128 dimensions: every message
+    is in the log before the stream starts, so each batch takes
+    WIDE_MSGS_PER_BATCH messages (N = 65 536, the wide regime)."""
+    inertias: list[float] = []
+    sizes: list[int] = []
+
+    class TracedKMeans(miniapps.StreamingKMeans):
+        def _on_complete(self, result, meta, dt):
+            super()._on_complete(result, meta, dt)
+            inertias.append(self._inertia)
+            sizes.append(meta[1])
+
+    n_msgs = WIDE_MSGS_PER_BATCH * WIDE_BATCHES
+    cluster.create_topic("points_wide", 4)
+    source = miniapps.KMeansClusterSource(
+        cluster, miniapps.SourceConfig("points_wide", total_messages=n_msgs, n_producers=4,
+                                       seed=SEED),
+        n_clusters=WIDE_K, dim=WIDE_D, points_per_msg=WIDE_POINTS_PER_MSG)
+    app = TracedKMeans(WIDE_K, WIDE_D, seed=SEED, device=device)
+    stream = ctx.stream(cluster, "points_wide", group="kmeans_wide", process_fn=app.process,
+                        batch_interval=0.5, max_batch_records=WIDE_MSGS_PER_BATCH,
+                        backpressure=False)
+    source.start()
+    source.join(300)
+    if source.sent_records != n_msgs:
+        raise AssertionError(f"wide source sent {source.sent_records} of {n_msgs} messages")
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    stream.start()
+    try:
+        stream.await_batches(WIDE_BATCHES, timeout=300)
+    finally:
+        stream.stop()
+        source.stop()
+    wall = time.monotonic() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    centroids = stream.state
+    if not bool(torch.isfinite(centroids).all()) or centroids.shape != (WIDE_K, WIDE_D):
+        raise AssertionError(f"wide K-Means: bad centroids {tuple(centroids.shape)}")
+    if sizes != [WIDE_MSGS_PER_BATCH * WIDE_POINTS_PER_MSG] * WIDE_BATCHES:
+        raise AssertionError(f"wide K-Means batch sizes {sizes}")
+    if not inertias[-1] < inertias[0]:
+        raise AssertionError(f"wide K-Means inertia did not fall: {inertias}")
+    if launches["kmeans_assign"] != stream.stats.batches:
+        raise AssertionError(f"kmeans_assign launched {launches['kmeans_assign']} times for "
+                             f"{stream.stats.batches} batches")
+    out = report("kmeans_wide", app, stream, wall)
+    out["inertia_first"], out["inertia_last"] = inertias[0], inertias[-1]
+    return {"report": out, "launches": launches}
+
+
 def recon_path(torch, kernels, miniapps, tomo, cluster, ctx, device) -> dict:
     a, n_det, n = FRAME_ANGLES, FRAME_BINS, RECON_N
     kernels.reset_launches()
@@ -755,18 +845,25 @@ def main() -> None:
     build_s = kernels.build_all()
     print(f"build: {build_s:.1f} s for {len(kernels.KERNELS)} kernels")
     for lib in dict.fromkeys(k.library for k in kernels.KERNELS):
-        if lib.log_path.exists():
-            for line in lib.log_path.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas {lib.source.name}: {line.strip()}")
+        if lib.log_path.exists():  # per library: its kernels' most registers and all spills
+            log = lib.log_path.read_text()
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+            spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", log))
+            print(f"ptxas {lib.source.name}: {len(regs)} kernels, at most {max(regs, default=0)} "
+                  f"registers, {spills} bytes of spill stores and loads")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    assign_main = check_assign(torch, kmeans, 80_000, 3, 10, torch.float32, True, gen, True)
-    print("check kmeans_assign 80000x3x10 f32 " + json.dumps(assign_main))
-    wide = check_assign(torch, kmeans, 65_536, 128, 1024, torch.float32, False, gen, True)
-    print("check kmeans_assign 65536x128x1024 f32 " + json.dumps(wide))
-    bf16 = check_assign(torch, kmeans, 80_000, 3, 10, torch.bfloat16, True, gen, False)
-    print("check kmeans_assign 80000x3x10 bf16 " + json.dumps(bf16))
+    # the short kernels' bounds lie below any launch: the least kernel's time beside them
+    floor = launch_floor_ms(torch)
+    for n, d, k, dtype, clustered, timing in (
+            (80_000, 3, 10, torch.float32, True, True), (65_536, 128, 1024, torch.float32, False, True),
+            (80_000, 3, 10, torch.bfloat16, True, False),
+            (65_536, 128, 1024, torch.bfloat16, False, True)):
+        res = check_assign(torch, kmeans, n, d, k, dtype, clustered, gen, timing, floor)
+        if (n, d, dtype) == (80_000, 3, torch.float32):
+            assign_main = res
+        name = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+        print(f"check kmeans_assign {n}x{d}x{k} {name} " + json.dumps(res))
     bp, fp = check_tomo(torch, tomo, gen)
     print("check tomo_backproject 8x360x1448 n=1448 " + json.dumps(bp))
     print("check tomo_project 8x1448x1448 A=360 " + json.dumps(fp))
@@ -776,8 +873,7 @@ def main() -> None:
           + json.dumps(check_project_sparse(torch, tomo, gen)))
     print("check quality " + json.dumps(check_quality(torch, tomo)))
     decode_main = check_decode(torch, attention, SERVE_BATCH, 256)
-    # decode's bound lies below any launch: the least kernel's time beside it
-    decode_main["launch_floor_ms"] = launch_floor_ms(torch)
+    decode_main["launch_floor_ms"] = floor
     print(f"check decode_attention B={SERVE_BATCH} S=256 bf16 " + json.dumps(decode_main))
     for b in (1, 64):
         print(f"check decode_attention B={b} S=256 bf16 "
@@ -798,21 +894,24 @@ def main() -> None:
         cluster, ctx = broker.get_context(), spark.get_context()
         device = ctx.devices[0]
         km = kmeans_path(torch, kernels, miniapps, cluster, ctx, device)
+        kw = kmeans_wide_path(torch, kernels, miniapps, cluster, ctx, device)
         rc = recon_path(torch, kernels, miniapps, tomo, cluster, ctx, device)
         sv = serve_path(torch, kernels, miniapps, cluster, ctx, device)
     finally:
         svc.cancel()
     rescore(torch, sv)
-    launches = {"kmeans_assign": km["launches"]["kmeans_assign"],
+    launches = {"kmeans_assign": km["launches"]["kmeans_assign"] + kw["launches"]["kmeans_assign"],
                 "tomo_backproject": rc["launches"]["tomo_backproject"],
                 "tomo_project": rc["launches"]["tomo_project"],
                 "flash_attention": sv["launches"]["flash_attention"],
                 "decode_attention": sv["launches"]["decode_attention"]}
-    print("launches " + json.dumps({"kmeans_path": km["launches"], "lightsource_path": rc["launches"],
-                                    "serve_path": sv["launches"]}))
+    print("launches " + json.dumps({"kmeans_path": km["launches"], "kmeans_wide_path": kw["launches"],
+                                    "lightsource_path": rc["launches"], "serve_path": sv["launches"]}))
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"{name} was not launched on the main path")
+    if km["launches"]["kmeans_assign"] < 1:
+        raise AssertionError("kmeans_assign was not launched on the K-Means stream")
 
     src = "src/repro_torch/kernels/csrc/"
     rows = [

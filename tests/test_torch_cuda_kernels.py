@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 over the edge cases the smoke run's main-path shapes do not reach: tiny and
-odd sizes, the generic D > 128 path and centroid tiling of
-``kmeans_assign``, angles at exactly 0, 45 and 90 degrees and beyond pi,
+odd sizes, each regime of ``kmeans_assign`` at its thresholds and tails
+(blocks of points, chunks of dimensions, tiles of centroids), unaligned
+views, ties and the generic D > 128 path and centroid tiling, angles at exactly 0, 45 and 90 degrees and beyond pi,
 non-square detector/image sizes, side streams, and the error paths.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so without a card every test
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import kmeans as K
+from repro_torch.kernels.kmeans import ops as K_ops
 from repro_torch.kernels import tomo as T
 from repro_torch.miniapps import ReconstructionApp, StreamingKMeans
 
@@ -36,8 +38,8 @@ def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-def _check_assign(p, c):
-    labels, dist = K.assign(p, c)
+def _check_assign(p, c, plan=None):
+    labels, dist = K.assign_cuda(p, c, plan)
     ref_labels, ref_dist = K.assign_ref(p, c)
     torch.cuda.synchronize()
     pf, cf = p.float(), c.float()
@@ -63,7 +65,7 @@ def _check_assign(p, c):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kmeans_assign_matches_plain(dev, n, d, k, dtype):
     """Register widths up to 128, the generic path above it, and several
-    shared-memory tiles of centroids (4096 x 64 x 2000: 11 tiles)."""
+    tiles of centroids (4096 x 64 x 2000: 16 wide tiles)."""
     g = _gen(dev, n + d + k)
     p = torch.randn((n, d), generator=g, device=dev).to(dtype)
     c = torch.randn((k, d), generator=g, device=dev).to(dtype)
@@ -108,6 +110,135 @@ def test_kmeans_assign_rejects_what_it_cannot_take(dev):
         K.assign(p, torch.zeros((2, 4), device=dev))
     with pytest.raises(RuntimeError, match="CUDA error"):  # 20000 dims: no centroid fits 48 KB
         K.assign(torch.zeros((4, 20_000), device=dev), torch.zeros((2, 20_000), device=dev))
+
+
+# (n, d, k): each regime at its thresholds and tails
+REGIME_CASES = {
+    "narrow": [(1, 3, 10), (511, 3, 10), (512, 3, 10), (513, 3, 10), (80_000, 3, 10),
+               (600_007, 3, 10), (1000, 4, 16), (1000, 4, 17), (999, 2, 1), (1000, 1, 1024),
+               (1000, 16, 64), (777, 5, 7), (300, 8, 1)],
+    "wide": [(127, 128, 1024), (128, 128, 1024), (129, 128, 1024), (1000, 32, 64), (1000, 36, 100),
+             (1000, 100, 130), (700, 33, 64), (700, 129, 257), (300, 520, 64), (1000, 8, 256),
+             (1000, 128, 16)],
+    "generic": [(300, 300, 5), (1000, 17, 33), (1000, 31, 64), (1000, 32, 63), (500, 16, 65),
+                (1000, 8, 255), (1000, 7, 512), (1000, 128, 15), (1000, 4, 1024)],
+}
+
+
+@pytest.mark.parametrize("regime,n,d,k", [(r, *c) for r, cases in REGIME_CASES.items()
+                                          for c in cases])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kmeans_assign_regimes_at_their_edges(dev, regime, n, d, k, dtype):
+    """N below, at and just above a block (narrow 512 points, wide 128),
+    past the narrow grid's stride; K = 16 and 17 at D = 4, where the narrow
+    centroids leave registers for shared memory; D not a multiple of a chunk or of 16
+    bytes (36 and 33: plain loads instead of cp.async for some dtypes); K
+    not a multiple of the 128-centroid tile; D = 8, K = 16 and K*D = 2048
+    at the wide thresholds and just below them, K*D = 1024 at the narrow
+    limit."""
+    assert K.assign_plan(d, k, dtype).regime == regime
+    g = _gen(dev, n * 7 + d * 3 + k)
+    _check_assign(torch.randn((n, d), generator=g, device=dev).to(dtype),
+                  torch.randn((k, d), generator=g, device=dev).to(dtype))
+
+
+@pytest.mark.parametrize("n,d,k", [(65_536, 128, 1024), (80_000, 3, 10), (4096, 16, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kmeans_assign_large_norm_clusters(dev, n, d, k, dtype):
+    """The cluster source's data at large norms: centres in [-1000, 1000],
+    spread 5, centroids at the centres, where |p|^2 and -2 p.c nearly
+    cancel."""
+    g = _gen(dev, 11 + d)
+    centres = torch.rand((k, d), generator=g, device=dev) * 2000 - 1000
+    idx = torch.randint(0, k, (n,), generator=g, device=dev)
+    p = centres[idx] + 5 * torch.randn((n, d), generator=g, device=dev)
+    _check_assign(p.to(dtype), centres.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("regime,d,k", [("narrow", 3, 10), ("narrow", 4, 10), ("wide", 128, 256)])
+@pytest.mark.parametrize("offset_bytes", [4, 8])
+def test_kmeans_assign_takes_unaligned_views(dev, dtype, regime, d, k, offset_bytes):
+    """A contiguous view 4 or 8 bytes into its storage: its base is not 16
+    bytes aligned, so the points are loaded by narrower or plain loads (bf16
+    at D = 3 and an 8-byte offset: 8-byte loads)."""
+    g = _gen(dev, 3)
+    n = 5000
+    skip = offset_bytes // torch.empty((), dtype=dtype).element_size()
+    buf = torch.randn((n * d + skip,), generator=g, device=dev).to(dtype)
+    p = buf[skip:].view(n, d)
+    assert p.is_contiguous() and p.data_ptr() % 16 == offset_bytes
+    assert K.assign_plan(d, k, dtype).regime == regime
+    _check_assign(p, torch.randn((k, d), generator=g, device=dev).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kmeans_assign_wide_first_index_wins_ties(dev, dtype):
+    """An exact duplicate in another centroid tile, another warp and another
+    lane of the fragment: its d^2 equals its first copy's bit for bit, and
+    the merges (lanes, warps) keep the first index."""
+    g = _gen(dev, 4)
+    c = torch.randn((1024, 128), generator=g, device=dev).to(dtype)
+    c[700] = c[3]
+    p = torch.randn((4096, 128), generator=g, device=dev)
+    p[::64] = c[3].float() + 0.1 * torch.randn((64, 128), generator=g, device=dev)  # both nearest
+    labels = _check_assign(p.to(dtype), c)
+    assert not bool((labels == 700).any())
+    assert bool((labels == 3).any())
+
+
+def test_kmeans_assign_wide_f32_is_three_pass(dev):
+    """Coordinates 0.45 of a TF32 step above TF32 values: one-pass TF32
+    rounds every product the same way and breaks the tolerance 2.5-fold
+    (tests/test_torch_kmeans.py emulates it); 3xTF32 stays far inside."""
+    g = _gen(dev, 6)
+    grid = torch.rand((256, 128), generator=g, device=dev) + 1
+    grid = ((grid.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    c = grid * (1 + 0.45 * 2.0 ** -10)
+    p = c[torch.randint(0, 256, (512,), generator=g, device=dev)].contiguous()
+    labels, dist = K.assign_cuda(p, c)
+    ref_labels, ref_dist = K.assign_ref(p, c)
+    tol = 8 * 130 * 2.0 ** -24 * (p.norm(dim=1) + c.norm(dim=1).max()) ** 2
+    assert float(((dist - ref_dist).abs() / tol).max()) < 0.1
+    assert bool((labels == ref_labels).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,k", [(3000, 8, 100), (1000, 3, 10), (2000, 16, 64)])
+def test_kmeans_assign_every_regime_agrees(dev, dtype, n, d, k):
+    """One input forced through each regime the entry point takes for it
+    (the sweep times them so): each holds the plain version's rule."""
+    g = _gen(dev, 8)
+    p = torch.randn((n, d), generator=g, device=dev).to(dtype)
+    c = torch.randn((k, d), generator=g, device=dev).to(dtype)
+    plans = [K.AssignPlan("narrow", K_ops.NARROW_THREADS,
+                          K_ops.NARROW_THREADS // K_ops.NARROW_K_SPLIT * K_ops.NARROW_POINTS_PER_THREAD,
+                          k, d, K_ops.NARROW_POINTS_PER_THREAD, K_ops.NARROW_K_SPLIT),
+             K.AssignPlan("wide", K_ops.WIDE_THREADS, K_ops.WIDE_POINTS, K_ops.WIDE_CENTROIDS,
+                          K_ops.WIDE_CHUNK_BYTES // p.element_size()),
+             K.AssignPlan("generic", K_ops.GENERIC_THREADS, K_ops.GENERIC_THREADS, min(k, 100), d)]
+    for plan in plans:
+        _check_assign(p, c, plan)
+
+
+def test_kmeans_assign_refuses_a_plan_its_build_does_not_take(dev):
+    """Tiles other than the build's, a narrow tile that is not all of K, or
+    K*D past the narrow stage: refused by the entry point, nothing runs."""
+    p, c = torch.zeros((4, 3), device=dev), torch.zeros((2, 3), device=dev)
+    before = K.KMEANS_ASSIGN.launches
+    good = K.assign_plan(3, 2, torch.float32)
+    for bad in (K.AssignPlan("wide", 256, 64, 128, 32),
+                K.AssignPlan("narrow", 128, good.tile_n, 3, 3, 4, good.k_split),
+                K.AssignPlan("narrow", 128, good.tile_n // 2, 2, 3, 4, good.k_split),
+                K.AssignPlan("generic", 256, 256, 3, 3)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            K.assign_cuda(p, c, bad)
+    wide_d = torch.zeros((4, 1100), device=dev), torch.zeros((2, 1100), device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        K.assign_cuda(*wide_d, K.AssignPlan("narrow", 128, good.tile_n, 2, 1100, 4, good.k_split))
+    assert K.KMEANS_ASSIGN.launches == before
+    K.assign_cuda(p, c)
+    assert K.KMEANS_ASSIGN.launches == before + 1
 
 
 def _angles(kind, a, dev):
