@@ -12,7 +12,10 @@
    tolerance printed (for the attention kernels per element, and shown to
    fail a mask off by one; ``kmeans_assign`` in each regime its plan
    chooses, narrow 80 000 x 3 x 10 and wide 65 536 x 128 x 1024, f32 and
-   bf16, with the regime and the least kernel's time printed; decode
+   bf16, and the chunked regime at 4096 x 20 000 x 2 and 15, with the
+   regime and the least kernel's time printed; ``kmeans_update`` at the
+   wide stream's shape, masked and with every row on one label, against a
+   float64 sum and bitwise across repeats; decode
    also, untimed, at the edges of the
    chunks it splits the cache into and bitwise across repeated calls and
    CUDA-graph replays, while its timed inputs have fixed positions and a
@@ -40,7 +43,18 @@
    0 just before a path and read just after it;
 5. re-scores every served sequence with the model's prefill and holds each
    generated token against that forward's argmax;
-6. prints one JSON line ``{"kernels": [...]}`` and, last, one JSON line
+6. runs the pipeline phase: a ``PipelineSpec`` built by the port's ``Pipeline``
+   (one kafka node; light-source frames at a stepped rate into an elastic
+   ML-EM stage, the cluster stream into a K-Means stage) through
+   ``spec.run(devices=4)``, four device slots of the card, until both
+   streams have drained and the ML-EM stage has scaled up and back down;
+   checks every message processed, the arbiter within the pool, every
+   kernel of the stages launched, the apps on the card, K-Means inertia
+   falling, the last reconstruction against the plain version, reverse-order
+   teardown, and the CLI (``python -m repro_torch.pipeline validate``, in a
+   fresh interpreter) accepting the spec and refusing a continuous stage
+   with its ROADMAP A2 message; prints one ``path pipeline`` line;
+7. prints one JSON line ``{"kernels": [...]}`` and, last, one JSON line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without printing the
@@ -90,6 +104,23 @@ FRAME_ANGLES, FRAME_BINS, RECON_N, MLEM_ITERS = 360, 1448, 1448, 4
 # message (f64, 4 MB), 16 messages per batch (N = 65 536, the wide check's
 # shape), WIDE_BATCHES batches
 WIDE_K, WIDE_D, WIDE_POINTS_PER_MSG, WIDE_MSGS_PER_BATCH, WIDE_BATCHES = 1024, 128, 4096, 16, 4
+
+# the pipeline phase (a PipelineSpec built by the port's Pipeline and run
+# by its runner): one kafka node; an elastic ML-EM stage on the light-source frames,
+# whose source steps its rate (seconds, msgs/s) to about twice what the
+# stage sustains and back to a sixth of it, and ends with the schedule (or
+# as much later as its producer fell behind in the burst: near 225 of 250
+# msgs/s of these 2.1 MB frames, while the stages run); a K-Means stage on the
+# cluster stream; PIPE_SLOTS device slots of the one card. The ML-EM stage
+# takes batches of 8 frames with the engine's rate control off, as the
+# reference's elastic pipelines run: about 123 frames/s on the H100
+# (tools/pipeline_capacity.py, PERF.md §4)
+PIPE_SLOTS = 4
+PIPE_RECON_BATCH, PIPE_RECON_RATE_CONTROL = 8, False
+PIPE_FRAME_SCHEDULE = ((2.0, 10), (2.5, 250), (4.0, 20))
+PIPE_FRAMES = int(sum(t * r for t, r in PIPE_FRAME_SCHEDULE))  # 725
+PIPE_POINTS_RATE, PIPE_POINTS = 200, 2000
+PIPE_TIMEOUT_S = 45  # the phase fails if it is not done by then (it takes 10-14 s)
 
 # the serving stream: messages of SERVE_BATCH prompts, one message per
 # micro-batch, as launch/serve.py runs it; smollm-135m's attention is
@@ -268,6 +299,66 @@ def check_assign(torch, kmeans, n: int, d: int, k: int, dtype, clustered: bool,
         out["plain_ms"] = graph_ms(torch, lambda: kmeans.assign_ref(points, centroids), 20)
         out["library_ms"] = graph_ms(torch, lambda: torch.cdist(points, centroids).min(1), 20)
         out["call_ms"] = time_ms(torch, lambda: kmeans.assign_cuda(points, centroids), 50, 5)
+    return out
+
+
+def update_close(torch, kmeans, name: str, points, labels, k: int, mask=None) -> dict:
+    """``kmeans_update`` against a float64 sum of the same (weighted) rows:
+    every entry within 2^-20 of the sum of |x| over its rows, the counts
+    exact, and bitwise the same over repeated calls and graph replays."""
+    n, d = points.shape
+    sums, counts = kmeans.update_cuda(points, labels, k, mask)
+    w = (torch.ones(n, dtype=torch.float64, device=points.device) if mask is None
+         else mask.double())
+    idx = torch.where(w > 0, labels.long(), 0)
+    x = points.double() * w[:, None]
+    ref = torch.zeros((k, d), dtype=torch.float64, device=points.device).index_add_(0, idx, x)
+    mag = torch.zeros_like(ref).index_add_(0, idx, x.abs())
+    ref_counts = torch.zeros(k, dtype=torch.float64, device=points.device).index_add_(0, idx, w)
+    torch.cuda.synchronize()
+    err = (sums.double() - ref).abs()
+    tol = 2.0 ** -20 * mag
+    if not bool(torch.isfinite(sums).all()) or bool((err > tol).any()):
+        raise AssertionError(f"{name}: max err {float(err.max())}, worst err/tol "
+                             f"{float((err / tol.clamp_min(1e-300)).max())}")
+    if not torch.equal(counts.double(), ref_counts):
+        raise AssertionError(f"{name}: counts differ from the rows' count")
+
+    def joined():
+        s, c = kmeans.update_cuda(points, labels, k, mask)
+        return torch.cat([s.flatten(), c])
+
+    _bitwise_repeatable(torch, name, joined, torch.cat([sums.flatten(), counts]))
+    return {"max_abs_err": float(err.max()), "tol_rule": "per entry 2^-20 sum|x| (float64 sum)",
+            "worst_err_over_tol": float((err / tol.clamp_min(1e-300)).max()),
+            "counts_exact": True, "bitwise_repeatable": True}
+
+
+def check_update(torch, kmeans, n: int, d: int, k: int, gen, worst_cases: bool) -> dict:
+    """``kmeans_update`` on N x D points with labels from ``kmeans_assign``
+    on clustered points (the cluster source's data), held to
+    :func:`update_close` and timed, with its bound, the plain version
+    (``index_add_`` twice) and one ``index_add_`` of the sums; with
+    ``worst_cases`` also masked (70 % of the rows weigh 1) and with every
+    row on one label (timed)."""
+    points, centroids = assign_inputs(torch, n, d, k, torch.float32, True, gen)
+    labels, _ = kmeans.assign_cuda(points, centroids)
+    out = update_close(torch, kmeans, "kmeans_update", points, labels, k)
+    out["labels_used"] = int((torch.bincount(labels.long(), minlength=k) > 0).sum())
+    out["bound_ms"], out["bound_by"] = bound(n * d * 4 + n * 4 + k * d * 4 + k * 4, n * d)
+    out["ms"] = graph_ms(torch, lambda: kmeans.update_cuda(points, labels, k), 20)
+    out["plain_ms"] = graph_ms(torch, lambda: kmeans.update_scatter_ref(points, labels, k), 20)
+    idx = labels.long()
+    zeros = torch.zeros((k, d), device=points.device)
+    out["library_ms"] = graph_ms(torch, lambda: zeros.index_add_(0, idx, points), 20)
+    out["call_ms"] = time_ms(torch, lambda: kmeans.update_cuda(points, labels, k), 50, 5)
+    if worst_cases:
+        mask = torch.rand(n, generator=gen, device=points.device) < 0.7
+        out["masked"] = update_close(torch, kmeans, "kmeans_update masked", points, labels, k,
+                                     mask)
+        one = torch.full_like(labels, k // 2)
+        out["one_label"] = update_close(torch, kmeans, "kmeans_update one label", points, one, k)
+        out["one_label_ms"] = graph_ms(torch, lambda: kmeans.update_cuda(points, one, k), 20)
     return out
 
 
@@ -713,31 +804,42 @@ def recon_path(torch, kernels, miniapps, tomo, cluster, ctx, device) -> dict:
 
     # hold the last reconstructions (every frame is the template payload)
     # against the plain versions on the same frame
+    checks = {algo: recon_vs_plain(torch, tomo, algo, states[algo], payload, device)
+              for algo in ("gridrec", "mlem")}
+    print("recon_vs_plain " + json.dumps(checks))
+    return {"reports": reports, "launches": launches}
+
+
+def recon_vs_plain(torch, tomo, algo: str, state, payload, device) -> dict:
+    """Hold a reconstruction of the template frame ``payload`` at n =
+    RECON_N against the plain versions' reconstruction of the same frame;
+    raises past the tolerance."""
+    a, n_det, n = FRAME_ANGLES, FRAME_BINS, RECON_N
     sino = torch.from_numpy(payload).to(device)[None]
     angles = torch.from_numpy(tomo.angle_grid(a)).to(device)
     cos_t, sin_t = tomo.trig(angles)
-    filtered = tomo.ramp_filter(sino)
-    scale = math.pi / (2 * a)
-    grid_ref = tomo.backproject_plain(filtered, cos_t, sin_t, n)[0] * scale
-    grid_abs = tomo.backproject_plain(filtered.abs(), cos_t, sin_t, n)[0] * scale
-    x = torch.ones((1, n, n), device=device)
-    norm = tomo.backproject_plain(torch.ones_like(sino), cos_t, sin_t, n) + 1e-6
-    for _ in range(MLEM_ITERS):
-        fp = tomo.project_plain(x, cos_t, sin_t, n_det)
-        x = x * tomo.backproject_plain(sino / fp.clamp_min(1e-6), cos_t, sin_t, n) / norm
-    checks = {}
-    for algo, ref, tol in (
-            # GridRec: one backprojection of signed terms, one per angle
-            ("gridrec", grid_ref, a * F32_EPS * float(grid_abs.max())),
-            # ML-EM: its projections and backprojections of ratio
-            # updates compound the per-pass rounding; 1e-3 of the peak
-            ("mlem", x[0], 1e-3 * float(x.abs().max()))):
-        err = float((states[algo] - ref).abs().max())
-        if err > tol:
-            raise AssertionError(f"{algo} reconstruction vs plain: max err {err} > tol {tol}")
-        checks[algo] = {"max_abs_err": err, "tol": tol}
-    print("recon_vs_plain " + json.dumps(checks))
-    return {"reports": reports, "launches": launches}
+    if algo == "gridrec":
+        # one backprojection of signed terms, one per angle
+        filtered = tomo.ramp_filter(sino)
+        scale = math.pi / (2 * a)
+        ref = tomo.backproject_plain(filtered, cos_t, sin_t, n)[0] * scale
+        grid_abs = tomo.backproject_plain(filtered.abs(), cos_t, sin_t, n)[0] * scale
+        tol = a * F32_EPS * float(grid_abs.max())
+    else:
+        # ML-EM: its projections and backprojections of ratio updates
+        # compound the per-pass rounding; 1e-3 of the peak
+        x = torch.ones((1, n, n), device=device)
+        norm = tomo.backproject_plain(torch.ones_like(sino), cos_t, sin_t, n) + 1e-6
+        for _ in range(MLEM_ITERS):
+            fp = tomo.project_plain(x, cos_t, sin_t, n_det)
+            x = x * tomo.backproject_plain(sino / fp.clamp_min(1e-6), cos_t, sin_t, n) / norm
+        ref, tol = x[0], 1e-3 * float(x.abs().max())
+    if state.shape != (n, n) or not bool(torch.isfinite(state).all()):
+        raise AssertionError(f"{algo}: bad reconstruction {tuple(state.shape)}")
+    err = float((state - ref).abs().max())
+    if err > tol:
+        raise AssertionError(f"{algo} reconstruction vs plain: max err {err} > tol {tol}")
+    return {"max_abs_err": err, "tol": tol}
 
 
 def serve_path(torch, kernels, miniapps, cluster, ctx, device, n_msgs: int = SERVE_MSGS) -> dict:
@@ -822,6 +924,147 @@ def rescore(torch, serve: dict) -> dict:
     return res
 
 
+def pipeline_spec(pipeline):
+    """The pipeline phase's spec, built by the port's ``Pipeline``."""
+    return (pipeline.Pipeline.named("smoke")
+            .broker(nodes=1)
+            .topic("frames", partitions=4).topic("points", partitions=8)
+            .source("frames", kind="lightsource", seed=SEED, total_messages=PIPE_FRAMES,
+                    rate_msgs_per_s=PIPE_FRAME_SCHEDULE[0][1],
+                    rate_schedule=list(PIPE_FRAME_SCHEDULE),
+                    n_angles=FRAME_ANGLES, n_det=FRAME_BINS)
+            .source("points", kind="cluster", seed=SEED, total_messages=PIPE_POINTS,
+                    rate_msgs_per_s=PIPE_POINTS_RATE, n_clusters=10, dim=3, points_per_msg=5000)
+            .stage("recon", topic="frames", processor="mlem", n=RECON_N, mlem_iters=MLEM_ITERS,
+                   max_batch_records=PIPE_RECON_BATCH, batch_interval=0.05,
+                   backpressure=PIPE_RECON_RATE_CONTROL)
+            .stage("kmeans", topic="points", processor="kmeans", n_clusters=10, dim=3, seed=SEED,
+                   max_batch_records=16, batch_interval=0.05)
+            .elastic("recon", policy="threshold", high_lag=24, low_lag=4, min_devices=1,
+                     max_devices=4, interval=0.2, cooldown=1.0)
+            .build())
+
+
+def pipeline_cli(pipeline) -> dict:
+    """``python -m repro_torch.pipeline validate`` in a fresh interpreter:
+    0 on the phase's spec written as JSON, 1 with the ROADMAP A2 refusal on
+    the same spec with a continuous K-Means stage (built as data:
+    ``Pipeline.build`` refuses it)."""
+    import dataclasses
+
+    spec = pipeline_spec(pipeline)
+    bad = dataclasses.replace(spec, stages=tuple(
+        dataclasses.replace(st, engine="continuous") if st.name == "kmeans" else st
+        for st in spec.stages))
+    out_dir = ROOT / "build" / "pipeline_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = {}
+    for name, sp, want in (("valid", spec, 0), ("continuous", bad, 1)):
+        path = out_dir / f"{name}.json"
+        path.write_text(sp.to_json(indent=1))
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.pipeline", "validate", str(path)],
+                              capture_output=True, text=True, timeout=300, cwd=ROOT,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        if proc.returncode != want:
+            raise AssertionError(f"pipeline CLI validate {name}: exit {proc.returncode}, want "
+                                 f"{want}\n{proc.stdout}{proc.stderr}")
+        if want == 1 and "engine='continuous' waits for the port's continuous engine " \
+                         "(ROADMAP A2)" not in proc.stderr:
+            raise AssertionError(f"pipeline CLI: no A2 refusal in {proc.stderr!r}")
+        res[name] = {"exit": proc.returncode,
+                     "said": (proc.stdout + proc.stderr).strip().splitlines()[-1]}
+    return res
+
+
+def pipeline_path(torch, kernels, pipeline, kmeans, tomo) -> dict:
+    """The pipeline phase: :func:`pipeline_spec` through ``spec.run(devices=
+    PIPE_SLOTS)`` on the card until both streams have drained and the ML-EM
+    stage has scaled up and down again (or PIPE_TIMEOUT_S, which fails the
+    run). Checks every message processed, the arbiter within the pool, the
+    kernels launched, the apps on the card, K-Means inertia falling, the
+    last reconstruction against the plain version, and the teardown in
+    reverse start order with no errors."""
+    import numpy as np
+
+    spec = pipeline_spec(pipeline)
+    run = spec.run(devices=PIPE_SLOTS)
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    # every 0.25 s: [t, ML-EM slots, its lag, frames sent, frames processed]
+    timeline: list[list] = []
+    with run:
+        ctl = run.controller("recon")
+        frames, recon = run.source("frames"), run.stream("recon")
+        while True:
+            now = time.monotonic() - t0
+            if not timeline or now - timeline[-1][0] >= 0.25:
+                timeline.append([round(now, 3), ctl.devices, run.lag("recon"),
+                                 frames.sent_records, recon.stats.records])
+            drained = run.sources_finished and all(
+                run.lag(st) == 0 and run.stream(st).stats.records
+                == run.source(spec.stage(st).topic).sent_records for st in ("recon", "kmeans"))
+            if drained and ctl.events.of("scale_up") and ctl.events.of("scale_down"):
+                break
+            if now > PIPE_TIMEOUT_S:
+                print("pipeline_timeline " + json.dumps(timeline))
+                raise AssertionError(
+                    f"pipeline phase: not done after {PIPE_TIMEOUT_S} s: drained {drained}, "
+                    f"events {[(e.action, e.devices_after) for e in ctl.events]}, lag "
+                    f"{ {st: run.lag(st) for st in ('recon', 'kmeans')} }, controller error "
+                    f"{ctl._last_error!r}")
+            time.sleep(0.05)
+        wall = time.monotonic() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    if run.errors:
+        raise AssertionError(f"pipeline teardown errors: {run.errors!r}")
+    started = ["service", "arbiter"] + [f"stream:{st.name}" for st in spec.stages] + [
+        "controller:recon", "source:frames", "scenario:frames", "source:points"]
+    if run.teardown_log != started[::-1]:
+        raise AssertionError(f"pipeline teardown order {run.teardown_log}, want {started[::-1]}")
+    free = [v for _, v in run.bus.series("scheduler.free")]
+    if not free or min(free) < 0:
+        raise AssertionError(f"scheduler.free left the pool: {free}")
+    if max(e.devices_after for e in ctl.events) > PIPE_SLOTS:
+        raise AssertionError(f"recon held more slots than the pool: {list(ctl.events)}")
+    for name in ("kmeans_assign", "kmeans_update", "tomo_project", "tomo_backproject"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched in the pipeline phase")
+    km_app, rc_app = run.processor("kmeans"), run.processor("recon")
+    km_state, rc_state = run.stream("kmeans").state, run.stream("recon").state
+    for name, x in (("kmeans app", km_app.device), ("kmeans state", km_state.device),
+                    ("recon app", rc_app.device), ("recon state", rc_state.device)):
+        if x.type != "cuda":
+            raise AssertionError(f"pipeline phase: {name} on {x}, not the card")
+
+    # inertia of the initial and the final centroids on one fresh message
+    # of the cluster stream: the stream's updates must have lowered it
+    pts = torch.from_numpy(run.source("points").make_message(
+        np.random.default_rng(SEED + 1), 0).astype(np.float32)).to(km_state.device)
+    inertia = [float(kmeans.assign(pts, c.contiguous())[1].mean())
+               for c in (km_app.centroids, km_state)]
+    if not inertia[1] < inertia[0]:
+        raise AssertionError(f"pipeline K-Means inertia did not fall: {inertia}")
+    vs_plain = recon_vs_plain(torch, tomo, "mlem", rc_state, run.source("frames")._payload,
+                              rc_state.device)
+
+    stages = {}
+    for st in ("recon", "kmeans"):
+        lat = run.processor(st).stats.latency
+        records = run.stream(st).stats.records
+        stages[st] = {"records": records, "sent": run.source(spec.stage(st).topic).sent_records,
+                      "batches": run.stream(st).stats.batches, "msgs_per_s": records / wall,
+                      "latency_p50_s": lat.p50, "latency_p99_s": lat.p99}
+    out = {"path": "pipeline", "slots": PIPE_SLOTS, "wall_s": wall, "stages": stages,
+           "events": [[round(e.t - t0, 3), e.action, e.devices_after] for e in ctl.events],
+           "scheduler_free_min": min(free), "inertia_first_last": inertia,
+           "recon_vs_plain": vs_plain, "launches": launches,
+           "timeline_t_slots_lag_sent_processed": timeline}
+    print("path " + json.dumps(out))
+    out["cli"] = pipeline_cli(pipeline)
+    print("pipeline_cli " + json.dumps(out["cli"]))
+    return {"report": out, "launches": launches}
+
+
 def main() -> None:
     import torch
 
@@ -833,7 +1076,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch import kernels, miniapps
+    from repro_torch import kernels, miniapps, pipeline
     from repro_torch.core import PilotComputeService
     from repro_torch.kernels import attention, kmeans, tomo
 
@@ -864,6 +1107,18 @@ def main() -> None:
             assign_main = res
         name = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
         print(f"check kmeans_assign {n}x{d}x{k} {name} " + json.dumps(res))
+    # rows too long for one centroid in 48 KB, below wide's K = 16: the
+    # chunked regime (K = 2 timed)
+    for k in (2, 15):
+        res = check_assign(torch, kmeans, 4096, 20_000, k, torch.float32, False, gen, k == 2, floor)
+        print(f"check kmeans_assign 4096x20000x{k} f32 " + json.dumps(res))
+    # the update at the K-Means streams' shape (batches of up to 16 messages
+    # of 5000 points over 10 labels: nearly every launch on the main path)
+    # and at the wide stream's, where the worst cases are checked too
+    update_main = check_update(torch, kmeans, 80_000, 3, 10, gen, False)
+    print("check kmeans_update 80000x3x10 f32 " + json.dumps(update_main))
+    print(f"check kmeans_update 65536x{WIDE_D}x{WIDE_K} f32 "
+          + json.dumps(check_update(torch, kmeans, 65_536, WIDE_D, WIDE_K, gen, True)))
     bp, fp = check_tomo(torch, tomo, gen)
     print("check tomo_backproject 8x360x1448 n=1448 " + json.dumps(bp))
     print("check tomo_project 8x1448x1448 A=360 " + json.dumps(fp))
@@ -900,13 +1155,12 @@ def main() -> None:
     finally:
         svc.cancel()
     rescore(torch, sv)
-    launches = {"kmeans_assign": km["launches"]["kmeans_assign"] + kw["launches"]["kmeans_assign"],
-                "tomo_backproject": rc["launches"]["tomo_backproject"],
-                "tomo_project": rc["launches"]["tomo_project"],
-                "flash_attention": sv["launches"]["flash_attention"],
-                "decode_attention": sv["launches"]["decode_attention"]}
-    print("launches " + json.dumps({"kmeans_path": km["launches"], "kmeans_wide_path": kw["launches"],
-                                    "lightsource_path": rc["launches"], "serve_path": sv["launches"]}))
+    pl = pipeline_path(torch, kernels, pipeline, kmeans, tomo)
+    paths = {"kmeans_path": km["launches"], "kmeans_wide_path": kw["launches"],
+             "lightsource_path": rc["launches"], "serve_path": sv["launches"],
+             "pipeline_path": pl["launches"]}
+    launches = {k.name: sum(p[k.name] for p in paths.values()) for k in kernels.KERNELS}
+    print("launches " + json.dumps(paths))
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -916,6 +1170,8 @@ def main() -> None:
     src = "src/repro_torch/kernels/csrc/"
     rows = [
         ("kmeans_assign", src + "kmeans_assign.cu", "src/repro/kernels/kmeans/kernel.py:45", assign_main),
+        # no TPU kernel: the reference's update is a jnp scatter (update_scatter)
+        ("kmeans_update", src + "kmeans_update.cu", "src/repro/kernels/kmeans/ref.py:38", update_main),
         ("tomo_backproject", src + "tomo.cu", "src/repro/kernels/tomo/kernel.py:86", bp),
         ("tomo_project", src + "tomo.cu", "src/repro/kernels/tomo/kernel.py:107", fp),
         ("flash_attention", src + "flash_attention.cu", "src/repro/kernels/attention/kernel.py:81",

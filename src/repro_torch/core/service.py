@@ -188,7 +188,37 @@ class PilotComputeService:
         #: duck-typed MetricsBus (repro_torch.elastic.metrics); pool gauges
         #: are published on every lease change when set
         self.metrics = metrics
+        #: lazily-created ResourceArbiter (repro_torch.scheduler) — one per
+        #: service, shared by every pipeline/consumer on this pool
+        self.arbiter = None
         self._lock = threading.Lock()
+
+    def get_arbiter(self, bus: Any | None = None, **kw):
+        """The service's single :class:`repro_torch.scheduler.ResourceArbiter`,
+        created on first use. All pipelines sharing this service (and thus
+        its DevicePool) arbitrate through this one instance — that is what
+        makes multi-tenant fairness possible at all.
+
+        The first caller's ``bus`` wins: ``scheduler.*`` telemetry has one
+        home (prefer one shared MetricsBus across runs on a shared
+        service). Later callers passing a *different* bus get a warning so
+        the absence of scheduler gauges on their bus is explicable.
+        """
+        with self._lock:
+            if self.arbiter is None:
+                from repro_torch.scheduler import ResourceArbiter
+
+                self.arbiter = ResourceArbiter(self, bus=bus or self.metrics, **kw)
+            elif bus is not None and bus is not self.arbiter.bus:
+                import warnings
+
+                warnings.warn(
+                    "service already has an arbiter bound to a different "
+                    "MetricsBus; scheduler.* telemetry stays on the first "
+                    "bus — share one bus across runs on a shared service",
+                    stacklevel=2,
+                )
+            return self.arbiter
 
     def pool_stats(self) -> dict:
         return {
@@ -267,4 +297,6 @@ class PilotComputeService:
                 p.cancel()
             except Exception:
                 pass
+        if self.arbiter is not None:
+            self.arbiter.stop()
         self.monitor.stop()

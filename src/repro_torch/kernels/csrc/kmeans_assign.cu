@@ -11,7 +11,7 @@
 // (d^2, index) lexicographically. No padded centroid exists that could win
 // (the TPU's 1e30 padding is not carried over): centroids past K are masked.
 //
-// The caller (kernels/kmeans/ops.py, assign_plan) chooses one of three
+// The caller (kernels/kmeans/ops.py, assign_plan) chooses one of four
 // regimes and passes it with its tile sizes; the entry point checks them.
 //
 // narrow (D <= 16, K*D <= 1024; the stream's 3 x 10): 2KD = 60 FLOP per 20
@@ -59,10 +59,16 @@
 //   * mma.sync, not wgmma/TMA: simpler, and enough to beat cdist + min; the
 //     warpgroup form is a later step (ROADMAP).
 //
-// generic (everything else, e.g. D = 20 000 with K = 2, or 300 x 5): the first port's
-//   kernel, unchanged: one thread per point, the point in registers for
-//   D <= 128, centroids and |c|^2 staged in shared memory in tiles of as many
-//   centroids as 48 KB hold; a centroid that does not fit is refused.
+// generic (everything else, e.g. 300 x 5): the first port's kernel, unchanged:
+//   one thread per point, the point in registers for D <= 128, centroids and
+//   |c|^2 staged in shared memory in tiles of as many centroids as 48 KB hold.
+//
+// chunked (one centroid row does not fit 48 KB: D >= 12 288, e.g. D = 20 000
+//   with K = 2 or 15, which wide does not take below K = 16): 4 points per
+//   warp, the lanes striding over D (coalesced 128-byte runs of a row), tiles
+//   of up to 16 centroids staged in chunks of D as f32; each lane keeps
+//   running |p|^2, |c|^2 and p.c for its dimensions in registers, summed over
+//   the warp by a fixed butterfly. Bound by the bytes of the points.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -94,7 +100,7 @@
 
 namespace {
 
-enum Regime { kGeneric = 0, kNarrow = 1, kWide = 2 };
+enum Regime { kGeneric = 0, kNarrow = 1, kWide = 2, kChunked = 3 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -249,6 +255,127 @@ void launch_for_width(const void* points, const void* centroids, void* labels, v
   } else {
     launch<T, 0>(points, centroids, labels, dist, n, k, d, tile_k, stream);
   }
+}
+
+// ---------------------------------------------------------------------------
+// chunked: rows too long for one centroid to fit 48 KB
+// ---------------------------------------------------------------------------
+
+constexpr int kChunkedWarps = 8;
+constexpr int kChunkedThreads = kChunkedWarps * 32;
+constexpr int kChunkedPPW = 4;                                // points a warp takes
+constexpr int kChunkedPoints = kChunkedWarps * kChunkedPPW;  // points a block takes
+constexpr int kChunkedMaxK = 16;                              // centroids of a tile
+
+// the sum of v over the warp by a fixed butterfly: every lane ends with the
+// same bits (each step adds the same two values, in either order)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+  return v;
+}
+
+// A warp owns kChunkedPPW points; its lanes stride over D, so every point
+// load is a coalesced 32-value run. A tile of up to kChunkedMaxK centroids
+// is staged chunk_d dimensions at a time (tile_k x chunk_d f32 in shared
+// memory); each lane keeps running |p|^2, |c|^2 and p.c over its dimensions
+// in registers, and the warp sums them by a fixed butterfly at the end of
+// the tile. d^2 = |p|^2 - 2 p.c + |c|^2, centroids scanned in ascending
+// order with a strict '<' (first index wins ties; |c|^2 is the same bits
+// for every point).
+template <typename T>
+__global__ void __launch_bounds__(kChunkedThreads)
+assign_chunked(const T* __restrict__ points, const T* __restrict__ centroids,
+               int32_t* __restrict__ labels, float* __restrict__ dist, int n, int k, int d,
+               int tile_k, int chunk_d) {
+  constexpr int P = kChunkedPPW, KT = kChunkedMaxK;
+  extern __shared__ float c_chunk[];  // tile_k x chunk_d
+  const int lane = threadIdx.x % 32;
+  const long long p0 = static_cast<long long>(blockIdx.x) * kChunkedPoints +
+                       (threadIdx.x / 32) * P;
+  float best[P];
+  int best_k[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    best[p] = INFINITY;
+    best_k[p] = 0;
+  }
+  for (int k0 = 0; k0 < k; k0 += tile_k) {
+    const int kt = min(tile_k, k - k0);
+    float p2[P], cross[P][KT], c2[KT];
+#pragma unroll
+    for (int c = 0; c < KT; ++c) {
+      c2[c] = 0.f;
+#pragma unroll
+      for (int p = 0; p < P; ++p) cross[p][c] = 0.f;
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) p2[p] = 0.f;
+    for (int j0 = 0; j0 < d; j0 += chunk_d) {
+      const int jt = min(chunk_d, d - j0);
+      __syncthreads();  // the previous chunk is no longer read
+      for (int c = 0; c < kt; ++c) {
+        const T* src = centroids + static_cast<long long>(k0 + c) * d + j0;
+        for (int j = threadIdx.x; j < jt; j += kChunkedThreads)
+          c_chunk[c * chunk_d + j] = to_f32(src[j]);
+      }
+      __syncthreads();
+#pragma unroll 2
+      for (int j = lane; j < jt; j += 32) {
+        float pv[P];
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          pv[p] = p0 + p < n ? to_f32(points[(p0 + p) * d + j0 + j]) : 0.f;
+#pragma unroll
+        for (int p = 0; p < P; ++p) p2[p] += pv[p] * pv[p];
+#pragma unroll
+        for (int c = 0; c < KT; ++c) {
+          if (c < kt) {
+            const float cv = c_chunk[c * chunk_d + j];
+            c2[c] += cv * cv;
+#pragma unroll
+            for (int p = 0; p < P; ++p) cross[p][c] += pv[p] * cv;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < KT; ++c) c2[c] = warp_sum(c2[c]);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      p2[p] = warp_sum(p2[p]);
+#pragma unroll
+      for (int c = 0; c < KT; ++c) {
+        if (c < kt) {
+          const float d2 = p2[p] - 2.f * warp_sum(cross[p][c]) + c2[c];
+          if (d2 < best[p]) {
+            best[p] = d2;
+            best_k[p] = k0 + c;
+          }
+        }
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (p0 + p < n) {
+        labels[p0 + p] = best_k[p];
+        dist[p0 + p] = best[p];
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_chunked(const void* points, const void* centroids, void* labels, void* dist, int n,
+                   int k, int d, int tile_k, int chunk_d, cudaStream_t stream) {
+  const dim3 grid((n + kChunkedPoints - 1) / kChunkedPoints);
+  const size_t smem = static_cast<size_t>(tile_k) * chunk_d * sizeof(float);
+  assign_chunked<T><<<grid, kChunkedThreads, smem, stream>>>(
+      static_cast<const T*>(points), static_cast<const T*>(centroids),
+      static_cast<int32_t*>(labels), static_cast<float*>(dist), n, k, d, tile_k, chunk_d);
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -792,7 +919,8 @@ int launch_wide(const void* points, const void* centroids, void* labels, void* d
 
 template <typename T>
 int launch_regime(const void* points, const void* centroids, void* labels, void* dist, int n,
-                  int k, int d, int regime, int tile_n, int tile_k, cudaStream_t s) {
+                  int k, int d, int regime, int tile_n, int tile_k, int chunk_d,
+                  cudaStream_t s) {
   switch (regime) {
     case kGeneric:
       if (tile_n != kThreads || tile_k < 1 || tile_k > k ||
@@ -808,6 +936,12 @@ int launch_regime(const void* points, const void* centroids, void* labels, void*
     case kWide:
       if (tile_n != kWideRows || tile_k != kWideCols) return static_cast<int>(cudaErrorInvalidValue);
       return launch_wide<T>(points, centroids, labels, dist, n, k, d, s);
+    case kChunked:
+      if (tile_n != kChunkedPoints || tile_k < 1 || tile_k > k || tile_k > kChunkedMaxK ||
+          chunk_d < 1 || chunk_d > d ||
+          static_cast<long long>(tile_k) * chunk_d * sizeof(float) > kSmemBytes)
+        return static_cast<int>(cudaErrorInvalidValue);
+      return launch_chunked<T>(points, centroids, labels, dist, n, k, d, tile_k, chunk_d, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -819,22 +953,25 @@ extern "C" {
 
 // points (n, d) and centroids (k, d), row-major, f32 (dtype 0) or bf16
 // (dtype 1); labels int32 (n,), dist f32 (n,). `regime` (0 generic, 1
-// narrow, 2 wide) with the points a block takes at a time (`tile_n`) and the
-// centroids it stages at once (`tile_k`), as kernels/kmeans/ops.py
-// assign_plan chooses them; a regime or tile this build does not take is
-// refused. Returns cudaGetLastError() (or the refusal's code).
+// narrow, 2 wide, 3 chunked) with the points a block takes at a time
+// (`tile_n`), the centroids it stages at once (`tile_k`) and, chunked, the
+// dimensions it stages at once (`chunk_d`; the other regimes' builds fix
+// theirs), as kernels/kmeans/ops.py assign_plan chooses them; a regime or
+// tile this build does not take is refused. Returns cudaGetLastError() (or
+// the refusal's code).
 int kmeans_assign(const void* points, const void* centroids, void* labels, void* dist,
                   int n, int k, int d, int dtype, int regime, int tile_n, int tile_k,
-                  void* stream) {
+                  int chunk_d, void* stream) {
   if (n <= 0) return 0;
   if (k < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (dtype == 0) {
-    err = launch_regime<float>(points, centroids, labels, dist, n, k, d, regime, tile_n, tile_k, s);
+    err = launch_regime<float>(points, centroids, labels, dist, n, k, d, regime, tile_n, tile_k,
+                               chunk_d, s);
   } else if (dtype == 1) {
     err = launch_regime<__nv_bfloat16>(points, centroids, labels, dist, n, k, d, regime, tile_n,
-                                       tile_k, s);
+                                       tile_k, chunk_d, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

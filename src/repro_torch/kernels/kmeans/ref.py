@@ -28,15 +28,15 @@ def assign_ref(points: torch.Tensor, centroids: torch.Tensor):
     return labels.to(torch.int32), dist
 
 
-def update_scatter(points: torch.Tensor, labels: torch.Tensor, k: int,
-                   mask: torch.Tensor | None = None):
+def update_scatter_ref(points: torch.Tensor, labels: torch.Tensor, k: int,
+                       mask: torch.Tensor | None = None):
     """Centroid sums + counts by a scatter-add over the labels.
 
     ``mask`` (N,) bool gives rows weight 0. On the CPU ``index_add_`` adds
-    in row order; on CUDA it adds with atomics, so the order of the sums —
-    and their last bits — is not fixed from run to run. The port does not
-    pad batches, so nothing depends on padding rows leaving the sums
-    bit-identical.
+    in row order, as the reference's scatter; on CUDA it adds with atomics,
+    so the order of the sums — and their last bits — is not fixed from run
+    to run: CUDA tensors go to the ``kmeans_update`` kernel instead
+    (``ops.update_scatter``), and this version is only its yardstick there.
     """
     pts = points.to(torch.float32)
     if mask is not None:

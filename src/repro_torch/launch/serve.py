@@ -9,9 +9,9 @@ request batch. On the card (the default):
 
 On the CPU, at the reduced config: add ``--reduced --device cpu``.
 
-Params are random, drawn from ``--seed`` on the serving device. The JAX
-launcher also registers the stream with the scheduler's arbiter; that waits
-for the port's scheduler (ROADMAP A3).
+Params are random, drawn from ``--seed`` on the serving device. The stream
+registers its devices with the service's arbiter as a fixed request, so
+other consumers of the pool see them held.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from repro_torch.core.service import resolve_device
 from repro_torch.elastic.metrics import MetricsBus
 from repro_torch.launch import instrumented
 from repro_torch.miniapps import LMServeApp, SourceConfig, TokenSource
+from repro_torch.scheduler import ResourceRequest
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -54,6 +55,10 @@ def main(argv: list[str] | None = None) -> None:
         cluster.create_topic("requests", 2)
         spark = svc.submit_pilot({"number_of_nodes": 1, "type": "spark"})
         ctx = spark.get_context()
+        held = len(spark.lease.devices)
+        svc.get_arbiter(bus).submit(ResourceRequest(
+            "launch/serve", min_devices=held, max_devices=held, target=held,
+            current_fn=lambda: len(spark.lease.devices)))
 
         app = LMServeApp(cfg, prompt_len=args.prompt_len, gen_tokens=args.gen_tokens,
                          batch=args.batch, mode=args.mode, device=device)

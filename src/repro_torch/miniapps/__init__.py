@@ -11,6 +11,8 @@ from repro_torch.miniapps.mass import (
     KMeansClusterSource,
     KMeansStaticSource,
     LightsourceTemplateSource,
+    RateStep,
+    RateStepScenario,
     SourceConfig,
     StreamSource,
     TokenSource,
@@ -24,6 +26,8 @@ __all__ = [
     "LMServeApp",
     "LightsourceTemplateSource",
     "PROCESSORS",
+    "RateStep",
+    "RateStepScenario",
     "ReconstructionApp",
     "SOURCES",
     "SourceConfig",

@@ -333,9 +333,17 @@ class LMServeApp(_HotPathApp):
         return seq[:, :n_req, 0].T.cpu().numpy()
 
 
+def _reconstruction(algorithm: str):
+    """A ``ReconstructionApp`` factory for one algorithm; it names its
+    ``device`` keyword, so the pipeline runner can place the app."""
+    def factory(*, device: torch.device | str = "cuda", **kw) -> ReconstructionApp:
+        return ReconstructionApp(algorithm, device=device, **kw)
+    return factory
+
+
 PROCESSORS = {
     "kmeans": StreamingKMeans,
-    "gridrec": lambda **kw: ReconstructionApp("gridrec", **kw),
-    "mlem": lambda **kw: ReconstructionApp("mlem", **kw),
+    "gridrec": _reconstruction("gridrec"),
+    "mlem": _reconstruction("mlem"),
     "lm_serve": LMServeApp,
 }

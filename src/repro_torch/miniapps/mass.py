@@ -11,6 +11,7 @@ publish them to the broker.
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any
 
@@ -83,6 +84,27 @@ class StreamSource:
     def stop(self) -> None:
         self._stop.set()
         self.join(1.0)
+
+    @property
+    def finished(self) -> bool:
+        """True once every producer thread has run to completion (only
+        finite sources — ``total_messages`` set — ever finish)."""
+        return bool(self._threads) and all(
+            not t.is_alive() for t in self._threads
+        )
+
+    def set_rate(self, rate_msgs_per_s: float | None) -> None:
+        """Change the aggregate production rate at runtime.
+
+        ``None`` = unthrottled, ``0`` = paused (producer threads idle until
+        the rate is raised again — NOT unthrottled). Producers read their
+        limiter per send, so live threads pick the new rate up on the next
+        message — this is what rate-step elasticity scenarios drive.
+        """
+        self.config.rate_msgs_per_s = rate_msgs_per_s
+        per = rate_msgs_per_s / self.config.n_producers if rate_msgs_per_s else None
+        for p in self.producers:
+            p.rate = per
 
     @property
     def sent_records(self) -> int:
@@ -159,6 +181,67 @@ class TokenSource(StreamSource):
         # zipfian-ish synthetic text: heavy head, long tail
         z = rng.zipf(1.3, size=(self.seqs_per_msg, self.seq_len))
         return np.minimum(z - 1, self.vocab_size - 1).astype(np.int32)
+
+
+@dataclass
+class RateStep:
+    """Hold ``rate_msgs_per_s`` (None = unthrottled, 0 = paused) for
+    ``duration`` seconds."""
+
+    duration: float
+    rate_msgs_per_s: float | None
+
+
+class RateStepScenario:
+    """Drives a source through a rate schedule — the workload generator for
+    dynamic-resourcing experiments (paper Fig. 8: step the producer rate up,
+    watch the autoscaler grow the pilot; step it down, watch it shrink).
+
+    ``steps`` accepts :class:`RateStep` or bare ``(duration, rate)`` tuples.
+    Transitions are recorded as ``(t_monotonic, rate)`` in ``transitions``
+    so tests/benchmarks can line them up against MetricsBus history.
+    """
+
+    def __init__(self, source: StreamSource, steps: list, *, loop: bool = False):
+        self.source = source
+        self.steps = [s if isinstance(s, RateStep) else RateStep(*s) for s in steps]
+        self.loop = loop
+        self.transitions: list[tuple[float, float | None]] = []
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def _run(self) -> None:
+        while True:
+            for step in self.steps:
+                if self._stop.is_set():
+                    return
+                self.source.set_rate(step.rate_msgs_per_s)
+                self.transitions.append((time.monotonic(), step.rate_msgs_per_s))
+                if self._stop.wait(step.duration):
+                    return
+            if not self.loop:
+                return
+
+    def start(self) -> "RateStepScenario":
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def join(self, timeout: float | None = None) -> None:
+        if self._thread is not None:
+            self._thread.join(timeout)
+
+    @property
+    def finished(self) -> bool:
+        return self._thread is not None and not self._thread.is_alive()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.join(1.0)
+
+    @property
+    def total_duration(self) -> float:
+        return sum(s.duration for s in self.steps)
 
 
 SOURCES: dict[str, type[StreamSource]] = {

@@ -7,12 +7,22 @@ from repro_torch.streaming.dispatch import (
     pad_rows,
 )
 from repro_torch.streaming.rate_control import PIDRateController
+from repro_torch.streaming.windows import (
+    SessionWindow,
+    SlidingWindow,
+    TumblingWindow,
+    WatermarkTracker,
+)
 
 __all__ = [
     "AsyncWindow",
     "LatencyWindow",
     "PIDRateController",
+    "SessionWindow",
     "ShapeBuckets",
+    "SlidingWindow",
+    "TumblingWindow",
+    "WatermarkTracker",
     "completion_event",
     "next_pow2",
     "pad_rows",

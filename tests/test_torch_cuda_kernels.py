@@ -108,8 +108,11 @@ def test_kmeans_assign_rejects_what_it_cannot_take(dev):
         K.assign(torch.zeros((3, 4), device=dev).T, c)
     with pytest.raises(ValueError):
         K.assign(p, torch.zeros((2, 4), device=dev))
-    with pytest.raises(RuntimeError, match="CUDA error"):  # 20000 dims: no centroid fits 48 KB
-        K.assign(torch.zeros((4, 20_000), device=dev), torch.zeros((2, 20_000), device=dev))
+    # 20 000 dims: no centroid fits 48 KB, so the chunked regime computes it
+    g = _gen(dev, 12)
+    labels = _check_assign(torch.randn((4, 20_000), generator=g, device=dev),
+                           torch.randn((2, 20_000), generator=g, device=dev))
+    assert labels.shape == (4,)
 
 
 # (n, d, k): each regime at its thresholds and tails
@@ -121,7 +124,10 @@ REGIME_CASES = {
              (1000, 100, 130), (700, 33, 64), (700, 129, 257), (300, 520, 64), (1000, 8, 256),
              (1000, 128, 16)],
     "generic": [(300, 300, 5), (1000, 17, 33), (1000, 31, 64), (1000, 32, 63), (500, 16, 65),
-                (1000, 8, 255), (1000, 7, 512), (1000, 128, 15), (1000, 4, 1024)],
+                (1000, 8, 255), (1000, 7, 512), (1000, 128, 15), (1000, 4, 1024),
+                (97, 12_287, 2)],
+    "chunked": [(4096, 20_000, 2), (4096, 20_000, 15), (33, 12_288, 1), (31, 12_289, 3),
+                (100, 30_001, 7)],
 }
 
 
@@ -135,7 +141,10 @@ def test_kmeans_assign_regimes_at_their_edges(dev, regime, n, d, k, dtype):
     bytes (36 and 33: plain loads instead of cp.async for some dtypes); K
     not a multiple of the 128-centroid tile; D = 8, K = 16 and K*D = 2048
     at the wide thresholds and just below them, K*D = 1024 at the narrow
-    limit."""
+    limit; one centroid row of 48 KB, the generic limit, and past it the
+    chunked regime (D = 20 000 with K = 2 and 15; N not a multiple of a
+    block's 32 points; D not a multiple of a chunk or of a warp's 32
+    lanes)."""
     assert K.assign_plan(d, k, dtype).regime == regime
     g = _gen(dev, n * 7 + d * 3 + k)
     _check_assign(torch.randn((n, d), generator=g, device=dev).to(dtype),
@@ -216,7 +225,10 @@ def test_kmeans_assign_every_regime_agrees(dev, dtype, n, d, k):
                           k, d, K_ops.NARROW_POINTS_PER_THREAD, K_ops.NARROW_K_SPLIT),
              K.AssignPlan("wide", K_ops.WIDE_THREADS, K_ops.WIDE_POINTS, K_ops.WIDE_CENTROIDS,
                           K_ops.WIDE_CHUNK_BYTES // p.element_size()),
-             K.AssignPlan("generic", K_ops.GENERIC_THREADS, K_ops.GENERIC_THREADS, min(k, 100), d)]
+             K.AssignPlan("generic", K_ops.GENERIC_THREADS, K_ops.GENERIC_THREADS, min(k, 100), d),
+             # chunked, forced: tiles of 16 centroids over K, three chunks over D
+             K.AssignPlan("chunked", K_ops.CHUNKED_THREADS, K_ops.CHUNKED_POINTS,
+                          min(k, K_ops.CHUNKED_MAX_K), max(1, d // 2 - 1))]
     for plan in plans:
         _check_assign(p, c, plan)
 
@@ -230,7 +242,9 @@ def test_kmeans_assign_refuses_a_plan_its_build_does_not_take(dev):
     for bad in (K.AssignPlan("wide", 256, 64, 128, 32),
                 K.AssignPlan("narrow", 128, good.tile_n, 3, 3, 4, good.k_split),
                 K.AssignPlan("narrow", 128, good.tile_n // 2, 2, 3, 4, good.k_split),
-                K.AssignPlan("generic", 256, 256, 3, 3)):
+                K.AssignPlan("generic", 256, 256, 3, 3),
+                K.AssignPlan("chunked", 256, 32, 2, 4),       # a chunk wider than D
+                K.AssignPlan("chunked", 256, 64, 2, 2)):
         with pytest.raises(RuntimeError, match="CUDA error"):
             K.assign_cuda(p, c, bad)
     wide_d = torch.zeros((4, 1100), device=dev), torch.zeros((2, 1100), device=dev)
@@ -239,6 +253,112 @@ def test_kmeans_assign_refuses_a_plan_its_build_does_not_take(dev):
     assert K.KMEANS_ASSIGN.launches == before
     K.assign_cuda(p, c)
     assert K.KMEANS_ASSIGN.launches == before + 1
+
+
+def _update_checked(p, labels, k, mask=None):
+    """``kmeans_update`` against a float64 sum: each entry within 2^-20 of
+    the sum of |x| over its rows, the counts exact; three calls bitwise
+    equal."""
+    sums, counts = K.update_cuda(p, labels, k, mask)
+    again = [K.update_cuda(p, labels, k, mask) for _ in range(2)]
+    w = torch.ones(p.shape[0], dtype=torch.float64, device=p.device) if mask is None \
+        else mask.double()
+    idx = torch.where(w > 0, labels.long(), 0)
+    x = p.double() * w[:, None]
+    ref = torch.zeros((k, p.shape[1]), dtype=torch.float64, device=p.device).index_add_(0, idx, x)
+    mag = torch.zeros_like(ref).index_add_(0, idx, x.abs())
+    ref_counts = torch.zeros(k, dtype=torch.float64, device=p.device).index_add_(0, idx, w)
+    torch.cuda.synchronize()
+    assert all(torch.equal(sums, a) and torch.equal(counts, b) for a, b in again)
+    assert bool(((sums.double() - ref).abs() <= 2.0 ** -20 * mag).all())
+    assert torch.equal(counts.double(), ref_counts)
+    return sums, counts
+
+
+@pytest.mark.parametrize("n,d,k", [(65_536, 128, 1024), (80_000, 3, 10), (1, 1, 1), (1000, 33, 7),
+                                   (777, 20_000, 2), (5000, 64, 3000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kmeans_update_is_fixed_order_and_close_to_f64(dev, n, d, k, dtype):
+    """The wide and narrow streams' shapes, D not a power of two, D = 20 000,
+    and more labels than rows (empty runs write zeros)."""
+    g = _gen(dev, n + d + k)
+    p = (torch.randn((n, d), generator=g, device=dev) * 10 + 3).to(dtype)
+    labels = torch.randint(0, k, (n,), generator=g, device=dev, dtype=torch.int32)
+    before = K.KMEANS_UPDATE.launches
+    _update_checked(p, labels, k)
+    assert K.KMEANS_UPDATE.launches == before + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kmeans_update_all_rows_on_one_label(dev, dtype):
+    """The worst case for one block: 65 536 rows of 128 on one of 1024
+    labels, every value positive (the sums grow without cancelling)."""
+    g = _gen(dev, 21)
+    p = (torch.rand((65_536, 128), generator=g, device=dev) * 20 + 1).to(dtype)
+    labels = torch.full((65_536,), 517, dtype=torch.int32, device=dev)
+    sums, counts = _update_checked(p, labels, 1024)
+    assert float(counts[517]) == 65_536 and float(counts.sum()) == 65_536
+
+
+@pytest.mark.parametrize("n,d,k,labelling", [
+    (80_000, 3, 10, "one"), (80_000, 3, 10, "skewed"), (512, 3, 2, "one"), (513, 3, 2, "one"),
+    (1024, 3, 2, "halves"), (100_000, 1, 3, "skewed"), (65_536, 128, 1024, "skewed"),
+    (3000, 40, 5, "sorted")])
+def test_kmeans_update_runs_across_segments(dev, n, d, k, labelling):
+    """Runs that cross the kernel's row segments: every row on one label,
+    nine in ten rows on one label, runs ending exactly on a segment's edge
+    (512 sorted rows per segment at D = 3) or one row past it, D = 1 (the
+    tallest tree), and labels already in order."""
+    g = _gen(dev, n + d + k + 1)
+    p = torch.randn((n, d), generator=g, device=dev) * 10 + 3
+    if labelling == "one":
+        labels = torch.full((n,), k - 1, dtype=torch.int32, device=dev)
+    elif labelling == "skewed":
+        labels = torch.randint(0, k, (n,), generator=g, device=dev, dtype=torch.int32)
+        labels[torch.rand(n, generator=g, device=dev) < 0.9] = k // 2
+    elif labelling == "halves":
+        labels = (torch.arange(n, device=dev) >= n // 2).to(torch.int32)
+    else:
+        labels = torch.sort(torch.randint(0, k, (n,), generator=g, device=dev,
+                                          dtype=torch.int32)).values
+    _update_checked(p, labels, k)
+    mask = torch.rand(n, generator=g, device=dev) < 0.5
+    _update_checked(p, labels, k, mask)
+
+
+def test_kmeans_update_masked_rows_weigh_nothing(dev):
+    """``mask=``: rows weighted 0 (their labels set to 0 first, as the
+    reference does); the counts are the masked sums of ones."""
+    g = _gen(dev, 22)
+    p = torch.randn((65_536, 128), generator=g, device=dev)
+    labels = torch.randint(0, 1024, (65_536,), generator=g, device=dev, dtype=torch.int32)
+    mask = torch.rand(65_536, generator=g, device=dev) < 0.7
+    _update_checked(p, labels, 1024, mask)
+    _update_checked(p, labels, 1024, torch.arange(65_536, device=dev) < 40_000)
+    one = torch.zeros_like(labels)
+    _update_checked(p, one, 1024, mask)
+
+
+def test_kmeans_update_wrapper_routes_and_refuses(dev):
+    """``update_scatter`` launches the kernel for CUDA tensors; the plain
+    version (``index_add_``) agrees within the f64 rule; what the kernel does
+    not take is refused before it runs."""
+    g = _gen(dev, 23)
+    p = torch.randn((4096, 16), generator=g, device=dev)
+    labels = torch.randint(0, 50, (4096,), generator=g, device=dev, dtype=torch.int32)
+    before = K.KMEANS_UPDATE.launches
+    sums, counts = K.update_scatter(p, labels, 50)
+    assert K.KMEANS_UPDATE.launches == before + 1
+    ref_sums, ref_counts = K.update_scatter_ref(p, labels, 50)
+    torch.testing.assert_close(sums, ref_sums, rtol=1e-5, atol=1e-4)
+    assert torch.equal(counts, ref_counts)
+    with pytest.raises(TypeError):
+        K.update_cuda(p.double(), labels, 50)
+    with pytest.raises(ValueError):
+        K.update_cuda(p.T, labels[:16], 50)
+    with pytest.raises(ValueError):
+        K.update_cuda(p, labels.cpu(), 50)
+    assert K.KMEANS_UPDATE.launches == before + 1
 
 
 def _angles(kind, a, dev):
@@ -356,8 +476,9 @@ def test_projectors_reject_what_they_cannot_take(dev):
 
 def test_apps_on_the_card_match_the_cpu(dev):
     """The apps' whole batch on CUDA against the same batch on the CPU:
-    1e-4 for the centroids (CUDA's index_add_ sums with atomics, in another
-    order), 1e-3 of the peak for ML-EM."""
+    1e-4 for the centroids (``kmeans_update`` sums each label's rows in
+    another order than the CPU's one pass in row order), 1e-3 of the peak
+    for ML-EM."""
     rng = np.random.default_rng(0)
     msgs = [type("Msg", (), {"value": rng.normal(size=(5000, 3)) + 5 * i})() for i in range(3)]
     on_card = StreamingKMeans(10, 3, seed=1, device=dev)

@@ -63,8 +63,8 @@ def test_wrappers_have_no_fallback_paths():
 
 
 def test_every_kernel_has_a_source_and_entry_point():
-    assert [k.name for k in KERNELS] == ["kmeans_assign", "tomo_backproject", "tomo_project",
-                                         "flash_attention", "decode_attention"]
+    assert [k.name for k in KERNELS] == ["kmeans_assign", "kmeans_update", "tomo_backproject",
+                                         "tomo_project", "flash_attention", "decode_attention"]
     for k in KERNELS:
         src = k.source.read_text()
         assert k.source.parent == _build.CSRC
@@ -137,6 +137,8 @@ def test_cuda_tensor_goes_to_the_kernel_not_the_plain_version(monkeypatch):
     calls = []
     monkeypatch.setattr(kmeans_ops, "assign_ref", plain)
     monkeypatch.setattr(kmeans_ops, "assign_cuda", lambda *a: calls.append("assign") or "k")
+    monkeypatch.setattr(kmeans_ops, "update_scatter_ref", plain)
+    monkeypatch.setattr(kmeans_ops, "update_cuda", lambda *a: calls.append("update") or "k")
     monkeypatch.setattr(tomo_ops, "trig", lambda angles: (angles, angles))
     monkeypatch.setattr(tomo_ops, "backproject_plain", plain)
     monkeypatch.setattr(tomo_ops, "project_plain", plain)
@@ -148,17 +150,20 @@ def test_cuda_tensor_goes_to_the_kernel_not_the_plain_version(monkeypatch):
     monkeypatch.setattr(attn_ops, "decode_attention_cuda", lambda *a: calls.append("da") or "k")
     x = _FakeCuda()
     assert kmeans_ops.assign(x, x) == "k"
+    assert kmeans_ops.update_scatter(x, x, 3) == "k"
     assert tomo_ops.backproject_batch(x, x, 8) == "k"
     assert tomo_ops.project_batch(x, x, 8) == "k"
     assert attn_ops.flash_attention(x, x, x) == "k"
     assert attn_ops.decode_attention(x, x, x, x) == "k"
-    assert calls == ["assign", "bp", "fp", "fa", "da"]
+    assert calls == ["assign", "update", "bp", "fp", "fa", "da"]
 
 
 def test_kernel_launchers_refuse_non_cuda_tensors():
     pts, cen = torch.zeros(4, 3), torch.zeros(2, 3)
     with pytest.raises(ValueError, match="CUDA"):
         kmeans_ops.assign_cuda(pts, cen)
+    with pytest.raises(ValueError, match="CUDA"):
+        kmeans_ops.update_cuda(pts, torch.zeros(4, dtype=torch.int32), 2)
     cos_t = sin_t = torch.zeros(4)
     with pytest.raises(ValueError, match="CUDA"):
         tomo_ops.backproject_cuda(torch.zeros(1, 4, 6), cos_t, sin_t, 5)

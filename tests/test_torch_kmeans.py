@@ -11,6 +11,7 @@ from repro.kernels.kmeans import assign as jax_assign
 from repro.kernels.kmeans import assign_ref as jax_assign_ref
 from repro.kernels.kmeans import minibatch_update as jax_minibatch_update
 from repro.kernels.kmeans import minibatch_update_masked as jax_minibatch_update_masked
+from repro.kernels.kmeans.ref import update_scatter as jax_update_scatter
 from repro_torch.kernels import kmeans as K
 from repro_torch.kernels.kmeans import ops as K_ops
 
@@ -101,6 +102,100 @@ def test_update_scatter_counts_and_sums():
     np.testing.assert_array_equal(counts.numpy(), onehot.sum(0))
 
 
+def _kahan_rows(x: np.ndarray, rows: int) -> np.ndarray:
+    """``kmeans_update``'s sums of the rows of ``x`` (m, w) in f32: thread
+    row r takes rows r, r + R, ... with Kahan addition, then a halving tree
+    over the R thread rows."""
+    m, w = x.shape
+    x = np.concatenate([x, np.zeros((-m % rows, w), np.float32)]).reshape(-1, rows, w)
+    acc, comp = np.zeros((rows, w), np.float32), np.zeros((rows, w), np.float32)
+    for step in x:
+        y = step - comp
+        t = acc + y
+        comp = (t - acc) - y
+        acc = t
+    s = rows // 2
+    while s > 0:
+        acc[:s] += acc[s:2 * s]
+        s //= 2
+    return acc[0]
+
+
+def _segmented_update(points: np.ndarray, labels: np.ndarray, k: int, mask=None):
+    """``kmeans_update.cu``'s decomposition on the CPU: run starts over the
+    stable-sorted labels, segments of ``update_segment_rows(D)`` sorted rows
+    whose pieces are written whole or kept as a head or tail partial, and
+    each crossing run merged in segment order."""
+    n, d = points.shape
+    w = np.ones(n, np.float32) if mask is None else mask.astype(np.float32)
+    if mask is not None:
+        labels = np.where(mask, labels, 0)
+    order = np.argsort(labels, kind="stable")
+    sorted_labels = labels[order]
+    x = np.concatenate([points[order] * w[order, None], w[order, None]], axis=1)  # count last
+    cols = 1
+    while cols < d and cols < 32:
+        cols *= 2
+    rows, seg = 256 // cols, K_ops.update_segment_rows(d)
+    starts = np.searchsorted(sorted_labels, np.arange(k + 1), side="left")
+    sums, part = np.full((k, d + 1), np.nan, np.float32), {}
+    for s0 in range(0, n, seg):
+        s1, start = min(s0 + seg, n), s0
+        while start < s1:
+            lab = sorted_labels[start]
+            lo, hi = starts[lab], starts[lab + 1]
+            end = min(hi, s1)
+            piece = _kahan_rows(x[start:end], rows)
+            if lo >= s0 and hi <= s1:
+                sums[lab] = piece
+            else:
+                part[(s0 // seg, "head" if lo < s0 else "tail")] = piece
+            start = end
+    for lab in range(k):
+        lo, hi = starts[lab], starts[lab + 1]
+        if hi == lo:
+            sums[lab] = 0
+        elif lo // seg != (hi - 1) // seg:
+            first, last = lo // seg, (hi - 1) // seg
+            heads = np.stack([part[(s, "head")] for s in range(first + 1, last + 1)])
+            sums[lab] = part[(first, "tail")] + _kahan_rows(heads, rows)
+    counts = sums[:, d] if mask is not None else (starts[1:] - starts[:-1]).astype(np.float32)
+    return sums[:, :d], counts
+
+
+@pytest.mark.parametrize("n,d,k,labelling", [
+    (5000, 3, 10, "clustered"),     # the K-Means stream's shape, cut down
+    (3000, 128, 64, "one"),         # every row on one label: one run over every segment
+    (200, 33, 300, "uniform"),      # more labels than rows: empty runs
+    (2049, 1, 4, "uniform"),        # D = 1: the tallest tree
+    (4096, 16, 50, "masked"),       # weights: the counts summed like a column
+])
+def test_update_segments_cover_each_row_once(n, d, k, labelling):
+    """The fixed-order update's decomposition, emulated in f32: each entry
+    within 2^-20 of the sum of |x| over its rows against a float64 sum (the
+    chip check's rule) and the JAX package's scatter, the counts exact."""
+    rng = np.random.default_rng(n + d + k)
+    pts = (rng.normal(size=(n, d)) * 10 + 3).astype(np.float32)
+    labels = {"clustered": rng.integers(0, k, n), "one": np.full(n, k // 3),
+              "uniform": rng.integers(0, k, n), "masked": rng.integers(0, k, n)}[labelling]
+    mask = rng.random(n) < 0.7 if labelling == "masked" else None
+    sums, counts = _segmented_update(pts, labels, k, mask)
+    w = np.ones(n) if mask is None else mask.astype(np.float64)
+    idx = np.where(w > 0, labels, 0)
+    ref, mag, ref_counts = np.zeros((k, d)), np.zeros((k, d)), np.zeros(k)
+    np.add.at(ref, idx, pts * w[:, None])
+    np.add.at(mag, idx, np.abs(pts) * w[:, None])
+    np.add.at(ref_counts, idx, w)
+    assert np.all(np.abs(sums - ref) <= 2.0 ** -20 * mag)
+    np.testing.assert_array_equal(counts, ref_counts)
+    jax_sums, jax_counts = jax_update_scatter(jnp.asarray(pts), jnp.asarray(labels), k,
+                                              None if mask is None else jnp.asarray(mask))
+    # the reference adds in row order: m - 1 roundings for a label of m rows
+    jax_tol = (2.0 ** -20 + ref_counts[:, None] * 2.0 ** -24) * mag
+    assert np.all(np.abs(sums - np.asarray(jax_sums)) <= jax_tol)
+    np.testing.assert_array_equal(counts, np.asarray(jax_counts))
+
+
 def test_minibatch_update_converges():
     """The convergence test of the JAX package (tests/test_kernels.py),
     through the port: inertia halves and ends near the true variance."""
@@ -150,7 +245,11 @@ def test_assign_rejects_mixed_devices_and_other_devices():
     (3, 10, torch.bfloat16, "narrow"),
     (128, 1024, torch.float32, "wide"),      # the wide check and stream
     (128, 1024, torch.bfloat16, "wide"),
-    (20_000, 2, torch.float32, "generic"),   # no centroid fits: the kernel refuses it
+    (20_000, 2, torch.float32, "chunked"),   # no centroid fits 48 KB: staged in chunks of D
+    (20_000, 15, torch.bfloat16, "chunked"),
+    (12_287, 2, torch.float32, "generic"),   # one centroid row of 48 KB, the generic limit
+    (12_288, 2, torch.float32, "chunked"),
+    (20_000, 16, torch.float32, "wide"),     # K = 16: wide chunks D itself
     (300, 5, torch.float32, "generic"),
     (16, 64, torch.float32, "narrow"),       # K*D = 1024, the narrow limit
     (16, 65, torch.float32, "generic"),
@@ -169,14 +268,17 @@ def test_assign_plan_regimes(d, k, dtype, regime):
 
 
 @pytest.mark.parametrize("d,k", [(3, 10), (16, 64), (1, 1024), (128, 1024), (33, 100), (300, 5),
-                                 (20_000, 2), (64, 2000)])
+                                 (20_000, 2), (20_000, 15), (12_288, 1), (64, 2000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_assign_plan_tiles_divide(d, k, dtype):
     """The tile sizes the entry point checks: a narrow block is whole warps
     of lanes in groups (within a warp) that take 4 points each (16 bytes of
     labels, of distances), and stages all K*D centroid words; a wide block is 2 x 4 warps of 64 x 32
     outputs, each chunk 128 bytes of a row, whole k-steps of the mma (8 f32
-    or 16 bf16 dimensions); a generic tile fits 48 KB or is 0 (refused)."""
+    or 16 bf16 dimensions); a generic tile of whole centroid rows fits 48 KB;
+    a chunked block is 8 warps of 4 points, its tile at most 16 centroids
+    whose chunks of whole warps of dimensions fit 48 KB. No tile is empty:
+    every (D, K) has a regime that computes it."""
     plan = K.assign_plan(d, k, dtype)
     assert plan.threads % 32 == 0
     if plan.regime == "narrow":
@@ -188,11 +290,68 @@ def test_assign_plan_tiles_divide(d, k, dtype):
         assert plan.threads == 8 * 32
         assert plan.tile_n % (2 * 64) == 0 and plan.tile_k % (4 * 32) == 0
         assert plan.chunk_d * elem == 128 and plan.chunk_d % (32 // elem) == 0
+    elif plan.regime == "chunked":
+        assert (d + 1) * 4 > K_ops.GENERIC_SMEM_BYTES
+        assert plan.threads == 8 * 32 and plan.tile_n == 8 * 4
+        assert 1 <= plan.tile_k <= min(k, K_ops.CHUNKED_MAX_K)
+        assert plan.chunk_d % 32 == 0 and 1 <= plan.chunk_d <= d
+        assert plan.tile_k * plan.chunk_d * 4 <= K_ops.GENERIC_SMEM_BYTES
     else:
-        assert plan.tile_n == plan.threads
-        fits = (d + 1) * 4 <= K_ops.GENERIC_SMEM_BYTES
-        assert (1 <= plan.tile_k <= k) if fits else plan.tile_k == 0
+        assert plan.tile_n == plan.threads and plan.chunk_d == d
+        assert 1 <= plan.tile_k <= k
         assert plan.tile_k * (d + 1) * 4 <= K_ops.GENERIC_SMEM_BYTES
+
+
+def _butterfly(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last dimension (32 lanes) as a warp's xor butterfly
+    adds it: 16, 8, 4, 2, 1 lanes apart."""
+    lanes = torch.arange(32)
+    for s in (16, 8, 4, 2, 1):
+        x = x + x[..., lanes ^ s]
+    return x[..., 0]
+
+
+def _chunked_assign(points, centroids):
+    """The chunked regime's arithmetic: lane l of a warp sums dimensions l,
+    l + 32, l + 64, ... of |p|^2, |c|^2 and p.c in f32; the warp adds the 32
+    partials by a butterfly; d^2 = |p|^2 - 2 p.c + |c|^2, the first index
+    winning ties."""
+    pad = (-points.shape[1]) % 32
+    p = torch.nn.functional.pad(points, (0, pad)).view(points.shape[0], -1, 32)
+    c = torch.nn.functional.pad(centroids, (0, pad)).view(centroids.shape[0], -1, 32)
+    p2 = _butterfly((p * p).sum(1))
+    c2 = _butterfly((c * c).sum(1))
+    cross = _butterfly(torch.einsum("nml,kml->nkl", p, c))
+    d2 = p2[:, None] - 2.0 * cross + c2[None, :]
+    dist = d2.min(1).values
+    idx = torch.arange(d2.shape[1]).expand_as(d2)
+    return torch.where(d2 == dist[:, None], idx, d2.shape[1]).min(1).values.to(torch.int32), dist
+
+
+@pytest.mark.parametrize("k", [2, 15])
+@pytest.mark.parametrize("clustered", [False, True])
+def test_chunked_arithmetic_holds_the_check(k, clustered):
+    """The chunked regime's sums, emulated at D = 20 000 (its chip check's
+    width), against the port's and the JAX package's plain versions on the
+    same numpy inputs: within the chip check's tolerance and its clear-gap
+    label rule."""
+    rng = np.random.default_rng(k + 10 * clustered)
+    n, d = 48, 20_000
+    if clustered:
+        centres = rng.uniform(-10, 10, (k, d))
+        pts = centres[rng.integers(0, k, n)] + rng.normal(0, 0.5, (n, d))
+        cen = centres + rng.normal(0, 0.1, (k, d))
+    else:
+        pts, cen = rng.normal(size=(n, d)), rng.normal(size=(k, d))
+    pts, cen = pts.astype(np.float32), cen.astype(np.float32)
+    p, c = torch.from_numpy(pts), torch.from_numpy(cen)
+    assert K.assign_plan(d, k, torch.float32).regime == "chunked"
+    labels, dist = _chunked_assign(p, c)
+    for ref_labels, ref_dist in (K.assign_ref(p, c),
+                                 tuple(torch.from_numpy(np.array(x))
+                                       for x in jax_assign_ref(jnp.asarray(pts), jnp.asarray(cen)))):
+        worst, bad = _worst_over_tol(p, c, labels, dist, ref_labels, ref_dist)
+        assert worst < 0.05 and bad == 0, (worst, bad)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:

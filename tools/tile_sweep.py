@@ -82,14 +82,15 @@ ASSIGN_VARIANTS = (("chosen", (), 256), ("narrow ksplit=1", ("-DKM_NARROW_KSPLIT
                    ("wide chunk=256", ("-DKM_WIDE_CHUNK=256",), 256),
                    ("wide 2 blocks/SM", ("-DKM_WIDE_MIN_BLOCKS=2", "-DKM_WIDE_STAGES=2"), 256))
 # (N, D, K) around the regime thresholds (narrow D <= 16 and K*D <= 1024;
-# wide D >= 32 and K >= 64), and the two checks' shapes
+# wide D >= 32 and K >= 64), the two checks' shapes, and the chunked
+# checks' (D = 20 000, below wide's K = 16)
 ASSIGN_THRESHOLD_SHAPES = ((80_000, 3, 10), (80_000, 16, 16), (80_000, 8, 128), (80_000, 16, 64),
                            (80_000, 4, 256), (65_536, 4, 1024), (65_536, 8, 256),
                            (65_536, 16, 128), (65_536, 16, 256), (65_536, 24, 64),
                            (65_536, 24, 128), (65_536, 32, 32), (65_536, 32, 64),
                            (65_536, 64, 32), (65_536, 64, 64), (65_536, 128, 16),
                            (65_536, 128, 32), (65_536, 128, 64), (65_536, 32, 1024),
-                           (65_536, 128, 1024))
+                           (65_536, 128, 1024), (4096, 20_000, 2), (4096, 20_000, 15))
 ASSIGN_TILE_SHAPES = ((80_000, 3, 10, "f32", True), (65_536, 128, 1024, "f32", False),
                       (65_536, 128, 1024, "bf16", False))
 # kmeans_assign(points, centroids, labels, dist, n, k, d, dtype, stream) before the regimes
@@ -273,6 +274,11 @@ def _assign_plans(k_ops, d: int, k: int, dtype, narrow_points: int = ASSIGN_VARI
     if tile_k >= 1:
         plans["generic"] = k_ops.AssignPlan("generic", k_ops.GENERIC_THREADS,
                                             k_ops.GENERIC_THREADS, tile_k, d)
+    else:  # no centroid row fits 48 KB: the chunked regime, wide beside it
+        import torch
+
+        plans["chunked"] = k_ops.assign_plan(d, k, torch.float32 if dtype == "f32"
+                                             else torch.bfloat16)
     return plans
 
 
