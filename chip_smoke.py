@@ -42,7 +42,10 @@
    KV, 32 greedy tokens per request; every kernel's launch count is set to
    0 just before a path and read just after it;
 5. re-scores every served sequence with the model's prefill and holds each
-   generated token against that forward's argmax;
+   generated token against that forward's argmax, then saves the served
+   model's parameters (f32, and cast to bf16) with the port's
+   ``CheckpointManager`` and restores them onto the card, bitwise, printing
+   the write and read seconds;
 6. runs the pipeline phase: a ``PipelineSpec`` built by the port's ``Pipeline``
    (one kafka node; light-source frames at a stepped rate into an elastic
    ML-EM stage, the cluster stream into a K-Means stage) through
@@ -52,9 +55,20 @@
    kernel of the stages launched, the apps on the card, K-Means inertia
    falling, the last reconstruction against the plain version, reverse-order
    teardown, and the CLI (``python -m repro_torch.pipeline validate``, in a
-   fresh interpreter) accepting the spec and refusing a continuous stage
-   with its ROADMAP A2 message; prints one ``path pipeline`` line;
-7. prints one JSON line ``{"kernels": [...]}`` and, last, one JSON line
+   fresh interpreter) accepting the spec and a continuous variant and
+   refusing the variant on worker processes with its ROADMAP A2 message;
+   prints one ``path pipeline`` line;
+7. runs the continuous phase: a ``PipelineSpec`` with one continuous stage
+   (tumbling event-time windows over a keyed stream of K-Means messages,
+   crash checkpoints) three times on two slots of the card — fault-free;
+   with its pilot killed by a ``FaultInjector`` and recovered by the
+   runner's ``StageReconciler``; grown to two slots and back by an
+   extension pilot — and holds the second and third runs to the first
+   bitwise on every (key, window), with no firing lost, duplicated or
+   late, at least one recovery, partitions moved between the slots, both
+   K-Means kernels launched per firing, and sampled firings against the
+   plain versions on the CPU; prints one ``path continuous`` line;
+8. prints one JSON line ``{"kernels": [...]}`` and, last, one JSON line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without printing the
@@ -121,6 +135,25 @@ PIPE_FRAME_SCHEDULE = ((2.0, 10), (2.5, 250), (4.0, 20))
 PIPE_FRAMES = int(sum(t * r for t, r in PIPE_FRAME_SCHEDULE))  # 725
 PIPE_POINTS_RATE, PIPE_POINTS = 200, 2000
 PIPE_TIMEOUT_S = 45  # the phase fails if it is not done by then (it takes 10-14 s)
+
+# the continuous phase (a PipelineSpec with one continuous stage, run three
+# times): the K-Means stream's messages of 5000 x 3 f64 points, pure
+# functions of the message index i (points from a generator seeded with
+# (SEED, i), event time CONT_BASE_TS + CONT_DT * i, key i mod CONT_KEYS),
+# one producer at CONT_RATE msgs/s into one topic partition, tumbling
+# CONT_WINDOW s event-time windows (about 25 messages, 125 000 points, per
+# key and window), a crash checkpoint every CONT_CKPT records. Each firing
+# runs kmeans_assign against CONT_K centroids per key (fixed from SEED) and
+# kmeans_update on the card. Run 2 kills the stage's pilot at CONT_KILL_AT
+# records (recovered by the runner's StageReconciler); run 3 grows the
+# stage from one slot of the card to two at CONT_GROW_AT records and back
+# at CONT_SHRINK_AT
+CONT_MSGS, CONT_RATE, CONT_KEYS, CONT_POINTS, CONT_K = 3000, 500, 4, 5000, 10
+CONT_BASE_TS, CONT_DT, CONT_WINDOW, CONT_CKPT = 1000.0, 0.01, 1.0, 500
+CONT_KILL_AT, CONT_GROW_AT, CONT_SHRINK_AT = 1200, 1000, 2000
+# every window but the last closes: 29 x 4 = 116 firings
+CONT_FIRINGS = (round(CONT_MSGS * CONT_DT / CONT_WINDOW) - 1) * CONT_KEYS
+CONT_TIMEOUT_S = 60  # per run; a run takes 6-7 s, the kill run 2 s more
 
 # the serving stream: messages of SERVE_BATCH prompts, one message per
 # micro-batch, as launch/serve.py runs it; smollm-135m's attention is
@@ -946,20 +979,26 @@ def pipeline_spec(pipeline):
 
 
 def pipeline_cli(pipeline) -> dict:
-    """``python -m repro_torch.pipeline validate`` in a fresh interpreter:
-    0 on the phase's spec written as JSON, 1 with the ROADMAP A2 refusal on
-    the same spec with a continuous K-Means stage (built as data:
-    ``Pipeline.build`` refuses it)."""
+    """``python -m repro_torch.pipeline validate`` in a fresh interpreter
+    on the phase's spec written as JSON and on two variants whose K-Means
+    stage is a continuous stage with crash checkpoints: 0 for the spec and
+    the variant, 1 with the ROADMAP A2 refusal for the variant on worker
+    processes (``executor="mp"``, built as data: ``Pipeline.build``
+    refuses it)."""
     import dataclasses
 
     spec = pipeline_spec(pipeline)
-    bad = dataclasses.replace(spec, stages=tuple(
-        dataclasses.replace(st, engine="continuous") if st.name == "kmeans" else st
-        for st in spec.stages))
+
+    def continuous(**kw):
+        return dataclasses.replace(spec, stages=tuple(
+            dataclasses.replace(st, engine="continuous", checkpoint_every=CONT_CKPT,
+                                window={"window": "tumbling", "size": CONT_WINDOW}, **kw)
+            if st.name == "kmeans" else st for st in spec.stages))
     out_dir = ROOT / "build" / "pipeline_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     res = {}
-    for name, sp, want in (("valid", spec, 0), ("continuous", bad, 1)):
+    for name, sp, want in (("valid", spec, 0), ("continuous", continuous(), 0),
+                           ("mp", continuous(executor="mp"), 1)):
         path = out_dir / f"{name}.json"
         path.write_text(sp.to_json(indent=1))
         proc = subprocess.run([sys.executable, "-m", "repro_torch.pipeline", "validate", str(path)],
@@ -968,8 +1007,8 @@ def pipeline_cli(pipeline) -> dict:
         if proc.returncode != want:
             raise AssertionError(f"pipeline CLI validate {name}: exit {proc.returncode}, want "
                                  f"{want}\n{proc.stdout}{proc.stderr}")
-        if want == 1 and "engine='continuous' waits for the port's continuous engine " \
-                         "(ROADMAP A2)" not in proc.stderr:
+        if want == 1 and "executor='mp' waits for the port's worker processes " \
+                         "(ROADMAP A2, workers)" not in proc.stderr:
             raise AssertionError(f"pipeline CLI: no A2 refusal in {proc.stderr!r}")
         res[name] = {"exit": proc.returncode,
                      "said": (proc.stdout + proc.stderr).strip().splitlines()[-1]}
@@ -1065,6 +1104,285 @@ def pipeline_path(torch, kernels, pipeline, kmeans, tomo) -> dict:
     return {"report": out, "launches": launches}
 
 
+def cont_message(i: int):
+    """Message i of the continuous phase: CONT_POINTS points around the
+    stream's CONT_K centres, from a generator seeded with (SEED, i)."""
+    import numpy as np
+
+    centers = np.random.default_rng((SEED, 1)).normal(size=(CONT_K, 3)) * 4.0
+    g = np.random.default_rng((SEED, i))
+    return centers[g.integers(CONT_K, size=CONT_POINTS)] + g.normal(size=(CONT_POINTS, 3))
+
+
+def cont_centroids(key: int):
+    """The CONT_K f32 starting centroids of one key, fixed from SEED."""
+    import numpy as np
+
+    centers = np.random.default_rng((SEED, 1)).normal(size=(CONT_K, 3)) * 4.0
+    return (centers + np.random.default_rng((SEED, 2, key)).normal(size=(CONT_K, 3))).astype(
+        np.float32)
+
+
+def continuous_registry(torch, pipeline, miniapps, kmeans) -> None:
+    """Register the continuous phase's source and window processor with the
+    port's pipeline registry."""
+    import numpy as np
+
+    class KeyedPoints(miniapps.StreamSource):
+        """The phase's messages (:func:`cont_message`); event time from i."""
+
+        def make_message(self, rng, i):
+            return cont_message(i)
+
+        def make_timestamp(self, rng, i):
+            return CONT_BASE_TS + CONT_DT * i
+
+    class KMeansWindows:
+        """Per (key, window): the window's points stacked onto the card,
+        ``kmeans_assign`` against the key's centroids, ``kmeans_update``,
+        and the window's centroids, inertia and message count back on the
+        host. Records are keyed by their offset: on the phase's
+        one-partition topic the offset is the message index. ``emit``
+        collects each delivered firing and counts duplicates."""
+
+        def __init__(self, device="cuda", metrics=None):
+            self.device = torch.device(device)
+            self.centroids = {key: torch.from_numpy(cont_centroids(key)).to(self.device)
+                              for key in range(CONT_KEYS)}
+            self.outputs: dict = {}
+            self.duplicates = 0
+
+        def key_fn(self, msg):
+            return msg.offset % CONT_KEYS
+
+        def process(self, key, window, msgs):
+            pts = torch.from_numpy(np.concatenate([m.value for m in msgs]).astype(np.float32))
+            return (key, window) + window_kmeans(torch, kmeans, pts.to(self.device),
+                                                 self.centroids[key]) + (len(msgs),)
+
+        def emit(self, out):
+            kw = out[:2]
+            self.duplicates += kw in self.outputs
+            self.outputs[kw] = out[2:]
+
+    pipeline.register_source("smoke_keyed_points", KeyedPoints)
+    pipeline.register_processor("smoke_kmeans_windows", KMeansWindows)
+
+
+def window_kmeans(torch, kmeans, points, centroids) -> tuple:
+    """One window's K-Means step: (new centroids as host numpy, inertia).
+    Empty clusters keep their centroid."""
+    labels, dist = kmeans.assign(points, centroids)
+    sums, counts = kmeans.update_scatter(points, labels, centroids.shape[0])
+    new = torch.where(counts[:, None] > 0, sums / counts.clamp_min(1.0)[:, None], centroids)
+    return new.cpu().numpy(), float(dist.sum())
+
+
+def continuous_spec(pipeline, name: str):
+    """The continuous phase's spec, built by the port's ``Pipeline``."""
+    return (pipeline.Pipeline.named(name)
+            .broker(nodes=1)
+            .topic("kpoints", partitions=1)
+            .source("kpoints", kind="smoke_keyed_points", seed=SEED, total_messages=CONT_MSGS,
+                    rate_msgs_per_s=CONT_RATE)
+            .stage("kwin", topic="kpoints", processor="smoke_kmeans_windows", engine="continuous",
+                   window={"window": "tumbling", "size": CONT_WINDOW},
+                   checkpoint_every=CONT_CKPT)
+            .build())
+
+
+def continuous_run(torch, kernels, pipeline, faults, mode: str) -> dict:
+    """One run of :func:`continuous_spec` on two slots of the card until
+    every firing is delivered: ``mode`` "clean", "kill" (FaultInjector
+    kills the stage's pilot, the runner's StageReconciler recovers it) or
+    "rescale" (an extension pilot joins and leaves). Returns the firings,
+    counters, launches and timings."""
+    spec = continuous_spec(pipeline, f"cont-{mode}")
+    run = spec.run(devices=2)
+    kernels.reset_launches()
+    injector, ext, migrations = None, None, []
+    t_kill = t_resumed = None  # host clock, polled every 5 ms
+    with run:
+        stream, proc = run.stream("kwin"), run.processor("kwin")
+        t0 = time.monotonic()
+        if mode == "kill":
+            injector = faults.FaultInjector(
+                faults.FaultSchedule.parse(f"kill_pilot @records={CONT_KILL_AT}"),
+                cluster=run.cluster, topic="kpoints", stream=stream, service=run.service,
+                pilot=run.pilot("kwin")).start()
+        while (stream.stats.fired_windows < CONT_FIRINGS or stream.stats.records < CONT_MSGS
+               or not run.sources_finished):
+            if stream._error is not None:
+                raise AssertionError(f"continuous {mode}: stream failed: {stream._error!r}")
+            if time.monotonic() - t0 > CONT_TIMEOUT_S:
+                raise AssertionError(
+                    f"continuous {mode}: {stream.stats.fired_windows}/{CONT_FIRINGS} firings "
+                    f"after {CONT_TIMEOUT_S} s; events {injector.events if injector else []}; "
+                    f"recovery errors {run.reconciler.errors}")
+            if injector is not None and t_kill is None and injector.events:
+                t_kill = time.monotonic()
+            if t_kill is not None and t_resumed is None and stream.recoveries:
+                t_resumed = time.monotonic()
+            if mode == "rescale" and ext is None and stream.stats.records >= CONT_GROW_AT:
+                ext = run.service.submit_pilot({"number_of_nodes": 1, "cores_per_node": 1,
+                                                "type": "flink", "parent": run.pilot("kwin")})
+            if mode == "rescale" and ext is not None and not migrations \
+                    and stream.stats.records >= CONT_SHRINK_AT:
+                ext.cancel()
+                migrations = list(stream.migrator.reports)
+            time.sleep(0.005)
+        wall = time.monotonic() - t0
+        if injector is not None:
+            injector.stop()
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        plugin = run.pilot("kwin").plugin
+        info = {"mode": mode, "wall_s": wall, "msgs_per_s": CONT_MSGS / wall,
+                "firings": stream.stats.fired_windows, "records": stream.stats.records,
+                "late": stream.stats.late_records, "duplicates": proc.duplicates,
+                "recoveries": stream.recoveries, "stage_recoveries": run.reconciler.recoveries,
+                "recovery_ms": stream.last_recovery_ms,
+                "kill_to_resumed_s": None if t_resumed is None else t_resumed - t_kill,
+                "stage_recovery_ms": [ms for _, ms in run.reconciler.log],
+                "fault_events": [[e.kind, e.records, e.detail] for e in injector.events]
+                if injector else [],
+                "slots": plugin.slots, "devices": [str(d) for d in plugin.devices],
+                "migrations": [{"from": list(r.from_owners), "to": list(r.to_owners),
+                                "moved_partitions": len(r.moved), "bytes": r.bytes_moved,
+                                "records": r.buffered_records_moved, "ms": r.duration_ms}
+                               for r in migrations],
+                "launches": {k: launches[k] for k in ("kmeans_assign", "kmeans_update")},
+                "app_device": str(proc.device)}
+        outputs = dict(proc.outputs)
+    if run.errors:
+        raise AssertionError(f"continuous {mode}: teardown errors {run.errors!r}")
+    return {"info": info, "outputs": outputs, "launches": launches}
+
+
+def window_reference(torch, kmeans, key: int, window: tuple) -> tuple:
+    """One firing recomputed from the phase's messages with the plain
+    versions on the CPU: (centroids, inertia, message count)."""
+    import numpy as np
+
+    first = round((window[0] - CONT_BASE_TS) / CONT_DT)
+    last = round((window[1] - CONT_BASE_TS) / CONT_DT)
+    idx = [i for i in range(first, last) if i % CONT_KEYS == key]
+    pts = torch.from_numpy(np.concatenate([cont_message(i) for i in idx]).astype(np.float32))
+    cent = torch.from_numpy(cont_centroids(key))
+    labels, dist = kmeans.assign_ref(pts, cent)
+    sums, counts = kmeans.update_scatter_ref(pts, labels, CONT_K)
+    new = torch.where(counts[:, None] > 0, sums / counts.clamp_min(1.0)[:, None], cent)
+    return new.numpy(), float(dist.sum()), len(idx)
+
+
+def continuous_path(torch, kernels, pipeline, miniapps, kmeans) -> dict:
+    """The continuous phase: the fault-free run, the pilot kill and the
+    slot grow/shrink (:func:`continuous_run`), held to the fault-free run
+    bitwise on every (key, window), with no firing lost, duplicated or
+    late; the kill recovered at least once; the grow and shrink moving
+    partitions between the two slots of the one card; both kernels launched
+    at least once per firing; and sampled firings against the plain
+    versions on the CPU."""
+    import numpy as np
+
+    from repro_torch import faults
+
+    continuous_registry(torch, pipeline, miniapps, kmeans)
+    runs = {mode: continuous_run(torch, kernels, pipeline, faults, mode)
+            for mode in ("clean", "kill", "rescale")}
+    base = runs["clean"]["outputs"]
+    if len(base) != CONT_FIRINGS:
+        raise AssertionError(f"continuous: {len(base)} firings, want {CONT_FIRINGS}")
+    for mode, r in runs.items():
+        info = r["info"]
+        if (info["firings"], info["records"], info["late"], info["duplicates"]) != (
+                CONT_FIRINGS, CONT_MSGS, 0, 0):
+            raise AssertionError(f"continuous {mode}: {info}")
+        if r["outputs"].keys() != base.keys():
+            raise AssertionError(f"continuous {mode}: other (key, window) set than the clean run")
+        for kw, (cent, inertia, count) in base.items():
+            c2, i2, n2 = r["outputs"][kw]
+            if not (cent.dtype == c2.dtype and np.array_equal(cent.view(np.uint32),
+                                                              c2.view(np.uint32))
+                    and inertia == i2 and count == n2):
+                raise AssertionError(f"continuous {mode}: firing {kw} differs from the clean run")
+        for name, n in info["launches"].items():
+            if n < CONT_FIRINGS:
+                raise AssertionError(f"continuous {mode}: {name} launched {n} times for "
+                                     f"{CONT_FIRINGS} firings")
+    kill, rescale = runs["kill"]["info"], runs["rescale"]["info"]
+    if kill["recoveries"] < 1 or kill["stage_recoveries"] < 1:
+        raise AssertionError(f"continuous kill: no recovery: {kill}")
+    moved = [m for m in rescale["migrations"] if m["moved_partitions"] > 0]
+    if not moved or len({tuple(m["to"]) for m in moved}) < 2 or max(
+            len(m["to"]) for m in moved) != 2:
+        raise AssertionError(f"continuous rescale: no grow and shrink over two slots moved "
+                             f"partitions: {rescale['migrations']}")
+    # sampled firings against the plain versions on the CPU
+    worst = {"centroids_max_abs_err": 0.0, "inertia_rel_err": 0.0}
+    for kw in sorted(base)[:: max(len(base) // 6, 1)]:
+        cent, inertia, count = base[kw]
+        r_cent, r_inertia, r_count = window_reference(torch, kmeans, *kw)
+        err = float(np.abs(cent - r_cent).max())
+        rel = abs(inertia - r_inertia) / abs(r_inertia)
+        if count != r_count or not np.all(np.isfinite(cent)) or err > 1e-4 or rel > 1e-5:
+            raise AssertionError(f"continuous: firing {kw} against the plain versions: "
+                                 f"count {count}/{r_count}, centroid err {err}, inertia rel {rel}")
+        worst = {"centroids_max_abs_err": max(worst["centroids_max_abs_err"], err),
+                 "inertia_rel_err": max(worst["inertia_rel_err"], rel)}
+    for mode, r in runs.items():  # last: a CPU rehearsal of the phase gets this far
+        if r["info"]["app_device"].split(":")[0] != "cuda":
+            raise AssertionError(f"continuous {mode}: the window processor on "
+                                 f"{r['info']['app_device']}, not the card")
+    out = {"path": "continuous", "firings": CONT_FIRINGS, "messages": CONT_MSGS,
+           "bytes_through_log": CONT_MSGS * CONT_POINTS * 3 * 8,
+           "runs": [r["info"] for r in runs.values()], "vs_plain": worst}
+    print("path " + json.dumps(out))
+    launches = {k.name: sum(r["launches"][k.name] for r in runs.values()) for k in kernels.KERNELS}
+    return {"report": out, "launches": launches}
+
+
+def checkpoint_round_trip(torch, params) -> dict:
+    """``CheckpointManager`` saves the serving phase's smollm-135m
+    parameters on the card — as stored (f32) and cast to the serving
+    path's bf16 compute dtype, one tree — and restores them onto the card;
+    every leaf bitwise equal."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.utils import tree_bytes, tree_flatten_with_paths, tree_map_with_paths
+
+    state = {"params": params,
+             "params_bf16": tree_map_with_paths(lambda _, x: x.to(torch.bfloat16), params)}
+    directory = ROOT / "build" / "checkpoint_smoke"
+    shutil.rmtree(directory, ignore_errors=True)
+    mgr = CheckpointManager(str(directory), keep_last=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(1, state, meta={"model": "smollm-135m"})
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, meta = mgr.restore(state)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    leaves = 0
+    for (p, a), (q, b) in zip(tree_flatten_with_paths(state), tree_flatten_with_paths(restored)):
+        bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        if p != q or a.dtype != b.dtype or b.device != a.device or not torch.equal(
+                a.view(bits), b.view(bits)):
+            raise AssertionError(f"checkpoint round trip: leaf {p} differs")
+        leaves += 1
+    if meta != {"model": "smollm-135m"}:
+        raise AssertionError(f"checkpoint round trip: meta {meta}")
+    size = sum(f.stat().st_size for f in directory.rglob("*") if f.is_file())
+    shutil.rmtree(directory, ignore_errors=True)
+    res = {"leaves": leaves, "bytes": tree_bytes(state), "bytes_bf16": tree_bytes(
+               state["params_bf16"]), "bytes_on_disk": size,
+           "dtypes": sorted({str(a.dtype) for _, a in tree_flatten_with_paths(state)}),
+           "write_s": write_s, "read_s": read_s, "bitwise": True}
+    print("checkpoint " + json.dumps(res))
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -1155,10 +1473,12 @@ def main() -> None:
     finally:
         svc.cancel()
     rescore(torch, sv)
+    checkpoint_round_trip(torch, sv["params"])
     pl = pipeline_path(torch, kernels, pipeline, kmeans, tomo)
+    ct = continuous_path(torch, kernels, pipeline, miniapps, kmeans)
     paths = {"kmeans_path": km["launches"], "kmeans_wide_path": kw["launches"],
              "lightsource_path": rc["launches"], "serve_path": sv["launches"],
-             "pipeline_path": pl["launches"]}
+             "pipeline_path": pl["launches"], "continuous_path": ct["launches"]}
     launches = {k.name: sum(p[k.name] for p in paths.values()) for k in kernels.KERNELS}
     print("launches " + json.dumps(paths))
     for name, count in launches.items():

@@ -82,10 +82,15 @@ class ManagerPlugin(abc.ABC):
 class Lease:
     """A slice of the resource pool held by one pilot."""
 
-    def __init__(self, lease_id: int, devices: list, nodes: list[int]):
+    def __init__(self, lease_id: int, devices: list, nodes: list[int],
+                 slots: list[int] | None = None):
         self.lease_id = lease_id
         self.devices = devices  # torch.device entries (compute plugins)
         self.nodes = nodes  # logical host slots (broker plugin)
+        #: the pool entries the devices occupy, one per device. Slots tell
+        #: apart leases of equal devices (four slots of one card); they are
+        #: what keyed state is partitioned over (engines/continuous.py)
+        self.slots = list(slots) if slots is not None else []
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"Lease({self.lease_id}, devices={len(self.devices)}, nodes={self.nodes})"

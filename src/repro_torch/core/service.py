@@ -11,7 +11,6 @@ on the CPU by accident.
 """
 from __future__ import annotations
 
-import collections
 import enum
 import itertools
 import threading
@@ -59,14 +58,18 @@ class DevicePool:
     Host slots (for the broker) are unbounded-logical; devices are the
     host's CUDA cards (or an explicit list for tests and dry runs).
     ``torch.device`` objects compare by value, so a pool may hold the same
-    device more than once (``[cpu, cpu]``); leases are counted per entry.
+    device more than once (``[cpu, cpu]``, or four slots of one card); the
+    pool therefore tracks its entries by index, its *slots*, and a lease
+    carries the slots beside the devices. With distinct devices ``0..N-1``
+    (the JAX package's test pools) the slots are those numbers.
     """
 
     def __init__(self, devices: list | None = None, n_host_slots: int = 1 << 16):
         self._devices = list(devices if devices is not None else cuda_devices())
-        self._free = list(self._devices)
-        #: device -> entries of it currently leased; guards double-release
-        self._leased: collections.Counter = collections.Counter()
+        #: free slots in the order the JAX package's pool keeps free devices
+        self._free = list(range(len(self._devices)))
+        #: slots currently leased; guards double-release
+        self._leased: set[int] = set()
         self._host_slots = iter(itertools.count())
         self._lease_ids = iter(itertools.count(1))
         self._lock = threading.Lock()
@@ -83,14 +86,14 @@ class DevicePool:
     @property
     def leased_devices(self) -> int:
         with self._lock:
-            return sum(self._leased.values())
+            return len(self._leased)
 
     @property
     def utilization(self) -> float:
         """Fraction of the pool currently leased (the autoscaler's headroom
         signal)."""
         with self._lock:
-            return sum(self._leased.values()) / len(self._devices) if self._devices else 0.0
+            return len(self._leased) / len(self._devices) if self._devices else 0.0
 
     def acquire(self, n_devices: int, n_nodes: int) -> Lease:
         with self._lock:
@@ -98,21 +101,23 @@ class DevicePool:
                 raise RuntimeError(
                     f"requested {n_devices} devices, only {len(self._free)} free"
                 )
-            devs = self._free[:n_devices]
+            slots = self._free[:n_devices]
             del self._free[:n_devices]
-            self._leased.update(devs)  # Counter.update counts each entry
+            self._leased.update(slots)
             nodes = [next(self._host_slots) for _ in range(n_nodes)]
-            return Lease(next(self._lease_ids), devs, nodes)
+            return Lease(next(self._lease_ids), [self._devices[i] for i in slots], nodes,
+                         slots)
 
     def release(self, lease: Lease) -> None:
-        """Idempotent: devices not currently leased (double release) are
+        """Idempotent: slots not currently leased (double release) are
         ignored rather than duplicated into the free list."""
         with self._lock:
-            for d in lease.devices:
-                if self._leased[d] > 0:
-                    self._leased[d] -= 1
-                    self._free.append(d)
+            for i in lease.slots:
+                if i in self._leased:
+                    self._leased.remove(i)
+                    self._free.append(i)
             lease.devices = []
+            lease.slots = []
             lease.nodes = []
 
 

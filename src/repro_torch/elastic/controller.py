@@ -53,11 +53,10 @@ class PreemptionHooks:
       plugin and ``recover()`` it from the pre-kill spool (exactly-once:
       replayed firings re-fire with their emit suppressed).
 
-    The streams they act on — continuous stages with ``checkpoint_every >
-    0`` — wait for the continuous engine and the checkpoint spools (ROADMAP
-    A2, A4), so the port's pipeline runner builds no hooks yet and
-    ``Pipeline.validate`` refuses ``preemptible=True``; the controller's park and unpark
-    take any three callables, as wired by hand.
+    Built by the pipeline runner for continuous stages with
+    ``checkpoint_every > 0`` and ``min_devices == 0``
+    (``ElasticSpec.preemptible``); usable by hand for imperative wiring
+    (see tests/test_torch_faults.py).
     """
 
     checkpoint: Callable[[], None]

@@ -24,8 +24,13 @@ Conventions (all optional — the bus is schemaless):
 * ``scheduler.requests``/``scheduler.demand``/``scheduler.granted``/
   ``scheduler.capacity``/``scheduler.free``/``scheduler.preemptions`` — the
   resource arbiter
-* ``state.migration_ms`` — the last keyed-state migration's cost, per stream
-  (published by the continuous engine, ROADMAP A2; read by the snapshot)
+* ``state.migrated_partitions``/``state.migration_ms``/``state.bytes_moved``
+  — the last keyed-state migration, per stream (published by the continuous
+  engine's StateMigrator on every rescale; the snapshot reads the ms)
+* ``stream.recoveries``/``stream.recovery_ms`` and
+  ``pipeline.stage_recoveries``/``pipeline.stage_recovery_ms`` —
+  crash-recovery counts and latency (ContinuousStream.recover /
+  StageReconciler)
 
 The elastic controller and its policies read these back through one
 :class:`MetricsSnapshot` per reconcile pass.

@@ -51,6 +51,14 @@ class StreamSource:
     def make_message(self, rng: np.random.Generator, i: int) -> Any:
         raise NotImplementedError
 
+    def make_timestamp(self, rng: np.random.Generator, i: int) -> float | None:
+        """Event timestamp for message ``i`` (None = broker stamps wall
+        clock, the default). Override with a logical clock to make
+        event-time windowing reproducible — the continuous engine's fault
+        and rescale runs compare window firings bit for bit across runs,
+        which wall-clock stamps cannot provide."""
+        return None
+
     def _produce(self, worker: int) -> None:
         cfg = self.config
         rng = np.random.default_rng(cfg.seed + worker)
@@ -67,7 +75,8 @@ class StreamSource:
             if cfg.rate_msgs_per_s == 0:  # paused, not unthrottled
                 self._stop.wait(0.01)
                 continue
-            prod.send(self.make_message(rng, i), key=key)
+            prod.send(self.make_message(rng, i), key=key,
+                      timestamp=self.make_timestamp(rng, i))
             i += 1
 
     def start(self) -> "StreamSource":

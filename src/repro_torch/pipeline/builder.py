@@ -412,7 +412,7 @@ class Pipeline:
                 errors.append("broker elastic: min_nodes must be >= 1")
 
         errors.extend(self._cycle_errors())
-        errors.extend(waiting_errors(self._broker, self._stages, self._elastic))
+        errors.extend(waiting_errors(self._broker, self._stages))
 
         for src in self._sources:
             if src.topic not in self._topics:
@@ -511,34 +511,22 @@ class Pipeline:
         return errs
 
 
-def waiting_errors(broker: BrokerSpec, stages, elastic: dict) -> list[str]:
-    """What the port cannot run yet, each naming the ROADMAP item it waits
-    for: the continuous engine, the mp executor and the shm transport (A2),
-    crash checkpoints with their StageReconciler and checkpoint-then-kill
-    preemption (A2, A4). ``elastic`` maps stage names to their ElasticSpec.
-    ``Pipeline.validate`` lists these among its other errors; the runner refuses a
-    spec that has any, so no such stage runs as something else."""
+def waiting_errors(broker: BrokerSpec, stages) -> list[str]:
+    """What the port cannot run yet, each naming the part of ROADMAP A2 it
+    waits for: the mp executor (A2, workers) and the shm transport (A2,
+    transport). ``Pipeline.validate`` lists these among its other errors; the runner
+    refuses a spec that has any, so no such stage runs as something else."""
     errors: list[str] = []
     if broker.transport == "shm":
         errors.append("broker: transport='shm' waits for the port's shared-memory "
-                      "transport (ROADMAP A2)")
+                      "transport (ROADMAP A2, transport)")
     for s in stages:
-        if s.engine == "continuous":
-            errors.append(f"stage {s.name!r}: engine='continuous' waits for the port's "
-                          "continuous engine (ROADMAP A2)")
         if s.executor == "mp":
             errors.append(f"stage {s.name!r}: executor='mp' waits for the port's worker "
-                          "processes (ROADMAP A2)")
+                          "processes (ROADMAP A2, workers)")
         if s.transport == "shm":
             errors.append(f"stage {s.name!r}: transport='shm' waits for the port's "
-                          "shared-memory transport (ROADMAP A2)")
-        if s.checkpoint_every > 0:
-            errors.append(f"stage {s.name!r}: checkpoint_every > 0 waits for the port's crash "
-                          "checkpoints and StageReconciler (ROADMAP A2, A4)")
-    for name, el in elastic.items():
-        if el.preemptible:
-            errors.append(f"elastic on {name!r}: preemptible=True waits for the port's "
-                          "checkpoint-then-kill preemption (ROADMAP A2, A4)")
+                          "shared-memory transport (ROADMAP A2, transport)")
     return errors
 
 

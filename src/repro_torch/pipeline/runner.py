@@ -23,9 +23,13 @@ card, scaling a stage adds slots that share that card: the control loop,
 the arbiter's grants and the apps' ``on_rescale`` state moves are real, but
 no arithmetic throughput is added.
 
-What waits for later modules (the continuous engine, the mp executor, the
-shm transport, crash checkpoints with their StageReconciler, preemption:
-ROADMAP A2, A4) is refused at start, as ``Pipeline.validate`` refuses it.
+Continuous stages run on ``flink`` pilots, whose keyed state is
+partitioned over the pilot's slots (``engines/continuous.py``); a stage
+that checkpoints is recovered from a pilot crash by the
+:class:`StageReconciler`, and a preemptible one is parked and resumed by
+checkpoint-then-kill. What waits for later modules (the mp executor, the
+shm transport: ROADMAP A2) is refused at start, as ``Pipeline.validate``
+refuses it.
 """
 from __future__ import annotations
 
@@ -37,11 +41,17 @@ from repro_torch.broker.consumer import Consumer, ConsumerGroup
 from repro_torch.broker.producer import Producer
 from repro_torch.core import PilotComputeService
 from repro_torch.core.service import cuda_devices
-from repro_torch.elastic import ElasticConfig, ElasticController, MetricsBus
+from repro_torch.elastic import (
+    ElasticConfig,
+    ElasticController,
+    MetricsBus,
+    PreemptionHooks,
+)
 from repro_torch.pipeline import registry
 from repro_torch.pipeline.builder import PipelineValidationError, waiting_errors
 from repro_torch.pipeline.spec import ElasticSpec, PipelineSpec, SinkSpec, StageSpec
 from repro_torch.scheduler import HOSTS, ResourceRequest
+from repro_torch.streaming.windows import SessionWindow, SlidingWindow, TumblingWindow
 
 
 class BrokerStallProbe:
@@ -61,6 +71,93 @@ class BrokerStallProbe:
         frac = (s - self._s) / dt
         self._t, self._s = now, s
         return min(max(frac, 0.0), 1.0)
+
+
+class StageReconciler:
+    """Pilot-crash recovery for continuous stages.
+
+    Subscribes to the service's :class:`HeartbeatMonitor` failure
+    callbacks; when a *managed* stage pilot goes stale — a real crash
+    (``inject_failure``) or a false positive (the ``drop_heartbeats``
+    fault) — it fences first and recovers second:
+
+    1. ``stream.crash()`` — idempotent; after this the old incarnation
+       cannot emit, so a false positive costs one recovery, never a
+       duplicate firing;
+    2. ``service.submit_pilot(pcd)`` — a replacement pilot on fresh
+       slots;
+    3. attach the stream to the new pilot's plugin and ``stream.
+       recover()`` — state restored from the latest ``sckpt_*`` spool
+       (``StageSpec.checkpoint_every``), consumer re-seeked, replay with
+       emit suppression: zero lost, zero duplicated firings.
+
+    Usable standalone (tests bind it to hand-built streams) or via
+    ``PipelineRun``, which manages every continuous stage that checkpoints.
+    """
+
+    def __init__(self, service: PilotComputeService, *, bus: MetricsBus | None = None,
+                 on_recovered: Callable[[str, Any], None] | None = None):
+        self.service = service
+        self.bus = bus
+        self.on_recovered = on_recovered
+        self.recoveries = 0
+        #: (stage name, recovery latency ms) per recovery, oldest first
+        self.log: list[tuple[str, float]] = []
+        #: recovery failures (kept, not raised — callbacks run on the
+        #: monitor thread, which swallows exceptions)
+        self.errors: list[BaseException] = []
+        self._managed: dict[int, tuple[str, Any, dict]] = {}
+        self._closed = False
+        self._lock = threading.Lock()
+        service.monitor.on_failure(self._on_failure)
+
+    def manage(self, name: str, pilot: Any, stream: Any, pcd: dict) -> None:
+        """Watch ``pilot``; on failure, reprovision from ``pcd`` and
+        recover ``stream`` onto the replacement."""
+        with self._lock:
+            self._managed[id(pilot)] = (name, stream, dict(pcd))
+
+    def unmanage(self, pilot: Any) -> None:
+        with self._lock:
+            self._managed.pop(id(pilot), None)
+
+    def close(self) -> None:
+        """Stop reconciling (the monitor keeps its callback — it just
+        no-ops); teardown calls this before stopping streams so a stop
+        is not mistaken for a crash."""
+        with self._lock:
+            self._closed = True
+            self._managed.clear()
+
+    def _on_failure(self, pilot: Any) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            entry = self._managed.pop(id(pilot), None)
+        if entry is None:
+            return  # not ours (another run's pilot on a shared service)
+        name, stream, pcd = entry
+        t0 = time.perf_counter()
+        try:
+            stream.crash()  # fencing — safe and idempotent on a dead stream
+            new_pilot = self.service.submit_pilot(pcd)
+            plugin = new_pilot.plugin
+            if hasattr(plugin, "streams") and stream not in plugin.streams:
+                plugin.streams.append(stream)
+            stream.recover()
+        except BaseException as e:
+            self.errors.append(e)
+            return
+        ms = (time.perf_counter() - t0) * 1e3
+        self.recoveries += 1
+        self.log.append((name, ms))
+        if self.bus is not None:
+            self.bus.publish("pipeline.stage_recoveries", self.recoveries,
+                             stage=name)
+            self.bus.publish("pipeline.stage_recovery_ms", ms, stage=name)
+        self.manage(name, new_pilot, stream, pcd)
+        if self.on_recovered is not None:
+            self.on_recovered(name, new_pilot)
 
 
 class SinkRunner:
@@ -105,6 +202,15 @@ class SinkRunner:
             raise self.error
 
 
+def _make_assigner(window: dict):
+    kind = window.get("window", "tumbling")
+    if kind == "tumbling":
+        return TumblingWindow(window.get("size", 1.0))
+    if kind == "sliding":
+        return SlidingWindow(window.get("size", 1.0), window.get("slide", 0.5))
+    return SessionWindow(window.get("gap", 1.0))
+
+
 class PipelineRun:
     """Context manager around one provisioned pipeline.
 
@@ -129,6 +235,9 @@ class PipelineRun:
         #: the service's single ResourceArbiter — set during provisioning
         #: iff any stage (or the broker) is elastic
         self.arbiter = None
+        #: pilot-crash recovery — set during provisioning iff any
+        #: continuous stage checkpoints (StageSpec.checkpoint_every)
+        self.reconciler: StageReconciler | None = None
         self.cluster = None
         self._streams: dict[str, Any] = {}
         self._pilots: dict[str, Any] = {}
@@ -191,9 +300,7 @@ class PipelineRun:
         spec = self.spec
         if self._own_service:
             self._push("service", self.service.cancel)
-        waiting = waiting_errors(
-            spec.broker, spec.stages,
-            {s.name: s.elastic for s in spec.stages if s.elastic is not None})
+        waiting = waiting_errors(spec.broker, spec.stages)
         if waiting:
             raise PipelineValidationError(waiting)
 
@@ -243,6 +350,25 @@ class PipelineRun:
             stream.start()
             self._push(f"stream:{stage.name}", stream.stop)
 
+        recoverable = [
+            s for s in spec.stages
+            if s.engine == "continuous" and s.checkpoint_every
+            and s.colocate_with is None
+        ]
+        if recoverable:
+            self.reconciler = StageReconciler(
+                self.service, bus=self.bus,
+                on_recovered=lambda name, pilot: self._pilots.__setitem__(
+                    name, pilot))
+            for stage in recoverable:
+                self.reconciler.manage(
+                    stage.name, self._pilots[stage.name],
+                    self._streams[stage.name],
+                    {"number_of_nodes": stage.nodes,
+                     "cores_per_node": stage.cores_per_node,
+                     "type": "flink"})
+            self._push("reconciler", self.reconciler.close)
+
         for stage in spec.stages:
             if stage.elastic is not None:
                 ctl = self._make_controller(stage)
@@ -273,10 +399,11 @@ class PipelineRun:
             pilot = self._pilots[stage.colocate_with]
             self._pilots[stage.name] = pilot
         else:
+            framework = "spark" if stage.engine == "microbatch" else "flink"
             pilot = self.service.submit_pilot({
                 "number_of_nodes": stage.nodes,
                 "cores_per_node": stage.cores_per_node,
-                "type": "spark",
+                "type": framework,
             })
             self._pilots[stage.name] = pilot
             if not self._own_service:
@@ -295,24 +422,51 @@ class PipelineRun:
         # each controller only ever reads its own stage's gauges
         label = f"{self.spec.name}/{stage.topic}/{stage.consumer_group}"
 
-        process_fn = proc.process if hasattr(proc, "process") else proc
-        on_rescale = getattr(proc, "on_rescale", None)
-        sync_fn = getattr(proc, "sync", None)
-        if stage.emits:
-            process_fn = self._emitting(process_fn, stage.output_topic)
-        stream = ctx.stream(
-            self.cluster, stage.topic,
-            group=stage.consumer_group,
-            process_fn=process_fn,
-            batch_interval=stage.batch_interval,
-            max_batch_records=stage.max_batch_records,
-            backpressure=stage.backpressure,
-            metrics=self.bus,
-            sync_fn=sync_fn,
-            on_rescale=on_rescale,
-            metrics_label=label,
-            transport=stage.transport,
-        )
+        if stage.engine == "microbatch":
+            process_fn = proc.process if hasattr(proc, "process") else proc
+            on_rescale = getattr(proc, "on_rescale", None)
+            sync_fn = getattr(proc, "sync", None)
+            if stage.emits:
+                process_fn = self._emitting(process_fn, stage.output_topic)
+            stream = ctx.stream(
+                self.cluster, stage.topic,
+                group=stage.consumer_group,
+                process_fn=process_fn,
+                batch_interval=stage.batch_interval,
+                max_batch_records=stage.max_batch_records,
+                backpressure=stage.backpressure,
+                metrics=self.bus,
+                sync_fn=sync_fn,
+                on_rescale=on_rescale,
+                metrics_label=label,
+                transport=stage.transport,
+            )
+        else:
+            window_fn = proc.process if hasattr(proc, "process") else proc
+            # a processor object may key its records (``key_fn(msg)``) and
+            # take each fired window's output exactly once (``emit(out)``,
+            # replays suppressed). Without them every record has the key
+            # None and outputs are dropped, as in the JAX package's runner,
+            # whose StageSpec carries neither (ROADMAP C)
+            keyed = {k: getattr(proc, k) for k in ("key_fn", "emit") if hasattr(proc, k)}
+            stream = ctx.stream(
+                self.cluster, stage.topic,
+                group=stage.consumer_group,
+                assigner=_make_assigner(stage.window),
+                window_fn=window_fn,
+                **keyed,
+                allowed_lateness=stage.window.get("allowed_lateness", 0.0),
+                metrics=self.bus,
+                # rescale sync barrier auto-wires from a bound window_fn's
+                # .sync, same as the micro-batch engine
+                on_rescale=getattr(proc, "on_rescale", None),
+                metrics_label=label,
+                n_partitions=stage.state_partitions,
+                executor=stage.executor,
+                checkpoint_every=stage.checkpoint_every,
+                transport=stage.transport,
+                async_emit=stage.async_emit,
+            )
         self._streams[stage.name] = stream
 
     def _emitting(self, fn: Callable, topic: str) -> Callable:
@@ -362,7 +516,50 @@ class PipelineRun:
             stream=stream.metrics_label,
             arbiter=self.arbiter,
             request=request,
+            hooks=(self._make_preemption_hooks(stage, stream)
+                   if el.preemptible else None),
         )
+
+    def _make_preemption_hooks(self, stage: StageSpec, stream) -> PreemptionHooks:
+        """Checkpoint-then-kill wiring for a preemptible stage
+        (``Pipeline.validate`` guarantees: continuous engine,
+        checkpoint_every > 0, min_devices == 0). The kill hook detaches the
+        stream from its plugin *before* the controller cancels the pilots —
+        a plugin-driven ``stream.stop()`` would delete the sckpt spools the
+        resume needs — and unmanages the pilot so the reconciler cannot
+        mistake the deliberate cancel for a crash."""
+        name = stage.name
+        pcd = {"number_of_nodes": stage.nodes,
+               "cores_per_node": stage.cores_per_node, "type": "flink"}
+
+        def checkpoint() -> None:
+            stream.checkpoint()
+
+        def kill() -> None:
+            pilot = self._pilots[name]
+            plugin = getattr(pilot, "plugin", None)
+            if plugin is not None and stream in getattr(plugin, "streams", ()):
+                plugin.streams.remove(stream)
+            if self.reconciler is not None:
+                self.reconciler.unmanage(pilot)
+            stream.crash()
+
+        def resume(pilot) -> None:
+            plugin = pilot.plugin
+            if hasattr(plugin, "streams") and stream not in plugin.streams:
+                plugin.streams.append(stream)
+            stream.recover()
+            # the replacement pilot may hold other slots than the parked
+            # one (that's the whole point of preemption): re-home the
+            # restored state onto the new owner set
+            slots = list(getattr(plugin, "slots", []) or [])
+            if slots:
+                stream.rescale(slots, list(plugin.devices))
+            self._pilots[name] = pilot
+            if self.reconciler is not None:
+                self.reconciler.manage(name, pilot, stream, pcd)
+
+        return PreemptionHooks(checkpoint, kill, resume)
 
     def _make_broker_controller(self, el: ElasticSpec) -> ElasticController:
         """Spec-driven broker elasticity: a node-unit controller estimates
@@ -458,6 +655,9 @@ class PipelineRun:
 
     def await_batches(self, stage: str, n: int, timeout: float = 60.0) -> None:
         self._streams[stage].await_batches(n, timeout=timeout)
+
+    def await_windows(self, stage: str, n: int, timeout: float = 30.0) -> None:
+        self._streams[stage].await_windows(n, timeout=timeout)
 
     def lag(self, stage: str) -> float:
         return float(sum(self._streams[stage].lag().values()))

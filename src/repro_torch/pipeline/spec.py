@@ -14,9 +14,8 @@ through :mod:`repro_torch.pipeline.registry`, so a spec round-trips losslessly:
 
 The dataclasses are the JAX package's, field for field, so a spec's JSON
 crosses between the two packages unchanged. What the port cannot run yet
-(the continuous engine, the mp executor, the shm transport, crash
-checkpoints, preemption: ROADMAP A2 and A4) stays describable here and is
-refused by ``Pipeline.validate``, naming the item it waits for.
+(the mp executor and the shm transport: ROADMAP A2) stays describable here
+and is refused by ``Pipeline.validate``, naming the part it waits for.
 """
 from __future__ import annotations
 
@@ -50,7 +49,7 @@ class BrokerSpec:
     replication_factor: int = 1
     #: data plane: "log" (payloads in the partition log) or "shm" (a
     #: shared-memory ring mounted per topic; waits for the port's transport,
-    #: ROADMAP A2, and ``Pipeline.validate`` refuses it until then)
+    #: ROADMAP A2 (transport), and ``Pipeline.validate`` refuses it until then)
     transport: str = "log"
     #: ShmTransport kwargs (slot_bytes, n_slots) when transport == "shm"
     transport_options: dict = field(default_factory=dict)
@@ -111,8 +110,7 @@ class ElasticSpec:
     #: it and cancels the whole pilot (base included); the next grant
     #: resubmits the pilot and resumes from the pre-kill spool. Requires
     #: the continuous engine, ``checkpoint_every > 0`` and
-    #: ``min_devices == 0`` (checked by ``Pipeline.validate``), all of
-    #: which wait for ROADMAP A2/A4: ``Pipeline.validate`` refuses it until then
+    #: ``min_devices == 0`` (checked by ``Pipeline.validate``)
     preemptible: bool = False
 
     def __post_init__(self):
@@ -135,7 +133,7 @@ class StageSpec:
     name: str
     topic: str
     processor: str
-    engine: str = "microbatch"  # "microbatch" | "continuous" (ROADMAP A2)
+    engine: str = "microbatch"  # "microbatch" | "continuous"
     nodes: int = 1
     cores_per_node: int = 1
     group: str | None = None  # consumer group (default: stage name)
@@ -154,11 +152,12 @@ class StageSpec:
     state_partitions: int = 64
     #: continuous engine execution mode: "inline" (in-process, the
     #: default) or "mp" (one supervised worker process per owner device,
-    #: failure isolation + restart with state recovery; ROADMAP A2)
+    #: failure isolation + restart with state recovery; waits for the
+    #: port's worker processes, ROADMAP A2 (workers))
     executor: str = "inline"
     #: records between crash checkpoints (continuous engine): > 0 spools
     #: full-stream checkpoints so a crashed stage pilot is reprovisioned by
-    #: the StageReconciler and resumes mid-stream (ROADMAP A2, A4); 0 = off
+    #: the StageReconciler and resumes mid-stream; 0 = off
     checkpoint_every: int = 0
     #: stage-side transport opt-in: "shm" puts a micro-batch stage's
     #: consumer in zero-copy mode (frame views, sound because the batch is

@@ -121,10 +121,12 @@ class PoolTenant:
                     self.service.pool.release(lease)
                 else:
                     # carve the excess off the newest lease (release is
-                    # per-device, so a sub-lease hands back exactly those)
+                    # per slot, so a sub-lease hands back exactly those)
                     give = lease.devices[-excess:]
+                    slots = lease.slots[-excess:]
                     del lease.devices[-excess:]
-                    self.service.pool.release(Lease(lease.lease_id, give, []))
+                    del lease.slots[-excess:]
+                    self.service.pool.release(Lease(lease.lease_id, give, [], slots))
                     excess = 0
         return self.devices
 
@@ -158,6 +160,11 @@ class ResourceArbiter:
         self.events = EventLog()
         self._requests: dict[str, ResourceRequest] = {}
         self._lock = threading.Lock()
+        # one pass at a time: a direct reconcile() racing the background
+        # loop's would otherwise actuate an allocation sized before the
+        # other pass moved devices (a parked stage regranted a slot the
+        # preemptor holds). The JAX package does not serialize them.
+        self._pass_lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -282,82 +289,83 @@ class ResourceArbiter:
         next tick (never actuated against an allocation it was absent
         from), and one withdrawn mid-pass is skipped at actuation time.
         """
-        now = time.monotonic()
-        self._ticks += 1
-        with self._lock:
-            reqs = list(self._requests.values())
-        alloc = self._allocate(reqs)
-        granted: dict[str, int] = {}
+        with self._pass_lock:
+            now = time.monotonic()
+            self._ticks += 1
+            with self._lock:
+                reqs = list(self._requests.values())
+            alloc = self._allocate(reqs)
+            granted: dict[str, int] = {}
 
-        def delta(r: ResourceRequest) -> int:
-            return alloc.get(r.name, 0) - r.current
+            def delta(r: ResourceRequest) -> int:
+                return alloc.get(r.name, 0) - r.current
 
-        units = sorted(colocation_groups(reqs).values(),
-                       key=lambda unit: sum(delta(r) for r in unit))
-        for unit in units:  # most negative net delta (biggest shrink) first
-            gang = len(unit) > 1
-            done: list[tuple[ResourceRequest, int]] = []  # (req, prior size)
-            rollback = False
-            for r in sorted(unit, key=delta):
-                with self._lock:
-                    if self._requests.get(r.name) is not r:
-                        continue  # withdrawn (or replaced) since the snapshot
-                want = alloc.get(r.name, 0)
-                cur = r.current
-                if r.actuator is None or want == cur:
-                    r.granted = want if r.actuator is None else cur
-                    granted[r.name] = r.granted
-                    continue
-                try:
-                    reached = r.actuator(want)
-                except Exception:
-                    self.bus.publish("scheduler.errors", 1.0, request=r.name)
-                    granted[r.name] = cur
-                    if gang:
-                        rollback = True
-                        break
-                    continue
-                done.append((r, cur))
-                if gang and reached != want:
-                    rollback = True  # partial gang: undo the whole unit
-                    break
-                r.granted = reached
-                granted[r.name] = reached
-                action = "grant" if want > cur else (
-                    # a shrink below the consumer's own demand was forced by
-                    # someone else's priority/weight — that is a preemption
-                    "preempt" if r.demand > want else "revoke"
-                )
-                if action == "preempt":
-                    self.preemptions += 1
-                    self.bus.publish("scheduler.preemptions", self.preemptions)
-                self.events.record(ScalingEvent(
-                    now, action, reached - cur, cur, reached,
-                    f"alloc {want} (demand {r.demand}, weight {r.weight}, "
-                    f"priority {r.priority})",
-                ))
-                self.bus.publish("scheduler.event", float(reached - cur),
-                                 request=r.name, action=action)
-            if rollback:
-                for r, prior in reversed(done):
+            units = sorted(colocation_groups(reqs).values(),
+                           key=lambda unit: sum(delta(r) for r in unit))
+            for unit in units:  # most negative net delta (biggest shrink) first
+                gang = len(unit) > 1
+                done: list[tuple[ResourceRequest, int]] = []  # (req, prior size)
+                rollback = False
+                for r in sorted(unit, key=delta):
+                    with self._lock:
+                        if self._requests.get(r.name) is not r:
+                            continue  # withdrawn (or replaced) since the snapshot
+                    want = alloc.get(r.name, 0)
+                    cur = r.current
+                    if r.actuator is None or want == cur:
+                        r.granted = want if r.actuator is None else cur
+                        granted[r.name] = r.granted
+                        continue
                     try:
-                        r.actuator(prior)
+                        reached = r.actuator(want)
                     except Exception:
                         self.bus.publish("scheduler.errors", 1.0, request=r.name)
-                    r.granted = r.current
-                    granted[r.name] = r.granted
+                        granted[r.name] = cur
+                        if gang:
+                            rollback = True
+                            break
+                        continue
+                    done.append((r, cur))
+                    if gang and reached != want:
+                        rollback = True  # partial gang: undo the whole unit
+                        break
+                    r.granted = reached
+                    granted[r.name] = reached
+                    action = "grant" if want > cur else (
+                        # a shrink below the consumer's own demand was forced by
+                        # someone else's priority/weight — that is a preemption
+                        "preempt" if r.demand > want else "revoke"
+                    )
+                    if action == "preempt":
+                        self.preemptions += 1
+                        self.bus.publish("scheduler.preemptions", self.preemptions)
                     self.events.record(ScalingEvent(
-                        now, "gang_rollback", 0, prior, r.current,
-                        f"co-located group partially grantable only — "
-                        f"alloc {alloc.get(r.name, 0)} undone",
+                        now, action, reached - cur, cur, reached,
+                        f"alloc {want} (demand {r.demand}, weight {r.weight}, "
+                        f"priority {r.priority})",
                     ))
-                    self.bus.publish("scheduler.event", 0.0, request=r.name,
-                                     action="gang_rollback")
-        for name, n in granted.items():
-            self.bus.publish("scheduler.granted", n, request=name)
-        self.bus.publish("scheduler.capacity", self.service.pool.total_devices)
-        self.bus.publish("scheduler.free", self.service.pool.free_devices)
-        return granted
+                    self.bus.publish("scheduler.event", float(reached - cur),
+                                     request=r.name, action=action)
+                if rollback:
+                    for r, prior in reversed(done):
+                        try:
+                            r.actuator(prior)
+                        except Exception:
+                            self.bus.publish("scheduler.errors", 1.0, request=r.name)
+                        r.granted = r.current
+                        granted[r.name] = r.granted
+                        self.events.record(ScalingEvent(
+                            now, "gang_rollback", 0, prior, r.current,
+                            f"co-located group partially grantable only — "
+                            f"alloc {alloc.get(r.name, 0)} undone",
+                        ))
+                        self.bus.publish("scheduler.event", 0.0, request=r.name,
+                                         action="gang_rollback")
+            for name, n in granted.items():
+                self.bus.publish("scheduler.granted", n, request=name)
+            self.bus.publish("scheduler.capacity", self.service.pool.total_devices)
+            self.bus.publish("scheduler.free", self.service.pool.free_devices)
+            return granted
 
     # -- placement ------------------------------------------------------------
 

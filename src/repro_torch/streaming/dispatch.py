@@ -175,6 +175,19 @@ class AsyncWindow:
                 done.append(self._wait_oldest())
         return done
 
+    def discard(self) -> int:
+        """Drop every pending entry without delivering it (the crash path:
+        replay re-produces the dropped work, so delivering it here would
+        double-count). Each entry's device work is still waited on, so none
+        of it outlives the caller's fencing. Returns the count dropped."""
+        with self._lock:
+            n = len(self._pending)
+            for _result, _meta, _t0, event in self._pending:
+                if event is not None:
+                    event.synchronize()
+            self._pending.clear()
+            return n
+
     @property
     def in_flight(self) -> int:
         return len(self._pending)

@@ -54,6 +54,17 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
 
 
+def test_the_scan_covers_the_continuous_path():
+    """The continuous engine's modules (checkpoint, state, faults, the
+    worker protocol, the task pool) are among the files scanned above."""
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    for mod in ("utils/tree.py", "utils/timer.py", "checkpoint/manager.py",
+                "state/partition.py", "state/store.py", "state/migrator.py",
+                "workers/proto.py", "engines/continuous.py", "engines/taskpool.py",
+                "faults/schedule.py", "faults/injector.py"):
+        assert mod in scanned, mod
+
+
 def test_wrappers_have_no_fallback_paths():
     """No ``try`` in the wrapper modules: a CUDA launch that fails raises,
     it is never retried on the plain version."""

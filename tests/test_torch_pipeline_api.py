@@ -16,6 +16,7 @@ import repro.miniapps as jax_miniapps
 import repro.pipeline as jax_pipeline
 import repro_torch.miniapps as torch_miniapps
 import repro_torch.pipeline as torch_pipeline
+from repro_torch.broker import Producer
 from repro_torch.pipeline import cli as torch_cli
 from repro_torch.pipeline import registry as torch_registry
 from repro_torch.pipeline.runner import device_slots
@@ -56,7 +57,11 @@ def _register(pipeline, miniapps) -> None:
         return (state or 0) + len(msgs)
 
     pipeline.register_source("parity_vec8", Vec8)
+    def window(key, w, msgs):
+        return key, w, len(msgs)
+
     pipeline.register_processor("parity_count", count)
+    pipeline.register_processor("parity_window", window)
     pipeline.register_processor("parity_explode", Exploding)
     pipeline.register_processor("parity_broken", BrokenFactory)
 
@@ -180,63 +185,85 @@ def test_validation_errors_match_jax(case):
     assert lists[1] == lists[0] and lists[1]
 
 
-# each: (``Pipeline`` program, the refusals the port adds)
+# each: (``Pipeline`` program, the refusals the port adds). Programs the
+# port runs add none: they validate (or fail) as in the JAX package, and the
+# valid ones run (``_run_windowed``)
 WAITING = {
     "continuous": (lambda p: p.Pipeline.named("w").topic("a")
-                   .stage("s", topic="a", processor="parity_count", engine="continuous",
+                   .stage("s", topic="a", processor="parity_window", engine="continuous",
                           window={"window": "tumbling", "size": 1.0}),
-                   ["stage 's': engine='continuous' waits for the port's continuous engine "
-                    "(ROADMAP A2)"]),
+                   []),
     "mp": (lambda p: p.Pipeline.named("w").topic("a")
            .stage("s", topic="a", processor="parity_count", engine="continuous",
                   executor="mp"),
-           ["stage 's': engine='continuous' waits for the port's continuous engine (ROADMAP A2)",
-            "stage 's': executor='mp' waits for the port's worker processes (ROADMAP A2)"]),
+           ["stage 's': executor='mp' waits for the port's worker processes "
+            "(ROADMAP A2, workers)"]),
     "shm": (lambda p: p.Pipeline.named("w").broker(transport="shm").topic("a")
             .stage("s", topic="a", processor="parity_count", transport="shm"),
-            ["broker: transport='shm' waits for the port's shared-memory transport (ROADMAP A2)",
+            ["broker: transport='shm' waits for the port's shared-memory transport "
+             "(ROADMAP A2, transport)",
              "stage 's': transport='shm' waits for the port's shared-memory transport "
-             "(ROADMAP A2)"]),
+             "(ROADMAP A2, transport)"]),
     "checkpoint": (lambda p: p.Pipeline.named("w").topic("a")
-                   .stage("s", topic="a", processor="parity_count", engine="continuous",
+                   .stage("s", topic="a", processor="parity_window", engine="continuous",
                           checkpoint_every=10)
                    .elastic("s", policy="threshold", high_lag=5, low_lag=1, min_devices=0,
                             preemptible=True),
-                   ["stage 's': engine='continuous' waits for the port's continuous engine "
-                    "(ROADMAP A2)",
-                    "stage 's': checkpoint_every > 0 waits for the port's crash checkpoints and "
-                    "StageReconciler (ROADMAP A2, A4)",
-                    "elastic on 's': preemptible=True waits for the port's checkpoint-then-kill "
-                    "preemption (ROADMAP A2, A4)"]),
+                   []),
     "with_other_errors": (lambda p: p.Pipeline.named("w").topic("a")
-                          .stage("s", topic="ghost", processor="parity_count", engine="continuous",
-                                 emits=True),
-                          ["stage 's': engine='continuous' waits for the port's continuous engine "
-                           "(ROADMAP A2)"]),
+                          .stage("s", topic="ghost", processor="parity_window",
+                                 engine="continuous", emits=True),
+                          []),
 }
+
+
+def _run_windowed(spec) -> None:
+    """Run a valid one-stage continuous spec on two CPU slots: 40 records
+    0.1 s apart in event time, on one topic partition (one key), close
+    three 1 s windows of ten each."""
+    stage = spec.stage("s")
+    with spec.run(devices=[CPU] * 2) as run:
+        prod = Producer(run.cluster, "a", serializer="npy")
+        for i in range(40):
+            prod.send(np.array([float(i)]), key=b"k", timestamp=100.0 + 0.1 * i)
+        run.await_windows("s", 3, timeout=30)
+        stream = run.stream("s")
+        _wait(lambda: stream.stats.records == 40)
+        assert stream.stats.late_records == 0 and stream.stats.fired_windows == 3
+        assert run.pilot("s").pcd.framework == "flink"
+    assert run.errors == [] and run.service.pool.leased_devices == 0
+    assert run.teardown_log == (
+        ["controller:s"] * (stage.elastic is not None)
+        + ["reconciler"] * bool(stage.checkpoint_every) + ["stream:s"]
+        + ["arbiter"] * (stage.elastic is not None) + ["service"])
 
 
 @pytest.mark.parametrize("case", sorted(WAITING))
 def test_validation_refuses_what_waits_naming_its_roadmap_item(case):
     """The port lists the JAX package's errors for the program (none, where
-    the JAX ``Pipeline`` takes it) and then one refusal per waiting stage kind,
-    each naming the ROADMAP item it waits for."""
+    the JAX ``Pipeline`` takes it) and then one refusal per stage kind that
+    waits, each naming the part of ROADMAP A2 it waits for. What the port
+    runs — the continuous engine, crash checkpoints, preemption — validates
+    as in the JAX package, and runs."""
     program, refusals = WAITING[case]
     jax_errors = program(jax_pipeline).validate()
     torch_errors = program(torch_pipeline).validate()
     assert torch_errors == jax_errors + refusals
-    with pytest.raises(torch_pipeline.PipelineValidationError):
-        program(torch_pipeline).build()
+    if torch_errors:
+        with pytest.raises(torch_pipeline.PipelineValidationError):
+            program(torch_pipeline).build()
+    else:
+        _run_windowed(program(torch_pipeline).build())
 
 
 def test_run_refuses_a_waiting_spec_built_elsewhere():
-    """A spec the JAX ``Pipeline`` made with a continuous stage: the port's
-    runner refuses it at start (no stage runs as something else) and
-    leaves nothing behind."""
-    spec = torch_pipeline.PipelineSpec.from_json(WAITING["continuous"][0](jax_pipeline)
+    """A spec the JAX ``Pipeline`` made with an mp-executor stage: the
+    port's runner refuses it at start (no stage runs as something else)
+    and leaves nothing behind."""
+    spec = torch_pipeline.PipelineSpec.from_json(WAITING["mp"][0](jax_pipeline)
                                                  .build().to_json())
     run = spec.run(devices=[CPU] * 2)
-    with pytest.raises(torch_pipeline.PipelineValidationError, match="ROADMAP A2"):
+    with pytest.raises(torch_pipeline.PipelineValidationError, match="ROADMAP A2, workers"):
         run.start()
     assert run.teardown_log == ["service"] and run.service.pool.leased_devices == 0
 
@@ -411,10 +438,13 @@ def test_cli_validates_and_refuses_what_waits(tmp_path, capsys):
     assert torch_cli.main(["validate", str(good)]) == 0
     assert "OK" in capsys.readouterr().out
     bad = tmp_path / "bad.json"
-    bad.write_text(WAITING["continuous"][0](jax_pipeline).build().to_json())
+    bad.write_text(WAITING["mp"][0](jax_pipeline).build().to_json())
     assert torch_cli.main(["validate", str(bad)]) == 1
-    assert "engine='continuous' waits for the port's continuous engine (ROADMAP A2)" \
+    assert "executor='mp' waits for the port's worker processes (ROADMAP A2, workers)" \
         in capsys.readouterr().err
+    windowed = tmp_path / "windowed.json"
+    windowed.write_text(WAITING["checkpoint"][0](jax_pipeline).build().to_json())
+    assert torch_cli.main(["validate", str(windowed)]) == 0
     assert torch_cli.main(["run", str(good), "--device", "cpu", "--devices", "2",
                            "--duration", "20", "--report-every", "100"]) == 0
     assert "stage 's': 64 records" in capsys.readouterr().out
