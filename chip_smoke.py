@@ -55,9 +55,9 @@
    kernel of the stages launched, the apps on the card, K-Means inertia
    falling, the last reconstruction against the plain version, reverse-order
    teardown, and the CLI (``python -m repro_torch.pipeline validate``, in a
-   fresh interpreter) accepting the spec and a continuous variant and
-   refusing the variant on worker processes with its ROADMAP A2 message;
-   prints one ``path pipeline`` line;
+   fresh interpreter) accepting the spec and three variants: a continuous
+   K-Means stage, that stage on worker processes, and the shared-memory
+   transport; prints one ``path pipeline`` line;
 7. runs the continuous phase: a ``PipelineSpec`` with one continuous stage
    (tumbling event-time windows over a keyed stream of K-Means messages,
    crash checkpoints) three times on two slots of the card — fault-free;
@@ -67,8 +67,25 @@
    bitwise on every (key, window), with no firing lost, duplicated or
    late, at least one recovery, partitions moved between the slots, both
    K-Means kernels launched per firing, and sampled firings against the
-   plain versions on the CPU; prints one ``path continuous`` line;
-8. prints one JSON line ``{"kernels": [...]}`` and, last, one JSON line
+   plain versions on the CPU; prints one ``path continuous`` line. Then the
+   same spec with ``executor="mp"``: each slot's partitions in a worker
+   process spawned on the card (the window processor is a module-level
+   class that pickles), run fault-free, with a worker SIGKILLed (its
+   supervisor respawns it and replays), with the pilot killed (recovered
+   and rehomed onto the new pilot's slots) and grown and shrunk (a worker
+   spawned on the grow, 32 of 64 partitions moved each way), each held to
+   the inline fault-free run bitwise, the kernels' launches counted in the
+   workers; prints one ``path continuous-mp`` line with the workers' start
+   and respawn-to-resumed seconds and the card's most used memory;
+8. runs the transport phase: a detector source's 360 x 1448 f32 frames, 8
+   per slot of a shared-memory ring, into an ML-EM stage on the card that
+   reads them as views, and the same spec on the log; checks every frame
+   processed, none copied out, each frame's reconstruction over the ring
+   against the log run's, the last against the plain versions, both
+   projectors launched and no segment left in ``/dev/shm``; prints one
+   ``path transport`` line, and one ``host_transport`` line (host only) for
+   the JAX package's transport benchmark configuration through the port;
+9. prints one JSON line ``{"kernels": [...]}`` and, last, one JSON line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without printing the
@@ -154,6 +171,23 @@ CONT_KILL_AT, CONT_GROW_AT, CONT_SHRINK_AT = 1200, 1000, 2000
 # every window but the last closes: 29 x 4 = 116 firings
 CONT_FIRINGS = (round(CONT_MSGS * CONT_DT / CONT_WINDOW) - 1) * CONT_KEYS
 CONT_TIMEOUT_S = 60  # per run; a run takes 6-7 s, the kill run 2 s more
+# the same phase with executor="mp": the stage's partitions in worker
+# processes, spawned (the slots are on the card); run 2 SIGKILLs a worker
+# at CONT_KILL_AT records, which its supervisor respawns and replays
+CONT_MP_TIMEOUT_S = 90  # per run: a worker's spawn takes seconds
+
+# the transport phase: a beamline detector's frames (360 x 1448 f32, 2.1 MB)
+# written once into a shared-memory ring, 8 per slot, and reconstructed by
+# ML-EM at n = 1448 on the card; one producer at TRANS_RATE frames/s, about
+# 80 % of what the stage drains at 8-frame batches (PERF.md §4), TRANS_FRAMES
+# frames from a cache of TRANS_CACHED; run again on the log plane
+TRANS_RING = {"slot_bytes": 1 << 25, "n_slots": 16}
+TRANS_FRAMES, TRANS_RATE, TRANS_BATCH, TRANS_CACHED = 400, 100, 8, 16
+TRANS_TIMEOUT_S = 60  # per run; the source alone takes 4 s
+# beside it, on the host only: the JAX package's own transport benchmark
+# configuration (benchmarks/transport.py): 128 x 128 uint16 frames, trains of
+# 32, 8000 messages, 1 and 4 consumer groups, through the port's modules
+HOST_TRANS_NY, HOST_TRANS_NX, HOST_TRANS_BATCH, HOST_TRANS_MSGS = 128, 128, 32, 8000
 
 # the serving stream: messages of SERVE_BATCH prompts, one message per
 # micro-batch, as launch/serve.py runs it; smollm-135m's attention is
@@ -980,11 +1014,10 @@ def pipeline_spec(pipeline):
 
 def pipeline_cli(pipeline) -> dict:
     """``python -m repro_torch.pipeline validate`` in a fresh interpreter
-    on the phase's spec written as JSON and on two variants whose K-Means
-    stage is a continuous stage with crash checkpoints: 0 for the spec and
-    the variant, 1 with the ROADMAP A2 refusal for the variant on worker
-    processes (``executor="mp"``, built as data: ``Pipeline.build``
-    refuses it)."""
+    on the phase's spec written as JSON and on three variants: its K-Means
+    stage as a continuous stage with crash checkpoints, that stage on worker
+    processes (``executor="mp"``), and the broker and the ML-EM stage on the
+    shared-memory transport (``transport="shm"``). Each must exit 0."""
     import dataclasses
 
     spec = pipeline_spec(pipeline)
@@ -994,22 +1027,24 @@ def pipeline_cli(pipeline) -> dict:
             dataclasses.replace(st, engine="continuous", checkpoint_every=CONT_CKPT,
                                 window={"window": "tumbling", "size": CONT_WINDOW}, **kw)
             if st.name == "kmeans" else st for st in spec.stages))
+    shm = dataclasses.replace(
+        spec, broker=dataclasses.replace(spec.broker, transport="shm",
+                                         transport_options=dict(TRANS_RING)),
+        stages=tuple(dataclasses.replace(st, transport="shm") if st.name == "recon" else st
+                     for st in spec.stages))
     out_dir = ROOT / "build" / "pipeline_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     res = {}
-    for name, sp, want in (("valid", spec, 0), ("continuous", continuous(), 0),
-                           ("mp", continuous(executor="mp"), 1)):
+    for name, sp in (("valid", spec), ("continuous", continuous()),
+                     ("mp", continuous(executor="mp")), ("shm", shm)):
         path = out_dir / f"{name}.json"
         path.write_text(sp.to_json(indent=1))
         proc = subprocess.run([sys.executable, "-m", "repro_torch.pipeline", "validate", str(path)],
                               capture_output=True, text=True, timeout=300, cwd=ROOT,
                               env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-        if proc.returncode != want:
+        if proc.returncode != 0:
             raise AssertionError(f"pipeline CLI validate {name}: exit {proc.returncode}, want "
-                                 f"{want}\n{proc.stdout}{proc.stderr}")
-        if want == 1 and "executor='mp' waits for the port's worker processes " \
-                         "(ROADMAP A2, workers)" not in proc.stderr:
-            raise AssertionError(f"pipeline CLI: no A2 refusal in {proc.stderr!r}")
+                                 f"0\n{proc.stdout}{proc.stderr}")
         res[name] = {"exit": proc.returncode,
                      "said": (proc.stdout + proc.stderr).strip().splitlines()[-1]}
     return res
@@ -1123,10 +1158,85 @@ def cont_centroids(key: int):
         np.float32)
 
 
-def continuous_registry(torch, pipeline, miniapps, kmeans) -> None:
+class KMeansWindows:
+    """The continuous phase's window processor, at module level so that a
+    spawned worker (the mp runs' stage on the card) can unpickle it. Per
+    (key, window): the window's points stacked onto the card,
+    ``kmeans_assign`` against the key's centroids, ``kmeans_update``, and
+    the window's centroids, inertia and message count back on the host —
+    with the kernel launches the call made when it ran in a worker process,
+    whose counts the parent's do not see. Records are keyed by their
+    offset: on the phase's one-partition topic the offset is the message
+    index. ``emit`` (in the parent) collects each delivered firing, counts
+    duplicates and sums the workers' launches. It pickles without the card:
+    a worker rebuilds the centroids on its own device and runs one warm-up
+    window there before its first beat."""
+
+    #: the mp stage's runtime knobs (the runner passes them through): a
+    #: checkpoint every 16 polls keeps a killed worker's replay short
+    worker_options = {"snapshot_every": 16}
+
+    def __init__(self, device="cuda", metrics=None):
+        import torch
+
+        self.device = torch.device(device)
+        self._home = os.getpid()
+        self._reset()
+
+    def _reset(self) -> None:
+        self.outputs: dict = {}
+        self.duplicates = 0
+        self.worker_launches: dict = {}
+        self._centroids: dict = {}
+
+    def __getstate__(self):
+        return {"device": self.device, "_home": self._home}
+
+    def __setstate__(self, state):
+        import torch
+
+        from repro_torch.kernels import kmeans
+
+        self.__dict__.update(state)
+        self._reset()
+        window_kmeans(torch, kmeans, torch.zeros((CONT_POINTS, 3), device=self.device),
+                      self._key_centroids(0))
+
+    def _key_centroids(self, key: int):
+        import torch
+
+        if key not in self._centroids:
+            self._centroids[key] = torch.from_numpy(cont_centroids(key)).to(self.device)
+        return self._centroids[key]
+
+    def key_fn(self, msg):
+        return msg.offset % CONT_KEYS
+
+    def process(self, key, window, msgs):
+        import numpy as np
+        import torch
+
+        from repro_torch import kernels
+        from repro_torch.kernels import kmeans
+
+        before = [k.launches for k in kernels.KERNELS]
+        pts = torch.from_numpy(np.concatenate([m.value for m in msgs]).astype(np.float32))
+        out = window_kmeans(torch, kmeans, pts.to(self.device), self._key_centroids(key))
+        launched = {} if os.getpid() == self._home else {
+            k.name: k.launches - n for k, n in zip(kernels.KERNELS, before)}
+        return (key, window) + out + (len(msgs), launched)
+
+    def emit(self, out):
+        kw = out[:2]
+        self.duplicates += kw in self.outputs
+        self.outputs[kw] = out[2:5]
+        for name, n in out[5].items():
+            self.worker_launches[name] = self.worker_launches.get(name, 0) + n
+
+
+def continuous_registry(pipeline, miniapps) -> None:
     """Register the continuous phase's source and window processor with the
     port's pipeline registry."""
-    import numpy as np
 
     class KeyedPoints(miniapps.StreamSource):
         """The phase's messages (:func:`cont_message`); event time from i."""
@@ -1136,34 +1246,6 @@ def continuous_registry(torch, pipeline, miniapps, kmeans) -> None:
 
         def make_timestamp(self, rng, i):
             return CONT_BASE_TS + CONT_DT * i
-
-    class KMeansWindows:
-        """Per (key, window): the window's points stacked onto the card,
-        ``kmeans_assign`` against the key's centroids, ``kmeans_update``,
-        and the window's centroids, inertia and message count back on the
-        host. Records are keyed by their offset: on the phase's
-        one-partition topic the offset is the message index. ``emit``
-        collects each delivered firing and counts duplicates."""
-
-        def __init__(self, device="cuda", metrics=None):
-            self.device = torch.device(device)
-            self.centroids = {key: torch.from_numpy(cont_centroids(key)).to(self.device)
-                              for key in range(CONT_KEYS)}
-            self.outputs: dict = {}
-            self.duplicates = 0
-
-        def key_fn(self, msg):
-            return msg.offset % CONT_KEYS
-
-        def process(self, key, window, msgs):
-            pts = torch.from_numpy(np.concatenate([m.value for m in msgs]).astype(np.float32))
-            return (key, window) + window_kmeans(torch, kmeans, pts.to(self.device),
-                                                 self.centroids[key]) + (len(msgs),)
-
-        def emit(self, out):
-            kw = out[:2]
-            self.duplicates += kw in self.outputs
-            self.outputs[kw] = out[2:]
 
     pipeline.register_source("smoke_keyed_points", KeyedPoints)
     pipeline.register_processor("smoke_kmeans_windows", KMeansWindows)
@@ -1178,7 +1260,7 @@ def window_kmeans(torch, kmeans, points, centroids) -> tuple:
     return new.cpu().numpy(), float(dist.sum())
 
 
-def continuous_spec(pipeline, name: str):
+def continuous_spec(pipeline, name: str, executor: str = "inline"):
     """The continuous phase's spec, built by the port's ``Pipeline``."""
     return (pipeline.Pipeline.named(name)
             .broker(nodes=1)
@@ -1187,21 +1269,29 @@ def continuous_spec(pipeline, name: str):
                     rate_msgs_per_s=CONT_RATE)
             .stage("kwin", topic="kpoints", processor="smoke_kmeans_windows", engine="continuous",
                    window={"window": "tumbling", "size": CONT_WINDOW},
-                   checkpoint_every=CONT_CKPT)
+                   checkpoint_every=CONT_CKPT, executor=executor)
             .build())
 
 
-def continuous_run(torch, kernels, pipeline, faults, mode: str) -> dict:
+def continuous_run(torch, kernels, pipeline, faults, mode: str, executor: str = "inline") -> dict:
     """One run of :func:`continuous_spec` on two slots of the card until
-    every firing is delivered: ``mode`` "clean", "kill" (FaultInjector
-    kills the stage's pilot, the runner's StageReconciler recovers it) or
-    "rescale" (an extension pilot joins and leaves). Returns the firings,
-    counters, launches and timings."""
-    spec = continuous_spec(pipeline, f"cont-{mode}")
+    every firing is delivered: ``mode`` "clean", "worker" (a worker process
+    SIGKILLed, mp only), "kill" (FaultInjector kills the stage's pilot, the
+    runner's StageReconciler recovers it and rehomes the partitions onto the
+    new pilot's slots) or "rescale" (an extension pilot joins and leaves).
+    Returns the firings, counters, launches (the parent's plus the
+    workers') and timings; for mp also the workers' start and
+    respawn-to-resumed seconds and the card's most used memory."""
+    import signal
+
+    spec = continuous_spec(pipeline, f"cont-{executor}-{mode}", executor)
     run = spec.run(devices=2)
     kernels.reset_launches()
     injector, ext, migrations = None, None, []
     t_kill = t_resumed = None  # host clock, polled every 5 ms
+    runtimes: dict = {}  # every worker runtime the stage had (a recovery makes a new one)
+    used_mib, t_mem = 0.0, 0.0
+    timeout = CONT_MP_TIMEOUT_S if executor == "mp" else CONT_TIMEOUT_S
     with run:
         stream, proc = run.stream("kwin"), run.processor("kwin")
         t0 = time.monotonic()
@@ -1213,15 +1303,28 @@ def continuous_run(torch, kernels, pipeline, faults, mode: str) -> dict:
         while (stream.stats.fired_windows < CONT_FIRINGS or stream.stats.records < CONT_MSGS
                or not run.sources_finished):
             if stream._error is not None:
-                raise AssertionError(f"continuous {mode}: stream failed: {stream._error!r}")
-            if time.monotonic() - t0 > CONT_TIMEOUT_S:
+                raise AssertionError(f"continuous {executor} {mode}: stream failed: "
+                                     f"{stream._error!r}")
+            if time.monotonic() - t0 > timeout:
                 raise AssertionError(
-                    f"continuous {mode}: {stream.stats.fired_windows}/{CONT_FIRINGS} firings "
-                    f"after {CONT_TIMEOUT_S} s; events {injector.events if injector else []}; "
-                    f"recovery errors {run.reconciler.errors}")
+                    f"continuous {executor} {mode}: {stream.stats.fired_windows}/{CONT_FIRINGS} "
+                    f"firings after {timeout} s; events "
+                    f"{injector.events if injector else []}; recovery errors "
+                    f"{run.reconciler.errors}")
+            if stream.runtime is not None:
+                runtimes[id(stream.runtime)] = stream.runtime
+                if torch.cuda.is_available() and time.monotonic() - t_mem > 0.25:
+                    free, total = torch.cuda.mem_get_info()
+                    used_mib, t_mem = max(used_mib, (total - free) / 2**20), time.monotonic()
+            if mode == "worker" and t_kill is None and stream.stats.records >= CONT_KILL_AT:
+                os.kill(stream.runtime._sups[0].process.pid, signal.SIGKILL)
+                t_kill = time.monotonic()
+            if mode == "worker" and t_kill is not None and t_resumed is None \
+                    and stream.runtime.recovery_seconds:
+                t_resumed = time.monotonic()
             if injector is not None and t_kill is None and injector.events:
                 t_kill = time.monotonic()
-            if t_kill is not None and t_resumed is None and stream.recoveries:
+            if mode == "kill" and t_kill is not None and t_resumed is None and stream.recoveries:
                 t_resumed = time.monotonic()
             if mode == "rescale" and ext is None and stream.stats.records >= CONT_GROW_AT:
                 ext = run.service.submit_pilot({"number_of_nodes": 1, "cores_per_node": 1,
@@ -1234,9 +1337,11 @@ def continuous_run(torch, kernels, pipeline, faults, mode: str) -> dict:
         wall = time.monotonic() - t0
         if injector is not None:
             injector.stop()
-        launches = {k.name: k.launches for k in kernels.KERNELS}
+        launches = {k.name: k.launches + proc.worker_launches.get(k.name, 0)
+                    for k in kernels.KERNELS}
         plugin = run.pilot("kwin").plugin
-        info = {"mode": mode, "wall_s": wall, "msgs_per_s": CONT_MSGS / wall,
+        info = {"mode": mode, "executor": executor, "wall_s": wall,
+                "msgs_per_s": CONT_MSGS / wall,
                 "firings": stream.stats.fired_windows, "records": stream.stats.records,
                 "late": stream.stats.late_records, "duplicates": proc.duplicates,
                 "recoveries": stream.recoveries, "stage_recoveries": run.reconciler.recoveries,
@@ -1246,15 +1351,26 @@ def continuous_run(torch, kernels, pipeline, faults, mode: str) -> dict:
                 "fault_events": [[e.kind, e.records, e.detail] for e in injector.events]
                 if injector else [],
                 "slots": plugin.slots, "devices": [str(d) for d in plugin.devices],
+                "owners": list(stream.store.owners),
                 "migrations": [{"from": list(r.from_owners), "to": list(r.to_owners),
                                 "moved_partitions": len(r.moved), "bytes": r.bytes_moved,
                                 "records": r.buffered_records_moved, "ms": r.duration_ms}
                                for r in migrations],
                 "launches": {k: launches[k] for k in ("kmeans_assign", "kmeans_update")},
+                "launches_in_workers": {k: proc.worker_launches.get(k, 0)
+                                        for k in ("kmeans_assign", "kmeans_update")},
                 "app_device": str(proc.device)}
+        if executor == "mp":
+            info.update({
+                "workers_started": sum(len(rt.start_seconds) for rt in runtimes.values()),
+                "worker_start_s": [t for rt in runtimes.values() for t in rt.start_seconds],
+                "worker_restarts": sum(rt.restarts for rt in runtimes.values()),
+                "respawn_to_resumed_s": [t for rt in runtimes.values()
+                                         for t in rt.recovery_seconds],
+                "card_used_mib_max": used_mib})
         outputs = dict(proc.outputs)
     if run.errors:
-        raise AssertionError(f"continuous {mode}: teardown errors {run.errors!r}")
+        raise AssertionError(f"continuous {executor} {mode}: teardown errors {run.errors!r}")
     return {"info": info, "outputs": outputs, "launches": launches}
 
 
@@ -1274,6 +1390,31 @@ def window_reference(torch, kmeans, key: int, window: tuple) -> tuple:
     return new.numpy(), float(dist.sum()), len(idx)
 
 
+def hold_to_base(runs: dict, base: dict, label: str) -> None:
+    """Every run fired every (key, window) once, in time, bitwise equal to
+    ``base`` (centroids by their bits, inertia and count exactly), and
+    launched both K-Means kernels at least once per firing."""
+    import numpy as np
+
+    for mode, r in runs.items():
+        info = r["info"]
+        if (info["firings"], info["records"], info["late"], info["duplicates"]) != (
+                CONT_FIRINGS, CONT_MSGS, 0, 0):
+            raise AssertionError(f"{label} {mode}: {info}")
+        if r["outputs"].keys() != base.keys():
+            raise AssertionError(f"{label} {mode}: other (key, window) set than the clean run")
+        for kw, (cent, inertia, count) in base.items():
+            c2, i2, n2 = r["outputs"][kw]
+            if not (cent.dtype == c2.dtype and np.array_equal(cent.view(np.uint32),
+                                                              c2.view(np.uint32))
+                    and inertia == i2 and count == n2):
+                raise AssertionError(f"{label} {mode}: firing {kw} differs from the clean run")
+        for name, n in info["launches"].items():
+            if n < CONT_FIRINGS:
+                raise AssertionError(f"{label} {mode}: {name} launched {n} times for "
+                                     f"{CONT_FIRINGS} firings")
+
+
 def continuous_path(torch, kernels, pipeline, miniapps, kmeans) -> dict:
     """The continuous phase: the fault-free run, the pilot kill and the
     slot grow/shrink (:func:`continuous_run`), held to the fault-free run
@@ -1281,34 +1422,23 @@ def continuous_path(torch, kernels, pipeline, miniapps, kmeans) -> dict:
     late; the kill recovered at least once; the grow and shrink moving
     partitions between the two slots of the one card; both kernels launched
     at least once per firing; and sampled firings against the plain
-    versions on the CPU."""
+    versions on the CPU. Then the same spec with ``executor="mp"``
+    (spawned worker processes on the card): fault-free, a worker SIGKILLed,
+    the pilot killed, and the grow and shrink, each held to the inline
+    fault-free run the same way, with a worker restart, the owners on the
+    new pilot's slots after the recovery, 32 of 64 partitions moved each
+    way, and the kernels' launches counted in the workers."""
     import numpy as np
 
     from repro_torch import faults
 
-    continuous_registry(torch, pipeline, miniapps, kmeans)
+    continuous_registry(pipeline, miniapps)
     runs = {mode: continuous_run(torch, kernels, pipeline, faults, mode)
             for mode in ("clean", "kill", "rescale")}
     base = runs["clean"]["outputs"]
     if len(base) != CONT_FIRINGS:
         raise AssertionError(f"continuous: {len(base)} firings, want {CONT_FIRINGS}")
-    for mode, r in runs.items():
-        info = r["info"]
-        if (info["firings"], info["records"], info["late"], info["duplicates"]) != (
-                CONT_FIRINGS, CONT_MSGS, 0, 0):
-            raise AssertionError(f"continuous {mode}: {info}")
-        if r["outputs"].keys() != base.keys():
-            raise AssertionError(f"continuous {mode}: other (key, window) set than the clean run")
-        for kw, (cent, inertia, count) in base.items():
-            c2, i2, n2 = r["outputs"][kw]
-            if not (cent.dtype == c2.dtype and np.array_equal(cent.view(np.uint32),
-                                                              c2.view(np.uint32))
-                    and inertia == i2 and count == n2):
-                raise AssertionError(f"continuous {mode}: firing {kw} differs from the clean run")
-        for name, n in info["launches"].items():
-            if n < CONT_FIRINGS:
-                raise AssertionError(f"continuous {mode}: {name} launched {n} times for "
-                                     f"{CONT_FIRINGS} firings")
+    hold_to_base(runs, base, "continuous")
     kill, rescale = runs["kill"]["info"], runs["rescale"]["info"]
     if kill["recoveries"] < 1 or kill["stage_recoveries"] < 1:
         raise AssertionError(f"continuous kill: no recovery: {kill}")
@@ -1329,7 +1459,7 @@ def continuous_path(torch, kernels, pipeline, miniapps, kmeans) -> dict:
                                  f"count {count}/{r_count}, centroid err {err}, inertia rel {rel}")
         worst = {"centroids_max_abs_err": max(worst["centroids_max_abs_err"], err),
                  "inertia_rel_err": max(worst["inertia_rel_err"], rel)}
-    for mode, r in runs.items():  # last: a CPU rehearsal of the phase gets this far
+    for mode, r in runs.items():  # a CPU rehearsal of the phase gets this far
         if r["info"]["app_device"].split(":")[0] != "cuda":
             raise AssertionError(f"continuous {mode}: the window processor on "
                                  f"{r['info']['app_device']}, not the card")
@@ -1337,8 +1467,236 @@ def continuous_path(torch, kernels, pipeline, miniapps, kmeans) -> dict:
            "bytes_through_log": CONT_MSGS * CONT_POINTS * 3 * 8,
            "runs": [r["info"] for r in runs.values()], "vs_plain": worst}
     print("path " + json.dumps(out))
-    launches = {k.name: sum(r["launches"][k.name] for r in runs.values()) for k in kernels.KERNELS}
-    return {"report": out, "launches": launches}
+
+    # the same spec on worker processes, held to the inline fault-free run
+    mp_runs = {mode: continuous_run(torch, kernels, pipeline, faults, mode, "mp")
+               for mode in ("clean", "worker", "kill", "rescale")}
+    hold_to_base(mp_runs, base, "continuous-mp")
+    info = {mode: r["info"] for mode, r in mp_runs.items()}
+    for mode, i in info.items():
+        if i["workers_started"] < 1 or min(i["launches_in_workers"].values()) < CONT_FIRINGS:
+            raise AssertionError(f"continuous-mp {mode}: the firings did not run in spawned "
+                                 f"workers: {i}")
+    if info["worker"]["worker_restarts"] < 1 or not info["worker"]["respawn_to_resumed_s"]:
+        raise AssertionError(f"continuous-mp worker: no restart: {info['worker']}")
+    kill = info["kill"]
+    if kill["recoveries"] < 1 or kill["stage_recoveries"] < 1 or kill["owners"] != kill["slots"]:
+        raise AssertionError(f"continuous-mp kill: no recovery onto the new pilot's slots: {kill}")
+    grow_shrink = [(len(m["to"]), m["moved_partitions"]) for m in info["rescale"]["migrations"]]
+    if grow_shrink != [(2, 32), (1, 32)]:
+        raise AssertionError(f"continuous-mp rescale: want 32 of 64 partitions moved each way: "
+                             f"{info['rescale']['migrations']}")
+    mp_out = {"path": "continuous-mp", "firings": CONT_FIRINGS, "messages": CONT_MSGS,
+              "held_to": "the inline fault-free run, bitwise", "runs": list(info.values())}
+    print("path " + json.dumps(mp_out))
+    launches = {k.name: sum(r["launches"][k.name] for r in [*runs.values(), *mp_runs.values()])
+                for k in kernels.KERNELS}
+    return {"report": out, "mp_report": mp_out, "launches": launches}
+
+
+def transport_registry(pipeline, miniapps, ShmArrayView) -> None:
+    """Register the transport phase's processor: the port's ML-EM app,
+    keeping every frame's reconstruction on the card by the frame's offset
+    (the frame index, on the phase's one-partition topic) and counting the
+    frames that arrived as views into the ring."""
+
+    class FrameRecons(miniapps.ReconstructionApp):
+        def __init__(self, device="cuda", metrics=None):
+            super().__init__("mlem", n=RECON_N, mlem_iters=MLEM_ITERS, metrics=metrics,
+                             device=device)
+            self.frames: dict = {}
+            self.views = 0
+            self._batch = None
+
+        def _reconstruct(self, sinos, angles):
+            self._batch = super()._reconstruct(sinos, angles)
+            return self._batch
+
+        def process(self, state, msgs):
+            self.views += sum(isinstance(m.value, ShmArrayView) for m in msgs)
+            out = super().process(state, msgs)  # one shape: one batch, all of msgs
+            self.frames.update(zip((m.offset for m in msgs), self._batch))
+            return out
+
+    pipeline.register_processor("smoke_mlem_frames", FrameRecons)
+
+
+def transport_spec(pipeline, transport: str):
+    """The transport phase's spec, built by the port's ``Pipeline``: the
+    detector source into an ML-EM stage, over the ring or the log."""
+    return (pipeline.Pipeline.named(f"detector-{transport}")
+            .broker(nodes=1, transport=transport,
+                    transport_options=dict(TRANS_RING) if transport == "shm" else {})
+            .topic("frames", partitions=1)
+            .source("frames", kind="detector", seed=SEED, total_messages=TRANS_FRAMES,
+                    rate_msgs_per_s=TRANS_RATE, ny=FRAME_ANGLES, nx=FRAME_BINS,
+                    dtype="float32", frames_per_batch=TRANS_BATCH, n_cached=TRANS_CACHED)
+            .stage("recon", topic="frames", processor="smoke_mlem_frames",
+                   max_batch_records=TRANS_BATCH, batch_interval=0.05,
+                   backpressure=PIPE_RECON_RATE_CONTROL,
+                   transport="shm" if transport == "shm" else None)
+            .build())
+
+
+def shm_segments() -> set:
+    return {p.name for p in Path("/dev/shm").glob("rring-*")} if Path("/dev/shm").is_dir() \
+        else set()
+
+
+def transport_run(torch, kernels, pipeline, transport: str) -> dict:
+    """One run of :func:`transport_spec` on one slot of the card until the
+    stage has processed every frame; checks records against frames sent,
+    lag 0, no copy-out, and the ring's segment gone after the teardown."""
+    spec = transport_spec(pipeline, transport)
+    before = shm_segments()
+    run = spec.run(devices=1)
+    kernels.reset_launches()
+    with run:
+        stream, source, proc = run.stream("recon"), run.source("frames"), run.processor("recon")
+        t0 = time.monotonic()
+        while not (run.sources_finished and stream.stats.records == source.sent_records):
+            if stream._error is not None:
+                raise AssertionError(f"transport {transport}: stream failed: {stream._error!r}")
+            if time.monotonic() - t0 > TRANS_TIMEOUT_S:
+                raise AssertionError(f"transport {transport}: {stream.stats.records}/"
+                                     f"{source.sent_records} frames after {TRANS_TIMEOUT_S} s")
+            time.sleep(0.005)
+        wall = time.monotonic() - t0
+        stream.sync_fn()
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        ring = run.cluster.transport.ring_for("frames") if transport == "shm" else None
+        lat = proc.stats.latency
+        info = {"transport": transport, "wall_s": wall, "frames": stream.stats.records,
+                "sent": source.sent_records, "lag": run.lag("recon"),
+                "frames_per_s": stream.stats.records / wall, "batches": stream.stats.batches,
+                "latency_p50_s": lat.p50, "latency_p99_s": lat.p99,
+                "copied_out": sum(p.copied_out_records for p in source.producers),
+                "views": proc.views,
+                "ring": None if ring is None else {
+                    "slots_written": ring.alloc_count, "slots_reclaimed": ring.reclaim_count,
+                    "stall_s": ring.stall_seconds, "name": ring.name},
+                "io_stall_s": run.cluster.io_stall_seconds(),
+                "launches": {k: launches[k] for k in ("tomo_project", "tomo_backproject")},
+                "app_device": str(proc.device)}
+        frames, last = dict(proc.frames), stream.state
+        payload = source._cache[(TRANS_FRAMES - 1) % TRANS_CACHED]
+    if run.errors:
+        raise AssertionError(f"transport {transport}: teardown errors {run.errors!r}")
+    info["segments_left"] = sorted(shm_segments() - before)
+    if (info["frames"], info["sent"], info["lag"]) != (TRANS_FRAMES, TRANS_FRAMES, 0):
+        raise AssertionError(f"transport {transport}: frames processed, sent, lag: {info}")
+    if transport == "shm" and (info["copied_out"] or info["views"] != TRANS_FRAMES
+                               or info["ring"]["slots_written"] != TRANS_FRAMES // TRANS_BATCH):
+        raise AssertionError(f"transport shm: not every frame crossed the ring: {info}")
+    if info["segments_left"]:
+        raise AssertionError(f"transport {transport}: segments left in /dev/shm: "
+                             f"{info['segments_left']}")
+    for name, n in info["launches"].items():
+        if n < 1:
+            raise AssertionError(f"transport {transport}: {name} was not launched")
+    return {"info": info, "frames": frames, "last": last, "payload": payload,
+            "launches": launches}
+
+
+def host_transport(n_msgs: int = HOST_TRANS_MSGS) -> list:
+    """On the host only: the JAX package's own transport benchmark
+    configuration (benchmarks/transport.py) through the port's modules — a
+    detector source of HOST_TRANS_NY x HOST_TRANS_NX uint16 frames in trains
+    of HOST_TRANS_BATCH into one topic, drained by 1 and 4 consumer groups,
+    on the log and on the ring; msgs/s, MB/s and records lost."""
+    import threading
+
+    from repro_torch.broker import BrokerCluster, Consumer, ConsumerGroup
+    from repro_torch.miniapps import DetectorSimSource, SourceConfig
+    from repro_torch.transport import ShmTransport
+
+    def drain(consumer, counts, i):
+        while counts[i] < n_msgs:
+            msgs = consumer.poll(max_records=512, timeout=0.5)
+            if msgs:
+                counts[i] += len(msgs)
+                consumer.commit()  # progress drives shm slot reclaim
+
+    rows = []
+    for transport in ("log", "shm"):
+        for n_groups in (1, 4):
+            cluster = BrokerCluster(1)
+            try:
+                if transport == "shm":
+                    cluster.attach_transport(ShmTransport(slot_bytes=1 << 21, n_slots=64))
+                cluster.create_topic("frames", 1)
+                if transport == "shm":
+                    cluster.transport.mount("frames")
+                consumers = [Consumer(cluster, ConsumerGroup(cluster, f"g{i}", "frames"),
+                                      f"m{i}", zero_copy=transport == "shm")
+                             for i in range(n_groups)]
+                counts = [0] * n_groups
+                threads = [threading.Thread(target=drain, args=(c, counts, i), daemon=True)
+                           for i, c in enumerate(consumers)]
+                source = DetectorSimSource(
+                    cluster, SourceConfig("frames", total_messages=n_msgs),
+                    ny=HOST_TRANS_NY, nx=HOST_TRANS_NX, dtype="uint16",
+                    frames_per_batch=HOST_TRANS_BATCH)
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                source.start()
+                for t in threads:
+                    t.join(timeout=300)
+                wall = time.perf_counter() - t0
+                source.stop()
+                for c in consumers:
+                    c.close()
+                rows.append({"transport": transport, "consumer_groups": n_groups,
+                             "msgs": n_msgs, "wall_s": wall, "msgs_per_s": n_msgs / wall,
+                             "mb_per_s": n_msgs * source.frame_bytes * n_groups / wall / 1e6,
+                             "lost": cluster.lost_records + sum(n_msgs - c for c in counts)})
+            finally:
+                cluster.close()
+    if any(r["lost"] for r in rows):
+        raise AssertionError(f"host transport: records lost: {rows}")
+    return rows
+
+
+def transport_path(torch, kernels, pipeline, miniapps, tomo) -> dict:
+    """The transport phase: :func:`transport_spec` over the ring and over
+    the log (:func:`transport_run`); every frame's reconstruction over the
+    ring against the log run's for the same frame index, within the ML-EM
+    tolerance of :func:`recon_vs_plain` (1e-3 of the frame's peak), the
+    worst difference printed and whether it was bitwise; the last batch's
+    reconstruction against the plain versions. Then, on the host only, the
+    JAX package's transport configuration (:func:`host_transport`)."""
+    from repro_torch.transport import ShmArrayView
+
+    transport_registry(pipeline, miniapps, ShmArrayView)
+    runs = {t: transport_run(torch, kernels, pipeline, t) for t in ("shm", "log")}
+    shm, log = runs["shm"], runs["log"]
+    if shm["frames"].keys() != log["frames"].keys() or len(shm["frames"]) != TRANS_FRAMES:
+        raise AssertionError("transport: the runs reconstructed other frames")
+    worst, bitwise = 0.0, True
+    for i, rec in log["frames"].items():
+        other = shm["frames"][i]
+        err = float((other - rec).abs().max())
+        if err > 1e-3 * float(rec.abs().max()) or not bool(torch.isfinite(other).all()):
+            raise AssertionError(f"transport: frame {i} over the ring differs from the log run "
+                                 f"by {err}")
+        worst, bitwise = max(worst, err), bitwise and bool(torch.equal(other, rec))
+    vs_plain = recon_vs_plain(torch, tomo, "mlem", shm["last"], shm["payload"],
+                              shm["last"].device)
+    for r in runs.values():  # a CPU rehearsal of the phase gets this far
+        if r["info"]["app_device"].split(":")[0] != "cuda":
+            raise AssertionError(f"transport: the ML-EM app on {r['info']['app_device']}")
+    out = {"path": "transport", "frames": TRANS_FRAMES, "frame_bytes": FRAME_ANGLES * FRAME_BINS * 4,
+           "ring": TRANS_RING, "runs": [r["info"] for r in runs.values()],
+           "shm_vs_log_max_abs_diff": worst, "shm_vs_log_bitwise": bitwise,
+           "last_vs_plain": vs_plain}
+    print("path " + json.dumps(out))
+    host = host_transport()
+    print("host_transport (host only: no device work; the JAX package's transport "
+          "configuration through the port) " + json.dumps(host))
+    launches = {k.name: sum(r["launches"][k.name] for r in runs.values())
+                for k in kernels.KERNELS}
+    return {"report": out, "host": host, "launches": launches}
 
 
 def checkpoint_round_trip(torch, params) -> dict:
@@ -1476,9 +1834,11 @@ def main() -> None:
     checkpoint_round_trip(torch, sv["params"])
     pl = pipeline_path(torch, kernels, pipeline, kmeans, tomo)
     ct = continuous_path(torch, kernels, pipeline, miniapps, kmeans)
+    tr = transport_path(torch, kernels, pipeline, miniapps, tomo)
     paths = {"kmeans_path": km["launches"], "kmeans_wide_path": kw["launches"],
              "lightsource_path": rc["launches"], "serve_path": sv["launches"],
-             "pipeline_path": pl["launches"], "continuous_path": ct["launches"]}
+             "pipeline_path": pl["launches"], "continuous_path": ct["launches"],
+             "transport_path": tr["launches"]}
     launches = {k.name: sum(p[k.name] for p in paths.values()) for k in kernels.KERNELS}
     print("launches " + json.dumps(paths))
     for name, count in launches.items():

@@ -18,9 +18,9 @@ records (``lost_records``). An optional ``blackout`` window keeps the
 affected partitions unavailable for a moment, the leader-election gap that
 exercises producer/consumer retry paths (``BrokerUnavailable``).
 
-This copy carries the log plane only: the shared-memory data plane of the
-JAX package is not ported yet, and :meth:`BrokerCluster.attach_transport`
-says so.
+An attached :class:`~repro_torch.transport.ShmTransport` is the data plane
+of the topics it serves: their records carry slot handles into a shared
+memory ring, and consumer progress reclaims the slots.
 """
 from __future__ import annotations
 
@@ -32,11 +32,6 @@ from dataclasses import dataclass, field
 from repro_torch.broker.errors import BrokerTimeout, BrokerUnavailable
 from repro_torch.broker.log import PartitionLog
 from repro_torch.broker.records import Record
-
-#: raised wherever the JAX package would use its shared-memory transport
-SHM_NOT_PORTED = ("the shared-memory transport (transport='shm', slot-tagged "
-                  "records, ring-backed send_batch) is not ported yet: it comes "
-                  "with the port's transport slice; use the log plane")
 
 
 class TokenBucket:
@@ -156,6 +151,16 @@ class BrokerCluster:
         #: stall accumulated by since-removed nodes — keeps
         #: ``io_stall_seconds`` monotonic across scale-downs
         self._retired_stall = 0.0
+        #: optional shm data plane (repro_torch.transport.ShmTransport); payload
+        #: bytes then bypass the token buckets by design (same-host shared
+        #: memory is not NIC traffic) but its allocator stall joins
+        #: ``io_stall_seconds`` so saturation stays observable
+        self.transport = None
+        #: (group, topic, partition) -> replay horizon pinned by a
+        #: checkpointing stream: slots must survive down to it, not just to
+        #: the commit position, or crash recovery would replay into
+        #: reclaimed frames
+        self._replay_floors: dict[tuple[str, str, int], int] = {}
         for _ in range(n_nodes):
             self.add_node()
 
@@ -278,14 +283,65 @@ class BrokerCluster:
     def io_stall_seconds(self) -> float:
         """Total time producers/consumers have spent blocked in this
         cluster's token buckets (cumulative and monotonic — removed nodes'
-        stall is retained)."""
+        stall is retained). The broker demand estimator differentiates
+        this into a stall *fraction*. With an shm transport attached, slot
+        allocator stall is included — a full ring is saturation too."""
         with self._lock:
-            return self._retired_stall + sum(
+            stall = self._retired_stall + sum(
                 n.bucket.stall_seconds for n in self._nodes.values()
             )
+            transport = self.transport
+        if transport is not None:
+            stall += transport.stall_seconds()
+        return stall
+
+    # ---- shm data plane (repro_torch.transport) -----------------------------------
 
     def attach_transport(self, transport) -> None:
-        raise NotImplementedError(SHM_NOT_PORTED)
+        """Mount an :class:`~repro_torch.transport.ShmTransport` as this
+        cluster's data plane. Topics the transport serves carry slot
+        handles instead of payloads (rf==1 only)."""
+        with self._lock:
+            self.transport = transport
+
+    def set_replay_floor(self, group: str, topic: str,
+                         positions: dict[int, int]) -> None:
+        """A checkpointing stream pins its replay horizon: ring slots for
+        ``topic`` stay live down to these offsets even as commits advance,
+        so ``recover()`` can re-read from the checkpoint cut. Advancing
+        the floor triggers a reclaim pass."""
+        with self._lock:
+            for p, off in positions.items():
+                self._replay_floors[(group, topic, p)] = off
+        for p in positions:
+            self._maybe_reclaim(topic, p)
+
+    def _reclaim_floor_locked(self, topic: str, partition: int) -> int | None:
+        """min over registered consumer groups of each group's replay
+        floor (when pinned) else its committed offset. None = no group is
+        consuming this topic yet — nothing may be reclaimed."""
+        floor = None
+        for ref in self._groups:
+            g = ref()
+            if g is None or g.topic != topic:
+                continue
+            key = (g.group, topic, partition)
+            pos = self._replay_floors.get(key)
+            if pos is None:
+                pos = self._offsets.get((g.group, topic, partition))
+            if pos is None:
+                return None  # registered group with no progress: hold all
+            floor = pos if floor is None else min(floor, pos)
+        return floor
+
+    def _maybe_reclaim(self, topic: str, partition: int) -> None:
+        with self._lock:
+            transport = self.transport
+            if transport is None or not transport.serves(topic):
+                return
+            floor = self._reclaim_floor_locked(topic, partition)
+        if floor is not None:
+            transport.reclaim_below(topic, partition, floor)
 
     # ---- fault-injection knobs ------------------------------------------------
 
@@ -335,16 +391,25 @@ class BrokerCluster:
     def delete_topic(self, name: str) -> None:
         with self._lock:
             topic = self._topics.pop(name, None)
+            transport = self.transport
             if topic:
                 for logs in topic.replicas.values():
                     for log in logs.values():
                         log.close()
+        if topic and transport is not None:
+            transport.unmount(name)  # unlinks the shm segment
 
     def close(self) -> None:
-        """Tear the cluster down: close every log (the pilot plugin's
-        cancel path)."""
+        """Tear the cluster down: close every log and unlink every shm
+        segment (the pilot plugin's cancel path — a crashed or cancelled
+        broker must not leak /dev/shm entries)."""
         for name in list(self._topics):
             self.delete_topic(name)
+        with self._lock:
+            transport = self.transport
+            self.transport = None
+        if transport is not None:
+            transport.close()
 
     # ---- data plane (throttled by node budgets) ------------------------------
 
@@ -440,6 +505,10 @@ class BrokerCluster:
     def commit(self, group: str, topic: str, partition: int, offset: int) -> None:
         with self._lock:
             self._offsets[(group, topic, partition)] = offset
+            has_transport = self.transport is not None
+        if has_transport:
+            # consumer progress is what frees ring slots
+            self._maybe_reclaim(topic, partition)
 
     def committed(self, group: str, topic: str, partition: int) -> int:
         with self._lock:

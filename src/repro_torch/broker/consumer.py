@@ -15,9 +15,6 @@ engine loop. An optional ``max_lag`` turns unbounded lag into graceful
 degradation: records beyond the bound are shed (skipped and counted in
 ``shed_records`` / the ``broker.shed_records`` gauge) so a slow consumer
 falls behind by a bounded amount instead of indefinitely.
-
-Log plane only: a slot-tagged record (the shared-memory transport's
-handle) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,12 +23,12 @@ import time
 from dataclasses import dataclass
 from typing import Any
 
-from repro_torch.broker.cluster import SHM_NOT_PORTED, BrokerCluster
+from repro_torch.broker.cluster import BrokerCluster
 from repro_torch.broker.errors import BrokerUnavailable
 from repro_torch.broker.records import decode_array, decode_compressed, decode_msg
-
-#: serde tag of a shared-memory slot handle (not ported yet)
-TAG_SLOT = b"S"
+from repro_torch.transport.frames import FrameBatch, decode_frame
+from repro_torch.transport.plane import TAG_SLOT, FrameCache, decode_slot_record
+from repro_torch.transport.ring import SlotReclaimedError, get_ring
 
 
 @dataclass(slots=True)
@@ -42,12 +39,32 @@ class Message:
     value: Any
 
 
+@dataclass
+class PolledBatch:
+    """One frame's worth of messages from :meth:`Consumer.poll_batch` —
+    values decoded once per frame (views into the ring when zero-copy),
+    offsets/timestamps per element so commits stay record-granular."""
+
+    partition: int
+    offsets: list[int]
+    timestamps: list[float]
+    values: list
+    #: the backing FrameBatch when this came off a ring slot (call
+    #: ``frame.verify()`` after consuming zero-copy values); None for
+    #: plain log records
+    frame: FrameBatch | None = None
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+
 def _deserialize(data: bytes) -> Any:
     """Explicit dispatch on the serde tag byte (records.py): ``N`` = npy,
     ``M`` = msgpack, ``Z`` = zstd-compressed either (the payload is sniffed
-    after decompression). ``S`` (a transport slot handle) raises. Unknown
-    tags pass through as raw bytes; decode errors propagate instead of
-    being masked by a cross-format fallback."""
+    after decompression). ``S`` (a transport slot handle) is resolved by
+    the Consumer, which holds the frame cache — here it passes through.
+    Unknown tags pass through as raw bytes; decode errors propagate
+    instead of being masked by a cross-format fallback."""
     tag = data[:1]
     if tag == b"N":
         return decode_array(data)
@@ -55,8 +72,6 @@ def _deserialize(data: bytes) -> Any:
         return decode_msg(data)
     if tag == b"Z":
         return decode_compressed(data)
-    if tag == TAG_SLOT:
-        raise NotImplementedError(SHM_NOT_PORTED)
     return data
 
 
@@ -126,11 +141,18 @@ class Consumer:
         from_committed: bool = True,
         max_lag: int | None = None,
         metrics: Any | None = None,
+        zero_copy: bool = False,
     ):
         self.cluster = cluster
         self.group = group
         self.member_id = member_id
         self.deserialize = deserialize
+        #: shm topics only: hand out frombuffer views into the ring instead
+        #: of copying frames out. Safe when values are consumed before the
+        #: next commit advances the reclaim floor (micro-batch, bulk
+        #: loaders); buffering consumers keep the default copy-out.
+        self.zero_copy = zero_copy
+        self._frames = FrameCache()
         #: lag bound per partition: poll sheds (skips) records older than
         #: ``high_watermark - max_lag`` instead of falling behind unboundedly.
         #: None = consume everything.
@@ -213,10 +235,20 @@ class Consumer:
                                              member=self.member_id)
                     continue
                 deser = self.deserialize
+                frame_value = self._frame_value
+                append = out.append
+                consumed = 0
                 for r in recs:
-                    val = _deserialize(r.value) if deser else r.value
-                    self.consumed_bytes += r.size()
-                    out.append(Message(p, r.offset, r.timestamp, val))
+                    v = r.value
+                    if deser and v[:1] == TAG_SLOT:
+                        val = frame_value(v)
+                        nb = getattr(val, "nbytes", None)
+                        consumed += int(nb) if nb is not None else r.size()
+                    else:
+                        val = _deserialize(v) if deser else v
+                        consumed += r.size()
+                    append(Message(p, r.offset, r.timestamp, val))
+                self.consumed_bytes += consumed
                 if recs:
                     self._positions[p] = recs[-1].offset + 1
             if out or time.monotonic() >= deadline:
@@ -227,6 +259,99 @@ class Consumer:
             self.metrics.publish("consumer.records", self.consumed_records,
                                  member=self.member_id)
             self.metrics.publish("consumer.bytes", self.consumed_bytes,
+                                 member=self.member_id)
+        return out
+
+    # ---- shm frames (repro_torch.transport) ---------------------------------------
+
+    def _decoded_frame(self, name: str, slot: int, epoch: int) -> FrameBatch:
+        """Decode a slot's frame once per (slot, epoch) incarnation; every
+        record of the frame resolves against the cached decode."""
+        key = (name, slot, epoch, self.zero_copy)
+        frame = self._frames.get(key)
+        if frame is None:
+            ring = get_ring(name)
+            frame = decode_frame(ring.view(slot, epoch), zero_copy=self.zero_copy,
+                                 source=(name, slot, epoch))
+            if not self.zero_copy and not ring.is_valid(slot, epoch):
+                # the copy-out raced a reclaim: the copied bytes may be torn
+                raise SlotReclaimedError(
+                    f"{name} slot {slot} reclaimed during copy-out")
+            self._frames.put(key, frame)
+        return frame
+
+    def _frame_value(self, data: bytes):
+        # the cache key is the record's raw prefix (ring name + slot +
+        # epoch, everything but the trailing row) — the 15 siblings of a
+        # frame's first record hit the cache without parsing anything
+        key = (data[:-4], self.zero_copy)
+        frame = self._frames.get(key)
+        if frame is None:
+            name, slot, epoch, _ = decode_slot_record(data)
+            frame = self._decoded_frame(name, slot, epoch)
+            self._frames.put(key, frame)
+        return frame.values[int.from_bytes(data[-4:], "little")]
+
+    def poll_batch(self, max_records: int = 512, timeout: float = 0.0,
+                   *, zero_copy: bool | None = None) -> list[PolledBatch]:
+        """Frame-granular poll: runs of records backed by the same ring
+        slot come back as ONE :class:`PolledBatch` (decoded once, values
+        as views when zero-copy), plain records as singleton batches.
+        Positions advance exactly as :meth:`poll` — ``commit()`` after
+        processing keeps the at-least-once contract unchanged."""
+        if zero_copy is None:
+            zero_copy = self.zero_copy
+        if self.injected_poll_delay > 0:
+            time.sleep(self.injected_poll_delay)
+        self._refresh_assignment()
+        out: list[PolledBatch] = []
+        deadline = time.monotonic() + timeout
+        while not out:
+            for p, pos in list(self._positions.items()):
+                if self.max_lag is not None:
+                    pos = self._shed_locked(p, pos)
+                try:
+                    recs = self.cluster.read(self.group.topic, p, pos, max_records)
+                except BrokerUnavailable:
+                    self.retries += 1
+                    continue
+                i = 0
+                while i < len(recs):
+                    r = recs[i]
+                    if self.deserialize and r.value[:1] == TAG_SLOT:
+                        name, slot, epoch, _ = decode_slot_record(r.value)
+                        rows, offsets, stamps = [], [], []
+                        while i < len(recs) and recs[i].value[:1] == TAG_SLOT:
+                            n2, s2, e2, row2 = decode_slot_record(recs[i].value)
+                            if (n2, s2, e2) != (name, slot, epoch):
+                                break
+                            rows.append(row2)
+                            offsets.append(recs[i].offset)
+                            stamps.append(recs[i].timestamp)
+                            i += 1
+                        saved, self.zero_copy = self.zero_copy, zero_copy
+                        try:
+                            frame = self._decoded_frame(name, slot, epoch)
+                        finally:
+                            self.zero_copy = saved
+                        values = [frame.values[row] for row in rows]
+                        out.append(PolledBatch(p, offsets, stamps, values, frame))
+                        self.consumed_bytes += sum(
+                            int(getattr(v, "nbytes", 0)) for v in values)
+                    else:
+                        val = _deserialize(r.value) if self.deserialize else r.value
+                        out.append(PolledBatch(p, [r.offset], [r.timestamp], [val]))
+                        self.consumed_bytes += r.size()
+                        i += 1
+                if recs:
+                    self._positions[p] = recs[-1].offset + 1
+            if out or time.monotonic() >= deadline:
+                break
+            time.sleep(0.002)
+        n = sum(len(b) for b in out)
+        self.consumed_records += n
+        if out and self.metrics is not None:
+            self.metrics.publish("consumer.records", self.consumed_records,
                                  member=self.member_id)
         return out
 
@@ -243,5 +368,12 @@ class Consumer:
         for p in list(self._positions):
             self._positions[p] = self.cluster.committed(self.group.group, self.group.topic, p)
 
+    def release_frames(self) -> None:
+        """Drop the decoded-frame cache: zero-copy frames pin ring buffers,
+        and a pinned buffer blocks clean segment unlink at shutdown.
+        Engines call this on stop; it does not leave the group."""
+        self._frames.clear()
+
     def close(self) -> None:
+        self.release_frames()
         self.group.leave(self.member_id)

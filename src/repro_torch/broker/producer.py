@@ -9,9 +9,9 @@ stalled broker :class:`TokenBucket` — raising a typed
 ``retries`` and published as the ``broker.retries`` gauge when a metrics
 bus is attached.
 
-Log plane only: ``send_batch`` serializes per record through the log (the
-JAX package's ring-slot path needs the shared-memory transport, which
-``BrokerCluster.attach_transport`` refuses in this copy).
+``send_batch`` on a topic an attached shared-memory transport serves
+writes the batch once into a ring slot as one columnar frame; each record
+then carries only the slot's handle.
 """
 from __future__ import annotations
 
@@ -27,6 +27,9 @@ import numpy as np
 from repro_torch.broker.cluster import BrokerCluster
 from repro_torch.broker.errors import BrokerTimeout, BrokerUnavailable
 from repro_torch.broker.records import Record, encode_array, encode_msg
+from repro_torch.transport.frames import encode_frame
+from repro_torch.transport.plane import pack_row, slot_record_prefix
+from repro_torch.transport.ring import RingTimeout
 
 
 class Producer:
@@ -65,6 +68,9 @@ class Producer:
         self.sent_bytes = 0
         #: sends that hit a transient failover window and were reattempted
         self.retries = 0
+        #: batch records sent inline although a shared-memory ring serves the
+        #: topic (rf > 1, or a frame larger than a slot)
+        self.copied_out_records = 0
 
     def _partition_for(self, key: bytes | None) -> int:
         n = self.cluster.topic(self.topic).n_partitions
@@ -107,18 +113,37 @@ class Producer:
 
     def send_batch(self, values, *, key: bytes | None = None,
                    timestamps: list[float] | None = None) -> list[int]:
-        """Send a batch of values as one :meth:`BrokerCluster.append_many`
-        (single lock/notify), one record per value — same
-        offsets-per-message semantics as repeated :meth:`send`."""
+        """Send a batch as one columnar frame. On an shm-mounted rf==1
+        topic the payload is written ONCE into a ring slot and each record
+        carries only an epoch-tagged slot handle; otherwise (rf>1, no
+        transport, or a frame bigger than a slot) the copy-out path
+        serializes per record through the log — same offsets-per-message
+        semantics either way. The whole batch lands in one
+        :meth:`BrokerCluster.append_many` (single lock/notify)."""
         if not len(values):
             return []
-        self._reserve_sends(len(values))
+        n = len(values)
+        self._reserve_sends(n)
         part = self._partition_for(key)
         deadline = None if self.send_timeout is None else time.monotonic() + self.send_timeout
+        ts_list = list(timestamps) if timestamps is not None else None
         base_ts = time.time()
+        transport = getattr(self.cluster, "transport", None)
+        ring = None
+        if transport is not None:
+            rf = self.cluster.topic(self.topic).replication_factor
+            ring = transport.use_ring(self.topic, rf)
+        if ring is not None:
+            header, parts = encode_frame(values, ts_list, key)
+            total = 4 + len(header) + sum(len(p) for p in parts)
+            if total <= ring.slot_bytes:
+                return self._send_frame(part, transport, ring, header, parts,
+                                        total, n, ts_list, base_ts, key, deadline)
+        if transport is not None and transport.serves(self.topic):
+            self.copied_out_records += n  # rf > 1 or a frame past the slot
         records = [
             Record(self._serialize(v), key,
-                   timestamps[row] if timestamps is not None else base_ts)
+                   ts_list[row] if ts_list is not None else base_ts)
             for row, v in enumerate(values)
         ]
         offsets = self._append_many_with_retry(part, records, deadline)
@@ -126,6 +151,33 @@ class Producer:
             if off >= 0:
                 self.sent_records += 1
                 self.sent_bytes += rec.size()
+        return offsets
+
+    def _send_frame(self, part, transport, ring, header, parts, total, n,
+                    ts_list, base_ts, key, deadline) -> list[int]:
+        try:
+            slot, epoch = transport.write_frame(
+                self.topic, header, parts, deadline=deadline)
+        except RingTimeout as exc:
+            raise BrokerTimeout(str(exc)) from None
+        prefix = slot_record_prefix(ring.name, slot, epoch)
+        records = [
+            Record(prefix + pack_row(row), key,
+                   ts_list[row] if ts_list is not None else base_ts)
+            for row in range(n)
+        ]
+        try:
+            offsets = self._append_many_with_retry(part, records, deadline)
+        except Exception:
+            transport.release(self.topic, slot, epoch)
+            raise
+        acked = [off for off in offsets if off >= 0]
+        if not acked:
+            transport.release(self.topic, slot, epoch)
+            return offsets
+        transport.track(self.topic, part, max(acked), slot, epoch)
+        self.sent_records += len(acked)
+        self.sent_bytes += total
         return offsets
 
     def _retry_wait(self, part: int, retry_until: float, backoff: float) -> float:

@@ -26,9 +26,11 @@ work must return host values (or go through ``async_emit``, whose CUDA
 events land the work before delivery); exactly-once replay needs its
 outputs to be a pure function of the window's records.
 
-The JAX package's ``executor="mp"`` (worker processes) and the
-shared-memory transport wait for ROADMAP A2 (workers, transport): this
-engine runs partitions inline and refuses both.
+``executor="mp"`` runs each owner's partitions in a worker process
+(:mod:`repro_torch.workers`); the owners' devices decide whether the
+workers are forked or spawned. On ``transport="shm"`` the engine always
+copies frames out of the ring: it buffers records in window state far past
+the reclaim floor, where views would be unsound.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import threading
 import time
 from typing import Any, Callable
 
-from repro_torch.broker.cluster import SHM_NOT_PORTED, BrokerCluster
+from repro_torch.broker.cluster import BrokerCluster
 from repro_torch.broker.consumer import Consumer, ConsumerGroup, Message
 from repro_torch.core.compute_unit import ComputeUnit
 from repro_torch.core.plugin import Lease, ManagerPlugin, register_plugin
@@ -51,17 +53,29 @@ from repro_torch.state import (
 from repro_torch.state.store import StatePartition, deserialize_partition, serialize_partition
 from repro_torch.streaming.dispatch import AsyncWindow
 from repro_torch.streaming.windows import SessionWindow, WatermarkTracker
+from repro_torch.workers.proto import OP_APPEND, OP_LATE, OP_MERGE, OP_OBSERVE, SNAPSHOT
 
-EXECUTORS = ("inline",)
-MP_NOT_PORTED = ("executor='mp' (partition state in worker processes) waits for the port's "
-                 "worker processes (ROADMAP A2, workers); use executor='inline'")
+EXECUTORS = ("inline", "mp")
 
 
 class ContinuousStream:
     """One (topic -> keyed event-time windows -> window_fn) pipeline.
 
-    ``executor`` is ``"inline"``: partition state mutates and windows fire
-    in the record-loop thread of this process.
+    ``executor`` selects where partition state mutates and windows fire:
+
+    * ``"inline"`` (default) — in this process, in the record-loop thread.
+    * ``"mp"`` — each partition's ingest/firing runs in the worker process
+      owning it (:class:`repro_torch.workers.WorkerRuntime`): real
+      parallelism across owners, failure isolation, and supervised restart
+      with exact state recovery. Window outputs and message values must be
+      picklable, and outputs host values; where an owner's device is a
+      CUDA card the workers are spawned, and window_fn must pickle too.
+      Firing order and results are bit-identical to inline.
+
+    ``worker_options`` forwards kwargs to :class:`WorkerRuntime`
+    (``snapshot_every``, ``batch_timeout``, ``heartbeat_timeout``,
+    ``max_restarts``, ...). ``devices`` are the owners' devices, in the
+    order of ``owners`` (default: each owner is its own device).
     """
 
     def __init__(
@@ -86,16 +100,18 @@ class ContinuousStream:
         checkpoint_every: int = 0,
         transport: str | None = None,
         async_emit: int = 0,
+        worker_options: dict | None = None,
+        devices: list | None = None,
     ):
-        if executor == "mp":
-            raise NotImplementedError(MP_NOT_PORTED)
         if executor not in EXECUTORS:
             raise ValueError(
                 f"unknown executor {executor!r} (expected one of {EXECUTORS})")
-        if transport == "shm":
-            raise NotImplementedError(SHM_NOT_PORTED)
         self.cluster = cluster
         self.topic = topic
+        #: accepted for spec symmetry with MicroBatchStream; the continuous
+        #: engine always copies shm frames out (it buffers records in window
+        #: state far past the reclaim floor — views would be unsound), so
+        #: "shm" changes the producer side only
         self.transport = transport
         self.group = ConsumerGroup(cluster, group, topic)
         self.consumer = Consumer(cluster, self.group, member_id=f"{group}-cont")
@@ -121,6 +137,12 @@ class ContinuousStream:
         self.store = PartitionedStateStore(n_partitions, owners=owners)
         self.migrator = StateMigrator(state_dir, bus=metrics, label=self.metrics_label)
         self.executor = executor
+        #: owner -> device, what the mp runtime places its workers by
+        self.owner_devices = dict(zip(owners, devices)) if owners and devices else {}
+        #: the multiprocess partition runtime (mp executor only; spawned by
+        #: ``start()`` so a never-started stream costs no processes)
+        self.runtime = None
+        self._worker_options = dict(worker_options or {})
         #: report of the most recent rescale migration (None before any)
         self.last_migration: MigrationReport | None = None
         #: records between crash checkpoints (``sckpt_*`` spools holding all
@@ -132,6 +154,11 @@ class ContinuousStream:
         self.last_recovery_ms: float | None = None
         self._since_ckpt = 0
         self._ckpt_seq = 0
+        #: consumer positions just past the last record the state holds:
+        #: the checkpoint cut. The loop polls outside the state lock, so the
+        #: consumer's own positions may already count a batch that is not
+        #: ingested yet; a cut taken from them would skip it on replay.
+        self._cut: dict[int, int] = {}
         # windows the pre-crash incarnation already emitted past the restored
         # checkpoint: the replay re-fires them, the emit is suppressed, and
         # fired_windows is not re-counted — zero lost, zero duplicated
@@ -224,15 +251,64 @@ class ContinuousStream:
             with self._fired:
                 self._fired.notify_all()
 
+    # -- mp executor: translate ingest into partition-tagged ops ---------------
+
+    def _ingest_ops(self, msgs: list[Message]) -> list[tuple]:
+        """The host half of mp ingest: watermark tracking, key routing,
+        window assignment and session bookkeeping stay here (stream-global
+        state); the per-partition mutations ship to the owner workers as
+        ops. Mirrors :meth:`_ingest` exactly — late handling, observe-once
+        semantics, merge-before-append ordering."""
+        ops: list[tuple] = []
+        for msg in msgs:
+            ts = msg.timestamp
+            key = self.key_fn(msg)
+            pid = self.store.partition_of(key)
+            if self.watermarks.is_late(ts):
+                self.stats.late_records += 1
+                ops.append((OP_LATE, pid))
+                continue
+            self.watermarks.observe(ts)
+            ops.append((OP_OBSERVE, pid, ts))
+            if isinstance(self.assigner, SessionWindow):
+                windows = self.assigner.assign(ts, key)
+                ops.append((OP_MERGE, pid, key, windows[0]))
+            else:
+                windows = self.assigner.assign(ts)
+            for w in windows:
+                ops.append((OP_APPEND, pid, key, w, msg))
+            self.stats.records += 1
+            self.stats.per_record_latency.append(time.time() - ts)
+        return ops
+
+    def _process_mp(self, msgs: list[Message]) -> None:
+        ops = self._ingest_ops(msgs)
+        wm = self.watermarks.watermark
+        fired = self.runtime.submit(ops, wm)
+        for _key, _w, out in fired:
+            self._emit_fired(out)
+        if fired:
+            if isinstance(self.assigner, SessionWindow):
+                self.assigner.close_before(wm)
+            with self._fired:
+                self._fired.notify_all()
+
     def _loop(self) -> None:
         while not self._stop.is_set():
             try:
                 msgs = self.consumer.poll(max_records=256, timeout=0.05)
                 t0 = time.monotonic()
                 with self._state_lock:
-                    for m in msgs:
-                        self._ingest(m)
-                    self._fire_ready()
+                    if self.runtime is not None:
+                        # empty poll: watermark can't have advanced, so
+                        # there is nothing to fire — skip the round trip
+                        if msgs:
+                            self._process_mp(msgs)
+                    else:
+                        for m in msgs:
+                            self._ingest(m)
+                        self._fire_ready()
+                    self._cut = self.consumer.positions()
                     if not msgs:
                         # quiet round: no new firings are coming, so land
                         # anything the emit double-buffer still holds
@@ -270,27 +346,42 @@ class ContinuousStream:
         bus.publish("stream.records_per_sec", n / dt if dt > 0 else 0.0, **labels)
         bus.publish("stream.fired_windows", self.stats.fired_windows, **labels)
         bus.publish("stream.late_records", self.stats.late_records, **labels)
-        bus.publish("stream.buffered_windows", self.store.buffered_windows, **labels)
+        buffered = (self.runtime.buffered_windows if self.runtime is not None
+                    else self.store.buffered_windows)
+        bus.publish("stream.buffered_windows", buffered, **labels)
         if self._emit_window is not None:
             bus.publish("stream.emit_inflight", self._emit_window.in_flight,
                         **labels)
         bus.publish("stream.lag", sum(
             self.cluster.lag(self.group.group, self.topic).values()), **labels)
+        if self.runtime is not None:
+            # workers.alive / workers.restarts / per-worker latency_p50/p99
+            self.runtime.publish()
 
     def start(self) -> "ContinuousStream":
+        if self.executor == "mp" and self.runtime is None:
+            # imported here: the runtime's imports reach repro_torch.core,
+            # whose package imports this module
+            from repro_torch.workers.runtime import WorkerRuntime
+
+            self.runtime = WorkerRuntime(
+                self.store, self.window_fn, migrator=self.migrator,
+                bus=self.metrics, label=self.metrics_label,
+                devices=self.owner_devices, **self._worker_options).start()
         if self.checkpoint_every:
-            # pin the replay floor to the replay horizon from the very first
-            # record (a no-op on the port's log plane, which keeps every
-            # record; the shm transport's ring reclaims slots below it).
+            # pin the shm reclaim floor to the replay horizon from the very
+            # first record: commits advance past records a crash would
+            # replay, and replaying into reclaimed ring slots is an error.
             # Prefer the consumer's live positions — after recover() they
             # hold the checkpoint cut, which sits *behind* committed — and
             # fall back to committed for a fresh start.
             n = self.cluster.topic(self.topic).n_partitions
             pos = self.consumer.positions()
-            self._pin_replay_floor({
+            self._cut = {
                 p: pos.get(p, self.cluster.committed(
                     self.group.group, self.topic, p))
-                for p in range(n)})
+                for p in range(n)}
+            self._pin_replay_floor(self._cut)
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
         return self
@@ -317,6 +408,7 @@ class ContinuousStream:
             self._thread.join(timeout=5)
         if self.sync_fn is not None:  # land in-flight device work
             self.sync_fn()
+        self.consumer.release_frames()  # drop views pinning ring slots
         # cleanup under the state lock so the spool is never yanked from
         # under an in-flight rescale — but timed, so a wedged window_fn
         # (loop thread outliving the join above) cannot hang teardown;
@@ -324,9 +416,15 @@ class ContinuousStream:
         if self._state_lock.acquire(timeout=5):
             try:
                 self._drain_emits()  # deliver buffered outputs before teardown
+                if self.runtime is not None:
+                    self.runtime.shutdown()
                 self.migrator.cleanup()
             finally:
                 self._state_lock.release()
+        elif self.runtime is not None:
+            # wedged loop thread: still reap the worker processes (they are
+            # daemons, but an explicit kill frees their queues now)
+            self.runtime.shutdown()
         if self._error:
             raise self._error
 
@@ -336,18 +434,26 @@ class ContinuousStream:
         """Spool a consistent cut of the whole stream — every state
         partition plus the stream-global meta a restart cannot rederive
         (consumer positions, watermark, counters, session assigner state).
-        Caller holds ``_state_lock``; positions reflect the just-processed
-        batch, so restoring the spool and seeking to its positions replays
-        nothing twice and skips nothing."""
+        Caller holds ``_state_lock``; positions are the cut (``_cut``: just
+        past the last ingested batch, not a batch the loop has polled but
+        not ingested), so restoring the spool and seeking to its positions
+        replays nothing twice and skips nothing."""
         # fired-but-undelivered outputs must go downstream before the cut:
         # their windows were already popped from the store and their records
         # sit behind the checkpoint positions, so a crash after this spool
         # would otherwise lose them (they would never re-fire)
         self._drain_emits()
-        payloads = {pid: serialize_partition(part)
-                    for pid, part in self.store.partitions.items()}
+        if self.runtime is not None:
+            payloads: dict[int, bytes] = {}
+            for sup in self.runtime._sups:
+                payloads.update(sup.request(
+                    SNAPSHOT,
+                    {"pids": self.runtime._pids_of(sup), "release": False}))
+        else:
+            payloads = {pid: serialize_partition(part)
+                        for pid, part in self.store.partitions.items()}
         meta = pickle.dumps({
-            "positions": self.consumer.positions(),
+            "positions": dict(self._cut),
             "max_ts": self.watermarks._max_ts,
             "records": self.stats.records,
             "late": self.stats.late_records,
@@ -362,7 +468,7 @@ class ContinuousStream:
         self.migrator._gc_spools("sckpt_")
         self._since_ckpt = 0
         # the checkpoint is the new replay horizon
-        self._pin_replay_floor(self.consumer.positions())
+        self._pin_replay_floor(dict(self._cut))
 
     def checkpoint(self) -> bool:
         """Force an ``sckpt_*`` spool of the live stream right now — the
@@ -383,7 +489,8 @@ class ContinuousStream:
     def crash(self) -> None:
         """Abrupt pilot death (fault injection): the record loop stops
         wherever it is — no final commit, no checkpoint, and, unlike
-        :meth:`stop`, no spool cleanup (``recover()`` needs it)."""
+        :meth:`stop`, no spool cleanup (``recover()`` needs it). An mp
+        executor's worker processes die with their pilot (SIGKILL)."""
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=5)
@@ -393,11 +500,17 @@ class ContinuousStream:
             # waited on, never delivered); fired_windows never counted
             # them, so the replay re-fires and delivers them once
             self._emit_window.discard()
+        if self.runtime is not None:
+            for sup in list(self.runtime._sups):
+                sup.kill()
+            self.runtime.shutdown()
+            self.runtime = None
 
     def recover(self) -> float:
         """Bring a crashed stream back: restore every partition and the
         stream-global meta from the latest ``sckpt_*`` spool, seek the
-        consumer to the checkpoint's positions, and restart the loop.
+        consumer to the checkpoint's positions, and restart the loop (an mp
+        executor respawns its workers, seeded from the restored store).
         Windows fired between the checkpoint and the crash re-fire during
         replay with their emit suppressed (``_skip_emits``), so downstream
         sees each firing exactly once. Without any checkpoint the stream
@@ -438,7 +551,7 @@ class ContinuousStream:
                 self.assigner._sessions = {}
         self._stop.clear()
         self._error = None
-        self.start()
+        self.start()  # re-creates the mp runtime (seeded from the store)
         self.recoveries += 1
         self.last_recovery_ms = (time.perf_counter() - t0) * 1e3
         if self.metrics is not None:
@@ -481,7 +594,14 @@ class ContinuousStream:
             if self.sync_fn is not None:
                 self.sync_fn()
             self._drain_emits()  # no output may straddle the migration
-            report = self.migrator.migrate(self.store, list(owners))
+            if devices is not None:
+                self.owner_devices.update(zip(owners, devices))
+            if self.runtime is not None:
+                # mp: drain in-flight replies, quiesce workers, then move
+                # partitions between processes through the migrator spool
+                report = self.runtime.rescale(list(owners), self.owner_devices)
+            else:
+                report = self.migrator.migrate(self.store, list(owners))
             self.last_migration = report
             if self.on_rescale is not None:
                 self.on_rescale(list(owners) if devices is None else list(devices))
@@ -550,6 +670,7 @@ class ContinuousPlugin(ManagerPlugin):
         # seed the store's owner set with the pilot's current slots so the
         # first extension only moves the partitions that actually re-home
         kw.setdefault("owners", self.slots or None)
+        kw.setdefault("devices", self.devices or None)
         s = ContinuousStream(cluster, topic, **kw)
         self.streams.append(s)
         return s

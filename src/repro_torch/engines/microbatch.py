@@ -16,7 +16,7 @@ import threading
 import time
 from typing import Any, Callable
 
-from repro_torch.broker.cluster import SHM_NOT_PORTED, BrokerCluster
+from repro_torch.broker.cluster import BrokerCluster
 from repro_torch.broker.consumer import Consumer, ConsumerGroup, Message
 from repro_torch.core.compute_unit import ComputeUnit
 from repro_torch.core.plugin import Lease, ManagerPlugin, register_plugin
@@ -48,13 +48,19 @@ class MicroBatchStream:
         metrics_label: str | None = None,
         transport: str | None = None,
     ):
-        if transport == "shm":
-            raise NotImplementedError(SHM_NOT_PORTED)
         self.cluster = cluster
         self.topic = topic
+        #: "shm" opts the ingest loop into zero-copy frame views — sound
+        #: for micro-batching because the batch is fully processed (and the
+        #: state checkpointed) before commit advances the reclaim floor. A
+        #: processor that copies a view to the card without waiting
+        #: (``non_blocking=True``) must hold the batch until that copy's
+        #: event: the port's apps stack the views on the host first.
+        self.transport = transport
         self.group = ConsumerGroup(cluster, group, topic)
         self.consumer = Consumer(cluster, self.group, member_id=f"{group}-engine",
-                                 deserialize=deserialize)
+                                 deserialize=deserialize,
+                                 zero_copy=(transport == "shm"))
         self.process_fn = process_fn
         self.state = state
         self.batch_interval = batch_interval
@@ -217,6 +223,7 @@ class MicroBatchStream:
             self._thread.join(timeout=5)
         if self.sync_fn is not None:  # land in-flight batches: final state/stats
             self.sync_fn()
+        self.consumer.release_frames()  # drop views pinning ring slots
         if self._error:
             raise self._error
 

@@ -8,6 +8,10 @@ library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and a stale library is never loaded. :func:`build_all`
 starts one ``nvcc`` per source, all at once.
 
+A worker process of the mp executor never builds: it calls
+:func:`forbid_builds` and loads what its parent's :func:`build_all` built,
+and a library that is missing there is an error.
+
 Every C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``; a non-zero
 code raises here. Each :class:`CudaKernel` counts its successful launches
@@ -29,6 +33,15 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: False in a worker process (:func:`forbid_builds`)
+_BUILDS_ALLOWED = True
+
+
+def forbid_builds() -> None:
+    """From now on this process loads built libraries only, and raises
+    where one is missing instead of starting ``nvcc``."""
+    global _BUILDS_ALLOWED
+    _BUILDS_ALLOWED = False
 
 
 def find_nvcc() -> str:
@@ -75,6 +88,10 @@ class CudaLibrary:
         caller passes the process to :meth:`finish_build`."""
         if self.path.exists():
             return None
+        if not _BUILDS_ALLOWED:
+            raise RuntimeError(f"{self.source.name}: no built library at {self.path}, and "
+                               "this process may not build (a worker loads what its parent "
+                               "built: call kernels.build_all() there first)")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         self._tmp = self.path.with_name(f"{self.path.stem}.{os.getpid()}.tmp.so")
         log = open(self.log_path, "w")
@@ -146,9 +163,15 @@ def build_all() -> float:
     procs = [(lib, lib.start_build()) for lib in libraries]
     for lib, proc in procs:
         lib.finish_build(proc)
-    for lib in libraries:
-        lib.load()
+    load_all()
     return time.monotonic() - t0
+
+
+def load_all() -> None:
+    """Load every kernel library (a worker's start-up, with builds
+    forbidden: each must exist)."""
+    for lib in dict.fromkeys(k.library for k in KERNELS):
+        lib.load()
 
 
 def reset_launches() -> None:

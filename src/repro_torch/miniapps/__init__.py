@@ -6,6 +6,7 @@ from repro_torch.miniapps.masa import (
     ReconstructionApp,
     StreamingKMeans,
 )
+from repro_torch.miniapps.detector import DetectorSimSource
 from repro_torch.miniapps.mass import (
     SOURCES,
     KMeansClusterSource,
@@ -21,6 +22,7 @@ from repro_torch.miniapps.state import state_from_jax
 
 __all__ = [
     "AppStats",
+    "DetectorSimSource",
     "KMeansClusterSource",
     "KMeansStaticSource",
     "LMServeApp",

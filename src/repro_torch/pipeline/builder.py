@@ -15,9 +15,8 @@
 
 Validation happens in :meth:`Pipeline.build` — unknown topics, duplicate
 names, topic cycles, unknown processors/sources/policies, engine/knob
-mismatches, and the stage kinds the port cannot run yet
-(:func:`waiting_errors`) — so misconfigurations fail before any pilot is
-provisioned, not minutes into a run.
+mismatches — so misconfigurations fail before any pilot is provisioned,
+not minutes into a run.
 """
 from __future__ import annotations
 
@@ -412,7 +411,6 @@ class Pipeline:
                 errors.append("broker elastic: min_nodes must be >= 1")
 
         errors.extend(self._cycle_errors())
-        errors.extend(waiting_errors(self._broker, self._stages))
 
         for src in self._sources:
             if src.topic not in self._topics:
@@ -509,25 +507,6 @@ class Pipeline:
         for t in list(edges):
             errs += visit(t, ())
         return errs
-
-
-def waiting_errors(broker: BrokerSpec, stages) -> list[str]:
-    """What the port cannot run yet, each naming the part of ROADMAP A2 it
-    waits for: the mp executor (A2, workers) and the shm transport (A2,
-    transport). ``Pipeline.validate`` lists these among its other errors; the runner
-    refuses a spec that has any, so no such stage runs as something else."""
-    errors: list[str] = []
-    if broker.transport == "shm":
-        errors.append("broker: transport='shm' waits for the port's shared-memory "
-                      "transport (ROADMAP A2, transport)")
-    for s in stages:
-        if s.executor == "mp":
-            errors.append(f"stage {s.name!r}: executor='mp' waits for the port's worker "
-                          "processes (ROADMAP A2, workers)")
-        if s.transport == "shm":
-            errors.append(f"stage {s.name!r}: transport='shm' waits for the port's "
-                          "shared-memory transport (ROADMAP A2, transport)")
-    return errors
 
 
 def _stage_kwargs(s: StageSpec) -> dict:

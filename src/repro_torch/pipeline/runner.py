@@ -27,9 +27,10 @@ Continuous stages run on ``flink`` pilots, whose keyed state is
 partitioned over the pilot's slots (``engines/continuous.py``); a stage
 that checkpoints is recovered from a pilot crash by the
 :class:`StageReconciler`, and a preemptible one is parked and resumed by
-checkpoint-then-kill. What waits for later modules (the mp executor, the
-shm transport: ROADMAP A2) is refused at start, as ``Pipeline.validate``
-refuses it.
+checkpoint-then-kill. A continuous stage with ``executor="mp"`` runs its
+partitions in worker processes, spawned where its slots are on a CUDA card.
+A broker with ``transport="shm"`` mounts one shared-memory ring per topic
+before any data flows.
 """
 from __future__ import annotations
 
@@ -48,10 +49,10 @@ from repro_torch.elastic import (
     PreemptionHooks,
 )
 from repro_torch.pipeline import registry
-from repro_torch.pipeline.builder import PipelineValidationError, waiting_errors
 from repro_torch.pipeline.spec import ElasticSpec, PipelineSpec, SinkSpec, StageSpec
 from repro_torch.scheduler import HOSTS, ResourceRequest
 from repro_torch.streaming.windows import SessionWindow, SlidingWindow, TumblingWindow
+from repro_torch.transport import ShmTransport
 
 
 class BrokerStallProbe:
@@ -89,7 +90,10 @@ class StageReconciler:
     3. attach the stream to the new pilot's plugin and ``stream.
        recover()`` — state restored from the latest ``sckpt_*`` spool
        (``StageSpec.checkpoint_every``), consumer re-seeked, replay with
-       emit suppression: zero lost, zero duplicated firings.
+       emit suppression: zero lost, zero duplicated firings;
+    4. ``stream.rescale`` onto the new pilot's slots and devices — the
+       restored assignment names the dead pilot's (the JAX package stops
+       at step 3; its firings are the same either way).
 
     Usable standalone (tests bind it to hand-built streams) or via
     ``PipelineRun``, which manages every continuous stage that checkpoints.
@@ -145,6 +149,12 @@ class StageReconciler:
             if hasattr(plugin, "streams") and stream not in plugin.streams:
                 plugin.streams.append(stream)
             stream.recover()
+            # the restored assignment still names the dead pilot's slots:
+            # re-home the partitions onto the replacement's (the mp
+            # executor places its workers by them)
+            slots = list(getattr(plugin, "slots", []) or [])
+            if slots:
+                stream.rescale(slots, list(plugin.devices))
         except BaseException as e:
             self.errors.append(e)
             return
@@ -300,9 +310,6 @@ class PipelineRun:
         spec = self.spec
         if self._own_service:
             self._push("service", self.service.cancel)
-        waiting = waiting_errors(spec.broker, spec.stages)
-        if waiting:
-            raise PipelineValidationError(waiting)
 
         # one arbiter per *service*: every run sharing the pool files its
         # requests here, so contention resolves by weight/priority instead
@@ -324,11 +331,20 @@ class PipelineRun:
             self._push("broker", broker_pilot.cancel)
         self.cluster = broker_pilot.get_context()
         self.cluster.metrics = self.bus  # broker.failovers/lost_records
+        if spec.broker.transport == "shm":
+            # mount the zero-copy data plane before any topic carries data;
+            # ring allocator stall joins io_stall_seconds, so the broker
+            # saturation probe (and elasticity) needs no special casing
+            transport = ShmTransport(**dict(spec.broker.transport_options))
+            self.cluster.attach_transport(transport)
+            self._push("transport", transport.close)
         for topic, parts in spec.broker.topics.items():
             self.cluster.create_topic(
                 topic, parts,
                 replication_factor=min(spec.broker.replication_factor,
                                        spec.broker.nodes))
+            if spec.broker.transport == "shm":
+                self.cluster.transport.mount(topic)
 
         # host stages before their co-located guests (a guest reuses the
         # host's pilot, so the host must exist first)
@@ -443,12 +459,16 @@ class PipelineRun:
             )
         else:
             window_fn = proc.process if hasattr(proc, "process") else proc
-            # a processor object may key its records (``key_fn(msg)``) and
-            # take each fired window's output exactly once (``emit(out)``,
-            # replays suppressed). Without them every record has the key
-            # None and outputs are dropped, as in the JAX package's runner,
-            # whose StageSpec carries neither (ROADMAP C)
-            keyed = {k: getattr(proc, k) for k in ("key_fn", "emit") if hasattr(proc, k)}
+            # a processor object may key its records (``key_fn(msg)``), take
+            # each fired window's output exactly once (``emit(out)``,
+            # replays suppressed) and, for an mp stage, set its worker
+            # runtime's knobs (``worker_options``: snapshot_every,
+            # batch_timeout, heartbeat_timeout, ...). Without them every
+            # record has the key None and outputs are dropped, as in the
+            # JAX package's runner, whose StageSpec carries none of them
+            # (ROADMAP C5)
+            keyed = {k: getattr(proc, k) for k in ("key_fn", "emit", "worker_options")
+                     if hasattr(proc, k)}
             stream = ctx.stream(
                 self.cluster, stage.topic,
                 group=stage.consumer_group,
@@ -551,7 +571,8 @@ class PipelineRun:
             stream.recover()
             # the replacement pilot may hold other slots than the parked
             # one (that's the whole point of preemption): re-home the
-            # restored state onto the new owner set
+            # restored state onto the new owner set (the mp executor
+            # places its workers by them)
             slots = list(getattr(plugin, "slots", []) or [])
             if slots:
                 stream.rescale(slots, list(plugin.devices))

@@ -13,9 +13,7 @@ through :mod:`repro_torch.pipeline.registry`, so a spec round-trips losslessly:
 ``PipelineSpec.from_dict(spec.to_dict()) == spec``.
 
 The dataclasses are the JAX package's, field for field, so a spec's JSON
-crosses between the two packages unchanged. What the port cannot run yet
-(the mp executor and the shm transport: ROADMAP A2) stays describable here
-and is refused by ``Pipeline.validate``, naming the part it waits for.
+crosses between the two packages unchanged.
 """
 from __future__ import annotations
 
@@ -48,8 +46,9 @@ class BrokerSpec:
     #: automatic leader failover
     replication_factor: int = 1
     #: data plane: "log" (payloads in the partition log) or "shm" (a
-    #: shared-memory ring mounted per topic; waits for the port's transport,
-    #: ROADMAP A2 (transport), and ``Pipeline.validate`` refuses it until then)
+    #: shared-memory ring is mounted per topic and rf==1 payloads travel as
+    #: zero-copy slot handles). With rf > 1 the shm plane copies out per
+    #: record.
     transport: str = "log"
     #: ShmTransport kwargs (slot_bytes, n_slots) when transport == "shm"
     transport_options: dict = field(default_factory=dict)
@@ -151,9 +150,9 @@ class StageSpec:
     #: (but chattier) state movement
     state_partitions: int = 64
     #: continuous engine execution mode: "inline" (in-process, the
-    #: default) or "mp" (one supervised worker process per owner device,
-    #: failure isolation + restart with state recovery; waits for the
-    #: port's worker processes, ROADMAP A2 (workers))
+    #: default) or "mp" (one supervised worker process per owner slot,
+    #: failure isolation + restart with state recovery; spawned where the
+    #: slot is on a CUDA card, so window functions must pickle there)
     executor: str = "inline"
     #: records between crash checkpoints (continuous engine): > 0 spools
     #: full-stream checkpoints so a crashed stage pilot is reprovisioned by

@@ -53,8 +53,7 @@ def merge_session_into(part: StatePartition, key, merged: Window) -> None:
     """Fold every buffered window of ``key`` overlapping ``merged`` into the
     ``(key, merged)`` buffer (session-window merge), preserving canonical
     event-time order. Shared by the in-process store and the worker-process
-    runtime (the JAX package's mp executor; the port's waits, ROADMAP A2) so
-    both executors merge identically."""
+    runtime (``repro_torch.workers``) so both executors merge identically."""
     victims = [
         (k, w) for (k, w) in part.buffers
         if k == key and w != merged

@@ -1,11 +1,13 @@
-"""The control protocol of the multiprocess partition runtime.
+"""The multiprocess partition execution runtime.
 
-Only :mod:`~repro_torch.workers.proto` is ported so far: the continuous
-engine imports its op constants. The worker processes, their channel and
-supervisor, and the ``executor="mp"`` runtime wait for ROADMAP A2
-(workers); the engine and ``Pipeline.validate`` refuse ``executor="mp"``
-until then.
+Real process-level parallelism and failure isolation for the continuous
+engine's keyed window state: each state partition's ingest/firing runs in
+the worker process owning it (``ContinuousStream(executor="mp")``), with a
+supervisor per worker detecting crash/hang and restarting with exact state
+recovery from the StateMigrator spool. Workers of owners on a CUDA card
+are spawned (window_fn pickled), the others forked (:func:`start_method`).
 """
+from repro_torch.workers.channel import WorkerChannel
 from repro_torch.workers.proto import (
     CONFIGURE,
     OP_APPEND,
@@ -25,6 +27,9 @@ from repro_torch.workers.proto import (
     WorkerError,
     WorkerUnresponsive,
 )
+from repro_torch.workers.runtime import WorkerRuntime, start_method
+from repro_torch.workers.supervisor import WorkerSupervisor
+from repro_torch.workers.worker import PartitionWorker
 
 __all__ = [
     "BatchResult",
@@ -34,6 +39,7 @@ __all__ = [
     "OP_MERGE",
     "OP_OBSERVE",
     "PROCESS_BATCH",
+    "PartitionWorker",
     "QUIESCE",
     "RESTORE",
     "Reply",
@@ -41,7 +47,11 @@ __all__ = [
     "SNAPSHOT",
     "STATS",
     "STOP",
+    "WorkerChannel",
     "WorkerCrash",
     "WorkerError",
+    "WorkerRuntime",
+    "WorkerSupervisor",
     "WorkerUnresponsive",
+    "start_method",
 ]

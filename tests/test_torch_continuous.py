@@ -9,7 +9,9 @@ window function (the continuous phase of ``chip_smoke.py`` at a small
 size) holds the port's plain assignment and update against the JAX
 package's. Then the engine's own contracts: quiescing, the sync barrier,
 automatic migration on extension, and what it refuses."""
+import os
 import random
+import signal
 import threading
 import time
 
@@ -66,10 +68,13 @@ def _sum_window(key, w, msgs):
 
 def _run(pkg: str, kind: str = "tumbling", *, n_msgs: int = N_MSGS, payload=_payload,
          window_fn=_sum_window, crash_at: int | None = None, checkpoint_every: int = 0,
-         chaos_seed: int | None = None, async_emit: int = 0) -> tuple[dict, dict]:
+         chaos_seed: int | None = None, async_emit: int = 0, executor: str = "inline",
+         kill_worker_at: int | None = None) -> tuple[dict, dict]:
     """One run of the keyed stream in ``pkg`` with records fed live (ten
     every 5 ms); optionally crashed and recovered at ``crash_at`` records,
-    or grown and shrunk at random by extension pilots. Returns
+    or grown and shrunk at random by extension pilots. ``executor="mp"``
+    runs the partitions in worker processes, and ``kill_worker_at``
+    SIGKILLs one of them at that many records. Returns
     ``{(key, window): outputs}`` and the run's counters."""
     svc = JaxService(devices=list(range(8))) if pkg == "jax" else \
         PilotComputeService(devices=[CPU] * 8)
@@ -83,7 +88,8 @@ def _run(pkg: str, kind: str = "tumbling", *, n_msgs: int = N_MSGS, payload=_pay
             cluster, "c", group="g", assigner=_assigner(pkg, WINDOWS[kind]),
             window_fn=window_fn, key_fn=lambda m: int(np.ravel(m.value)[0]),
             emit=lambda out: results.__setitem__((out[0], out[1]), out[2:]),
-            checkpoint_every=checkpoint_every, async_emit=async_emit)
+            checkpoint_every=checkpoint_every, async_emit=async_emit, executor=executor,
+            **({"worker_options": {"snapshot_every": 8}} if executor == "mp" else {}))
         stream.start()
         producer = producer_cls(cluster, "c", serializer="npy")
 
@@ -102,6 +108,9 @@ def _run(pkg: str, kind: str = "tumbling", *, n_msgs: int = N_MSGS, payload=_pay
         while feeder.is_alive() or stream.stats.records < n_msgs:
             assert stream._error is None, stream._error
             assert time.monotonic() < deadline, f"{stream.stats.records}/{n_msgs} records"
+            if kill_worker_at is not None and stream.stats.records >= kill_worker_at:
+                os.kill(stream.runtime._sups[0].process.pid, signal.SIGKILL)
+                kill_worker_at = None
             if crash_at is not None and crashed_at is None and stream.stats.records >= crash_at:
                 crashed_at = stream.stats.records
                 stream.crash()
@@ -120,7 +129,8 @@ def _run(pkg: str, kind: str = "tumbling", *, n_msgs: int = N_MSGS, payload=_pay
         stream.stop()
         info = {"fired": stream.stats.fired_windows, "late": stream.stats.late_records,
                 "records": stream.stats.records, "migrations": len(stream.migrator.reports),
-                "crashed_at": crashed_at}
+                "crashed_at": crashed_at,
+                "restarts": stream.runtime.restarts if stream.runtime is not None else 0}
     finally:
         svc.cancel()
     return results, info
@@ -167,6 +177,34 @@ def test_random_rescale_equals_the_jax_package(jax_runs):
     assert info["migrations"] >= 3, "the chaos run never migrated state"
     assert info["late"] == 0 and info["fired"] == len(results)
     _assert_bitwise(jax_runs["tumbling"], results, "random rescale")
+
+
+@pytest.mark.parametrize("kind", sorted(WINDOWS))
+def test_mp_windows_equal_the_jax_package(jax_runs, kind):
+    """Partitions in (forked) worker processes fire the JAX package's
+    windows bitwise, sessions' merges included."""
+    results, info = _run("torch", kind, executor="mp")
+    assert info["late"] == 0 and info["fired"] == len(results) and info["restarts"] == 0
+    _assert_bitwise(jax_runs[kind], results, f"mp {kind}")
+
+
+@pytest.mark.parametrize("case", ["random_rescale", "worker_kill", "pilot_crash"])
+def test_mp_faults_equal_the_jax_package(jax_runs, case):
+    """The mp executor under the JAX package's chaos: random grow/shrink
+    (partitions move between worker processes), a worker SIGKILLed
+    mid-stream (respawned, restored from its checkpoint, journal replayed),
+    and a pilot crash recovered from the stream's checkpoint (a fresh
+    worker fleet seeded from the spool). Zero lost, zero duplicated."""
+    kw = {"random_rescale": {"chaos_seed": 20260730},
+          "worker_kill": {"kill_worker_at": 500},
+          "pilot_crash": {"crash_at": 550, "checkpoint_every": 100}}[case]
+    results, info = _run("torch", executor="mp", **kw)
+    if case == "random_rescale":
+        assert info["migrations"] >= 3, "the chaos run never migrated state"
+    if case == "worker_kill":
+        assert info["restarts"] >= 1, "the SIGKILL never triggered a restart"
+    assert info["late"] == 0 and info["fired"] == len(results)
+    _assert_bitwise(jax_runs["tumbling"], results, f"mp {case}")
 
 
 # -- a K-Means window function, plain versions against the JAX package's ------------
@@ -319,15 +357,53 @@ def test_recover_refuses_a_running_stream(svc):
         stream.stop()
 
 
+def test_checkpoint_cut_excludes_a_polled_batch_not_yet_ingested(svc):
+    """A checkpoint taken from another thread (preemption's checkpoint hook)
+    while the loop has polled a batch but waits for the state lock: the cut
+    must sit behind that batch, or recovery seeks past records the restored
+    state never saw and their windows go missing."""
+    _, _, ref, ref_outs = _continuous(svc, cores=1)
+    cluster = ref.cluster
+    ref.start()
+    _send(cluster, 0, 60)
+    ref.await_windows(33, timeout=20)  # [100, 101) .. [110, 111) x 3 keys
+    ref.stop()
+
+    cluster, _, stream, outs = _continuous(svc, cores=1, checkpoint_every=1000)
+    stream.start()
+    _send(cluster, 0, 20)
+    stream.await_windows(9, timeout=20)
+    deadline = time.monotonic() + 10
+    while stream.stats.records < 20:  # the batch that fired them is ingested
+        assert time.monotonic() < deadline
+        time.sleep(0.002)
+    with stream._state_lock:  # what checkpoint() holds; the loop now waits on it
+        _send(cluster, 20, 40)
+        while stream.consumer.positions()[0] <= 20:
+            assert time.monotonic() < deadline, "the loop never polled the batch"
+            time.sleep(0.002)
+        assert stream.stats.records == 20
+        stream._checkpoint_locked()
+    stream.crash()
+    stream.recover()
+    _send(cluster, 40, 60)
+    stream.await_windows(33, timeout=10)
+    stream.stop()
+    assert outs == ref_outs
+
+
 def test_mp_executor_and_shm_transport_name_what_they_wait_for(svc):
+    """Neither waits any longer: the engine takes ``executor="mp"`` (its
+    workers start with the stream, not before) and ``transport="shm"``
+    (whose frames it copies out); an unknown executor is still refused."""
     cluster = svc.submit_pilot({"number_of_nodes": 1, "type": "kafka"}).get_context()
     cluster.create_topic("t", 1)
     common = dict(group="g", assigner=streaming.TumblingWindow(1.0),
                   window_fn=lambda k, w, m: None)
-    with pytest.raises(NotImplementedError, match=r"worker processes \(ROADMAP A2, workers\)"):
-        ContinuousStream(cluster, "t", executor="mp", **common)
-    with pytest.raises(NotImplementedError, match="shared-memory transport"):
-        ContinuousStream(cluster, "t", transport="shm", **common)
+    mp_stream = ContinuousStream(cluster, "t", executor="mp", **common)
+    assert mp_stream.executor == "mp" and mp_stream.runtime is None
+    shm_stream = ContinuousStream(cluster, "t", transport="shm", **common)
+    assert shm_stream.transport == "shm" and not shm_stream.consumer.zero_copy
     with pytest.raises(ValueError, match="unknown executor"):
         ContinuousStream(cluster, "t", executor="remote", **common)
 

@@ -34,6 +34,8 @@ from repro_torch.faults import KINDS, FaultInjector, FaultSchedule, FaultSpec
 from repro_torch.pipeline.runner import StageReconciler
 from repro_torch.scheduler import PoolTenant
 from repro_torch.streaming import TumblingWindow
+from repro_torch.transport import ShmTransport
+from repro_torch.workers import WorkerSupervisor
 
 torch.set_num_threads(1)
 
@@ -177,10 +179,13 @@ def _window_fn(key, w, msgs):
 
 
 def _chaos(pkg: str, schedule: str | None = None, *, broker_nodes=1, replication_factor=1,
-           checkpoint_every=0, reconcile=False) -> tuple[dict, dict]:
+           checkpoint_every=0, reconcile=False, executor="inline",
+           transport=None) -> tuple[dict, dict]:
     """One keyed stream fed live (ten records every 5 ms) under an
     optional fault schedule, bound by a FaultInjector (and recovered by a
-    StageReconciler when ``reconcile``)."""
+    StageReconciler when ``reconcile``). ``executor="mp"`` runs its
+    partitions in worker processes; ``transport="shm"`` mounts a ring on
+    the topic and sends each ten records as one frame."""
     jax = pkg == "jax"
     svc = (JaxService(devices=list(range(10)), heartbeat_interval=0.05, heartbeat_timeout=0.25)
            if jax else PilotComputeService(devices=[CPU] * 10, heartbeat_interval=0.05,
@@ -188,28 +193,44 @@ def _chaos(pkg: str, schedule: str | None = None, *, broker_nodes=1, replication
     bus = MetricsBus() if not jax else None
     results: dict = {}
     injector = reconciler = None
+    recovered: list = []  # the replacement pilots
     pcd = {"number_of_nodes": 1, "cores_per_node": 2, "type": "flink"}
     try:
         cluster = svc.submit_pilot({"number_of_nodes": broker_nodes,
                                     "type": "kafka"}).get_context()
         cluster.create_topic("chaos", 1, replication_factor=replication_factor)
+        ring_name = None
+        if transport == "shm":
+            shm = ShmTransport(slot_bytes=1 << 16, n_slots=64)
+            cluster.attach_transport(shm)
+            ring_name = shm.mount("chaos").name
         flink = svc.submit_pilot(pcd)
+        first_slots = list(flink.plugin.slots) if not jax else None
         stream = flink.get_context().stream(
             cluster, "chaos", group="g", assigner=(JaxTumbling if jax else TumblingWindow)(WINDOW),
             window_fn=_window_fn, key_fn=lambda m: int(m.value[0]),
             emit=lambda out: results.__setitem__((out[0], out[1]), (out[2], out[3])),
-            metrics=bus, checkpoint_every=checkpoint_every)
+            metrics=bus, checkpoint_every=checkpoint_every,
+            **({"executor": executor, "worker_options": {"snapshot_every": 8}}
+               if executor == "mp" else {}))
         stream.start()
         if reconcile:
-            reconciler = (JaxReconciler if jax else StageReconciler)(svc, bus=bus)
+            reconciler = (JaxReconciler if jax else StageReconciler)(
+                svc, bus=bus, on_recovered=lambda name, p: recovered.append(p))
             reconciler.manage("chaos", flink, stream, pcd)
         producer = (JaxProducer if jax else Producer)(cluster, "chaos", serializer="npy")
 
         def feed():
-            for i in range(N_MSGS):
-                producer.send(np.array([i % N_KEYS, float(i) * 1.25]), timestamp=BASE_TS + i * DT)
-                if i % 10 == 9:
-                    time.sleep(0.005)
+            for lo in range(0, N_MSGS, 10):
+                idx = range(lo, lo + 10)
+                vals = [np.array([i % N_KEYS, float(i) * 1.25]) for i in idx]
+                stamps = [BASE_TS + i * DT for i in idx]
+                if transport == "shm":
+                    producer.send_batch(vals, timestamps=stamps)
+                else:
+                    for v, ts in zip(vals, stamps):
+                        producer.send(v, timestamp=ts)
+                time.sleep(0.005)
 
         feeder = threading.Thread(target=feed, daemon=True)
         feeder.start()
@@ -236,7 +257,12 @@ def _chaos(pkg: str, schedule: str | None = None, *, broker_nodes=1, replication
                 "poll_delay": stream.consumer.injected_poll_delay,
                 "recoveries": stream.recoveries,
                 "stage_recoveries": reconciler.recoveries if reconciler else 0,
-                "events": list(injector.events) if injector else [], "bus": bus}
+                "events": list(injector.events) if injector else [], "bus": bus,
+                "first_slots": first_slots, "owners": list(stream.store.owners),
+                "new_slots": [list(p.plugin.slots) for p in recovered],
+                "ring_name": ring_name,
+                "copied_out": getattr(producer, "copied_out_records", 0),
+                "restarts": stream.runtime.restarts if getattr(stream, "runtime", None) else 0}
     finally:
         svc.cancel()
     return results, info
@@ -267,6 +293,48 @@ def test_pilot_loss_is_recovered_by_the_reconciler_bitwise(baseline, schedule):
     assert info["bus"].value("pipeline.stage_recoveries", stage="chaos") >= 1
     assert info["bus"].value("stream.recovery_ms", stream="chaos") >= 0.0
     _assert_bitwise(baseline, results, schedule)
+
+
+def test_reconciler_recovery_rehomes_onto_the_new_pilots_slots(baseline):
+    """ROADMAP C6, closed in the port: after the reconciler's recovery the
+    partitions belong to the replacement pilot's slots, not the dead
+    pilot's, and every firing is still the JAX package's."""
+    results, info = _chaos("torch", "kill_pilot @records=350", checkpoint_every=100,
+                           reconcile=True)
+    assert info["stage_recoveries"] >= 1 and info["new_slots"], info["events"]
+    assert info["owners"] == info["new_slots"][-1] != info["first_slots"]
+    assert info["late"] == 0 and info["fired"] == EXPECTED_WINDOWS
+    _assert_bitwise(baseline, results, "rehomed")
+
+
+def test_kill_pilot_mp_executor_recovers(baseline):
+    """A pilot crash with the partitions in worker processes: the crash
+    kills the workers; recover() restores the host store from the spool,
+    seeds a fresh worker fleet from it, and the rescale onto the new
+    pilot's slots moves them between processes. Bitwise the JAX package's."""
+    results, info = _chaos("torch", "kill_pilot @records=600", checkpoint_every=100,
+                           reconcile=True, executor="mp")
+    assert info["recoveries"] >= 1 and info["stage_recoveries"] >= 1, info["events"]
+    assert info["owners"] == info["new_slots"][-1]
+    assert info["late"] == 0 and info["fired"] == EXPECTED_WINDOWS
+    _assert_bitwise(baseline, results, "mp pilot kill")
+
+
+def test_kill_pilot_shm_transport_recovers_and_cleans_ring(baseline):
+    """A pilot crash while the stream rides the shared-memory ring: the
+    replay floor (pinned at each checkpoint) held every slot the recovery
+    replays, nothing was copied out, the firings are the JAX package's log
+    run's, and the service's teardown unlinked the ring's segment."""
+    from multiprocessing import shared_memory
+
+    results, info = _chaos("torch", "kill_pilot @records=600", checkpoint_every=100,
+                           reconcile=True, transport="shm")
+    assert info["recoveries"] >= 1 and info["stage_recoveries"] >= 1, info["events"]
+    assert info["lost"] == 0 and info["copied_out"] == 0
+    assert info["late"] == 0 and info["fired"] == EXPECTED_WINDOWS
+    _assert_bitwise(baseline, results, "shm pilot kill")
+    with pytest.raises(FileNotFoundError):
+        shared_memory.SharedMemory(info["ring_name"])
 
 
 def test_broker_leader_kill_fails_over_without_drift(baseline):
@@ -418,3 +486,48 @@ def test_preempted_pipeline_stage_resumes_with_zero_lost_or_duplicated_firings()
         hi.close()
     assert run.errors == [] and run.service.pool.leased_devices == 0
     assert _Counted.results == baseline
+
+
+# -- the worker supervisor's restart backoff ----------------------------------------------
+
+
+class _NullMonitor:
+    def watch(self, *a, **kw):
+        pass
+
+    def unwatch(self, *a, **kw):
+        pass
+
+
+class _FakeSup(WorkerSupervisor):
+    """Backoff policy under test, process machinery stubbed out."""
+
+    def spawn(self, wait=True):
+        return self
+
+    def kill(self):
+        pass
+
+
+def test_respawn_storm_backs_off_exponentially_with_cap():
+    sup = _FakeSup(0, owner=None, window_fn=None, monitor=_NullMonitor(),
+                   ctx=None, restart_backoff=0.01, restart_backoff_cap=0.04)
+    t0 = time.monotonic()
+    delays = [sup.respawn().last_backoff_s for _ in range(5)]
+    storm = time.monotonic() - t0
+    # the first restart of a streak is immediate; then 0.01, 0.02, 0.04, 0.04 (cap)
+    assert delays == [0.0, 0.01, 0.02, 0.04, 0.04]
+    assert sup.restarts == 5
+    assert storm >= 0.11  # the storm actually waited, not just recorded
+    # a worker that survived a while gets an immediate restart again
+    time.sleep(sup.restart_backoff_cap * 2 + 0.02)
+    assert sup.respawn().last_backoff_s == 0.0
+
+
+def test_isolated_crash_restarts_immediately():
+    sup = _FakeSup(0, owner=None, window_fn=None, monitor=_NullMonitor(),
+                   ctx=None, restart_backoff=0.5, restart_backoff_cap=5.0)
+    t0 = time.monotonic()
+    sup.respawn()
+    assert time.monotonic() - t0 < 0.1
+    assert sup.last_backoff_s == 0.0

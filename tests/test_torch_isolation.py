@@ -210,13 +210,41 @@ def test_build_needs_nvcc(monkeypatch):
 
 
 def test_shared_memory_transport_is_refused():
+    """Nothing refuses the shared-memory transport any more: the cluster
+    takes it, a micro-batch stream on it reads views into the ring, a
+    batch crosses it as one slot, and closing the cluster unlinks the
+    segment."""
+    from multiprocessing import shared_memory
+
+    import numpy as np
+
+    from repro_torch.transport import ShmTransport
+
     cluster = BrokerCluster(1)
     cluster.create_topic("t", 1)
-    with pytest.raises(NotImplementedError, match="transport"):
-        cluster.attach_transport(object())
-    with pytest.raises(NotImplementedError, match="transport"):
-        MicroBatchStream(cluster, "t", group="g", process_fn=lambda s, m: s, transport="shm")
-    Producer(cluster, "t", serializer="raw").send(b"S" + b"\x00" * 8)
-    consumer = Consumer(cluster, ConsumerGroup(cluster, "g", "t"), "m")
-    with pytest.raises(NotImplementedError, match="transport"):
-        consumer.poll(timeout=0.5)
+    cluster.attach_transport(ShmTransport(slot_bytes=1 << 12, n_slots=4))
+    ring = cluster.transport.mount("t")
+    stream = MicroBatchStream(cluster, "t", group="g", process_fn=lambda s, m: s,
+                              transport="shm")
+    assert stream.consumer.zero_copy
+    Producer(cluster, "t").send_batch([np.arange(4.0), np.arange(4.0) + 1])
+    consumer = Consumer(cluster, ConsumerGroup(cluster, "g2", "t"), "m")
+    values = [m.value for m in consumer.poll(timeout=0.5)]
+    assert ring.alloc_count == 1 and [v.tolist() for v in values] == [
+        [0.0, 1.0, 2.0, 3.0], [1.0, 2.0, 3.0, 4.0]]
+    name = ring.name
+    cluster.close()
+    with pytest.raises(FileNotFoundError):
+        shared_memory.SharedMemory(name)
+
+
+def test_the_scan_covers_the_workers_transport_and_detector():
+    """The worker processes, the shared-memory transport and the detector
+    source are among the files scanned for JAX imports."""
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    for mod in ("workers/channel.py", "workers/worker.py", "workers/supervisor.py",
+                "workers/runtime.py", "workers/__init__.py", "transport/ring.py",
+                "transport/frames.py", "transport/plane.py", "transport/__init__.py",
+                "miniapps/detector.py"):
+        assert mod in scanned, mod
+    assert ROOT / "chip_smoke.py" in _port_files()

@@ -1,7 +1,7 @@
 """The port's Pipeline API against the JAX package's: specs cross between
-the packages as JSON, ``Pipeline.validate`` reports the same problems (the port adds
-a refusal for each stage kind that waits for a later module), runs tear
-down in the same order, and the same deterministic K-Means and ML-EM specs
+the packages as JSON, ``Pipeline.validate`` reports the same problems (and
+the programs it takes run: continuous stages, worker processes, the
+shared-memory transport), runs tear down in the same order, and the same deterministic K-Means and ML-EM specs
 end in the same state. Then the port alone: device slots, app placement,
 the refusal to run without CUDA unasked, the CLI, and a closed elastic loop
 on CPU slots."""
@@ -185,8 +185,8 @@ def test_validation_errors_match_jax(case):
     assert lists[1] == lists[0] and lists[1]
 
 
-# each: (``Pipeline`` program, the refusals the port adds). Programs the
-# port runs add none: they validate (or fail) as in the JAX package, and the
+# each: (``Pipeline`` program, the refusals the port adds). The port adds
+# none: every program validates (or fails) as in the JAX package, and the
 # valid ones run (``_run_windowed``)
 WAITING = {
     "continuous": (lambda p: p.Pipeline.named("w").topic("a")
@@ -194,16 +194,12 @@ WAITING = {
                           window={"window": "tumbling", "size": 1.0}),
                    []),
     "mp": (lambda p: p.Pipeline.named("w").topic("a")
-           .stage("s", topic="a", processor="parity_count", engine="continuous",
-                  executor="mp"),
-           ["stage 's': executor='mp' waits for the port's worker processes "
-            "(ROADMAP A2, workers)"]),
+           .stage("s", topic="a", processor="parity_window", engine="continuous",
+                  window={"window": "tumbling", "size": 1.0}, executor="mp"),
+           []),
     "shm": (lambda p: p.Pipeline.named("w").broker(transport="shm").topic("a")
             .stage("s", topic="a", processor="parity_count", transport="shm"),
-            ["broker: transport='shm' waits for the port's shared-memory transport "
-             "(ROADMAP A2, transport)",
-             "stage 's': transport='shm' waits for the port's shared-memory transport "
-             "(ROADMAP A2, transport)"]),
+            []),
     "checkpoint": (lambda p: p.Pipeline.named("w").topic("a")
                    .stage("s", topic="a", processor="parity_window", engine="continuous",
                           checkpoint_every=10)
@@ -218,33 +214,45 @@ WAITING = {
 
 
 def _run_windowed(spec) -> None:
-    """Run a valid one-stage continuous spec on two CPU slots: 40 records
-    0.1 s apart in event time, on one topic partition (one key), close
-    three 1 s windows of ten each."""
+    """Run a valid one-stage spec on two CPU slots: 40 records 0.1 s apart
+    in event time, on one topic partition (one key), sent as one batch
+    (one ring slot on an shm broker). A continuous stage closes three 1 s
+    windows of ten each (in worker processes for ``executor="mp"``); a
+    micro-batch stage processes the 40 records (as views into the ring on
+    an shm stage)."""
     stage = spec.stage("s")
+    shm = spec.broker.transport == "shm"
     with spec.run(devices=[CPU] * 2) as run:
         prod = Producer(run.cluster, "a", serializer="npy")
-        for i in range(40):
-            prod.send(np.array([float(i)]), key=b"k", timestamp=100.0 + 0.1 * i)
-        run.await_windows("s", 3, timeout=30)
+        prod.send_batch([np.array([float(i)]) for i in range(40)], key=b"k",
+                        timestamps=[100.0 + 0.1 * i for i in range(40)])
         stream = run.stream("s")
-        _wait(lambda: stream.stats.records == 40)
-        assert stream.stats.late_records == 0 and stream.stats.fired_windows == 3
-        assert run.pilot("s").pcd.framework == "flink"
+        if stage.engine == "continuous":
+            run.await_windows("s", 3, timeout=30)
+            _wait(lambda: stream.stats.records == 40)
+            assert stream.stats.late_records == 0 and stream.stats.fired_windows == 3
+            assert run.pilot("s").pcd.framework == "flink"
+            assert (stream.runtime is not None) == (stage.executor == "mp")
+        else:
+            _wait(lambda: stream.stats.records == 40 and run.lag("s") == 0)
+            assert stream.consumer.zero_copy == (stage.transport == "shm")
+        if shm:
+            assert run.cluster.transport.ring_for("a").alloc_count == 1
     assert run.errors == [] and run.service.pool.leased_devices == 0
     assert run.teardown_log == (
         ["controller:s"] * (stage.elastic is not None)
         + ["reconciler"] * bool(stage.checkpoint_every) + ["stream:s"]
+        + ["transport"] * shm
         + ["arbiter"] * (stage.elastic is not None) + ["service"])
 
 
 @pytest.mark.parametrize("case", sorted(WAITING))
 def test_validation_refuses_what_waits_naming_its_roadmap_item(case):
     """The port lists the JAX package's errors for the program (none, where
-    the JAX ``Pipeline`` takes it) and then one refusal per stage kind that
-    waits, each naming the part of ROADMAP A2 it waits for. What the port
-    runs — the continuous engine, crash checkpoints, preemption — validates
-    as in the JAX package, and runs."""
+    the JAX ``Pipeline`` takes it) and refuses nothing more: no stage kind
+    waits any longer. What the port runs — the continuous engine, crash
+    checkpoints, preemption, worker processes, the shared-memory transport
+    — validates as in the JAX package, and runs."""
     program, refusals = WAITING[case]
     jax_errors = program(jax_pipeline).validate()
     torch_errors = program(torch_pipeline).validate()
@@ -258,14 +266,11 @@ def test_validation_refuses_what_waits_naming_its_roadmap_item(case):
 
 def test_run_refuses_a_waiting_spec_built_elsewhere():
     """A spec the JAX ``Pipeline`` made with an mp-executor stage: the
-    port's runner refuses it at start (no stage runs as something else)
-    and leaves nothing behind."""
+    port's runner takes it as JSON and runs it in worker processes, one
+    per slot, and leaves nothing behind."""
     spec = torch_pipeline.PipelineSpec.from_json(WAITING["mp"][0](jax_pipeline)
                                                  .build().to_json())
-    run = spec.run(devices=[CPU] * 2)
-    with pytest.raises(torch_pipeline.PipelineValidationError, match="ROADMAP A2, workers"):
-        run.start()
-    assert run.teardown_log == ["service"] and run.service.pool.leased_devices == 0
+    _run_windowed(spec)
 
 
 # ---------------------------------------------------------------------------
@@ -433,15 +438,23 @@ def test_apps_are_placed_on_their_pilots_device():
 
 
 def test_cli_validates_and_refuses_what_waits(tmp_path, capsys):
+    """``validate`` takes the spec, the mp and shm variants the JAX
+    ``Pipeline`` makes (no stage kind waits any longer) and a windowed one,
+    and refuses a spec with a real error."""
     good = tmp_path / "good.json"
     good.write_text(_tiny(torch_pipeline, "cli").to_json())
     assert torch_cli.main(["validate", str(good)]) == 0
     assert "OK" in capsys.readouterr().out
+    for case in ("mp", "shm"):
+        path = tmp_path / f"{case}.json"
+        path.write_text(WAITING[case][0](jax_pipeline).build().to_json())
+        assert torch_cli.main(["validate", str(path)]) == 0, case
+        assert "OK" in capsys.readouterr().out
     bad = tmp_path / "bad.json"
-    bad.write_text(WAITING["mp"][0](jax_pipeline).build().to_json())
+    bad.write_text(json.dumps({**json.loads(good.read_text()), "stages": [
+        {**json.loads(good.read_text())["stages"][0], "topic": "ghost"}]}))
     assert torch_cli.main(["validate", str(bad)]) == 1
-    assert "executor='mp' waits for the port's worker processes (ROADMAP A2, workers)" \
-        in capsys.readouterr().err
+    assert "ghost" in capsys.readouterr().err
     windowed = tmp_path / "windowed.json"
     windowed.write_text(WAITING["checkpoint"][0](jax_pipeline).build().to_json())
     assert torch_cli.main(["validate", str(windowed)]) == 0
