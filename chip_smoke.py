@@ -22,7 +22,11 @@
    generator of their own; for ``tomo_project`` also on sparse images and for
    ``tomo_backproject`` on sparse sinograms, where a dropped pixel or bin
    shows; flash attention also at B=1 S=2048, where the work is
-   operations), and times kernel, plain version and (where one
+   operations; the flash backward kernels at the training shape, B=8
+   S=128, and at B=1 S=2048, on the log-sum-exp-writing forward's output,
+   per element and with a mask off by one shown to fail, timed beside that
+   forward and SDPA's forward plus backward), and times kernel, plain
+   version and (where one
    exists) a single PyTorch library call that computes the same function:
    by device time, replaying a CUDA graph of many calls, where a call is
    short (K-Means, attention at B = 1, 4 and 64; the host's per-call time
@@ -45,7 +49,15 @@
    generated token against that forward's argmax, then saves the served
    model's parameters (f32, and cast to bf16) with the port's
    ``CheckpointManager`` and restores them onto the card, bitwise, printing
-   the write and read seconds;
+   the write and read seconds; then runs the training stream as
+   ``launch/train.py`` does: a TokenSource of 8 x 128 zipf tokens a message
+   into ``LMTrainApp`` on smollm-135m at full width (adamw, lr 3e-4, 5
+   warm-up steps, one message a step, 20 steps, remat "full"), a checkpoint
+   every 10 steps restored bitwise; checks the losses finite and falling,
+   60 flash forwards and 30 of each backward kernel per step, the state on
+   the card, and one step at full width but 2 layers against the same step
+   on the CPU; prints one ``path train`` line (step p50/p99, tokens/s, the
+   card's peak memory, the losses);
 6. runs the pipeline phase: a ``PipelineSpec`` built by the port's ``Pipeline``
    (one kafka node; light-source frames at a stepped rate into an elastic
    ML-EM stage, the cluster stream into a K-Means stage) through
@@ -194,11 +206,32 @@ HOST_TRANS_NY, HOST_TRANS_NX, HOST_TRANS_BATCH, HOST_TRANS_MSGS = 128, 128, 32, 
 # 9 query heads over 3 KV heads of 64
 SERVE_MSGS, SERVE_BATCH, PROMPT_LEN, GEN_TOKENS, PAGE_SIZE = 16, 4, 128, 32, 16
 HEADS, KV_HEADS, HEAD_DIM = 9, 3, 64
+# the training stream, as launch/train.py runs it: messages of TRAIN_BATCH
+# sequences of TRAIN_SEQ zipf tokens, one message a step, smollm-135m at full
+# width (f32 params and AdamW moments, bf16 compute, remat="full"), adamw at
+# lr 3e-4 with 5 warm-up steps, TRAIN_STEPS steps, a checkpoint every
+# TRAIN_CKPT_EVERY; then TRAIN_CHECK_STEPS steps at full width but
+# TRAIN_CHECK_LAYERS layers on the card and on the CPU from the same weights
+# and batches (bf16 activations rounded at other places on the two devices),
+# held to: each step's loss and grad norm relative, each leaf's change over
+# the steps (||card - cpu|| / ||cpu - start||: Adam's first step alone is
+# lr sign(g), so the second step is taken) and each first moment (0.1 x the
+# clipped grads) to its leaf's largest |value|; each limit is 5-7x the
+# H100's reading (PERF.md: 1.68e-5, 1.51e-4, 0.0296, 0.00377)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 128, 20, 10
+TRAIN_LR, TRAIN_WARMUP, TRAIN_CHECK_LAYERS, TRAIN_CHECK_STEPS = 3e-4, 5, 2, 2
+TRAIN_LOSS_REL, TRAIN_NORM_REL, TRAIN_UPDATE_REL, TRAIN_MOMENT_REL = 1e-4, 1e-3, 0.15, 0.02
+
 # a served token must be the re-scoring forward's argmax wherever the top-2
 # logit gap exceeds this: the decode path (decode kernel, cache written one
 # token at a time) and the prefill path (flash kernel) round their bf16
 # residual streams at different places over 30 layers
 RESCORE_GAP = 0.05
+
+
+# what the backward kernels' plain_ms and library_ms in the kernels line time
+BWD_SCOPE = ("ms and bound_ms: this kernel; plain_ms (flash_attention_bwd_plain) and library_ms "
+             "(SDPA's backward alone): the whole backward, dq and dkdv together")
 
 
 def fail(msg: str) -> None:
@@ -739,6 +772,156 @@ def check_flash(torch, attn, b: int, s: int, gen, timing: bool) -> dict:
     return res
 
 
+def _grad_tol(torch, ref):
+    """Per-element tolerance of a bf16 gradient: kernel and plain version
+    recompute S and P in f32 from the same operands and round each output
+    once, so one bf16 step of the element, 2^-7 |ref|, plus the order of
+    their f32 sums over up to G x S pairs, ATTN_SUM_REL of the largest
+    |ref|."""
+    return BF16_STEP * ref.float().abs() + ATTN_SUM_REL * float(ref.float().abs().max())
+
+
+def _grads_worst(torch, got, ref) -> dict:
+    return {n: float(((g.float() - r.float()).abs() / _grad_tol(torch, r)).max())
+            for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+
+
+def sdpa_bwd_ms(torch, q, k, v, dout, reps: int, replays: int = 5) -> float:
+    """Device time of SDPA's backward alone (``is_causal``, ``enable_gqa``)
+    on q, k, v (B, H, S, hd) that require grad: the forward runs once, then
+    ``reps`` backwards of it (``retain_graph``) are captured in one CUDA
+    graph and replayed ``replays`` times between CUDA events, as in
+    ``graph_ms``. The forward runs on the capture stream, since autograd
+    runs each backward op on its forward op's stream."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        o = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+
+        def backward():
+            torch.autograd.grad(o, (q, k, v), dout, retain_graph=True)
+
+        backward()  # warm-up outside the capture
+        backward()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            backward()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def check_flash_bwd(torch, attn, b: int, s: int, gen) -> dict:
+    """The training attention at the serving head layout, causal, bf16:
+    ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkdv`` against
+    ``flash_attention_bwd_plain`` per element, on the LSE-writing forward's
+    output and log-sum-exp; a mask off by one must fail: the plain version
+    with every query row one position later (a zero row in front: row i sees
+    keys 0..i+1) and one earlier (row 0 dropped: row i sees 0..i-1). Times:
+    each kernel alone, the LSE-writing forward, the plain backward and SDPA
+    (``is_causal``, ``enable_gqa``), the PyTorch call that computes the same
+    gradients, its backward alone and with its forward, all from replayed
+    CUDA graphs. The LSE-writing forward's output is held to the plain
+    version per element too.
+    Bounds: the bytes each kernel must move, and 6 hd flop per causal
+    (query, key) pair for (a) (S, dP, dQ), 8 hd for (b) (S, dP, dV, dK), 10 hd
+    for the pair, at the bf16 rate."""
+    dev = torch.device("cuda", 0)
+    q = torch.randn((b, s, HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
+    dout = torch.randn((b, s, HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
+    lse = torch.empty((b, HEADS, s), dtype=torch.float32, device=dev)
+    out = attn.flash_attention_cuda(q, k, v, causal=True, lse=lse)
+    plain_out, plain_lse = attn.flash_attention_plain_lse(q, k, v, causal=True)
+    fwd = _bf16_close(torch, f"flash_attention with lse B={b} S={s}", out, plain_out, v)
+    lse_err = float((lse - plain_lse).abs().max())
+    if lse_err > 1e-5:
+        raise AssertionError(f"flash_attention lse B={b} S={s}: max err {lse_err} > 1e-5")
+    got = attn.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=True)
+    ref = attn.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True)
+    right = _grads_worst(torch, got, ref)
+    if any(w > 1 for w in right.values()) or not all(bool(g.isfinite().all()) for g in got):
+        raise AssertionError(f"flash_attention_bwd B={b} S={s}: worst err/tol {right}")
+    z = lambda x: torch.zeros_like(x[:, :1])  # noqa: E731  (one query row)
+    zl = torch.zeros_like(lse[..., :1])
+    plus = attn.flash_attention_bwd_plain(
+        torch.cat([z(q), q], 1), k, v, torch.cat([z(out), out], 1), torch.cat([zl, lse], -1),
+        torch.cat([z(dout), dout], 1), causal=True)
+    plus = (plus[0][:, 1:], plus[1], plus[2])
+    minus = attn.flash_attention_bwd_plain(q[:, 1:], k, v, out[:, 1:], lse[..., 1:],
+                                           dout[:, 1:], causal=True)
+    minus = (torch.cat([z(q), minus[0]], 1), minus[1], minus[2])
+    wrong = {"plus_one": _grads_worst(torch, got, plus), "minus_one": _grads_worst(torch, got, minus)}
+    blind = [f"{m} {n}" for m, w in wrong.items() for n, x in w.items() if x <= 1]
+    if blind:
+        raise AssertionError(f"flash_attention_bwd B={b} S={s}: a mask off by one passes {blind}")
+    res = {"max_abs_err": max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref)),
+           "worst_err_over_tol": right, "off_by_one_least_over_tol": {
+               m: min(w.values()) for m, w in wrong.items()},
+           "fwd_out_max_abs_err": fwd["max_abs_err"],
+           "fwd_out_worst_err_over_tol": fwd["worst_err_over_tol"], "lse_max_abs_err": lse_err,
+           "tol_rule": "per element 2^-7 |ref| + 2^-15 max|ref|; forward out 2^-7 |ref| + "
+                       "2^-15 max|v|; lse 1e-5"}
+    pairs = b * HEADS * s * (s + 1) // 2  # causal (query, key) pairs over every head
+    el = q.element_size()
+    n_q, n_kv = q.numel(), k.numel()
+    rows = b * HEADS * s * 4  # one f32 per row (lse, delta)
+    res["dq_bound_ms"], res["dq_bound_by"] = bound(
+        (4 * n_q + 2 * n_kv) * el + 2 * rows, 6 * HEAD_DIM * pairs, BF16_OPS_PER_S)
+    res["dkdv_bound_ms"], res["dkdv_bound_by"] = bound(
+        (2 * n_q + 4 * n_kv) * el + 2 * rows, 8 * HEAD_DIM * pairs, BF16_OPS_PER_S)
+    res["bwd_bound_ms"], res["bwd_bound_by"] = bound(
+        (5 * n_q + 4 * n_kv) * el + rows, 10 * HEAD_DIM * pairs, BF16_OPS_PER_S)
+    delta = torch.empty((b, HEADS, s), dtype=torch.float32, device=dev)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    sizes = (b, s, s, HEADS, KV_HEADS, HEAD_DIM, 1, 1)
+
+    def run_dq():
+        attn.FLASH_BWD_DQ.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                                 *sizes, torch.cuda.current_stream().cuda_stream)
+
+    def run_dkdv():
+        attn.FLASH_BWD_DKDV.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                                   lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                   *sizes, torch.cuda.current_stream().cuda_stream)
+
+    run_dq()
+    torch.cuda.synchronize()
+    reps = 20 if s <= 512 else 2
+    res["dq_ms"] = graph_ms(torch, run_dq, reps)
+    res["dkdv_ms"] = graph_ms(torch, run_dkdv, reps)
+    res["fwd_lse_ms"] = graph_ms(
+        torch, lambda: attn.flash_attention_cuda(q, k, v, causal=True, lse=lse), reps)
+    res["fwd_ms"] = graph_ms(torch, lambda: attn.flash_attention_cuda(q, k, v, causal=True), reps)
+    res["plain_ms"] = graph_ms(
+        torch, lambda: attn.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True),
+        reps if s <= 512 else 1)
+    qt, kt, vt, dot = (x.transpose(1, 2).detach().requires_grad_(x is not dout)
+                       for x in (q, k, v, dout))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res["library_ms"] = sdpa_bwd_ms(torch, qt, kt, vt, dot, reps)
+    res["library_pair_ms"] = graph_ms(torch, lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt), dot), reps)
+    res["library_fwd_ms"] = graph_ms(
+        torch, lambda: sdpa(qt.detach(), kt.detach(), vt.detach(), is_causal=True,
+                            enable_gqa=True), reps)
+    res["library"] = ("scaled_dot_product_attention(is_causal, enable_gqa): library_ms its "
+                      "backward alone, against the pair dq + dkdv; library_pair_ms forward + "
+                      "backward, against fwd_lse_ms + dq_ms + dkdv_ms")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
@@ -989,6 +1172,150 @@ def rescore(torch, serve: dict) -> dict:
            "largest_gap_where_differing": worst, "gap_tol": RESCORE_GAP}
     print("rescore " + json.dumps(res))
     return res
+
+
+def train_check_step(torch, device) -> dict:
+    """TRAIN_CHECK_STEPS train steps at smollm-135m's full width but
+    TRAIN_CHECK_LAYERS layers, from the same weights (drawn on the CPU from
+    SEED) and the same batches, on the card (the flash kernels forward, remat
+    recompute and backward) and on the CPU (their plain versions), held to
+    the tolerances above."""
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
+    from repro_torch.runtime.steps import build_train_step
+    from repro_torch.utils import tree_flatten_with_paths, tree_map_with_paths
+
+    cfg = get_arch("smollm-135m").replace(n_layers=TRAIN_CHECK_LAYERS)
+    model = build_model(cfg)
+    opt_cfg = OptimizerConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                              total_steps=TRAIN_STEPS)
+    shape = ShapeConfig("stream", TRAIN_SEQ, TRAIN_BATCH, "train")
+    params = model.init(torch.Generator().manual_seed(SEED))
+    z = np.random.default_rng(SEED).zipf(1.3, size=(TRAIN_CHECK_STEPS, TRAIN_BATCH, TRAIN_SEQ))
+    tokens = np.minimum(z - 1, cfg.vocab_size - 1).astype(np.int32)
+    out = {}
+    for side, where in (("cpu", torch.device("cpu")), ("card", device)):
+        p = tree_map_with_paths(lambda _, x: x.to(where, copy=True), params)
+        opt = Optimizer(opt_cfg).init(p)
+        step = build_train_step(model, shape, opt_cfg, device=where)
+        losses, norms = [], []
+        t0 = time.perf_counter()
+        for t in tokens:
+            p, opt, met = step(p, opt, {"tokens": t})
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+        out[side] = (p, opt, losses, norms, time.perf_counter() - t0)
+    (cp, co, closs, cnorm, cs), (gp, go, gloss, gnorm, gs) = out["cpu"], out["card"]
+
+    def leaves(tree):
+        return [x.cpu() for _, x in tree_flatten_with_paths(tree)]
+
+    res = {"layers": TRAIN_CHECK_LAYERS, "steps": TRAIN_CHECK_STEPS, "loss_cpu": closs,
+           "loss_card": gloss, "grad_norm_cpu": cnorm, "grad_norm_card": gnorm,
+           "steps_s_cpu": cs, "steps_s_card": gs,
+           "loss_rel_err": max(abs(g - c) / abs(c) for g, c in zip(gloss, closs)),
+           "grad_norm_rel_err": max(abs(g - c) / abs(c) for g, c in zip(gnorm, cnorm)),
+           # per leaf: the card's change of the leaf over the steps against
+           # the CPU's, ||card - cpu|| / ||cpu - start||
+           "update_rel_err": max(float((a - b).norm() / (b - p0).norm()) for a, b, p0 in
+                                 zip(leaves(gp), leaves(cp), leaves(params))),
+           "m_worst_err_over_leaf_max": max(float((a - b).abs().max() / b.abs().max())
+                                            for a, b in zip(leaves(go["m"]), leaves(co["m"]))),
+           "tol": {"loss_rel": TRAIN_LOSS_REL, "grad_norm_rel": TRAIN_NORM_REL,
+                   "update_rel": TRAIN_UPDATE_REL, "m_over_leaf_max": TRAIN_MOMENT_REL}}
+    if not (all(math.isfinite(x) for x in gloss) and res["loss_rel_err"] <= TRAIN_LOSS_REL
+            and res["grad_norm_rel_err"] <= TRAIN_NORM_REL
+            and res["update_rel_err"] <= TRAIN_UPDATE_REL
+            and res["m_worst_err_over_leaf_max"] <= TRAIN_MOMENT_REL):
+        raise AssertionError(f"train steps on the card vs the CPU: {res}")
+    return res
+
+
+def train_path(torch, kernels) -> dict:
+    """The training stream through the launcher users run,
+    ``repro_torch.launch.train``'s ``run`` with ``--steps TRAIN_STEPS
+    --checkpoint-every TRAIN_CKPT_EVERY`` and its defaults otherwise: a
+    service on the card, a kafka pilot (2 broker nodes, 4 partitions) and a
+    spark pilot whose devices are filed with the arbiter, a TokenSource of
+    TRAIN_BATCH x TRAIN_SEQ zipf tokens a message into ``LMTrainApp`` on
+    full-width smollm-135m (adamw, lr TRAIN_LR, TRAIN_WARMUP warm-up steps),
+    a checkpoint every TRAIN_CKPT_EVERY steps (async, with the offsets).
+    Checks: every loss finite and the last five below the first five on
+    average, per step 2 x 30 flash forwards (remat runs each layer again) and
+    30 of each backward kernel, params and moments on the card, the last
+    checkpoint restored bitwise against the state as it was saved, and two
+    steps at TRAIN_CHECK_LAYERS layers against the CPU."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.utils import tree_flatten_with_paths, tree_map_with_paths
+
+    directory = ROOT / "build" / "train_smoke"
+    shutil.rmtree(directory, ignore_errors=True)
+    args = train.parse_args(["--arch", "smollm-135m", "--steps", str(TRAIN_STEPS),
+                             "--seq-len", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+                             "--lr", str(TRAIN_LR), "--checkpoint-dir", str(directory),
+                             "--checkpoint-every", str(TRAIN_CKPT_EVERY)])
+    saved: dict = {}
+
+    def on_save(step, state):  # a host copy, so the card's peak is training's own
+        saved["step"] = step
+        saved["state"] = tree_map_with_paths(lambda _, x: x.to("cpu", copy=True), state)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    run = train.run(args, on_save=on_save)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    app, stream, state = run.app, run.stream, run.stream.state
+    losses = app.losses
+    steps = int(state["opt"]["step"])
+    if steps != app.stats.batches or steps < TRAIN_STEPS or len(losses) != steps:
+        raise AssertionError(f"{steps} optimizer steps, {app.stats.batches} batches, "
+                             f"{len(losses)} losses")
+    if not all(math.isfinite(x) for x in losses) or \
+            not sum(losses[-5:]) / 5 < sum(losses[:5]) / 5:
+        raise AssertionError(f"train losses: {losses}")
+    n = app.cfg.n_layers
+    want = {"flash_attention": 2 * n * steps, "flash_attention_bwd_dq": n * steps,
+            "flash_attention_bwd_dkdv": n * steps}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"train launches {launches}, want {want} for {steps} steps")
+    off = [p for p, x in tree_flatten_with_paths(state) if x.device.type != "cuda"]
+    if off:
+        raise AssertionError(f"train state off the card: {off}")
+    restored, meta = CheckpointManager(str(directory)).restore(saved["state"])
+    for (p, a), (_, b) in zip(tree_flatten_with_paths(saved["state"]),
+                              tree_flatten_with_paths(restored)):
+        bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        if a.dtype != b.dtype or b.device != a.device or not torch.equal(a.view(bits),
+                                                                         b.view(bits)):
+            raise AssertionError(f"train checkpoint step {saved['step']}: leaf {p} differs")
+    shutil.rmtree(directory, ignore_errors=True)
+    lat = app.stats.latency
+    tokens = app.stats.items
+    wall = run.wall
+    step_s = [b.processing_delay for b in stream.stats.history]
+    # a step's wall: process() of its batch, which waits for the step two
+    # before it (the app's async window), so in steady state the step period
+    out = {"path": "train", "steps": steps, "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall, "step_wall_p50_s": stream.latency.p50,
+           "step_wall_p99_s": stream.latency.p99, "first_step_s": step_s[0],
+           "batch_latency_p50_s": lat.p50, "batch_latency_p99_s": lat.p99,
+           "peak_memory_gib": peak / 2 ** 30, "memory_before_gib": baseline / 2 ** 30,
+           "losses": losses,
+           "checkpoint": {"step": saved["step"], "offsets": meta["offsets"], "bitwise": True},
+           "launches_per_step": {k: launches[k] / steps for k in want},
+           "card_vs_cpu": train_check_step(torch, state["params"]["embed"].device)}
+    print("path " + json.dumps(out))
+    return {"report": out, "launches": launches}
 
 
 def pipeline_spec(pipeline):
@@ -1817,6 +2144,11 @@ def main() -> None:
     for b, s in ((4, 128), (4, 512), (1, 2048)):
         print(f"check flash_attention B={b} S={s} causal bf16 "
               + json.dumps(check_flash(torch, attention, b, s, gen, True)))
+    bwd_main = check_flash_bwd(torch, attention, TRAIN_BATCH, TRAIN_SEQ, gen)
+    print(f"check flash_attention_bwd B={TRAIN_BATCH} S={TRAIN_SEQ} causal bf16 "
+          + json.dumps(bwd_main))
+    print("check flash_attention_bwd B=1 S=2048 causal bf16 "
+          + json.dumps(check_flash_bwd(torch, attention, 1, 2048, gen)))
 
     svc = PilotComputeService()
     try:
@@ -1832,12 +2164,14 @@ def main() -> None:
         svc.cancel()
     rescore(torch, sv)
     checkpoint_round_trip(torch, sv["params"])
+    del sv["params"], sv["app"]  # the served model's card memory
+    tn = train_path(torch, kernels)
     pl = pipeline_path(torch, kernels, pipeline, kmeans, tomo)
     ct = continuous_path(torch, kernels, pipeline, miniapps, kmeans)
     tr = transport_path(torch, kernels, pipeline, miniapps, tomo)
     paths = {"kmeans_path": km["launches"], "kmeans_wide_path": kw["launches"],
              "lightsource_path": rc["launches"], "serve_path": sv["launches"],
-             "pipeline_path": pl["launches"], "continuous_path": ct["launches"],
+             "train_path": tn["launches"], "pipeline_path": pl["launches"], "continuous_path": ct["launches"],
              "transport_path": tr["launches"]}
     launches = {k.name: sum(p[k.name] for p in paths.values()) for k in kernels.KERNELS}
     print("launches " + json.dumps(paths))
@@ -1854,16 +2188,34 @@ def main() -> None:
         ("kmeans_update", src + "kmeans_update.cu", "src/repro/kernels/kmeans/ref.py:38", update_main),
         ("tomo_backproject", src + "tomo.cu", "src/repro/kernels/tomo/kernel.py:86", bp),
         ("tomo_project", src + "tomo.cu", "src/repro/kernels/tomo/kernel.py:107", fp),
+        # the serving instantiation's numbers; the training forward (the
+        # log-sum-exp written) is held per element at the training shape too
         ("flash_attention", src + "flash_attention.cu", "src/repro/kernels/attention/kernel.py:81",
-         flash_main),
+         {**flash_main, "max_abs_err": max(flash_main["max_abs_err"], bwd_main["fwd_out_max_abs_err"]),
+          "with_lse": {"shape": f"B={TRAIN_BATCH} S={TRAIN_SEQ}",
+                       "max_abs_err": bwd_main["fwd_out_max_abs_err"],
+                       "worst_err_over_tol": bwd_main["fwd_out_worst_err_over_tol"],
+                       "lse_max_abs_err": bwd_main["lse_max_abs_err"], "ms": bwd_main["fwd_lse_ms"]}}),
         ("decode_attention", src + "decode_attention.cu",
          "src/repro/kernels/attention/decode_kernel.py:79", decode_main),
+        # no TPU kernel: the reference's flash backward is the pure-JAX
+        # custom_vjp of runtime/sharded_attention.py (_flash_bwd); plain_ms
+        # and library_ms are the whole backward's, the pair's (dq and dkdv)
+        ("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
+         "src/repro/runtime/sharded_attention.py:165",
+         {**bwd_main, "ms": bwd_main["dq_ms"], "bound_ms": bwd_main["dq_bound_ms"],
+          "bound_by": bwd_main["dq_bound_by"], "scope": BWD_SCOPE}),
+        ("flash_attention_bwd_dkdv", src + "flash_attention_bwd.cu",
+         "src/repro/runtime/sharded_attention.py:165",
+         {**bwd_main, "ms": bwd_main["dkdv_ms"], "bound_ms": bwd_main["dkdv_bound_ms"],
+          "bound_by": bwd_main["dkdv_bound_by"], "scope": BWD_SCOPE}),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"],
+         **{key: r[key] for key in ("with_lse", "scope") if key in r}}
         for name, source, replaces, r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

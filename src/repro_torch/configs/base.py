@@ -3,11 +3,12 @@
 Every architecture is expressed as an :class:`ArchConfig`; the same
 dataclass drives parameter-spec construction (``models.build_model``) and
 the reduced smoke-test configs (``cfg.reduced()``). The fields are the JAX
-package's fields that the dense family reads, with the same names and
-defaults, so a config means the same model in both packages; the fields of
-the other families (MoE, SSM, hybrid, enc-dec, VLM), of training and of
-the multi-device attention routes (``attention_impl`` and its block sizes)
-come with their slices (ROADMAP A7, A8, A9).
+package's fields that the dense family and its training read, with the same
+names and defaults, so a config means the same model in both packages; the
+fields of the other families (MoE, SSM, hybrid, enc-dec, VLM) and of the
+multi-device attention routes (``attention_impl`` and its block sizes) come
+with their slices (ROADMAP A8, A9). ``scan_layers`` has no counterpart: the
+port's layer loop is a Python loop.
 """
 from __future__ import annotations
 
@@ -50,9 +51,14 @@ class ArchConfig:
     gated_mlp: bool = True  # False = classic 2-matrix gelu MLP (starcoder2)
     norm_eps: float = 1e-5
 
-    # numerics
+    # numerics / training
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    optimizer: str = "adamw"  # "adamw" | "adafactor"
+    moment_dtype: str = "float32"  # optimizer moment dtype
+    first_moment: bool = True  # adafactor: False = momentum-free (1T configs)
+    remat: str = "full"  # "none" | "full" | "dots"
+    grad_accum: int = 1
 
     source: str = ""  # provenance note ([hf:...], [arXiv:...])
 
@@ -90,6 +96,7 @@ class ArchConfig:
             vocab_size=512,
             param_dtype="float32",
             compute_dtype="float32",
+            remat="none",
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)

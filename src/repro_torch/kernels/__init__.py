@@ -3,7 +3,8 @@ beside its plain PyTorch version:
 
 * ``kmeans``    — MASA streaming K-Means assignment (paper Table 1)
 * ``tomo``      — forward/back projectors for GridRec & ML-EM (paper §3.2.2)
-* ``attention`` — prefill (flash) and decode attention of the LM serving path
+* ``attention`` — prefill (flash) and decode attention of the LM serving path,
+  and the flash backward of LM training
 
 Each has ``ref.py`` (the plain version) and ``ops.py`` (the wrapper that
 takes the plain version for CPU tensors and launches the kernel for CUDA

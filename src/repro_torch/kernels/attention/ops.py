@@ -7,6 +7,15 @@ or ``decode_attention`` (``kernels/csrc/decode_attention.cu``) or raise.
 There is no fallback between the two. Both keep the JAX package's layouts:
 q (B, S, H, hd), k and v (B, S, KV, hd), H a multiple of KV.
 
+Training: where grad mode is on and an input requires grad,
+:func:`flash_attention` goes through :class:`FlashAttentionFn`, whose
+forward also writes each row's log-sum-exp and whose backward launches
+``flash_attention_bwd_dq`` and then ``flash_attention_bwd_dkdv``
+(``kernels/csrc/flash_attention_bwd.cu``) on CUDA tensors, and runs
+:func:`~repro_torch.kernels.attention.ref.flash_attention_bwd_plain` on CPU
+tensors. Elsewhere the forward launches as for serving, with no
+log-sum-exp written.
+
 Kernel notes (each source opens with the full note):
 
 * ``flash_attention`` replaces ``repro/kernels/attention/kernel.py``
@@ -20,6 +29,15 @@ Kernel notes (each source opens with the full note):
   tolerance against the f32-P reference. Causal blocks stop at their last
   row. The f32 instantiation stays on the CUDA cores (f32 products, no
   path runs it) to keep its 2e-5 agreement with the reference.
+* ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkdv`` replace no TPU
+  kernel (the Pallas kernel has no backward); they compute the JAX
+  package's explicit flash backward (``runtime/sharded_attention.py``
+  ``_flash_bwd``). Bound by operations (10 hd flop per pair) at training
+  lengths; this first version runs them in f32 on the CUDA cores: (a) one
+  block per (64 query rows, head, batch row) computes delta and dQ over the
+  key tiles up to the diagonal, (b) one block per (64 keys, KV head, batch
+  row) walks the G query heads and their query tiles from the diagonal on,
+  summing dK and dV in registers: each output written once, no atomics.
 * ``decode_attention`` replaces ``repro/kernels/attention/decode_kernel.py``
   (``decode_attention_pallas``). Its bound is the bytes of the live cache
   entries, but at the serving path's sizes that bound is far below one
@@ -42,13 +60,24 @@ import functools
 import torch
 
 from repro_torch.kernels._build import CudaKernel, CudaLibrary
-from repro_torch.kernels.attention.ref import decode_attention_plain, flash_attention_plain
+from repro_torch.kernels.attention.ref import (
+    decode_attention_plain,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+    flash_attention_plain_lse,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FLASH_LIB = CudaLibrary("flash_attention.cu", {
-    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 })
 FLASH_ATTENTION = CudaKernel("flash_attention", FLASH_LIB, "flash_attention")
+FLASH_BWD_LIB = CudaLibrary("flash_attention_bwd.cu", {
+    "flash_attention_bwd_dq": [_P] * 8 + [_I] * 8 + [_P],
+    "flash_attention_bwd_dkdv": [_P] * 8 + [_I] * 8 + [_P],
+})
+FLASH_BWD_DQ = CudaKernel("flash_attention_bwd_dq", FLASH_BWD_LIB, "flash_attention_bwd_dq")
+FLASH_BWD_DKDV = CudaKernel("flash_attention_bwd_dkdv", FLASH_BWD_LIB, "flash_attention_bwd_dkdv")
 DECODE_LIB = CudaLibrary("decode_attention.cu", {
     "decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "decode_attention_chunk": [_I, _I, _I, _I, _I, _I, _I],
@@ -85,28 +114,80 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name} takes 16-byte aligned tensors")
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True) -> torch.Tensor:
-    """Launch ``flash_attention``: q (B, Sq, H, hd), k and v (B, Skv, KV,
-    hd) -> (B, Sq, H, hd) in q's dtype."""
-    _check_cuda("flash_attention", q, k, v)
+def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}: "
                          f"want (B, Sq, H, hd) and two (B, Skv, KV, hd)")
-    B, Sq, H, hd = q.shape
+    B, _, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != hd or H % KV or Skv < 1:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not fit: "
                          f"same B and hd, H a multiple of KV, Skv >= 1")
     if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, got {hd}")
+        raise ValueError(f"{name} takes head dims {HEAD_DIMS}, got {hd}")
+
+
+def _check_rows(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
+    """``t`` must be the (B, H, Sq) contiguous f32 tensor of q's rows."""
+    B, Sq, H, _ = q.shape
+    if t.shape != (B, H, Sq) or t.dtype != torch.float32 or t.device != q.device \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous ({B}, {H}, {Sq}) f32 tensor on {q.device}, "
+                         f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, lse: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch ``flash_attention``: q (B, Sq, H, hd), k and v (B, Skv, KV,
+    hd) -> (B, Sq, H, hd) in q's dtype. Given ``lse``, a (B, H, Sq) f32
+    tensor, the kernel also writes each row's log-sum-exp into it."""
+    _check_cuda("flash_attention", q, k, v)
+    _check_qkv("flash_attention", q, k, v)
+    if lse is not None:
+        _check_rows("flash_attention lse", lse, q)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         FLASH_ATTENTION.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               lse.data_ptr() if lse is not None else None,
                                B, Sq, Skv, H, KV, hd, int(bool(causal)),
                                _DTYPE_CODE[q.dtype], stream)
     return out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``flash_attention_bwd_dq`` then ``flash_attention_bwd_dkdv``
+    on the current stream: q, out, dout (B, Sq, H, hd), k, v (B, Skv, KV,
+    hd), all one dtype, and the forward's lse (B, H, Sq) f32 -> (dq, dk, dv)
+    in that dtype. (a) also writes each row's delta into a (B, H, Sq) f32
+    workspace that (b) reads."""
+    _check_cuda("flash_attention_bwd", q, k, v, out, dout)
+    _check_qkv("flash_attention_bwd", q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must have q's shape {tuple(q.shape)}")
+    _check_rows("flash_attention_bwd lse", lse, q)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if Sq < 1:
+        raise ValueError("flash_attention_bwd takes Sq >= 1")
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    sizes = (B, Sq, Skv, H, KV, hd, int(bool(causal)), _DTYPE_CODE[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        FLASH_BWD_DQ.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                            *sizes, stream)
+        FLASH_BWD_DKDV.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                              *sizes, stream)
+    return dq, dk, dv
 
 
 @functools.lru_cache(maxsize=256)
@@ -159,12 +240,53 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     return out
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its gradient: the forward saves q, k, v, the
+    output and each row's log-sum-exp; the backward is the backward kernels
+    on CUDA tensors, :func:`flash_attention_bwd_plain` on CPU tensors (any
+    other device raises; nothing falls back from one to the other)."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> torch.Tensor:
+        dev = _one_device(q, k, v)
+        if dev.type == "cpu":
+            out, lse = flash_attention_plain_lse(q, k, v, causal=causal)
+        elif dev.type == "cuda":
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            B, Sq, H, _ = q.shape
+            lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+            out = flash_attention_cuda(q, k, v, causal=causal, lse=lse)
+        else:
+            raise ValueError(f"no flash attention for device {dev}")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout: torch.Tensor):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=ctx.causal)
+        elif q.device.type == "cuda":
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout.contiguous(),
+                                                  causal=ctx.causal)
+        else:
+            raise ValueError(f"no flash attention backward for device {q.device}")
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Prefill attention, (B, Sq, H, hd) out: the model's
     ``blockwise_attention``. The plain version (in the JAX model's default
     512 x 1024 blocks) for CPU tensors; the CUDA kernel (its own tiles), on
-    contiguous copies of the inputs, for CUDA tensors."""
+    contiguous copies of the inputs, for CUDA tensors. Differentiable
+    (:class:`FlashAttentionFn`) where grad mode is on and an input requires
+    grad."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal)
     dev = _one_device(q, k, v)
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)

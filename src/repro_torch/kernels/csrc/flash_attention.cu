@@ -59,6 +59,15 @@
 //
 // Both take any Sq and Skv: keys past Skv (or past a row, when causal) are
 // masked, rows past Sq compute but write nothing.
+//
+// Training: given an lse pointer, both also write each row's log-sum-exp of
+// its scaled scores, lse = m + log(max(l, 1e-30)) in natural-log units, f32,
+// in (B, H, Sq) layout (the residual the backward kernels of
+// flash_attention_bwd.cu read, as the JAX package's _flash_fwd_core returns
+// it). The mma kernel writes it after its two warp groups are merged by the
+// log-sum-exp rule; its packed row r is position r / G, head member r % G.
+// It is instantiated with and without the write (LSE), so the serving path
+// (a null pointer) runs the code it ran before the write existed.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -162,12 +171,14 @@ __device__ __forceinline__ float sum16(const float (&s)[8][4], int h) {
 
 // ROWS packed rows per block, a warp per 16; SPLIT warp groups of ROWS / 16
 // warps: group g takes key tiles g, g + SPLIT, ... for the same rows, and
-// the groups merge (m, l, O) at the end
-template <int HD, int ROWS, int SPLIT>
+// the groups merge (m, l, O) at the end; LSE: also write each row's
+// log-sum-exp to lse
+template <int HD, int ROWS, int SPLIT, bool LSE>
 __global__ void __launch_bounds__(ROWS * 2 * SPLIT)
 flash_attention_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                    int Sq, int Skv, int H, int KV, int causal, float scale_log2) {
+                    float* __restrict__ lse, int Sq, int Skv, int H, int KV, int causal,
+                    float scale_log2) {
   constexpr int ROW = HD + 8;  // bf16 per smem row: 16 bytes of pad
   constexpr int CH = HD / 8;   // 16-byte chunks per row
   constexpr int KSTEPS = HD / 16;
@@ -377,6 +388,7 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         a0[h] = ex2(m[h] - mm);
         a1[h] = ex2(m1 - mm);
         l[h] = l[h] * a0[h] + xfer[(NT * 4 + 2 + h) * GROUP + gt] * a1[h];
+        if (LSE) m[h] = mm;
       }
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -397,6 +409,9 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     const int r = wr0 + (lane >> 2) + 8 * h;
     if (r >= rows) continue;
     const float inv = 1.f / fmaxf(l[h], 1e-30f);
+    if (LSE && (lane & 3) == 0)  // m and l are in log2 units
+      lse[(static_cast<size_t>(b) * H + kvh * G + r % G) * Sq + r / G] =
+          (m[h] + log2f(fmaxf(l[h], 1e-30f))) * 0.6931471805599453f;
     __nv_bfloat16* op =
         out + ((static_cast<size_t>(b) * Sq + r / G) * H + kvh * G + r % G) * HD + 2 * (lane & 3);
 #pragma unroll
@@ -406,23 +421,24 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
-template <int HD, int ROWS, int SPLIT>
-int launch_tiles(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-                 int H, int KV, int causal, cudaStream_t stream) {
+template <int HD, int ROWS, int SPLIT, bool LSE>
+int launch_tiles(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+                 int Skv, int H, int KV, int causal, cudaStream_t stream) {
   constexpr int smem = smem_bytes_bf16<HD, ROWS, SPLIT>();
   // group 1's (m, l, O) must fit where its K tiles were
   static_assert(SPLIT == 1 || (HD / 2 + 4) * 4 * ROWS * 2 <= 2 * SPLIT * kKeys * (HD + 8) * 2,
                 "split transfer");
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_mma<HD, ROWS, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_attention_mma<HD, ROWS, SPLIT, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((Sq * (H / KV) + ROWS - 1) / ROWS, KV, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));  // log2(e) / sqrt(hd)
-  flash_attention_mma<HD, ROWS, SPLIT><<<grid, ROWS * 2 * SPLIT, smem, stream>>>(
+  flash_attention_mma<HD, ROWS, SPLIT, LSE><<<grid, ROWS * 2 * SPLIT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KV,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, H, KV,
       causal, scale_log2);
   return 0;
 }
@@ -433,8 +449,8 @@ int launch_tiles(const void* q, const void* k, const void* v, void* out, int B, 
 // groups, and takes blocks of 32 rows where even those are fewer than the
 // SMs (the serving path's prompt of 128: 36 blocks of 32 rows).
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-                int H, int KV, int causal, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+                int Skv, int H, int KV, int causal, cudaStream_t stream) {
   static int sm_count[64];  // per device, read once (0: not yet)
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -448,7 +464,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
   }
   const long long rows = static_cast<long long>(Sq) * (H / KV);
   const auto blocks = [&](int r) { return (rows + r - 1) / r * KV * B; };
-#define FLASH_LAUNCH(R, S) launch_tiles<HD, R, S>(q, k, v, out, B, Sq, Skv, H, KV, causal, stream)
+#define FLASH_LAUNCH(R, S)                                                                  \
+  (lse != nullptr ? launch_tiles<HD, R, S, true>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal,  \
+                                                 stream)                                        \
+                  : launch_tiles<HD, R, S, false>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, \
+                                                  stream))
 #ifdef FLASH_ROWS
   return blocks(FLASH_ROWS) < sm_count[device] ? FLASH_LAUNCH(FLASH_ROWS, 2)
                                                : FLASH_LAUNCH(FLASH_ROWS, 1);
@@ -484,7 +504,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out,
-                    int Sq, int Skv, int H, int KV, int causal, float scale) {
+                    float* __restrict__ lse, int Sq, int Skv, int H, int KV, int causal,
+                    float scale) {
   constexpr int EPL = 4;                                 // floats per 16-byte load
   constexpr int HALF = HD / 2;                           // head-dim share of one thread
   constexpr int TILE = 4096 / HD;                        // keys per shared-memory tile
@@ -596,6 +617,8 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   if (!live) return;
   const float inv = 1.f / fmaxf(l, 1e-30f);
+  if (lse != nullptr && half == 0)  // both threads of the row hold the same m and l
+    lse[(static_cast<size_t>(b) * H + hh) * Sq + row] = m + logf(fmaxf(l, 1e-30f));
   float* op = out + ((static_cast<size_t>(b) * Sq + row) * H + hh) * HD + half * HALF;
 #pragma unroll
   for (int c = 0; c < HALF; c += EPL) {
@@ -607,29 +630,29 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-               int H, int KV, int causal, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+               int Skv, int H, int KV, int causal, cudaStream_t stream) {
   const dim3 grid((Sq + kRows - 1) / kRows, H, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   flash_attention_f32<HD><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), Sq, Skv, H, KV, causal, scale);
+      static_cast<float*>(out), lse, Sq, Skv, H, KV, causal, scale);
   return 0;
 }
 
-int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-              int H, int KV, int hd, int causal, int dtype, cudaStream_t s) {
+int launch_hd(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+              int Skv, int H, int KV, int hd, int causal, int dtype, cudaStream_t s) {
   if (dtype == 0) {
     switch (hd) {
-      case 32: return launch_f32<32>(q, k, v, out, B, Sq, Skv, H, KV, causal, s);
-      case 64: return launch_f32<64>(q, k, v, out, B, Sq, Skv, H, KV, causal, s);
-      case 128: return launch_f32<128>(q, k, v, out, B, Sq, Skv, H, KV, causal, s);
+      case 32: return launch_f32<32>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
+      case 64: return launch_f32<64>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
+      case 128: return launch_f32<128>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
     }
   } else if (dtype == 1) {
     switch (hd) {
-      case 32: return launch_bf16<32>(q, k, v, out, B, Sq, Skv, H, KV, causal, s);
-      case 64: return launch_bf16<64>(q, k, v, out, B, Sq, Skv, H, KV, causal, s);
-      case 128: return launch_bf16<128>(q, k, v, out, B, Sq, Skv, H, KV, causal, s);
+      case 32: return launch_bf16<32>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
+      case 64: return launch_bf16<64>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
+      case 128: return launch_bf16<128>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -640,15 +663,16 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int
 extern "C" {
 
 // q (B, Sq, H, hd); k, v (B, Skv, KV, hd); out (B, Sq, H, hd). All
-// contiguous, 16-byte aligned, f32 (dtype 0) or bf16 (dtype 1).
+// contiguous, 16-byte aligned, f32 (dtype 0) or bf16 (dtype 1). lse: null,
+// or (B, H, Sq) f32 for each row's log-sum-exp (the training forward).
 // Returns cudaGetLastError().
-int flash_attention(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                    int Skv, int H, int KV, int hd, int causal, int dtype, void* stream) {
+int flash_attention(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                    int Sq, int Skv, int H, int KV, int hd, int causal, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (Skv < 1 || KV < 1 || H < KV || H % KV != 0 || B > 65535 || KV > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int err = launch_hd(q, k, v, out, B, Sq, Skv, H, KV, hd, causal, dtype,
-                            static_cast<cudaStream_t>(stream));
+  const int err = launch_hd(q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, H, KV, hd, causal,
+                            dtype, static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
-"""Launchers of the port: the serving launcher (``serve.py``). The train
-launcher, mesh construction, dry-run and roofline wait for later slices."""
+"""Launchers of the port: the serving launcher (``serve.py``) and the
+streaming-training launcher (``train.py``). Mesh construction waits for
+ROADMAP A9, the dry-run and roofline for A10."""
 import time
 
 

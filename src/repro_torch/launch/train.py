@@ -1,0 +1,166 @@
+"""Streaming-training launcher: MASS token source -> broker -> micro-batch
+train loop, with checkpointing and exactly-once offsets.
+
+This is the paper's Type-2 pipeline (simulation/corpus -> analysis) with an
+LM as the analysis stage. On the card (the default):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
+      --steps 20 --seq-len 128 --batch 8
+
+On the CPU, at the reduced config: add ``--reduced --device cpu``. Without
+``--device cpu`` it asks for CUDA and raises where there is none.
+
+Params are random, drawn on the training device from a generator seeded 0
+(``LMTrainApp.init_state``). Every ``--checkpoint-every`` batches the train
+state and the consumer offsets are saved (asynchronously) through the
+port's ``CheckpointManager``, in the JAX package's format, under
+``--checkpoint-dir`` (``build/train-ckpt`` in the checkout by default);
+``--resume`` restores the latest one. The stream files its devices with the
+service's arbiter as a fixed request, so other consumers of the pool see
+them held.
+"""
+from __future__ import annotations
+
+import argparse
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Callable
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs.registry import get_arch
+from repro_torch.core import PilotComputeService
+from repro_torch.core.service import resolve_device
+from repro_torch.elastic.metrics import MetricsBus
+from repro_torch.launch import instrumented
+from repro_torch.miniapps import LMTrainApp, SourceConfig, TokenSource
+from repro_torch.runtime.optimizer import OptimizerConfig
+from repro_torch.scheduler import ResourceRequest
+
+DEFAULT_CKPT = Path(__file__).resolve().parents[3] / "build" / "train-ckpt"
+
+
+@dataclass
+class TrainRun:
+    """What a run leaves: the app (its losses and stats), the stopped stream
+    (its final state and latency), the checkpoint manager, the metrics bus,
+    the device, and the wall seconds from the stream's start to the last
+    checkpoint written."""
+    app: LMTrainApp
+    stream: Any
+    ckpt: CheckpointManager
+    bus: MetricsBus
+    device: Any
+    wall: float
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--reduced", action="store_true", help="tiny same-family config (CPU)")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8, help="sequences per train step")
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--broker-nodes", type=int, default=2)
+    ap.add_argument("--partitions", type=int, default=4)
+    ap.add_argument("--checkpoint-dir", default=str(DEFAULT_CKPT))
+    ap.add_argument("--checkpoint-every", type=int, default=10)
+    ap.add_argument("--resume", action="store_true")
+    return ap.parse_args(argv)
+
+
+def run(args: argparse.Namespace,
+        on_save: Callable[[int, Any], None] | None = None) -> TrainRun:
+    """The pipeline ``main`` runs, for ``parse_args``'s ``args``; ``on_save
+    (step, state)`` is called after each checkpoint save is started."""
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    device = resolve_device(args.device)
+
+    bus = MetricsBus()
+    svc = PilotComputeService(devices=[device], metrics=bus)
+    try:
+        kafka = svc.submit_pilot({"number_of_nodes": args.broker_nodes, "type": "kafka"})
+        cluster = kafka.get_context()
+        cluster.create_topic("tokens", args.partitions)
+        spark = svc.submit_pilot({"number_of_nodes": 1, "type": "spark"})
+        ctx = spark.get_context()
+        # file the training pilot's demand with the service's arbiter: a
+        # static reservation, but pipelines sharing this pool see (and must
+        # schedule around) the trainer's devices
+        held = len(spark.lease.devices)
+        svc.get_arbiter(bus).submit(ResourceRequest(
+            "launch/train", min_devices=held, max_devices=held, target=held,
+            current_fn=lambda: len(spark.lease.devices)))
+
+        opt = OptimizerConfig(name=cfg.optimizer, learning_rate=args.lr, warmup_steps=5,
+                              total_steps=max(args.steps, 10))
+        app = LMTrainApp(cfg, opt_cfg=opt, seqs_per_step=args.batch, seq_len=args.seq_len,
+                         device=device)
+        ckpt = CheckpointManager(args.checkpoint_dir, keep_last=2, async_save=True)
+
+        state = None
+        if args.resume and ckpt.latest_step() is not None:
+            template = app.init_state()
+            state, meta = ckpt.restore(template)
+            print(f"[train] resumed from step {ckpt.latest_step()} (offsets {meta.get('offsets')})")
+
+        source = TokenSource(
+            cluster,
+            SourceConfig("tokens", total_messages=args.steps * 2 + 8, n_producers=2),
+            vocab_size=cfg.vocab_size,
+            seq_len=args.seq_len,
+            seqs_per_msg=args.batch,
+        ).start()
+
+        # the stream's stop() waits for its loop only so long: a batch still
+        # running after it must not start a save once the last one is waited
+        # for, or the process would exit in the middle of the write
+        saving = threading.Lock()
+        stopped = False
+
+        def checkpoint_fn(state, offsets):
+            step = app.stats.batches
+            with saving:
+                if not stopped and step % args.checkpoint_every == 0 and state is not None:
+                    ckpt.save(step, state, meta={"offsets": offsets, "arch": cfg.name})
+                    if on_save is not None:
+                        on_save(step, state)
+
+        stream = ctx.stream(
+            cluster, "tokens", group="trainer",
+            process_fn=instrumented(app, bus, "train"), state=state,
+            batch_interval=0.2, max_batch_records=1, checkpoint_fn=checkpoint_fn,
+            metrics=bus, metrics_label="train",
+        ).start()
+
+        t0 = time.time()
+        stream.await_batches(args.steps, timeout=3600)
+        with saving:
+            stopped = True
+        stream.stop()
+        source.stop()
+        ckpt.wait()
+        dt = time.time() - t0
+    finally:
+        svc.cancel()
+    return TrainRun(app, stream, ckpt, bus, device, dt)
+
+
+def main(argv: list[str] | None = None) -> None:
+    r = run(parse_args(argv))
+    app, bus, dt = r.app, r.bus, r.wall
+    toks = app.stats.items
+    print(f"[train] {app.stats.batches} steps, {toks} tokens in {dt:.1f}s "
+          f"({toks / dt:.0f} tok/s) on {r.device}; loss {app.losses[0]:.3f} -> "
+          f"{app.losses[-1]:.3f}")
+    print(f"[train] bus: step_time={bus.value('train.step_time', stream='train'):.3f}s "
+          f"tokens_per_sec={bus.value('train.tokens_per_sec', stream='train'):.0f}")
+
+
+if __name__ == "__main__":
+    main()

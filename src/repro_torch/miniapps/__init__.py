@@ -3,6 +3,7 @@ from repro_torch.miniapps.masa import (
     PROCESSORS,
     AppStats,
     LMServeApp,
+    LMTrainApp,
     ReconstructionApp,
     StreamingKMeans,
 )
@@ -26,6 +27,7 @@ __all__ = [
     "KMeansClusterSource",
     "KMeansStaticSource",
     "LMServeApp",
+    "LMTrainApp",
     "LightsourceTemplateSource",
     "PROCESSORS",
     "RateStep",

@@ -4,6 +4,7 @@ Pluggable processors for the micro-batch engine:
 
 * ``StreamingKMeans``   — score + decayed centroid update (paper Table 1)
 * ``ReconstructionApp`` — GridRec / ML-EM per frame (paper §3.2.2, Fig. 9)
+* ``LMTrainApp``        — streaming LM training (micro-batch train step)
 * ``LMServeApp``        — streaming LM inference (prefill/decode)
 
 Each exposes ``process(state, msgs) -> state`` for
@@ -24,13 +25,17 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.service import resolve_device
 from repro_torch.kernels import kmeans as kmeans_ops
 from repro_torch.kernels import tomo as tomo_ops
 from repro_torch.models import build_model
 from repro_torch.models.common import first_argmax
+from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
+from repro_torch.runtime.steps import build_train_step
 from repro_torch.serving import ContinuousBatcher, Request
 from repro_torch.streaming.dispatch import AsyncWindow, LatencyWindow, ShapeBuckets, pad_rows
+from repro_torch.utils.tree import tree_map_with_paths
 
 
 @dataclass
@@ -208,6 +213,96 @@ class ReconstructionApp(_HotPathApp):
         return recon  # last reconstruction = state (exposed for inspection)
 
 
+class LMTrainApp(_HotPathApp):
+    """Streaming LM training: consume token messages, run train steps.
+
+    State = ``{"params", "opt"}`` on ``device`` (CUDA unless a CPU device is
+    named). Each micro-batch's token rows are cut into steps of
+    ``seqs_per_step`` rows (a short tail is padded with zero rows, as the
+    JAX app pads it; a batch shorter than one step still takes one step),
+    and each step updates the params and moments in place (the JAX app
+    donates their buffers). The last step's loss is read back lazily at
+    sync boundaries instead of forcing a device round trip per batch. On
+    the card every attention forward, its remat recompute and its backward
+    run the flash kernels. The JAX app's compile counts have no
+    counterpart.
+    """
+
+    def __init__(self, cfg, *, opt_cfg: OptimizerConfig | None = None, seqs_per_step: int = 8,
+                 seq_len: int = 128, async_depth: int = 2, metrics: Any = None,
+                 device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = build_model(cfg)
+        self.shape = ShapeConfig("stream", seq_len, seqs_per_step, "train")
+        self.opt_cfg = opt_cfg
+        self.step_fn = build_train_step(self.model, self.shape, opt_cfg, device=self.device)
+        self._init_hotpath(async_depth=async_depth, metrics=metrics, name="lm_train")
+        self._losses: list[float] = []
+
+    def init_state(self, seed: int = 0) -> dict:
+        """Random params drawn from a ``torch.Generator`` seeded ``seed`` on
+        the app's device, and zero optimizer state. As the JAX app does,
+        the state is made for ``OptimizerConfig(name=cfg.optimizer)`` when
+        no ``opt_cfg`` was given (the step's optimizer also reads the
+        config's moment dtype and first-moment flag)."""
+        params = self.model.init(torch.Generator(device=self.device).manual_seed(seed))
+        opt = Optimizer(self.opt_cfg or OptimizerConfig(name=self.cfg.optimizer))
+        return {"params": params, "opt": opt.init(params)}
+
+    def process(self, state, msgs):
+        if state is None:
+            state = self.init_state()
+        toks = np.concatenate([np.asarray(m.value) for m in msgs])  # (n_seqs, S)
+        B = self.shape.global_batch
+        n_steps = len(toks) // B
+        t0 = time.monotonic()
+        for s in range(max(n_steps, 1)):
+            batch = toks[s * B:(s + 1) * B]
+            if len(batch) < B:  # pad the tail window
+                width = batch.shape[1] if batch.size else self.shape.seq_len
+                batch = np.concatenate([batch, np.zeros((B - len(batch), width), np.int32)])
+            params, opt, metrics = self.step_fn(
+                state["params"], state["opt"], {"tokens": batch.astype(np.int32)})
+            state = {"params": params, "opt": opt}
+        self.stats.messages += len(msgs)
+        self.stats.items += int(len(toks)) * self.shape.seq_len
+        self.stats.batches += 1
+        self._submit(metrics["loss"], t0=t0)
+        return state
+
+    def _on_complete(self, result, meta, dt):
+        self._losses.append(float(result))
+
+    @property
+    def losses(self) -> list[float]:
+        """Per-batch final-step losses (syncs in-flight work)."""
+        self.sync()
+        return self._losses
+
+    def on_rescale(self, devices):
+        """Elastic hook: in-flight steps land, then the state and later
+        steps go to the slots' device. The slots of one card are all
+        ``cuda:0``; a data-parallel mesh over several cards (the JAX app
+        reshards onto one) waits for ROADMAP A9, so distinct devices raise."""
+        distinct = list(dict.fromkeys(torch.device(d) for d in devices))
+        if len(distinct) != 1:
+            raise NotImplementedError(
+                f"LMTrainApp trains on one device; got {distinct} (data parallelism "
+                "over several cards is ROADMAP A9)")
+
+        def f(state):
+            self.sync()  # in-flight steps must land before buffers move
+            self.device = distinct[0]
+            self.step_fn = build_train_step(self.model, self.shape, self.opt_cfg,
+                                            device=self.device)
+            if state is not None:
+                state = tree_map_with_paths(lambda _, x: x.to(self.device), state)
+            return state
+
+        return f
+
+
 class LMServeApp(_HotPathApp):
     """Streaming LM inference: prefill each request batch, decode n tokens.
 
@@ -345,5 +440,6 @@ PROCESSORS = {
     "kmeans": StreamingKMeans,
     "gridrec": _reconstruction("gridrec"),
     "mlem": _reconstruction("mlem"),
+    "lm_train": LMTrainApp,
     "lm_serve": LMServeApp,
 }

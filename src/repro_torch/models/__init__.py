@@ -7,7 +7,7 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.base import BaseModel
-from repro_torch.models.params import params_from_jax
+from repro_torch.models.params import params_from_jax, train_state_from_jax, tree_to_numpy
 
 
 def build_model(cfg: ArchConfig) -> BaseModel:
@@ -22,4 +22,4 @@ def build_model(cfg: ArchConfig) -> BaseModel:
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
-__all__ = ["BaseModel", "build_model", "params_from_jax"]
+__all__ = ["BaseModel", "build_model", "params_from_jax", "train_state_from_jax", "tree_to_numpy"]

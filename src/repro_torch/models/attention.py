@@ -7,11 +7,15 @@ and :func:`decode_attention` are the kernel wrappers of
 ``kernels/attention/ops.py``, which run the hand-written flash and decode
 kernels on CUDA tensors and their plain versions (``kernels/attention/ref.py``)
 on CPU tensors. The JAX package's ``decode_kernel_scope`` therefore has no
-counterpart. Prefill on the card goes through the flash kernel, which
-computes the same function as the JAX package's pure-JAX
-``blockwise_attention``. The JAX package's ``attention(impl=...)`` dispatch
-and its sequence-parallel routes come with the multi-device slice (ROADMAP
-A9).
+counterpart. Full-sequence attention on the card (serving prefill, and
+every training forward and its remat recompute) goes through the flash
+kernel, which computes the same function as the JAX package's pure-JAX
+``blockwise_attention``; in training it is differentiable through
+``FlashAttentionFn``, whose backward on the card is the hand-written
+backward kernels (the JAX package differentiates its blockwise form, or its
+explicit flash ``custom_vjp`` on a mesh: the same gradients). The JAX
+package's ``attention(impl=...)`` dispatch and its sequence-parallel routes
+come with the multi-device slice (ROADMAP A9).
 """
 from __future__ import annotations
 

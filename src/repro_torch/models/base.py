@@ -10,9 +10,9 @@ from repro_torch.models.common import SpecTree, init_params, spec_struct, torch_
 
 
 class BaseModel:
-    """A model = param specs + functions over a params dict (prefill /
-    decode). Subclasses implement ``param_specs``, ``prefill``, ``decode``
-    and ``cache_struct``. ``loss`` waits for the training slice."""
+    """A model = param specs + functions over a params dict (loss /
+    prefill / decode). Subclasses implement ``param_specs``, ``loss``,
+    ``prefill``, ``decode`` and ``cache_struct``."""
 
     #: the family supports the paged-KV serving path (runtime/steps.py):
     #: prefill honours ``batch["last_pos"]`` and its cache is the standard
@@ -41,6 +41,10 @@ class BaseModel:
         return init_params(self.param_specs(), generator)
 
     # ---- compute ---------------------------------------------------------
+
+    def loss(self, params: Any, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Training loss of a batch; returns (scalar loss, metrics)."""
+        raise NotImplementedError
 
     def prefill(self, params: Any, batch: dict) -> tuple[torch.Tensor, Any]:
         """Process the full prompt; returns (last-token logits, cache)."""

@@ -7,8 +7,9 @@ through a :class:`ParamSpec`; the same spec tree serves real initialization
 package's ``ShapeDtypeStruct`` trees. The JAX specs' logical sharding axes
 have no counterpart: the port runs on one device.
 
-``chunked_cross_entropy`` and ``shift_targets`` wait for the training
-slice (ROADMAP A7).
+The loss pieces (``shift_targets``, ``chunked_cross_entropy``) are the
+JAX package's one-device forms; its vocab-parallel cross-entropy
+(``runtime/losses.py``) waits for the multi-device slice (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -132,3 +133,53 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding rows for ``tokens`` (any shape of int ids)."""
     return embed[tokens]
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def chunked_cross_entropy(x: torch.Tensor, embedding: torch.Tensor, targets: torch.Tensor,
+                          mask: torch.Tensor, *, vocab_size: int,
+                          chunk: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+    """Next-token CE without materializing full (B, S, V) logits.
+
+    ``x``: (B, S, D) final hidden states; ``embedding``: (V_pad, D) output
+    head; ``targets``: (B, S) int; ``mask``: (B, S) {0, 1}. Loops over
+    sequence chunks (the largest divisor of S up to ``chunk``), so the
+    logits of one chunk, (B, chunk, V_pad), are the most held at once. As
+    the JAX package, the product runs in ``x``'s dtype (the compute dtype:
+    ``x @ emb.T.astype(x.dtype)``) and is cast to f32 after it; the serving
+    logits are an f32 product instead. Returns (sum_loss, sum_mask), f32.
+    """
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk -= 1
+    emb = embedding.T.to(x.dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        xc, tc, mc = x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk], mask[:, c0:c0 + chunk]
+        logits = (xc @ emb).to(torch.float32)  # (B, c, V_pad)
+        # padded vocab entries never appear as targets; the logsumexp over
+        # the padded tail is harmless (their logits train toward -inf)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, tc[..., None].to(torch.long))[..., 0]
+        nll = (lse - picked) * mc
+        tot = tot + nll.sum()
+        cnt = cnt + mc.sum()
+    return tot, cnt
+
+
+def shift_targets(tokens: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Standard LM shift: predict token t+1 at position t. Returns the
+    targets (the last one 0) and an f32 mask that drops the last position."""
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    m = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    if mask is not None:
+        m = m * mask.to(torch.float32)
+    m[:, -1] = 0.0
+    return targets, m

@@ -1,9 +1,10 @@
-"""Model weights handed over from the JAX package.
+"""Model weights and train states handed over from and to the JAX package.
 
 Tests start both packages from the same weights, since the two draw
 different random numbers from one seed. The JAX params arrive as numpy
 (``jax.tree.map(np.asarray, params)`` on the caller's side), so this module
-needs neither package's arrays to import the other's.
+needs neither package's arrays to import the other's; :func:`tree_to_numpy`
+hands the port's tensors back the same way.
 """
 from __future__ import annotations
 
@@ -37,3 +38,26 @@ def params_from_jax(tree: dict, device: torch.device | str) -> dict:
         return _tensor(node, dev)
 
     return convert(tree)
+
+
+def train_state_from_jax(state: dict, device: torch.device | str) -> dict:
+    """A JAX train state ``{"params", "opt"}`` of numpy arrays (the params
+    tree, and the optimizer state: an int32 ``step`` scalar and the moment
+    trees) -> the same nesting of tensors on ``device``, every dtype kept."""
+    if set(state) != {"params", "opt"}:
+        raise ValueError(f"a train state has the keys 'params' and 'opt', got {sorted(state)}")
+    return params_from_jax(state, device)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """Nested dicts of tensors -> the same nesting of numpy arrays on the
+    host (bf16 as ``ml_dtypes.bfloat16``, the type JAX hands out), for
+    feeding the port's state to the JAX package."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # noqa: PLC0415 (only where a bf16 leaf crosses)
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()

@@ -7,18 +7,39 @@ to it, and ``x + a`` / ``x + m`` add in it); norms run in f32; the logits
 are an f32 product with the f32 head. PyTorch's default
 ``torch.backends.cuda.matmul.allow_tf32 = False`` keeps that product in
 full f32 on the card; the port never changes the flag.
+
+Training (:meth:`DecoderLM.loss`) runs on the stored (f32) master weights,
+each cast to the compute dtype inside its product as the JAX package does,
+so the gradients reach the f32 leaves; ``cfg.remat`` wraps each layer in
+``torch.utils.checkpoint`` ("full": everything recomputed in the backward,
+"dots": the matmul outputs kept, through selective activation
+checkpointing) as the JAX package's ``jax.checkpoint`` policies do. The
+loss's logits run in the compute dtype (``chunked_cross_entropy``), as the
+JAX package's do.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn
 from repro_torch.models.base import BaseModel
-from repro_torch.models.common import ParamSpec, apply_rope, embed_lookup, rms_norm
+from repro_torch.models.common import (
+    ParamSpec,
+    apply_rope,
+    chunked_cross_entropy,
+    embed_lookup,
+    rms_norm,
+    shift_targets,
+)
+
+#: the ops whose outputs ``remat="dots"`` keeps (``checkpoint_dots``)
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default]
 
 # ---------------------------------------------------------------------------
 # attention block
@@ -120,11 +141,12 @@ class DecoderLM(BaseModel):
 
     def compute_params(self, params: dict) -> dict:
         """``params`` with the layer matmul weights cast to the compute
-        dtype, once. The JAX package casts them inside every product
-        (``x.astype(cd) @ w.astype(cd)``); eagerly that would re-cast the
-        f32 weights on every layer of every step, and casting at load gives
-        the same values. Norms, the embedding and the head stay as stored
-        (f32 at full width)."""
+        dtype, once, for serving. The JAX package casts them inside every
+        product (``x.astype(cd) @ w.astype(cd)``); eagerly that would re-cast
+        the f32 weights on every layer of every step, and casting at load
+        gives the same values. Norms, the embedding and the head stay as
+        stored (f32 at full width). Training does not use it: its gradients
+        must reach the stored leaves."""
         cd = self.compute_dtype
         layers = {k: (v.to(cd) if k in self.MATMUL_WEIGHTS else v)
                   for k, v in params["layers"].items()}
@@ -145,6 +167,28 @@ class DecoderLM(BaseModel):
 
     # ---- forward ---------------------------------------------------------
 
+    def _layer_apply(self, lp: dict, x: torch.Tensor, positions: torch.Tensor):
+        """One layer: (new residual stream, (k, v) of its attention)."""
+        cfg, cd = self.cfg, self.compute_dtype
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        a, kv = attn_block_apply(cfg, lp, h, positions=positions, compute_dtype=cd)
+        x = x + a
+        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        return x + ffn.mlp_apply(lp, h, cd), kv
+
+    def _train_layer(self, x: torch.Tensor, lp: dict, positions: torch.Tensor) -> torch.Tensor:
+        """One layer of the training forward, under ``cfg.remat``."""
+        remat = self.cfg.remat
+        fn = lambda x, lp: self._layer_apply(lp, x, positions)[0]  # noqa: E731
+        if remat == "none":
+            return fn(x, lp)
+        if remat == "full":
+            return checkpoint(fn, x, lp, use_reentrant=False)
+        if remat == "dots":
+            return checkpoint(fn, x, lp, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _DOTS))
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
+
     def _forward(self, params: dict, tokens: torch.Tensor, cache_len: int | None = None):
         """Hidden states after the final norm, (B, S, d), and the prompt's
         cache {"k", "v"} (L, B, cache_len or S, KV, hd) in the compute
@@ -158,17 +202,31 @@ class DecoderLM(BaseModel):
         alloc = torch.zeros if cache_len else torch.empty
         cache = {"k": alloc(shape, dtype=cd, device=dev), "v": alloc(shape, dtype=cd, device=dev)}
         for i in range(cfg.n_layers):
-            lp = self._layer(params, i)
-            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            a, (k, v) = attn_block_apply(cfg, lp, h, positions=positions, compute_dtype=cd)
+            x, (k, v) = self._layer_apply(self._layer(params, i), x, positions)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
-            x = x + a
-            h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-            x = x + ffn.mlp_apply(lp, h, cd)
         return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
     # ---- public API ------------------------------------------------------
+
+    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Next-token cross-entropy of ``batch["tokens"]`` (B, S) (and
+        ``batch["mask"]`` where given) -> (loss, {"ce_loss", "tokens"}), f32
+        scalars. ``params`` are the stored leaves (not ``compute_params``);
+        the layer loop is a Python loop over the stacked (L, ...) leaves."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = embed_lookup(params["embed"], tokens).to(self.compute_dtype)
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        for i in range(cfg.n_layers):
+            x = self._train_layer(x, self._layer(params, i), positions)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        targets, mask = shift_targets(tokens, batch.get("mask"))
+        tot, cnt = chunked_cross_entropy(x, self._head(params), targets, mask,
+                                         vocab_size=cfg.vocab_size)
+        loss = tot / torch.clamp(cnt, min=1.0)
+        return loss, {"ce_loss": loss, "tokens": cnt}
 
     def prefill(self, params: dict, batch: dict, *, cache_len: int | None = None):
         """``batch["tokens"]`` (B, S) -> (logits (B, 1, V_pad) f32 of the

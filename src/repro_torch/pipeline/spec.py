@@ -122,7 +122,7 @@ class StageSpec:
 
     ``processor`` names a factory in the processor registry — the built-in
     ``repro_torch.miniapps.PROCESSORS`` ("kmeans", "gridrec", "mlem",
-    "lm_serve") or anything registered via
+    "lm_train", "lm_serve") or anything registered via
     ``repro_torch.pipeline.register_processor`` (including plain
     ``(state, msgs) -> state`` functions). When ``emits`` is true the
     processor returns ``(state, outputs)`` and outputs are produced to

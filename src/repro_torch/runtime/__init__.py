@@ -1,2 +1,3 @@
-"""Serving steps of the port (``steps.py``); the train step, optimizer and
-multi-device runtime wait for later slices (ROADMAP A7, A9)."""
+"""The port's runtime: the train and serving steps (``steps.py``) and the
+optimizer (``optimizer.py``); the multi-device runtime (sharding, sharded
+attention, vocab-parallel losses) waits for ROADMAP A9."""

@@ -1,0 +1,240 @@
+"""Optimizers (AdamW, Adafactor, SGD) + LR schedules + global-norm clipping.
+
+Own copy of the JAX package's ``runtime/optimizer.py``. Parameters, grads
+and optimizer state are nested dicts of tensors; the state is an explicit
+dict, ``{"step", "m", "v"}`` (adamw), ``{"step", "v_row", "v_col"[, "m"]}``
+(adafactor) or ``{"step"}`` (sgd), with ``step`` an int32 scalar on the
+params' device. Leaves are visited in the JAX package's order
+(``utils.tree_flatten_with_paths``: dict keys sorted), so the global norm
+sums its leaves in the reference's order and a state checkpointed by either
+package restores in the other.
+
+:meth:`Optimizer.update` runs under ``torch.no_grad()`` and writes the new
+params and moments **into the tensors it is given** (the port's counterpart
+of the JAX step's ``donate_argnums``); it returns the same param tree and a
+state dict holding the same moment trees and a new ``step``. Big stacked
+leaves are updated one leading slice at a time, as the reference's
+``lax.map`` does: that bounds the f32 temporaries, and Adafactor's update
+clipping is taken per slice there, so the numbers are the reference's. The
+update is plain PyTorch: the JAX package computes it outside any Pallas
+kernel. ``state_axes`` (sharding) waits for ROADMAP A9.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.models.common import torch_dtype
+from repro_torch.utils.tree import tree_flatten_with_paths, tree_map_with_paths
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"  # "adamw" | "adafactor" | "sgd"
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    schedule: str = "cosine"  # "cosine" | "constant" | "linear"
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    moment_dtype: str = "float32"  # "float32" | "bfloat16"
+    min_lr_ratio: float = 0.1
+    first_moment: bool = True  # adafactor: False drops m entirely (1T configs)
+    # update stacked-layer leaves one layer slice at a time: bounds the f32
+    # temporaries to 1/L of the leaf instead of ~3x the leaf
+    layerwise_update: bool = True
+
+
+def lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
+    """The learning rate at ``step`` (a tensor), an f32 tensor beside it."""
+    step = step.to(torch.float32)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    if cfg.schedule == "constant":
+        decay = 1.0
+    else:
+        frac = torch.clamp(
+            (step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+        if cfg.schedule == "cosine":
+            decay = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (1 + torch.cos(math.pi * frac))
+        else:  # linear
+            decay = 1.0 - (1 - cfg.min_lr_ratio) * frac
+    return cfg.learning_rate * warm * decay
+
+
+def _leaves(tree: Any) -> list[torch.Tensor]:
+    return [x for _, x in tree_flatten_with_paths(tree)]
+
+
+def _leaf_sqnorm(x: torch.Tensor) -> torch.Tensor:
+    # big stacked-layer leaves: one slice at a time (f32 temp / L), the
+    # slices' sums added in order as the reference's lax.map(...).sum()
+    if x.ndim >= 3 and x.numel() >= (1 << 22):
+        return torch.stack([torch.sum(torch.square(s.to(torch.float32))) for s in x]).sum()
+    return torch.sum(torch.square(x.to(torch.float32)))
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """sqrt of the sum of every leaf's f32 square sum, in the JAX order."""
+    return torch.sqrt(sum(_leaf_sqnorm(x) for x in _leaves(tree)))
+
+
+def clip_by_global_norm(tree: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    # scaled in each leaf's own dtype: no f32 copies of full leaves
+    return tree_map_with_paths(lambda _, g: g * scale.to(g.dtype), tree), norm
+
+
+def _decay_mask(p: torch.Tensor) -> bool:
+    """Weight decay only on >=2D params (skip norms/biases/scalars)."""
+    return p.ndim >= 2
+
+
+def _zeros(params: Any, shape: Callable, dtype: torch.dtype) -> Any:
+    """Zeros of ``shape(p)`` for every leaf p, on the leaf's device."""
+    return tree_map_with_paths(
+        lambda _, p: torch.zeros(shape(p), dtype=dtype, device=p.device), params)
+
+
+# ---------------------------------------------------------------------------
+
+
+class Optimizer:
+    """Stateless namespace bound to a config; state is an explicit dict."""
+
+    def __init__(self, cfg: OptimizerConfig):
+        self.cfg = cfg
+
+    # -- state -------------------------------------------------------------
+
+    def init(self, params: Any) -> dict:
+        """Zero state on the params' device (``meta`` params give ``meta``
+        state: :meth:`state_struct`)."""
+        cfg = self.cfg
+        mdt = torch_dtype(cfg.moment_dtype)
+        step = torch.zeros((), dtype=torch.int32, device=_leaves(params)[0].device)
+        same = lambda p: p.shape  # noqa: E731
+        if cfg.name == "sgd":
+            return {"step": step}
+        if cfg.name == "adamw":
+            return {"step": step, "m": _zeros(params, same, mdt), "v": _zeros(params, same, mdt)}
+        if cfg.name == "adafactor":
+            state = {
+                "step": step,
+                "v_row": _zeros(params, lambda p: p.shape[:-1] if p.ndim >= 2 else p.shape,
+                                torch.float32),
+                "v_col": _zeros(params, lambda p: p.shape[:-2] + p.shape[-1:] if p.ndim >= 2
+                                else (), torch.float32),
+            }
+            if cfg.first_moment:
+                state["m"] = _zeros(params, same, mdt)
+            return state
+        raise ValueError(cfg.name)
+
+    def state_struct(self, param_struct: Any) -> dict:
+        """The state of ``meta`` params, as ``meta`` tensors."""
+        return self.init(param_struct)
+
+    # -- update -------------------------------------------------------------
+
+    @torch.no_grad()
+    def update(self, grads: Any, state: dict, params: Any) -> tuple[Any, dict, dict]:
+        """One step: params and moments written in place; returns (params,
+        new state, {"lr", "grad_norm"}) with the stats as device scalars."""
+        cfg = self.cfg
+        step = state["step"] + 1
+        lr = lr_at(cfg, step)
+        # clip folded into the (layerwise) update: g32 = g.to(f32) * gscale
+        gnorm = global_norm(grads)
+        gscale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+        stats = {"lr": lr, "grad_norm": gnorm}
+        p_leaves, g_leaves = _leaves(params), _leaves(grads)
+
+        if cfg.name == "sgd":
+            for p, g in zip(p_leaves, g_leaves):
+                p.copy_(p.to(torch.float32) - lr * gscale * g.to(torch.float32))
+            return params, {"step": step}, stats
+
+        if cfg.name == "adamw":
+            b1, b2 = cfg.b1, cfg.b2
+            c1 = 1 - b1 ** step.to(torch.float32)
+            c2 = 1 - b2 ** step.to(torch.float32)
+
+            def upd(p, g, m, v):
+                g32 = g.to(torch.float32) * gscale
+                m32 = b1 * m.to(torch.float32) + (1 - b1) * g32
+                v32 = b2 * v.to(torch.float32) + (1 - b2) * g32 * g32
+                mhat, vhat = m32 / c1, v32 / c2
+                delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+                if _decay_mask(p):
+                    delta = delta + cfg.weight_decay * p.to(torch.float32)
+                p.copy_(p.to(torch.float32) - lr * delta)
+                m.copy_(m32)
+                v.copy_(v32)
+
+            for leaf in zip(p_leaves, g_leaves, _leaves(state["m"]), _leaves(state["v"])):
+                self._leafwise(upd)(*leaf)
+            return params, {"step": step, "m": state["m"], "v": state["v"]}, stats
+
+        if cfg.name == "adafactor":
+            b2t = 1.0 - (step.to(torch.float32) ** -0.8)
+            use_m = cfg.first_moment
+
+            def upd(p, g, vr, vc, m=None):
+                g32 = g.to(torch.float32) * gscale
+                g2 = g32 * g32 + 1e-30
+                if p.ndim >= 2:
+                    vr32 = b2t * vr + (1 - b2t) * g2.mean(dim=-1)
+                    vc32 = b2t * vc + (1 - b2t) * g2.mean(dim=-2)
+                    denom = torch.clamp(vr32.mean(dim=-1, keepdim=True), min=1e-30)
+                    vhat = (vr32[..., :, None] / denom[..., None]) * vc32[..., None, :]
+                else:
+                    vr32 = b2t * vr + (1 - b2t) * g2
+                    vc32 = vc
+                    vhat = vr32
+                u = g32 / torch.sqrt(vhat + cfg.eps)
+                # update clipping (Adafactor §7)
+                rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
+                u = u / torch.clamp(rms_u, min=1.0)
+                if use_m:
+                    u = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * u
+                    m.copy_(u)
+                delta = u
+                if _decay_mask(p):
+                    delta = delta + cfg.weight_decay * p.to(torch.float32)
+                p.copy_(p.to(torch.float32) - lr * delta)
+                vr.copy_(vr32)
+                vc.copy_(vc32)
+
+            trees = [state["v_row"], state["v_col"]] + ([state["m"]] if use_m else [])
+            for leaf in zip(p_leaves, g_leaves, *(_leaves(t) for t in trees)):
+                self._leafwise(upd)(*leaf)
+            new_state = {"step": step, "v_row": state["v_row"], "v_col": state["v_col"]}
+            if use_m:
+                new_state["m"] = state["m"]
+            return params, new_state, stats
+
+        raise ValueError(cfg.name)
+
+    def _leafwise(self, upd: Callable) -> Callable:
+        """Wrap a per-leaf in-place update to run one leading-dim slice at a
+        time for big stacked-layer leaves (the reference's condition)."""
+        if not self.cfg.layerwise_update:
+            return upd
+
+        def wrapped(p, g, *rest):
+            big = p.ndim >= 3 and p.shape[0] >= 8 and p.numel() >= (1 << 22)
+            consistent = all(r.ndim >= 1 and r.shape[:1] == p.shape[:1] for r in rest)
+            if big and g.shape == p.shape and consistent:
+                for i in range(p.shape[0]):
+                    upd(p[i], g[i], *(r[i] for r in rest))
+            else:
+                upd(p, g, *rest)
+
+        return wrapped

@@ -1,10 +1,13 @@
-"""Paged serving steps: prefill and decode against a KV page pool.
+"""The train step, and the paged serving steps (prefill and
+decode against a KV page pool).
 
-Own copies of the JAX package's ``build_paged_prefill_step`` and
-``build_paged_decode_step`` (``repro/runtime/steps.py``). ``jit`` and
-buffer donation have no counterpart: PyTorch runs eagerly, and the steps
-update the page pools **in place** (``index_put_``), returning the same
-pool tensors so callers read like the JAX package's. A step's logical
+Own copies of the JAX package's ``build_train_step``,
+``build_paged_prefill_step`` and ``build_paged_decode_step``
+(``repro/runtime/steps.py``). ``jit`` and buffer donation have no
+counterpart: PyTorch runs eagerly. The train step updates the params and
+optimizer moments in place; the serving steps update the page pools **in
+place** (``index_put_``), returning the same pool tensors so callers read
+like the JAX package's. A step's logical
 context is still gathered from the pool into a dense per-row cache
 (``pages[:, table]``) before ``model.decode`` runs on it. Page 0 is the
 scratch page: padding rows and columns write there, possibly more than
@@ -13,12 +16,92 @@ reads it.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.service import resolve_device
+from repro_torch.data.batching import shard_batch
 from repro_torch.models.base import BaseModel
-from repro_torch.models.common import first_argmax
+from repro_torch.models.common import first_argmax, torch_dtype
+from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
+from repro_torch.utils.tree import tree_flatten_with_paths, tree_map_with_paths
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+
+def build_train_step(model: BaseModel, shape: ShapeConfig, opt_cfg: OptimizerConfig | None = None,
+                     *, grad_accum: int | None = None,
+                     device: torch.device | str) -> Callable:
+    """``fn(params, opt_state, batch) -> (params, opt_state, metrics)``: one
+    step of ``model.loss`` and the optimizer on ``device``, as the JAX
+    package's ``build_train_step``.
+
+    ``batch`` is a dict of host arrays or tensors (``{"tokens": (B, S)}``),
+    copied to ``device``; ``shape.global_batch`` rows per step, which
+    ``grad_accum`` must divide. With ``grad_accum`` > 1 the batch is cut
+    into that many microbatches along its rows, in order, each microbatch's
+    grad divided by ``grad_accum`` and summed in the param dtype, and the
+    loss is the microbatches' mean. The params take ``requires_grad`` for
+    the backward only; the update writes them and the moments in place, so
+    the returned trees are the ones passed in (the step's ``step`` is new).
+    ``metrics``: ``loss``, ``lr``, ``grad_norm`` (and ``ce_loss``,
+    ``tokens`` without accumulation) as device scalars. The JAX package's
+    mesh and sharding arguments wait for ROADMAP A9."""
+    cfg = model.cfg
+    opt = Optimizer(opt_cfg or OptimizerConfig(
+        name=cfg.optimizer, moment_dtype=cfg.moment_dtype, first_moment=cfg.first_moment))
+    accum = grad_accum if grad_accum is not None else cfg.grad_accum
+    if accum > 1 and shape.global_batch % accum:
+        raise ValueError(f"grad_accum {accum} does not divide the batch of {shape.global_batch}")
+    # grad accumulators in the param dtype, as the JAX package keeps them
+    accum_dtype = torch_dtype(cfg.param_dtype)
+    dev = resolve_device(device)
+
+    def value_and_grad(leaves: list[torch.Tensor], params: Any, batch: dict):
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss, metrics = model.loss(params, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    def train_step(params: Any, opt_state: dict, batch: dict):
+        batch = shard_batch(batch, dev)
+        flat = tree_flatten_with_paths(params)
+        leaves = [p for _, p in flat]
+        if accum <= 1:
+            loss, metrics, grads = value_and_grad(leaves, params, batch)
+        else:
+            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device) for p in leaves]
+            lsum = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(accum):
+                mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                l, _, g = value_and_grad(leaves, params, mb)
+                for acc, gg in zip(grads, g):
+                    acc.add_((gg / accum).to(accum_dtype))
+                lsum = lsum + l
+            loss = lsum / accum
+            metrics = {}
+        by_path = dict(zip((path for path, _ in flat), grads))
+        grad_tree = tree_map_with_paths(lambda path, _: by_path[path], params)
+        params, opt_state, stats = opt.update(grad_tree, opt_state, params)
+        return params, opt_state, dict(metrics, loss=loss, **stats)
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# serve: paged prefill & decode
+# ---------------------------------------------------------------------------
 
 
 def _check_paged(model: BaseModel) -> None:

@@ -5,10 +5,14 @@ plain paths, fed the same numpy inputs.
 Tolerances are those of ``tests/test_kernels.py`` for the flash kernel:
 2e-5 in f32 (the same f32 sums in another order) and 2e-2 in bf16 (inputs
 of unit scale; one bf16 rounding of each output, 2^-8 relative, plus the
-order of the f32 sums before it).
+order of the f32 sums before it). The training backward is held to the
+JAX package's explicit flash backward (``runtime/sharded_attention.py``,
+differentiated with ``jax.vjp``) at 2e-5 in f32, the tolerance its own
+test holds it to against ``naive_attention`` (``tests/test_kernels.py``).
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ from repro.kernels.attention import flash_attention as jax_flash_attention
 from repro.kernels.attention.decode_kernel import decode_attention_pallas
 from repro.kernels.attention.ref import attention_ref as jax_attention_ref
 from repro.models import attention as jattn
+from repro.runtime.sharded_attention import flash_attention as jax_flash_vjp
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention import ref as attn_ref
 from repro_torch.models import attention as tattn
@@ -256,3 +261,67 @@ def test_split_decode_merge_matches_plain_under_the_per_element_rule(chunk, G):
     assert out.dtype == ref.dtype and out.shape == ref.shape
     worst = float(((out.float() - ref.float()).abs() / tol).max())
     assert worst <= 1, worst
+
+
+# -- the training backward ------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 64, 4, 2, 16), (2, 128, 9, 3, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_plain_matches_the_jax_flash_vjp(B, S, H, KV, hd, causal):
+    """``flash_attention_plain_lse`` and ``flash_attention_bwd_plain`` against
+    ``jax.vjp`` of the JAX package's custom-VJP flash attention (its
+    ``_flash_fwd_core`` and ``_flash_bwd``), at the shapes of
+    ``tests/test_kernels.py``'s gradient test and at S = 128 with G = 3;
+    then ``flash_attention`` with grad on (``FlashAttentionFn``) gives the
+    same gradients through autograd."""
+    rng = np.random.default_rng(B * S + H + causal)
+    q, do = (rng.normal(size=(B, S, H, hd)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(B, S, KV, hd)).astype(np.float32) for _ in range(2))
+    q_pos = jnp.arange(S, dtype=jnp.float32)
+
+    def jax_fn(q, k, v):
+        out = jax_flash_vjp(q.reshape(B, S, KV, H // KV, hd), k, v, q_pos, causal, 16, hd ** -0.5)
+        return out.reshape(B, S, H, hd)
+
+    jout, vjp = jax.vjp(jax_fn, *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = attn_ref.flash_attention_plain_lse(tq, tk, tv, causal=causal)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    np.testing.assert_allclose(_np(out), _np(jout), atol=2e-5)
+    grads = attn_ref.flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo, causal=causal)
+    for got, want in zip(grads, jgrads):
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    y = attn_ops.flash_attention(*leaves, causal=causal)
+    assert y.grad_fn is not None
+    torch.testing.assert_close(y.detach(), out, rtol=0, atol=0)
+    y.backward(tdo)
+    for leaf, want in zip(leaves, grads):
+        torch.testing.assert_close(leaf.grad, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", [(6, 6, True), (5, 7, True), (7, 5, False)])
+def test_flash_attention_fn_passes_gradcheck_in_f64(Sq, Skv, causal):
+    """``FlashAttentionFn`` on CPU tensors (plain forward with its
+    log-sum-exp, plain backward) against finite differences in f64
+    (``torch.autograd.gradcheck``), G = 2, ragged lengths."""
+    rng = np.random.default_rng(Sq * 10 + Skv)
+    q = torch.from_numpy(rng.normal(size=(1, Sq, 4, 8))).requires_grad_(True)
+    k, v = (torch.from_numpy(rng.normal(size=(1, Skv, 2, 8))).requires_grad_(True)
+            for _ in range(2))
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: attn_ops.FlashAttentionFn.apply(q, k, v, causal), (q, k, v))
+
+
+def test_flash_attention_without_grad_takes_the_serving_route(monkeypatch):
+    """With grad off (or no input requiring grad) the wrapper runs the
+    plain forward as before, no log-sum-exp and no graph."""
+    q, k, v = (torch.zeros(1, 4, 2, 16) for _ in range(3))
+    monkeypatch.setattr(attn_ops, "flash_attention_plain_lse", lambda *a, **kw: 1 / 0)
+    assert attn_ops.flash_attention(q, k, v).grad_fn is None
+    with torch.no_grad():
+        assert attn_ops.flash_attention(q.requires_grad_(True), k, v).grad_fn is None
+    with pytest.raises(ZeroDivisionError):
+        attn_ops.flash_attention(q, k, v)

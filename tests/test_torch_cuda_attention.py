@@ -3,8 +3,10 @@ card, over the edge cases the smoke run's main-path shapes do not reach:
 ``pos`` = 0, at and across chunk edges and past the cache, one row over a
 long cache, ragged Sq/Skv, GQA groups of 1, 3, 8 and 12 query heads, head
 dims 32/64/128, f32 and bf16, a side stream, the launch counts and the
-error paths; and the serving path on the card against the same path on the
-CPU.
+error paths; the training forward's log-sum-exp and the backward kernels
+(``flash_attention_bwd_dq`` / ``_dkdv``) against their plain versions over
+the same cases; and the serving path and a training loss's gradients on
+the card against the same paths on the CPU.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so without a card every test
 here skips (the ``dev`` fixture decides, at run time). On the GPU machine:
@@ -15,7 +17,12 @@ Tolerances: the kernels and the plain versions compute in f32 and differ
 only in the order of their sums, so f32 outputs agree to 1e-5 of unit-scale
 inputs; bf16 outputs are rounded once from f32 on both sides, so each
 element agrees to one bf16 step of itself, 2^-7 |ref|, plus 2^-15 max|v|
-for the order of the f32 sums (the rule ``chip_smoke.py`` uses).
+for the order of the f32 sums (the rule ``chip_smoke.py`` uses). The
+backward's dq, dk and dv are held to the same rule with the sum-order term
+taken from the largest |gradient| (2^-15 max|ref|; f32 outputs take that
+term alone): each is a sum over up to G x Sq (query, key) pairs in f32 on
+both sides, from the same operands. The log-sum-exp is f32 on both sides:
+1e-5 absolute.
 """
 import numpy as np
 import pytest
@@ -25,6 +32,8 @@ from repro_torch.configs import get_arch
 from repro_torch.kernels.attention import ops as A
 from repro_torch.kernels.attention import ref as R
 from repro_torch.miniapps import LMServeApp
+from repro_torch.models import build_model
+from repro_torch.utils import tree_flatten_with_paths, tree_map_with_paths
 
 pytestmark = pytest.mark.cuda
 
@@ -268,3 +277,146 @@ def test_decode_entry_point_checks_the_chunk_it_is_given(dev):
             A.DECODE_ATTENTION.launch(q.data_ptr(), kv.data_ptr(), kv.data_ptr(), pos.data_ptr(),
                                       out.data_ptr(), ws.data_ptr(), B, S, H, KV, hd, 1, bad,
                                       stream)
+
+
+# -- training: the forward's log-sum-exp and the backward kernels ---------------
+
+
+def _grad_close(name, out, ref):
+    """The backward's per-element rule: one rounding step of the output's
+    dtype (bf16 only) plus 2^-15 of the largest |ref| for the f32 sums."""
+    rho = 2.0 ** -7 if out.dtype == torch.bfloat16 else 0.0
+    tol = rho * ref.float().abs() + 2.0 ** -15 * float(ref.float().abs().max())
+    err = (out.float() - ref.float()).abs()
+    assert out.dtype == ref.dtype and out.shape == ref.shape, name
+    assert bool(out.isfinite().all()), name
+    assert bool((err <= tol).all()), (name, float(err.max()), float((err / tol).max()))
+
+
+def _train_inputs(dev, B, Sq, Skv, H, KV, hd, dtype, seed):
+    g = _gen(dev, seed)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Skv, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Skv, KV, hd), generator=g, device=dev).to(dtype)
+    dout = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
+    return q, k, v, dout
+
+
+TRAIN_CASES = [
+    (8, 128, 128, 9, 3, 64, True), (1, 300, 300, 9, 3, 64, True), (2, 70, 130, 8, 1, 128, True),
+    (1, 130, 70, 8, 8, 64, True), (3, 65, 33, 4, 2, 32, False), (1, 1, 1, 2, 1, 64, True),
+    (2, 200, 300, 24, 2, 128, False), (2, 17, 17, 6, 2, 32, True),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", TRAIN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_writes_the_plain_log_sum_exp(dev, B, Sq, Skv, H, KV, hd, causal, dtype):
+    """The training forward: the same output as the serving forward, bitwise,
+    and each row's log-sum-exp in (B, H, Sq) against the plain version."""
+    q, k, v, _ = _train_inputs(dev, B, Sq, Skv, H, KV, hd, dtype, B * Sq + Skv + hd)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    out = A.flash_attention_cuda(q, k, v, causal=causal, lse=lse)
+    plain_out, plain_lse = R.flash_attention_plain_lse(q, k, v, causal=causal, block_q=64,
+                                                       block_kv=64)
+    torch.cuda.synchronize()
+    assert torch.equal(out, A.flash_attention_cuda(q, k, v, causal=causal))
+    _close(out, plain_out, v)
+    assert float((lse - plain_lse).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", TRAIN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels_match_plain(dev, B, Sq, Skv, H, KV, hd, causal, dtype):
+    """dq (kernel a) and dk, dv (kernel b) against ``flash_attention_bwd_plain``
+    on the same q, k, v, forward output, log-sum-exp and dout: ragged Sq
+    and Skv (past and short of 64-row tiles, Sq above and below Skv), G = 3,
+    8, 1, 2 and 12, head dims 32, 64 and 128, both causal flags."""
+    q, k, v, dout = _train_inputs(dev, B, Sq, Skv, H, KV, hd, dtype, B * Sq + Skv + hd + 1)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    out = A.flash_attention_cuda(q, k, v, causal=causal, lse=lse)
+    dq, dk, dv = A.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal)
+    rq, rk, rv = R.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    for name, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        _grad_close(name, got, ref)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_autograd_on_the_card_counts_its_launches(dev, causal):
+    """Through ``flash_attention`` with grad on: one forward (log-sum-exp
+    written), then one launch of each backward kernel; the gradients equal
+    the plain backward's, and with grad off the serving launch runs alone."""
+    q, k, v, dout = _train_inputs(dev, 2, 96, 96, 9, 3, 64, torch.bfloat16, 5)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    before = (A.FLASH_ATTENTION.launches, A.FLASH_BWD_DQ.launches, A.FLASH_BWD_DKDV.launches)
+    out = A.flash_attention(q, k, v, causal=causal)
+    assert out.grad_fn is not None
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (A.FLASH_ATTENTION.launches, A.FLASH_BWD_DQ.launches, A.FLASH_BWD_DKDV.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    _, lse = R.flash_attention_plain_lse(q.detach(), k.detach(), v.detach(), causal=causal)
+    rq, rk, rv = R.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), out.detach(),
+                                             lse, dout, causal=causal)
+    for name, got, ref in (("dq", q.grad, rq), ("dk", k.grad, rk), ("dv", v.grad, rv)):
+        _grad_close(name, got, ref)
+    with torch.no_grad():
+        assert A.flash_attention(q, k, v, causal=causal).grad_fn is None
+    assert A.FLASH_BWD_DQ.launches == before[1] + 1
+
+
+def test_backward_kernels_reject_what_they_cannot_take(dev):
+    q = torch.zeros((1, 4, 2, 64), device=dev)
+    kv = torch.zeros((1, 4, 1, 64), device=dev)
+    lse = torch.zeros((1, 2, 4), device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        A.flash_attention_bwd_cuda(q.cpu(), kv.cpu(), kv.cpu(), q.cpu(), lse.cpu(), q.cpu())
+    with pytest.raises(TypeError):
+        A.flash_attention_bwd_cuda(q, kv, kv, q, lse, q.bfloat16())
+    with pytest.raises(ValueError, match="f32"):
+        A.flash_attention_bwd_cuda(q, kv, kv, q, lse[:, :1], q)
+    with pytest.raises(ValueError, match="f32"):
+        A.flash_attention_bwd_cuda(q, kv, kv, q, lse.double(), q)
+    with pytest.raises(ValueError, match="q's shape"):
+        A.flash_attention_bwd_cuda(q, kv, kv, q[:, :2], lse, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.flash_attention_bwd_cuda(q, kv, kv, q, lse, q.transpose(1, 2))
+    q48, kv48 = torch.zeros((1, 4, 2, 48), device=dev), torch.zeros((1, 4, 1, 48), device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        A.flash_attention_bwd_cuda(q48, kv48, kv48, q48, lse, q48)
+    with pytest.raises(ValueError, match="f32"):
+        A.flash_attention_cuda(q, kv, kv, lse=lse[..., :3])
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_training_gradients_on_the_card_match_the_cpu(dev, remat):
+    """The graph-cut repair: ``DecoderLM.loss(...).backward()`` on CUDA
+    tensors (the reduced config: f32, hd 32) reaches every leaf, ``wqkv``
+    included, through the flash kernels, and every gradient is nonzero and
+    equal to the CPU's (plain versions) within 1e-4 of its largest entry:
+    two layers of f32 products in other orders on the two devices."""
+    cfg = get_arch("smollm-135m").reduced(remat=remat)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(3))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, 512, (4, 48)).astype(np.int32))
+    grads = {}
+    for where in ("cpu", dev):
+        p = tree_map_with_paths(lambda _, x: x.detach().to(where).requires_grad_(True), params)
+        before = (A.FLASH_ATTENTION.launches, A.FLASH_BWD_DQ.launches, A.FLASH_BWD_DKDV.launches)
+        loss, _ = model.loss(p, {"tokens": toks.to(where)})
+        loss.backward()
+        launched = (A.FLASH_ATTENTION.launches - before[0], A.FLASH_BWD_DQ.launches - before[1],
+                    A.FLASH_BWD_DKDV.launches - before[2])
+        grads[str(where)] = ({path: x.grad.cpu() for path, x in tree_flatten_with_paths(p)},
+                             float(loss), launched)
+    cpu, card = grads["cpu"], grads[str(dev)]
+    n = cfg.n_layers
+    assert cpu[2] == (0, 0, 0)
+    assert card[2] == ((2 if remat == "full" else 1) * n, n, n)
+    assert abs(cpu[1] - card[1]) <= 1e-5
+    for path, g in cpu[0].items():
+        got = card[0][path]
+        scale = float(g.abs().max())
+        assert scale > 0 and float(got.abs().max()) > 0, path
+        assert float((got - g).abs().max()) <= 1e-4 * scale, path

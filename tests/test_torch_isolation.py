@@ -16,14 +16,21 @@ import torch
 import repro_torch.core as core
 from repro_torch.broker import BrokerCluster, Consumer, ConsumerGroup, Producer
 from repro_torch.engines.microbatch import MicroBatchStream
-from repro_torch.configs import get_arch
+from repro_torch.configs import ShapeConfig, get_arch
 from repro_torch.kernels import KERNELS, _build
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.kmeans import ops as kmeans_ops
 from repro_torch.kernels.tomo import ops as tomo_ops
-from repro_torch.launch import serve
-from repro_torch.miniapps import LMServeApp, ReconstructionApp, StreamingKMeans, state_from_jax
+from repro_torch.launch import serve, train
+from repro_torch.miniapps import (
+    LMServeApp,
+    LMTrainApp,
+    ReconstructionApp,
+    StreamingKMeans,
+    state_from_jax,
+)
 from repro_torch.models import build_model, params_from_jax
+from repro_torch.runtime.steps import build_train_step
 from repro_torch.serving import ContinuousBatcher, PagedKVCache
 
 # the suite runs in parallel worker processes; these tensors are tiny, so one
@@ -65,6 +72,16 @@ def test_the_scan_covers_the_continuous_path():
         assert mod in scanned, mod
 
 
+def test_the_scan_covers_the_training_path():
+    """The training slice's modules (optimizer, train step, data helpers,
+    launcher, the attention wrappers with their backward) are scanned too."""
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    for mod in ("runtime/optimizer.py", "runtime/steps.py", "data/__init__.py",
+                "data/batching.py", "data/prefetch.py", "launch/train.py",
+                "kernels/attention/ops.py", "kernels/attention/ref.py", "models/params.py"):
+        assert mod in scanned, mod
+
+
 def test_wrappers_have_no_fallback_paths():
     """No ``try`` in the wrapper modules: a CUDA launch that fails raises,
     it is never retried on the plain version."""
@@ -75,7 +92,9 @@ def test_wrappers_have_no_fallback_paths():
 
 def test_every_kernel_has_a_source_and_entry_point():
     assert [k.name for k in KERNELS] == ["kmeans_assign", "kmeans_update", "tomo_backproject",
-                                         "tomo_project", "flash_attention", "decode_attention"]
+                                         "tomo_project", "flash_attention",
+                                         "flash_attention_bwd_dq", "flash_attention_bwd_dkdv",
+                                         "decode_attention"]
     for k in KERNELS:
         src = k.source.read_text()
         assert k.source.parent == _build.CSRC
@@ -127,12 +146,26 @@ def test_serving_path_needs_cuda_or_a_cpu_device(no_cuda):
                       device="cpu")._batcher.cache.k.device.type == "cpu"
 
 
+def test_training_path_needs_cuda_or_a_cpu_device(no_cuda):
+    cfg = get_arch("smollm-135m").reduced()
+    shape = ShapeConfig("t", 16, 2, "train")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LMTrainApp(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_train_step(build_model(cfg), shape, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1"])
+    app = LMTrainApp(cfg, seqs_per_step=2, seq_len=16, device="cpu")
+    assert app.init_state()["params"]["embed"].device.type == "cpu"
+
+
 class _FakeCuda:
     """Stands in for a CUDA tensor (there is no card here): the wrappers
     only look at ``.device``, and make it contiguous and cast it, before
     they hand it on."""
 
     device = torch.device("cuda", 0)
+    requires_grad = False
 
     def to(self, *args, **kwargs):
         return self
