@@ -22,7 +22,9 @@
    generator of their own; for ``tomo_project`` also on sparse images and for
    ``tomo_backproject`` on sparse sinograms, where a dropped pixel or bin
    shows; flash attention also at B=1 S=2048, where the work is
-   operations; the flash backward kernels at the training shape, B=8
+   operations; flash and decode also at kimi-k2's serving shapes and head
+   dim of 112 (64 query heads over 8 KV heads: the prefill of one prompt of
+   128, decode at B=4 S=256 and at its chunk edges); the flash backward kernels at the training shape, B=8
    S=128, and at B=1 S=2048, on the log-sum-exp-writing forward's output,
    per element and with a mask off by one shown to fail, timed beside that
    forward and SDPA's forward plus backward), and times kernel, plain
@@ -43,8 +45,16 @@
    GridRec and by ML-EM, and (c) the LM serving stream: 16 messages of 4
    prompts of 128 tokens into ``LMServeApp`` on ``smollm-135m`` at full
    width (random weights from the seed), continuous batching over paged
-   KV, 32 greedy tokens per request; every kernel's launch count is set to
-   0 just before a path and read just after it;
+   KV, 32 greedy tokens per request; then (d) the MoE family at its
+   published widths, depth cut to fit one card: phi3.5-moe at 8 of 32
+   layers, then kimi-k2 at 1 of 61 (its weights drawn after phi3.5's are
+   freed), each served 2 messages of 4 prompts of 128 tokens, 16 greedy
+   tokens each, at the published capacity factor, then 1 message at
+   capacity_factor = E / K (no token drops) that is re-scored as (c) is,
+   near-tied routes reported; and one phi3.5-moe MoE layer at full width in
+   f32 on the card against the CPU, routes compared token by token; every
+   kernel's launch count is set to 0 just before a path and read just after
+   it;
 5. re-scores every served sequence with the model's prefill and holds each
    generated token against that forward's argmax, then saves the served
    model's parameters (f32, and cast to bf16) with the port's
@@ -206,6 +216,9 @@ HOST_TRANS_NY, HOST_TRANS_NX, HOST_TRANS_BATCH, HOST_TRANS_MSGS = 128, 128, 32, 
 # 9 query heads over 3 KV heads of 64
 SERVE_MSGS, SERVE_BATCH, PROMPT_LEN, GEN_TOKENS, PAGE_SIZE = 16, 4, 128, 32, 16
 HEADS, KV_HEADS, HEAD_DIM = 9, 3, 64
+SERVE_HEADS = (HEADS, KV_HEADS, HEAD_DIM)
+KIMI_HEADS = (64, 8, 112)  # kimi-k2's attention: no multiple of 32 in its head dim
+PHI_HEADS = (32, 8, 128)  # phi3.5-moe's: 4 query heads a KV head
 # the training stream, as launch/train.py runs it: messages of TRAIN_BATCH
 # sequences of TRAIN_SEQ zipf tokens, one message a step, smollm-135m at full
 # width (f32 params and AdamW moments, bf16 compute, remat="full"), adamw at
@@ -221,6 +234,31 @@ HEADS, KV_HEADS, HEAD_DIM = 9, 3, 64
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 128, 20, 10
 TRAIN_LR, TRAIN_WARMUP, TRAIN_CHECK_LAYERS, TRAIN_CHECK_STEPS = 3e-4, 5, 2, 2
 TRAIN_LOSS_REL, TRAIN_NORM_REL, TRAIN_UPDATE_REL, TRAIN_MOMENT_REL = 1e-4, 1e-3, 0.15, 0.02
+
+# the MoE serving phase: the MoE family at its published widths on one card,
+# depth cut to fit (PERF.md §4): phi3.5-moe at 8 of 32 layers (about 21 GB of
+# bf16 weights; the 32 layers' 84 GB do not fit), kimi-k2 at 1 of 61 (about
+# 39 GB, 34 of them its 384 experts). MOE_MSGS messages of SERVE_BATCH
+# prompts of PROMPT_LEN tokens, MOE_GEN_TOKENS greedy tokens each, at the
+# published capacity factor (tokens past an expert's capacity fall through,
+# as users see it); then MOE_NODROP_MSGS at capacity_factor = E / K, where
+# no token drops and prefill routes as decode does, re-scored. The
+# re-score's prefills are cut so that the experts' dispatch buffer (every
+# expert's capacity at E / K) stays below MOE_DISPATCH_BYTES. A route whose
+# margin (the K-th chosen router logit less the best unchosen one) is at
+# most MOE_ROUTE_TIE is a near-tie: one or two bf16 steps of these logits
+# (of order 0.1 from the router's std 1e-3; a step is 2^-11 in [1/16, 1/8),
+# 2^-10 in [1/8, 1/4)) that the prefill and decode paths round differently
+# can flip. The flips seen on the H100 (PERF.md §5) had own margins 0,
+# 1.2e-4, 4.9e-4, 7.3e-4 and 9.8e-4 (2^-10): the tie is the largest of them
+MOE_MODELS = (("phi3.5-moe-42b-a6.6b", 8), ("kimi-k2-1t-a32b", 1))
+MOE_MSGS, MOE_NODROP_MSGS, MOE_GEN_TOKENS = 2, 1, 16
+MOE_DISPATCH_BYTES, MOE_ROUTE_TIE = 4e9, 2.0 ** -10
+# the card-vs-CPU MoE layer (f32): router logits differ by their f32 sums'
+# order, about 1e-8 at these sizes, so a flip needs a margin below
+# MOE_F32_TIE; outputs of tokens routed alike, products over 4096 and 6400
+# terms in other orders, agree to MOE_LAYER_REL of the largest |y|
+MOE_F32_TIE, MOE_LAYER_REL = 1e-5, 1e-4
 
 # a served token must be the re-scoring forward's argmax wherever the top-2
 # logit gap exceeds this: the decode path (decode kernel, cache written one
@@ -662,69 +700,77 @@ def _bitwise_repeatable(torch, name: str, fn, out) -> None:
         raise AssertionError(f"{name}: repeated calls or graph replays differ bitwise")
 
 
-def decode_inputs(torch, b: int, s: int):
-    """q, k, v (bf16, the serving path's head layout) and positions of a
-    timed decode case, from a generator of their own (seeded SEED + b), so
+def decode_inputs(torch, b: int, s: int, heads: tuple = SERVE_HEADS):
+    """q, k, v (bf16, in the (query heads, KV heads, head dim) layout
+    ``heads``: the serving path's by default) and positions of a timed
+    decode case, from a generator of their own (seeded SEED + b), so
     that no other check's draws shift them: the first rows at the last
     entry, 0, 15, 16, 127 and 128, the rest scattered. They do not follow
     any kernel's own tiling, so a kernel retuned later is timed on the same
     work."""
+    H, KV, hd = heads
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + b)
-    q = torch.randn((b, 1, HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
-    k = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
-    v = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
+    q = torch.randn((b, 1, H, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s, KV, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, s, KV, hd), generator=gen, device=dev).bfloat16()
     pos = torch.randint(0, s, (b,), generator=gen, device=dev, dtype=torch.int32)
     edges = torch.tensor([s - 1, 0, 15, 16, 127, 128], dtype=torch.int32, device=dev)[:b]
     pos[: len(edges)] = edges
     return q, k, v, pos
 
 
-def check_decode_split(torch, attn, b: int, s: int, gen) -> dict:
+def check_decode_split(torch, attn, b: int, s: int, gen, heads: tuple = SERVE_HEADS) -> dict:
     """``decode_attention`` (untimed) with rows at the edges of the chunks
     the split kernel takes at these sizes (C - 1, 2 C, C, C + 1 for its
     chunk C), the last entry, 0 and past the cache, the rest scattered:
-    held to the per-element rule, and two more calls and three replays of
-    a captured call must give bitwise the same output."""
+    held to the per-element rule, a mask off by one must fail the check on
+    the rows with LONG_ROW or more keys, and two more calls and three
+    replays of a captured call must give bitwise the same output."""
+    H, KV, hd = heads
     dev = torch.device("cuda", 0)
-    q = torch.randn((b, 1, HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
-    k = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
-    v = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
+    q = torch.randn((b, 1, H, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s, KV, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, s, KV, hd), generator=gen, device=dev).bfloat16()
     pos = torch.randint(0, s, (b,), generator=gen, device=dev, dtype=torch.int32)
-    chunk = attn.decode_chunk(attn.DECODE_LIB, dev, b, s, HEADS, KV_HEADS, HEAD_DIM, 1)
+    chunk = attn.decode_chunk(attn.DECODE_LIB, dev, b, s, H, KV, hd, 1)
     edges = [min(p, s + 3) for p in (chunk - 1, 2 * chunk, chunk, chunk + 1, s - 1, 0, s + 3)]
     pos[: min(b, len(edges))] = torch.tensor(edges, dtype=torch.int32, device=dev)[:b]
     out = attn.decode_attention_cuda(q, k, v, pos)
-    name = f"decode_attention split edges B={b} S={s}"
-    res = _bf16_close(torch, name, out, attn.decode_attention_plain(q, k, v, pos), v)
-    _bitwise_repeatable(torch, name, lambda: attn.decode_attention_cuda(q, k, v, pos), out)
-    return {"chunk": chunk, "positions": pos[: len(edges)].tolist(), "bitwise_repeatable": True,
-            **res}
-
-
-def check_decode(torch, attn, b: int, s: int) -> dict:
-    """``decode_attention`` on :func:`decode_inputs`, timed; where rows hold
-    LONG_ROW or more keys, a mask off by one must fail the check."""
-    dev = torch.device("cuda", 0)
-    q, k, v, pos = decode_inputs(torch, b, s)
-    out = attn.decode_attention_cuda(q, k, v, pos)
-    name = f"decode_attention B={b} S={s}"
+    name = f"decode_attention split edges B={b} S={s} hd={hd}"
     res = _bf16_close(torch, name, out, attn.decode_attention_plain(q, k, v, pos), v)
     rows = torch.nonzero((pos >= LONG_ROW) & (pos <= s - 2)).flatten()
     if len(rows):
         res["off_by_one"] = _off_by_one(torch, attn, name, out[rows], q[rows], k[rows], v[rows],
                                         rows, pos[rows])
-    res["chunk"] = attn.decode_chunk(attn.DECODE_LIB, dev, b, s, HEADS, KV_HEADS, HEAD_DIM, 1)
+    _bitwise_repeatable(torch, name, lambda: attn.decode_attention_cuda(q, k, v, pos), out)
+    return {"chunk": chunk, "positions": pos[: len(edges)].tolist(), "bitwise_repeatable": True,
+            **res}
+
+
+def check_decode(torch, attn, b: int, s: int, heads: tuple = SERVE_HEADS) -> dict:
+    """``decode_attention`` on :func:`decode_inputs`, timed; where rows hold
+    LONG_ROW or more keys, a mask off by one must fail the check."""
+    H, KV, hd = heads
+    dev = torch.device("cuda", 0)
+    q, k, v, pos = decode_inputs(torch, b, s, heads)
+    out = attn.decode_attention_cuda(q, k, v, pos)
+    name = f"decode_attention B={b} S={s} hd={hd}"
+    res = _bf16_close(torch, name, out, attn.decode_attention_plain(q, k, v, pos), v)
+    rows = torch.nonzero((pos >= LONG_ROW) & (pos <= s - 2)).flatten()
+    if len(rows):
+        res["off_by_one"] = _off_by_one(torch, attn, name, out[rows], q[rows], k[rows], v[rows],
+                                        rows, pos[rows])
+    res["chunk"] = attn.decode_chunk(attn.DECODE_LIB, dev, b, s, H, KV, hd, 1)
     live = int(torch.clamp(pos + 1, max=s).sum())  # cache entries the rows attend to
-    n_bytes = 2 * live * KV_HEADS * HEAD_DIM * 2 + 2 * q.numel() * 2 + b * 4
-    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * live * HEADS * HEAD_DIM, BF16_OPS_PER_S)
+    n_bytes = 2 * live * KV * hd * 2 + 2 * q.numel() * 2 + b * 4
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * live * H * hd, BF16_OPS_PER_S)
     res["ms"] = graph_ms(torch, lambda: attn.decode_attention_cuda(q, k, v, pos), 100)
     res["plain_ms"] = graph_ms(torch, lambda: attn.decode_attention_plain(q, k, v, pos), 20)
-    # SDPA with a boolean mask: K/V repeated to the 9 query heads and
+    # SDPA with a boolean mask: K/V repeated to the query heads and
     # everything put in (B, heads, S, hd) outside the timed call
     qt = q.transpose(1, 2).contiguous()
-    kt, vt = (x.transpose(1, 2).repeat_interleave(HEADS // KV_HEADS, dim=1).contiguous()
-              for x in (k, v))
+    kt, vt = (x.transpose(1, 2).repeat_interleave(H // KV, dim=1).contiguous() for x in (k, v))
     mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res["library_ms"] = graph_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask), 100)
@@ -732,17 +778,20 @@ def check_decode(torch, attn, b: int, s: int) -> dict:
     return res
 
 
-def check_flash(torch, attn, b: int, s: int, gen, timing: bool) -> dict:
-    """``flash_attention``, causal, Sq = Skv = s, at the serving path's head
-    layout, bf16. Query row i of a causal prefill is a decode over keys
-    0..i, so a sample of rows with LONG_ROW or more keys goes through the
-    off-by-one check against the plain decode version."""
+def check_flash(torch, attn, b: int, s: int, gen, timing: bool,
+                heads: tuple = SERVE_HEADS) -> dict:
+    """``flash_attention``, causal, Sq = Skv = s, in the head layout
+    ``heads`` (the serving path's by default), bf16. Query row i of a
+    causal prefill is a decode over keys 0..i, so a sample of rows with
+    LONG_ROW or more keys goes through the off-by-one check against the
+    plain decode version."""
+    H, KV, hd = heads
     dev = torch.device("cuda", 0)
-    q = torch.randn((b, s, HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
-    k = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
-    v = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
+    q = torch.randn((b, s, H, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s, KV, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, s, KV, hd), generator=gen, device=dev).bfloat16()
     out = attn.flash_attention_cuda(q, k, v, causal=True)
-    name = f"flash_attention B={b} S={s}"
+    name = f"flash_attention B={b} S={s} hd={hd}"
     res = _bf16_close(torch, name, out, attn.flash_attention_plain(q, k, v, causal=True), v)
     rows = torch.arange(LONG_ROW, s - 1, 8, device=dev)  # query rows i, keys 0..i
     n = len(rows)
@@ -751,19 +800,18 @@ def check_flash(torch, attn, b: int, s: int, gen, timing: bool) -> dict:
         return x[:, None].expand(b, n, *x.shape[1:]).reshape(b * n, *x.shape[1:])
 
     res["off_by_one"] = _off_by_one(
-        torch, attn, name, out[:, rows].reshape(b * n, 1, HEADS, HEAD_DIM),
-        q[:, rows].reshape(b * n, 1, HEADS, HEAD_DIM), expand(k), expand(v),
+        torch, attn, name, out[:, rows].reshape(b * n, 1, H, hd),
+        q[:, rows].reshape(b * n, 1, H, hd), expand(k), expand(v),
         rows.repeat(b), rows.repeat(b).to(torch.int32))
     if timing:
         pairs = s * (s + 1) // 2  # causal (query, key) pairs per head
         n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-        res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * b * HEADS * HEAD_DIM * pairs,
-                                                 BF16_OPS_PER_S)
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * b * H * hd * pairs, BF16_OPS_PER_S)
         res["ms"] = graph_ms(torch, lambda: attn.flash_attention_cuda(q, k, v, causal=True), 50)
         res["plain_ms"] = graph_ms(
             torch, lambda: attn.flash_attention_plain(q, k, v, causal=True), 10)
         qt = q.transpose(1, 2).contiguous()
-        kt, vt = (x.transpose(1, 2).repeat_interleave(HEADS // KV_HEADS, dim=1).contiguous()
+        kt, vt = (x.transpose(1, 2).repeat_interleave(H // KV, dim=1).contiguous()
                   for x in (k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         res["library_ms"] = graph_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), 50)
@@ -1092,10 +1140,14 @@ def recon_vs_plain(torch, tomo, algo: str, state, payload, device) -> dict:
     return {"max_abs_err": err, "tol": tol}
 
 
-def serve_path(torch, kernels, miniapps, cluster, ctx, device, n_msgs: int = SERVE_MSGS) -> dict:
-    """The LM serving stream at smollm-135m's full width, ``n_msgs``
-    messages; returns the path's report and launches, the params and every
-    served (prompts, tokens)."""
+def serve_path(torch, kernels, miniapps, cluster, ctx, device, n_msgs: int = SERVE_MSGS,
+               cfg=None, gen_tokens: int = GEN_TOKENS, label: str = "serve",
+               params=None) -> dict:
+    """The LM serving stream, ``n_msgs`` messages of SERVE_BATCH prompts
+    of ``gen_tokens`` greedy tokens each, at ``cfg`` (smollm-135m at full
+    width by default; its own topic and consumer group per ``label``), on
+    ``params`` (drawn from SEED on the card if None); returns the path's
+    report and launches, the params and every served (prompts, tokens)."""
     from repro_torch.configs import get_arch
 
     served: list = []
@@ -1106,71 +1158,278 @@ def serve_path(torch, kernels, miniapps, cluster, ctx, device, n_msgs: int = SER
             served.append((self._stack_requests(msgs), out))
             return out
 
-    cfg = get_arch("smollm-135m")
-    app = TracedServe(cfg, mode="continuous", prompt_len=PROMPT_LEN, gen_tokens=GEN_TOKENS,
+    cfg = cfg or get_arch("smollm-135m")
+    app = TracedServe(cfg, mode="continuous", prompt_len=PROMPT_LEN, gen_tokens=gen_tokens,
                       batch=SERVE_BATCH, page_size=PAGE_SIZE, device=device)
-    params = app.model.init(torch.Generator(device=device).manual_seed(SEED))
-    cluster.create_topic("requests", 2)
+    if params is None:
+        params = app.model.init(torch.Generator(device=device).manual_seed(SEED))
+    topic = "requests" if label == "serve" else f"requests_{label}"
+    cluster.create_topic(topic, 2)
     source = miniapps.TokenSource(
-        cluster, miniapps.SourceConfig("requests", total_messages=n_msgs, seed=SEED),
+        cluster, miniapps.SourceConfig(topic, total_messages=n_msgs, seed=SEED),
         vocab_size=cfg.vocab_size, seq_len=PROMPT_LEN, seqs_per_msg=SERVE_BATCH)
-    stream = ctx.stream(cluster, "requests", group="server", process_fn=app.process,
-                        state=params, batch_interval=0.1, max_batch_records=1)
+    stream = ctx.stream(cluster, topic, group="server" if label == "serve" else label,
+                        process_fn=app.process, state=params, batch_interval=0.1,
+                        max_batch_records=1)
     kernels.reset_launches()
     wall = drive(stream, source, n_msgs, 600)
     launches = {k.name: k.launches for k in kernels.KERNELS}
     requests = sum(len(out) for _, out in served)
     tokens = sum(out.size for _, out in served)
+    # greedy tokens range over the head's padded vocabulary, as the JAX
+    # package's do: with random weights the padding rows' logits are random
+    # too (phi3.5-moe: 32064 ids padded to 32256)
     if requests != n_msgs * SERVE_BATCH or any(
-            out.shape != (SERVE_BATCH, GEN_TOKENS) or out.min() < 0 or out.max() >= cfg.vocab_size
-            for _, out in served):
+            out.shape != (SERVE_BATCH, gen_tokens) or out.min() < 0
+            or out.max() >= cfg.padded_vocab for _, out in served):
         raise AssertionError(f"served {requests} requests, shapes {[o.shape for _, o in served]}")
     lat = app.stats.latency
-    out = {"path": "serve", "batches": stream.stats.batches, "requests": requests,
+    out = {"path": label, "batches": stream.stats.batches, "requests": requests,
            "generated_tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
            "latency_p50_s": lat.p50, "latency_p99_s": lat.p99}
+    if label != "serve":
+        out.update(model=cfg.name, layers=cfg.n_layers, capacity_factor=cfg.capacity_factor,
+                   gen_tokens=gen_tokens, launches={k: n for k, n in launches.items() if n})
     print("path " + json.dumps(out))
-    return {"report": out, "launches": launches, "app": app, "params": params, "served": served}
+    return {"report": out, "launches": launches, "app": app, "params": params, "served": served,
+            "gen_tokens": gen_tokens, "stream": stream}
 
 
-def rescore(torch, serve: dict) -> dict:
+def _route_margins(moe, margins: list):
+    """A context in which every routing the MoE layers compute appends its
+    per-token margins (``Routing.margin``, G x gs) to ``margins``."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def recording():
+        route = moe.moe_route
+
+        def wrapped(*args, **kwargs):
+            r = route(*args, **kwargs)
+            margins.append(r.margin())
+            return r
+
+        moe.moe_route = wrapped
+        try:
+            yield
+        finally:
+            moe.moe_route = route
+
+    return recording()
+
+
+def rescore(torch, serve: dict, rows_per_call: int | None = None,
+            route_tie: float | None = None) -> dict:
     """Every generated token against one prefill of its context (prompt +
-    the tokens served before it), batched: row t of a request is the
-    sequence with ``last_pos = PROMPT_LEN - 1 + t``. That prefill runs the
-    flash kernel; the served tokens came through the decode kernel."""
+    the tokens served before it), batched (``rows_per_call`` rows a
+    prefill): row t of a request is the sequence with ``last_pos =
+    PROMPT_LEN - 1 + t``. That prefill runs the flash kernel; the served
+    tokens came through the decode kernel. For a MoE model, ``route_tie``
+    given: a served token that differs where the top-2 gap exceeds
+    RESCORE_GAP is excused only where its own position was routed, in some
+    layer of the re-scoring prefill, by a margin of at most ``route_tie`` (a
+    near-tie that the two paths' bf16 roundings can flip); such tokens are
+    counted and printed, never dropped silently. The positions that could
+    be excused so are counted too (``excusable``), with how many of the
+    clear-gap positions have own margins of at most 2^-11, 2^-10 and 2^-9,
+    and at least a quarter of all positions must be clear and not
+    excusable: the check binds there."""
     import numpy as np
 
+    from repro_torch.models import moe
     from repro_torch.models.common import first_argmax
 
     model = serve["app"].model
     p = model.compute_params(serve["params"])
     device = serve["params"]["embed"].device
-    checked = agree = 0
+    gen = serve["gen_tokens"]
+    checked = agree = excusable = 0
+    own_at_most = {f"2^{e}": 0 for e in (-11, -10, -9)}  # clear positions, own margin <= 2^e
     worst = 0.0  # the largest top-2 gap at which a served token differed
+    excused: list = []  # (gap, own route margin) of each excused token
+    own_margin_min = math.inf
     for prompts, out in serve["served"]:
         seqs = torch.from_numpy(np.concatenate([prompts, out], axis=1)).to(device)
-        toks = seqs.repeat_interleave(GEN_TOKENS, dim=0)  # (B * T, P + T)
-        last = (PROMPT_LEN - 1 + torch.arange(GEN_TOKENS, device=device)).repeat(len(out))
-        logits, _ = model.prefill(p, {"tokens": toks, "last_pos": last})
-        logits = logits[:, 0]
+        toks = seqs.repeat_interleave(gen, dim=0)  # (B * T, P + T)
+        last = (PROMPT_LEN - 1 + torch.arange(gen, device=device)).repeat(len(out))
+        step = rows_per_call or len(toks)
+        parts, own = [], []
+        for r0 in range(0, len(toks), step):
+            rows, at = toks[r0:r0 + step], last[r0:r0 + step]
+            margins: list = []
+            with _route_margins(moe, margins):
+                logits, _ = model.prefill(p, {"tokens": rows, "last_pos": at})
+            parts.append(logits[:, 0])
+            if route_tie is not None:  # each layer's margin at the rows' own positions
+                own.append(torch.stack([m.reshape(rows.shape)[torch.arange(len(rows)), at]
+                                        for m in margins]).amin(0))
+        logits = torch.cat(parts)
         top2 = logits.topk(2, dim=-1).values
         gap = top2[:, 0] - top2[:, 1]
         same = first_argmax(logits, dim=-1) == torch.from_numpy(out).to(device).reshape(-1).long()
         clear = gap > RESCORE_GAP
         bad = clear & ~same
+        if route_tie is not None:
+            own = torch.cat(own)
+            own_margin_min = min(own_margin_min, float(own.min()))
+            near = own <= route_tie
+            tie = bad & near
+            excused += [(float(g), float(m)) for g, m in zip(gap[tie], own[tie])]
+            bad = bad & ~tie
+            excusable += int((clear & near).sum())
+            for e in (-11, -10, -9):
+                own_at_most[f"2^{e}"] += int((clear & (own <= 2.0 ** e)).sum())
         if bool(bad.any()):
             raise AssertionError(f"{int(bad.sum())} served tokens differ from the prefill argmax "
                                  f"where the top-2 gap exceeds {RESCORE_GAP}")
         checked += int(clear.sum())
         agree += int(same.sum())
-        if not bool(same.all()):
-            worst = max(worst, float(gap[~same].max()))
+        if not bool((same | clear).all()):
+            worst = max(worst, float(gap[~same & ~clear].max()))
     total = sum(out.size for _, out in serve["served"])
-    if checked < total // 4:
-        raise AssertionError(f"only {checked} of {total} positions had a clear top-2 gap")
     res = {"positions": total, "checked": checked, "agree": agree,
            "largest_gap_where_differing": worst, "gap_tol": RESCORE_GAP}
+    if route_tie is not None:
+        res.update(model=model.cfg.name, capacity_factor=model.cfg.capacity_factor,
+                   rows_per_prefill=rows_per_call, route_tie=route_tie, excusable=excusable,
+                   binding=checked - excusable, clear_with_own_margin_at_most=own_at_most,
+                   own_route_margin_min=own_margin_min,
+                   excused_route_ties=len(excused), excused_gap_and_margin=excused[:8])
     print("rescore " + json.dumps(res))
+    if checked - excusable < total // 4:
+        raise AssertionError(f"only {checked - excusable} of {total} positions had a clear top-2 "
+                             f"gap and could not be excused ({excusable} could)")
+    return res
+
+
+def serve_moe_path(torch, kernels, miniapps, cluster, ctx, device) -> dict:
+    """The MoE family served through ``LMServeApp(mode="continuous")`` at
+    the published widths, depth cut (MOE_MODELS): per model, its weights
+    drawn on the card from SEED, MOE_MSGS messages at the published
+    capacity factor, then MOE_NODROP_MSGS at capacity_factor = E / K on the
+    same weights, re-scored (``rescore``, with the routes' near-ties
+    reported); the phi3.5 model's memory is freed before kimi-k2's is drawn.
+    Checks both attention kernels launched on every run; prints a ``path``
+    line per run and a ``moe_model`` line per model (draw seconds, the
+    card's peak memory over the model's runs)."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    reports = []
+    t_phase = time.perf_counter()
+    for name, layers in MOE_MODELS:
+        full = get_arch(name)
+        cfg = full.replace(n_layers=layers)
+        short = name.split("-")[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = build_model(cfg).init(torch.Generator(device=device).manual_seed(SEED))
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        n_bytes = sum(x.numel() * x.element_size() for x in
+                      [*params["layers"].values()] + [v for k, v in params.items() if k != "layers"])
+        nodrop = full.n_experts / full.experts_per_token
+        for cf, n_msgs, kind in ((full.capacity_factor, MOE_MSGS, "published"),
+                                 (nodrop, MOE_NODROP_MSGS, "nodrop")):
+            sv = serve_path(torch, kernels, miniapps, cluster, ctx, device, n_msgs,
+                            cfg=cfg.replace(capacity_factor=cf), gen_tokens=MOE_GEN_TOKENS,
+                            label=f"serve_moe_{short}_{kind}", params=params)
+            run = sv["launches"]
+            for k in ("flash_attention", "decode_attention"):
+                if run[k] < 1:
+                    raise AssertionError(f"{name} ({kind}): {k} was not launched")
+            for k, n in run.items():
+                launches[k] += n
+            reports.append(sv["report"])
+            if kind == "nodrop":
+                seq = PROMPT_LEN + MOE_GEN_TOKENS
+                per_row = seq * full.experts_per_token * cf * full.d_model * 2  # dispatch bytes
+                rescore(torch, sv, rows_per_call=max(1, int(MOE_DISPATCH_BYTES // per_row)),
+                        route_tie=MOE_ROUTE_TIE)
+            ctx.streams.remove(sv["stream"])  # the stopped stream held the params as its state
+            del sv
+        peak = torch.cuda.max_memory_allocated()
+        del params
+        print("moe_model " + json.dumps({
+            "model": name, "layers": f"{layers} of {full.n_layers}", "d_model": full.d_model,
+            "heads": f"{full.n_heads} over {full.n_kv_heads} KV of {full.resolved_head_dim}",
+            "experts": f"{full.n_experts} top-{full.experts_per_token} + "
+                       f"{full.n_shared_experts} shared", "d_ff": full.d_ff,
+            "vocab": full.vocab_size, "param_bytes": n_bytes, "draw_s": draw_s,
+            "peak_allocated_gib": peak / 2 ** 30,
+            "allocated_before_gib": before / 2 ** 30}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    layer = moe_layer_check(torch, device)
+    seconds = time.perf_counter() - t_phase
+    print("path " + json.dumps({"path": "serve_moe", "seconds": seconds,
+                                "runs": [r["path"] for r in reports],
+                                "launches": {k: n for k, n in launches.items() if n}}))
+    return {"reports": reports, "launches": launches, "layer": layer, "seconds": seconds}
+
+
+def moe_layer_check(torch, device) -> dict:
+    """One MoE layer of phi3.5-moe at full width (d 4096, 16 experts of
+    d_ff 6400, top-2) at its published capacity factor, a prefill of B=1
+    S=128 in f32 compute, on the card (f32 products, TF32 off) against the
+    same layer on the CPU: the same weights (bf16 storage, as served; drawn
+    on the card from SEED) and inputs. Routes are compared token by token;
+    a token whose set of experts differs is a flip, excused only where its
+    margin is below MOE_F32_TIE, and a token that keeps its experts but
+    loses or gains a slot is excused only behind such a flip (capacity is
+    counted in token order). The other tokens' outputs are held to
+    MOE_LAYER_REL of the largest |y|, the aux loss to 1e-6 relative."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+
+    cfg = get_arch("phi3.5-moe-42b-a6.6b")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    p_card = init_params(moe.moe_specs(cfg, None, torch.bfloat16), gen)
+    x_card = torch.randn((1, PROMPT_LEN, cfg.d_model), generator=gen, device=device)
+    p_cpu = {k: v.cpu() for k, v in p_card.items()}
+    x_cpu = x_card.cpu()
+    t0 = time.perf_counter()
+    y_card, aux_card = moe.moe_apply(p_card, x_card, cfg, torch.float32)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    y_cpu, aux_cpu = moe.moe_apply(p_cpu, x_cpu, cfg, torch.float32)
+    cpu_s = time.perf_counter() - t0
+    xt = (1, PROMPT_LEN, cfg.d_model)  # one group: S = 128 tokens <= the group size
+    r_card = moe.moe_route(p_card["router"], x_card.reshape(xt), cfg, torch.float32)
+    r_cpu = moe.moe_route(p_cpu["router"], x_cpu.reshape(xt), cfg, torch.float32)
+    margin = r_cpu.margin()[0]
+    sets_differ = (r_card.experts.cpu().sort(-1).values != r_cpu.experts.sort(-1).values).any(-1)[0]
+    keep_differs = (r_card.keep.cpu() != r_cpu.keep).any(-1)[0]
+    flips = torch.nonzero(sets_differ).flatten().tolist()
+    unexplained = [i for i in flips if float(margin[i]) >= MOE_F32_TIE]
+    first_flip = min(flips, default=PROMPT_LEN)
+    slot_only = torch.nonzero(keep_differs & ~sets_differ).flatten().tolist()
+    unexplained += [i for i in slot_only if i < first_flip]
+    alike = ~(sets_differ | keep_differs)
+    if not bool(alike.any()):
+        raise AssertionError("MoE layer on the card vs the CPU: no token routed alike")
+    err = (y_card.cpu() - y_cpu)[0].abs().amax(-1)  # per token
+    scale = float(y_cpu.abs().max())
+    worst = float(err[alike].max()) / scale
+    aux_rel = abs(float(aux_card) - float(aux_cpu)) / abs(float(aux_cpu))
+    res = {"model": cfg.name, "shape": f"B=1 S={PROMPT_LEN} d={cfg.d_model} f32",
+           "capacity_factor": cfg.capacity_factor, "capacity": r_cpu.capacity,
+           "kept": int(r_cpu.keep.sum()), "routed": PROMPT_LEN * cfg.experts_per_token,
+           "worst_err_over_max_y": worst, "tol": MOE_LAYER_REL, "aux_rel_err": aux_rel,
+           "smallest_route_margin": float(margin.min()), "route_tie": MOE_F32_TIE,
+           "route_flips": [(i, float(margin[i])) for i in flips], "slot_only_changes": slot_only,
+           "card_s": card_s, "cpu_s": cpu_s}
+    print("moe_layer " + json.dumps(res))
+    if unexplained or worst > MOE_LAYER_REL or aux_rel > 1e-6 or not bool(y_card.isfinite().all()):
+        raise AssertionError(f"MoE layer on the card vs the CPU: {res}; unexplained {unexplained}")
     return res
 
 
@@ -2141,6 +2400,24 @@ def main() -> None:
               + json.dumps(check_decode_split(torch, attention, b, 256, gen)))
     flash_main = check_flash(torch, attention, 1, PROMPT_LEN, gen, True)
     print(f"check flash_attention B=1 S={PROMPT_LEN} causal bf16 " + json.dumps(flash_main))
+    # kimi-k2's serving shapes at its head dim of 112 (64 query heads over 8
+    # KV heads): the prefill of one prompt, decode at B=4 S=256 (timed, and
+    # at its chunk edges, bitwise across repeats and graph replays)
+    flash_112 = check_flash(torch, attention, 1, PROMPT_LEN, gen, True, KIMI_HEADS)
+    print(f"check flash_attention B=1 S={PROMPT_LEN} causal bf16 hd=112 " + json.dumps(flash_112))
+    decode_112 = check_decode(torch, attention, SERVE_BATCH, 256, KIMI_HEADS)
+    decode_112["launch_floor_ms"] = floor
+    print(f"check decode_attention B={SERVE_BATCH} S=256 bf16 hd=112 " + json.dumps(decode_112))
+    print(f"check decode_attention split edges B={SERVE_BATCH} S=256 bf16 hd=112 "
+          + json.dumps(check_decode_split(torch, attention, SERVE_BATCH, 256, gen, KIMI_HEADS)))
+    # phi3.5-moe's serving shapes, hd = 128 over 32 query and 8 KV heads, the same way
+    flash_128 = check_flash(torch, attention, 1, PROMPT_LEN, gen, True, PHI_HEADS)
+    print(f"check flash_attention B=1 S={PROMPT_LEN} causal bf16 hd=128 " + json.dumps(flash_128))
+    decode_128 = check_decode(torch, attention, SERVE_BATCH, 256, PHI_HEADS)
+    decode_128["launch_floor_ms"] = floor
+    print(f"check decode_attention B={SERVE_BATCH} S=256 bf16 hd=128 " + json.dumps(decode_128))
+    print(f"check decode_attention split edges B={SERVE_BATCH} S=256 bf16 hd=128 "
+          + json.dumps(check_decode_split(torch, attention, SERVE_BATCH, 256, gen, PHI_HEADS)))
     for b, s in ((4, 128), (4, 512), (1, 2048)):
         print(f"check flash_attention B={b} S={s} causal bf16 "
               + json.dumps(check_flash(torch, attention, b, s, gen, True)))
@@ -2160,6 +2437,7 @@ def main() -> None:
         kw = kmeans_wide_path(torch, kernels, miniapps, cluster, ctx, device)
         rc = recon_path(torch, kernels, miniapps, tomo, cluster, ctx, device)
         sv = serve_path(torch, kernels, miniapps, cluster, ctx, device)
+        sm = serve_moe_path(torch, kernels, miniapps, cluster, ctx, device)
     finally:
         svc.cancel()
     rescore(torch, sv)
@@ -2171,6 +2449,7 @@ def main() -> None:
     tr = transport_path(torch, kernels, pipeline, miniapps, tomo)
     paths = {"kmeans_path": km["launches"], "kmeans_wide_path": kw["launches"],
              "lightsource_path": rc["launches"], "serve_path": sv["launches"],
+             "serve_moe_path": sm["launches"],
              "train_path": tn["launches"], "pipeline_path": pl["launches"], "continuous_path": ct["launches"],
              "transport_path": tr["launches"]}
     launches = {k.name: sum(p[k.name] for p in paths.values()) for k in kernels.KERNELS}
@@ -2182,6 +2461,12 @@ def main() -> None:
         raise AssertionError("kmeans_assign was not launched on the K-Means stream")
 
     src = "src/repro_torch/kernels/csrc/"
+
+    def moe_shape(r: dict, shape: str, heads: tuple) -> dict:  # a MoE model's serving shape
+        return {"shape": f"{shape}, {heads[0]} heads over {heads[1]} KV heads of {heads[2]}, bf16",
+                **{k: r[k] for k in ("max_abs_err", "worst_err_over_tol", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}}
+
     rows = [
         ("kmeans_assign", src + "kmeans_assign.cu", "src/repro/kernels/kmeans/kernel.py:45", assign_main),
         # no TPU kernel: the reference's update is a jnp scatter (update_scatter)
@@ -2191,13 +2476,20 @@ def main() -> None:
         # the serving instantiation's numbers; the training forward (the
         # log-sum-exp written) is held per element at the training shape too
         ("flash_attention", src + "flash_attention.cu", "src/repro/kernels/attention/kernel.py:81",
-         {**flash_main, "max_abs_err": max(flash_main["max_abs_err"], bwd_main["fwd_out_max_abs_err"]),
+         {**flash_main, "max_abs_err": max(flash_main["max_abs_err"], bwd_main["fwd_out_max_abs_err"],
+                                           flash_112["max_abs_err"], flash_128["max_abs_err"]),
+          "hd112": moe_shape(flash_112, f"B=1 S={PROMPT_LEN} causal", KIMI_HEADS),
+          "hd128": moe_shape(flash_128, f"B=1 S={PROMPT_LEN} causal", PHI_HEADS),
           "with_lse": {"shape": f"B={TRAIN_BATCH} S={TRAIN_SEQ}",
                        "max_abs_err": bwd_main["fwd_out_max_abs_err"],
                        "worst_err_over_tol": bwd_main["fwd_out_worst_err_over_tol"],
                        "lse_max_abs_err": bwd_main["lse_max_abs_err"], "ms": bwd_main["fwd_lse_ms"]}}),
         ("decode_attention", src + "decode_attention.cu",
-         "src/repro/kernels/attention/decode_kernel.py:79", decode_main),
+         "src/repro/kernels/attention/decode_kernel.py:79",
+         {**decode_main, "max_abs_err": max(decode_main["max_abs_err"], decode_112["max_abs_err"],
+                                            decode_128["max_abs_err"]),
+          "hd112": moe_shape(decode_112, f"B={SERVE_BATCH} S=256", KIMI_HEADS),
+          "hd128": moe_shape(decode_128, f"B={SERVE_BATCH} S=256", PHI_HEADS)}),
         # no TPU kernel: the reference's flash backward is the pure-JAX
         # custom_vjp of runtime/sharded_attention.py (_flash_bwd); plain_ms
         # and library_ms are the whole backward's, the pair's (dq and dkdv)
@@ -2215,7 +2507,7 @@ def main() -> None:
          "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **{key: r[key] for key in ("with_lse", "scope") if key in r}}
+         **{key: r[key] for key in ("hd112", "hd128", "with_lse", "scope") if key in r}}
         for name, source, replaces, r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

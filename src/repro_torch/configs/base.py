@@ -3,12 +3,12 @@
 Every architecture is expressed as an :class:`ArchConfig`; the same
 dataclass drives parameter-spec construction (``models.build_model``) and
 the reduced smoke-test configs (``cfg.reduced()``). The fields are the JAX
-package's fields that the dense family and its training read, with the same
-names and defaults, so a config means the same model in both packages; the
-fields of the other families (MoE, SSM, hybrid, enc-dec, VLM) and of the
-multi-device attention routes (``attention_impl`` and its block sizes) come
-with their slices (ROADMAP A8, A9). ``scan_layers`` has no counterpart: the
-port's layer loop is a Python loop.
+package's fields that the dense and MoE families and their training read,
+with the same names and defaults, so a config means the same model in both
+packages; the fields of the other families (SSM, hybrid, enc-dec, VLM) and
+of the multi-device attention routes (``attention_impl`` and its block
+sizes) come with their slices (ROADMAP A8, A9). ``scan_layers`` has no
+counterpart: the port's layer loop is a Python loop.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ class ArchConfig:
     """A single architecture (or a reduced variant)."""
 
     name: str
-    family: str  # "dense" (ported) | "moe" | "ssm" | "hybrid" | "encdec" | "vlm"
+    family: str  # "dense", "moe" (ported) | "ssm" | "hybrid" | "encdec" | "vlm"
 
     # transformer backbone
     n_layers: int = 0
@@ -50,6 +50,13 @@ class ArchConfig:
     tie_embeddings: bool = False
     gated_mlp: bool = True  # False = classic 2-matrix gelu MLP (starcoder2)
     norm_eps: float = 1e-5
+
+    # MoE
+    n_experts: int = 0
+    experts_per_token: int = 0
+    n_shared_experts: int = 0
+    moe_group_size: int = 256
+    capacity_factor: float = 1.25
 
     # numerics / training
     param_dtype: str = "float32"
@@ -81,6 +88,17 @@ class ArchConfig:
 
         return build_model(self).param_count()
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed-to experts)."""
+        total = self.param_count()
+        if self.family != "moe" or not self.n_experts:
+            return total
+        from repro_torch.models import build_model
+
+        expert = build_model(self).expert_param_count()
+        used = self.experts_per_token + self.n_shared_experts
+        return total - expert + expert * used // self.n_experts
+
     # ---- variants --------------------------------------------------------
 
     def reduced(self, **overrides: Any) -> "ArchConfig":
@@ -98,6 +116,13 @@ class ArchConfig:
             compute_dtype="float32",
             remat="none",
         )
+        if self.n_experts:
+            small.update(n_experts=4, experts_per_token=2, moe_group_size=16)
+            small.update(n_shared_experts=min(self.n_shared_experts, 1))
+            # non-binding capacity (cf >= E/k): keeps prefill == decode
+            # exactly — capacity dropping is group-dependent and differs
+            # between the two paths
+            small.update(capacity_factor=4.0)
         small.update(overrides)
         return dataclasses.replace(self, **small)
 

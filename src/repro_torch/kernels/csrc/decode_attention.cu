@@ -37,7 +37,10 @@
 //   known which keys are live — and each next round's before the current
 //   round's arithmetic. A 64-key chunk waits on memory once.
 // * Lane layout: each lane owns a 16-byte slice of the head dim (8 bf16 or
-//   4 f32), hd / 8 (bf16) neighbouring lanes read one key row, the block's
+//   4 f32), hd / 8 (bf16) neighbouring lanes read one key row — rounded up
+//   to a power of two, so that a warp holds whole key rows: at hd 112
+//   (kimi-k2) 16 lanes a key with 2 idle in bf16 (14 slices), 32 with 4
+//   idle in f32 (28); an idle lane loads nothing and adds 0 —, the block's
 //   GB query rows (scaled by log2(e) / sqrt(hd), f32) sit in registers. GB
 //   is the largest divisor of G up to 8, instantiated exactly, so G = 3
 //   computes 3 rows, not 4; G = 12 takes two blocks of 6. Lane groups merge
@@ -107,15 +110,22 @@ struct Slice<__nv_bfloat16> {
   }
 };
 
+constexpr int ceil_pow2(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
 // The lane layout of one (T, HD) instantiation
 template <typename T, int HD>
 struct Layout {
   static constexpr int EPL = Slice<T>::kElems;  // elements per 16-byte load
-  static constexpr int LPK = HD / EPL;          // lanes per key row
+  static constexpr int LIVE = HD / EPL;         // slices of a key row
+  static constexpr int LPK = ceil_pow2(LIVE);   // lanes per key row, LPK - LIVE idle
   static constexpr int KPW = 32 / LPK;          // keys per warp step
   static constexpr int NS = kSteps;             // steps per round
   static constexpr int R = kWarps * KPW * NS;   // keys per round of loads
-  static_assert(HD % EPL == 0 && LPK >= 1 && LPK <= 32 && 32 % LPK == 0, "head dim");
+  static_assert(HD % EPL == 0 && LPK <= 32, "head dim");
 };
 
 // live entries of row b: positions <= pos are valid, all S once pos >= S
@@ -164,6 +174,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int sub = lane / LPK;   // which of the warp's KPW keys
   const int part = lane % LPK;  // which 16-byte slice of the row
   const int d0 = part * EPL;
+  // a lane past the row's slices (hd 112) holds zeros: it loads nothing
+  const bool has_slice = L::LIVE == LPK || part < L::LIVE;
 
   const size_t row_stride = static_cast<size_t>(KV) * HD;
   const T* kb = k + static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(kvh) * HD + d0;
@@ -175,7 +187,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
       const int j = r0 + (s * kWarps + warp) * KPW + sub;
-      const bool valid = j < end;
+      const bool valid = j < end && has_slice;
       kraw[s] = valid ? *reinterpret_cast<const uint4*>(kb + static_cast<size_t>(j) * row_stride)
                       : make_uint4(0, 0, 0, 0);
       vraw[s] = valid ? *reinterpret_cast<const uint4*>(vb + static_cast<size_t>(j) * row_stride)
@@ -194,8 +206,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
     float tmp[EPL];
-    Slice<T>::unpack(*reinterpret_cast<const uint4*>(
-                         q + (static_cast<size_t>(b) * H + h0 + g) * HD + d0), tmp);
+    Slice<T>::unpack(has_slice ? *reinterpret_cast<const uint4*>(
+                                     q + (static_cast<size_t>(b) * H + h0 + g) * HD + d0)
+                               : make_uint4(0, 0, 0, 0),
+                     tmp);
 #pragma unroll
     for (int e = 0; e < EPL; ++e) qr[g][e] = tmp[e] * scale_log2;
   }
@@ -294,8 +308,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (sub == 0) {
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
+      if (has_slice) {
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) sm_acc[warp][g][d0 + e] = acc[g][e];
+        for (int e = 0; e < EPL; ++e) sm_acc[warp][g][d0 + e] = acc[g][e];
+      }
       if (part == 0) {
         sm_m[warp][g] = m[g];
         sm_l[warp][g] = l[g];
@@ -438,12 +454,14 @@ int round_keys(int hd, int dtype) {
     switch (hd) {
       case 32: return keys_per_round<float, 32>();
       case 64: return keys_per_round<float, 64>();
+      case 112: return keys_per_round<float, 112>();
       case 128: return keys_per_round<float, 128>();
     }
   } else if (dtype == 1) {
     switch (hd) {
       case 32: return keys_per_round<__nv_bfloat16, 32>();
       case 64: return keys_per_round<__nv_bfloat16, 64>();
+      case 112: return keys_per_round<__nv_bfloat16, 112>();
       case 128: return keys_per_round<__nv_bfloat16, 128>();
     }
   }
@@ -491,6 +509,7 @@ int decode_attention(const void* q, const void* k, const void* v, const void* po
     switch (hd) {
       case 32: err = launch_group<float, 32>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
       case 64: err = launch_group<float, 64>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
+      case 112: err = launch_group<float, 112>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
       default: err = launch_group<float, 128>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
     }
   } else {
@@ -498,6 +517,7 @@ int decode_attention(const void* q, const void* k, const void* v, const void* po
     switch (hd) {
       case 32: err = launch_group<bf, 32>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
       case 64: err = launch_group<bf, 64>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
+      case 112: err = launch_group<bf, 112>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
       default: err = launch_group<bf, 128>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
     }
   }

@@ -35,6 +35,10 @@
 //     registers as A fragments for the whole loop.
 //   * S = Q K^T: ldmatrix on K rows gives the col-major B fragments directly;
 //     a k-step's fragments are all loaded before its independent mmas. The
+//     k-steps go two at a time (32 head dims); hd = 112 (kimi-k2) has 7
+//     k-steps of 16, and its last one loads the B fragments of two n-tiles
+//     per ldmatrix.x4 instead (14 n-tiles of 8 for P V as for any hd that is
+//     a multiple of 16). The
 //     scale is applied to S in f32 (1/sqrt(hd) is not a power of two for hd
 //     32 and 128), folded with log2(e) into one factor so that the online
 //     softmax takes 2^x (ex2.approx) on the accumulator fragments: each
@@ -50,12 +54,16 @@
 //     latency-bound with 18-72 blocks, and a 64-row warpgroup tile per block
 //     would leave even more of the card idle.
 //
-// f32: flash_attention_f32, the first version's CUDA-core kernel, unchanged.
+// f32: flash_attention_f32, the first version's CUDA-core kernel (its key
+// tile is 4096 / hd keys rounded down to whole chunks of 16: 32 at hd 112).
 // Its 2e-5 agreement with the reference (tests/test_kernels.py) cannot be met
 // with bf16 operands, and no path of the port runs attention in f32 on the
 // card. One block of 128 threads per (64 query rows, query head, batch row),
 // two threads per row each owning half of the head dim; K and V staged in
 // shared memory as f32, products and online softmax in f32 registers.
+//
+// Head dims 32, 64, 112 and 128 are instantiated; 112 (kimi-k2) is not a
+// multiple of 32, and neither kernel pads it: rows stay 112 wide in memory.
 //
 // Both take any Sq and Skv: keys past Skv (or past a row, when causal) are
 // masked, rows past Sq compute but write nothing.
@@ -186,7 +194,7 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   constexpr int GROUP = ROWS * 2;  // threads of a warp group
   constexpr int THREADS = GROUP * SPLIT;
   constexpr int TILE = kKeys * ROW;  // bf16 of one staged K or V tile
-  static_assert(HD % 32 == 0 && ROWS % 16 == 0 && (SPLIT == 1 || SPLIT == 2), "shape");
+  static_assert(HD % 16 == 0 && ROWS % 16 == 0 && (SPLIT == 1 || SPLIT == 2), "shape");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -279,7 +287,7 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; kk += 2) {
+      for (int kk = 0; kk + 1 < KSTEPS; kk += 2) {
         uint32_t bk[8][4];
 #pragma unroll
         for (int j = 0; j < 8; ++j)
@@ -288,6 +296,19 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         for (int j = 0; j < 8; ++j) mma_bf16(s[j], qf[kk], bk[j][0], bk[j][1]);
 #pragma unroll
         for (int j = 0; j < 8; ++j) mma_bf16(s[j], qf[kk + 1], bk[j][2], bk[j][3]);
+      }
+      if (KSTEPS % 2) {  // the last k-step alone: matrices 0-1 are n-tile 2 jp, 2-3 n-tile 2 jp + 1
+        constexpr int kk = KSTEPS - 1;
+        uint32_t bk[4][4];
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp)
+          ldmatrix_x4(bk[jp], kt + (jp * 16 + (lane & 7) + (lane >> 4) * 8) * ROW + kk * 16 +
+                                  ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          mma_bf16(s[2 * jp], qf[kk], bk[jp][0], bk[jp][1]);
+          mma_bf16(s[2 * jp + 1], qf[kk], bk[jp][2], bk[jp][3]);
+        }
       }
 
       // scale to log2 units; mask where the tile crosses Skv or (causal) the
@@ -508,7 +529,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     float scale) {
   constexpr int EPL = 4;                                 // floats per 16-byte load
   constexpr int HALF = HD / 2;                           // head-dim share of one thread
-  constexpr int TILE = 4096 / HD;                        // keys per shared-memory tile
+  constexpr int TILE = 4096 / HD / kChunk * kChunk;      // keys per shared-memory tile
   constexpr int ROW = HD + 8;                            // smem floats per key row
   constexpr int CPR = HD / EPL;                          // 16-byte chunks per key row
   static_assert(HALF % EPL == 0 && TILE % kChunk == 0, "head dim");
@@ -646,12 +667,14 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, float* lse
     switch (hd) {
       case 32: return launch_f32<32>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
       case 64: return launch_f32<64>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
+      case 112: return launch_f32<112>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
       case 128: return launch_f32<128>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
     }
   } else if (dtype == 1) {
     switch (hd) {
       case 32: return launch_bf16<32>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
       case 64: return launch_bf16<64>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
+      case 112: return launch_bf16<112>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
       case 128: return launch_bf16<128>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
     }
   }

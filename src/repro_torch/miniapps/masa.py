@@ -18,6 +18,7 @@ port's hand-written kernels (``repro_torch.kernels``).
 """
 from __future__ import annotations
 
+import inspect
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -429,10 +430,14 @@ class LMServeApp(_HotPathApp):
 
 
 def _reconstruction(algorithm: str):
-    """A ``ReconstructionApp`` factory for one algorithm; it names its
-    ``device`` keyword, so the pipeline runner can place the app."""
-    def factory(*, device: torch.device | str = "cuda", **kw) -> ReconstructionApp:
-        return ReconstructionApp(algorithm, device=device, **kw)
+    """A ``ReconstructionApp`` factory for one algorithm, with the app's
+    keywords as its signature (the pipeline runner places the app by its
+    ``device``; ``Pipeline.validate`` checks stage options against it)."""
+    def factory(**kw) -> ReconstructionApp:
+        return ReconstructionApp(algorithm, **kw)
+    sig = inspect.signature(ReconstructionApp.__init__)
+    factory.__signature__ = sig.replace(parameters=[
+        p for n, p in sig.parameters.items() if n not in ("self", "algorithm")])
     return factory
 
 

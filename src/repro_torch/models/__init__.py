@@ -1,7 +1,7 @@
 """Model zoo: ``build_model(cfg) -> BaseModel`` dispatch by family.
 
-The port builds the dense family (``DecoderLM``); the MoE, VLM, enc-dec,
-RWKV, Mamba and Zamba families wait for ROADMAP A8.
+The port builds the dense and MoE families (``DecoderLM``); the VLM,
+enc-dec, RWKV, Mamba and Zamba families wait for ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -11,14 +11,14 @@ from repro_torch.models.params import params_from_jax, train_state_from_jax, tre
 
 
 def build_model(cfg: ArchConfig) -> BaseModel:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         from repro_torch.models.transformer import DecoderLM
 
         return DecoderLM(cfg)
-    if cfg.family in ("moe", "vlm", "encdec", "ssm", "hybrid"):
+    if cfg.family in ("vlm", "encdec", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP A8); "
-            "the port builds the dense family")
+            "the port builds the dense and MoE families")
     raise ValueError(f"unknown family {cfg.family!r}")
 
 

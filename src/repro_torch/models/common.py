@@ -32,25 +32,28 @@ def torch_dtype(name: str) -> torch.dtype:
 class ParamSpec:
     shape: tuple[int, ...]
     dtype: torch.dtype = torch.float32
-    init: str = "fan_in"  # "fan_in" | "normal" | "ones" (the dense family's)
+    init: str = "fan_in"  # "fan_in" | "normal" | "ones" | "small" (the router's)
 
     def struct(self) -> torch.Tensor:
         return torch.empty(self.shape, dtype=self.dtype, device="meta")
 
     def initialize(self, generator: torch.Generator) -> torch.Tensor:
-        """Draw on the generator's device: normal 0.02 for ``normal``,
-        1/sqrt(fan_in) for ``fan_in`` (fan_in = the second-to-last dim),
-        ones for norms; drawn in f32, stored in ``dtype``."""
+        """Draw on the generator's device: normal 0.02 for ``normal``, 1e-3
+        for ``small``, 1/sqrt(fan_in) for ``fan_in`` (fan_in = the
+        second-to-last dim), ones for norms; drawn in f32, stored in
+        ``dtype``."""
         device = generator.device
         if self.init == "ones":
             return torch.ones(self.shape, dtype=self.dtype, device=device)
         if self.init == "normal":
             std = 0.02
+        elif self.init == "small":
+            std = 1e-3
         else:  # fan_in
             fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
             std = 1.0 / math.sqrt(max(fan_in, 1))
         x = torch.randn(self.shape, generator=generator, dtype=torch.float32, device=device)
-        return (x * std).to(self.dtype)
+        return x.mul_(std).to(self.dtype)
 
 
 SpecTree = Any  # nested dict[str, ParamSpec]

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM: the dense and MoE families.
 
 Layers are stacked along a leading "layers" axis, as in the JAX package;
 its ``lax.scan`` over that axis becomes a Python loop here. The residual
@@ -15,7 +15,8 @@ so the gradients reach the f32 leaves; ``cfg.remat`` wraps each layer in
 "dots": the matmul outputs kept, through selective activation
 checkpointing) as the JAX package's ``jax.checkpoint`` policies do. The
 loss's logits run in the compute dtype (``chunked_cross_entropy``), as the
-JAX package's do.
+JAX package's do. A MoE layer's FFN is ``models/moe.py``'s ``moe_apply``;
+its load-balance loss enters the training loss as the JAX package adds it.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import ffn
+from repro_torch.models import ffn, moe
 from repro_torch.models.base import BaseModel
 from repro_torch.models.common import (
     ParamSpec,
@@ -112,12 +113,19 @@ def attn_block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, k_cache: torch.
 
 
 class DecoderLM(BaseModel):
-    """Dense decoder-only language model."""
+    """Dense / MoE decoder-only language model."""
 
     SUPPORTS_PAGED = True
 
-    #: layer weights the model multiplies in the compute dtype
-    MATMUL_WEIGHTS = ("wqkv", "wo", "w_up", "w_gate", "w_down")
+    #: layer weights the model multiplies in the compute dtype (a MoE
+    #: layer's experts share the dense names; its router is multiplied in the
+    #: compute dtype too, but is kept f32 as stored, as the reference keeps it)
+    MATMUL_WEIGHTS = ("wqkv", "wo", "w_up", "w_gate", "w_down", "shared_gate", "shared_up",
+                      "shared_down")
+
+    @property
+    def is_moe(self) -> bool:
+        return bool(self.cfg.n_experts)
 
     # ---- specs -----------------------------------------------------------
 
@@ -128,8 +136,11 @@ class DecoderLM(BaseModel):
             "attn_norm": ParamSpec((L, d), torch.float32, init="ones"),
             "mlp_norm": ParamSpec((L, d), torch.float32, init="ones"),
             **attn_block_specs(cfg, L, dt),
-            **ffn.mlp_specs(d, cfg.d_ff, L, dt, gated=cfg.gated_mlp),
         }
+        if self.is_moe:
+            layers.update(moe.moe_specs(cfg, L, dt))
+        else:
+            layers.update(ffn.mlp_specs(d, cfg.d_ff, L, dt, gated=cfg.gated_mlp))
         specs = {
             "embed": ParamSpec((cfg.padded_vocab, d), dt, init="normal"),
             "final_norm": ParamSpec((d,), torch.float32, init="ones"),
@@ -138,6 +149,12 @@ class DecoderLM(BaseModel):
         if not cfg.tie_embeddings:
             specs["lm_head"] = ParamSpec((d, cfg.padded_vocab), dt)
         return specs
+
+    def expert_param_count(self) -> int:
+        if not self.is_moe:
+            return 0
+        cfg = self.cfg
+        return cfg.n_layers * cfg.n_experts * 3 * cfg.d_model * cfg.d_ff
 
     def compute_params(self, params: dict) -> dict:
         """``params`` with the layer matmul weights cast to the compute
@@ -167,19 +184,27 @@ class DecoderLM(BaseModel):
 
     # ---- forward ---------------------------------------------------------
 
+    def _ffn(self, lp: dict, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The layer's FFN: (out, the MoE aux loss or None)."""
+        if self.is_moe:
+            return moe.moe_apply(lp, h, self.cfg, self.compute_dtype)
+        return ffn.mlp_apply(lp, h, self.compute_dtype), None
+
     def _layer_apply(self, lp: dict, x: torch.Tensor, positions: torch.Tensor):
-        """One layer: (new residual stream, (k, v) of its attention)."""
+        """One layer: (new residual stream, (k, v) of its attention, the MoE
+        aux loss or None)."""
         cfg, cd = self.cfg, self.compute_dtype
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         a, kv = attn_block_apply(cfg, lp, h, positions=positions, compute_dtype=cd)
         x = x + a
-        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        return x + ffn.mlp_apply(lp, h, cd), kv
+        m, aux = self._ffn(lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps))
+        return x + m, kv, aux
 
-    def _train_layer(self, x: torch.Tensor, lp: dict, positions: torch.Tensor) -> torch.Tensor:
-        """One layer of the training forward, under ``cfg.remat``."""
+    def _train_layer(self, x: torch.Tensor, lp: dict, positions: torch.Tensor):
+        """One layer of the training forward, under ``cfg.remat``: (new
+        residual stream, the MoE aux loss or None)."""
         remat = self.cfg.remat
-        fn = lambda x, lp: self._layer_apply(lp, x, positions)[0]  # noqa: E731
+        fn = lambda x, lp: self._layer_apply(lp, x, positions)[::2]  # noqa: E731  (x, aux)
         if remat == "none":
             return fn(x, lp)
         if remat == "full":
@@ -202,7 +227,7 @@ class DecoderLM(BaseModel):
         alloc = torch.zeros if cache_len else torch.empty
         cache = {"k": alloc(shape, dtype=cd, device=dev), "v": alloc(shape, dtype=cd, device=dev)}
         for i in range(cfg.n_layers):
-            x, (k, v) = self._layer_apply(self._layer(params, i), x, positions)
+            x, (k, v), _ = self._layer_apply(self._layer(params, i), x, positions)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
         return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
@@ -212,21 +237,31 @@ class DecoderLM(BaseModel):
     def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
         """Next-token cross-entropy of ``batch["tokens"]`` (B, S) (and
         ``batch["mask"]`` where given) -> (loss, {"ce_loss", "tokens"}), f32
-        scalars. ``params`` are the stored leaves (not ``compute_params``);
-        the layer loop is a Python loop over the stacked (L, ...) leaves."""
+        scalars; a MoE model adds 0.01 times its aux loss (the layers' mean,
+        also returned as "aux_loss"). ``params`` are the stored leaves (not
+        ``compute_params``); the layer loop is a Python loop over the
+        stacked (L, ...) leaves."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = embed_lookup(params["embed"], tokens).to(self.compute_dtype)
         positions = torch.arange(S, device=tokens.device).expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for i in range(cfg.n_layers):
-            x = self._train_layer(x, self._layer(params, i), positions)
+            x, layer_aux = self._train_layer(x, self._layer(params, i), positions)
+            if layer_aux is not None:
+                aux = aux + layer_aux
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         targets, mask = shift_targets(tokens, batch.get("mask"))
         tot, cnt = chunked_cross_entropy(x, self._head(params), targets, mask,
                                          vocab_size=cfg.vocab_size)
         loss = tot / torch.clamp(cnt, min=1.0)
-        return loss, {"ce_loss": loss, "tokens": cnt}
+        metrics = {"ce_loss": loss, "tokens": cnt}
+        if self.is_moe:
+            aux = aux / cfg.n_layers
+            metrics["aux_loss"] = aux
+            loss = loss + 0.01 * aux
+        return loss, metrics
 
     def prefill(self, params: dict, batch: dict, *, cache_len: int | None = None):
         """``batch["tokens"]`` (B, S) -> (logits (B, 1, V_pad) f32 of the
@@ -255,8 +290,7 @@ class DecoderLM(BaseModel):
             a, _ = attn_block_decode(cfg, lp, h, cache["k"][i], cache["v"][i],
                                      positions=positions, compute_dtype=cd)
             x = x + a
-            h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-            x = x + ffn.mlp_apply(lp, h, cd)
+            x = x + self._ffn(lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps))[0]
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._logits(params, x), cache
 

@@ -328,6 +328,9 @@ class Pipeline:
                     )
             if s.processor not in registry.known_processors():
                 errors.append(f"stage {s.name!r}: unknown processor {s.processor!r}")
+            else:
+                errors.extend(f"stage {s.name!r}: {e}"
+                              for e in registry.option_errors(s.processor, dict(s.options)))
             if s.share <= 0:
                 errors.append(f"stage {s.name!r}: share must be > 0, got {s.share}")
             if s.state_partitions < 1:

@@ -126,6 +126,73 @@ def known_sinks() -> set[str]:
     return set(_SINKS)
 
 
+#: the JAX package's processor switches that the port's processors do not
+#: take, and why: a spec written for the JAX package that sets one fails
+#: ``Pipeline.validate()`` by name instead of at its stage's start
+JAX_ONLY_OPTIONS = {
+    "use_kernel": "CUDA tensors run the kernels, CPU tensors their plain versions",
+    "interpret": "CUDA tensors run the kernels, CPU tensors their plain versions",
+    "bucketed": "nothing is compiled per shape, so no batch is padded to a bucket",
+    "buckets": "nothing is compiled per shape, so no batch is padded to a bucket",
+    "batched": "ML-EM takes the whole batch in one call",
+    "batch_buckets": "nothing is compiled per shape, so no batch is padded to a bucket",
+    "mesh": "the apps run on their stage's device; multi-device runs wait for ROADMAP A9",
+}
+
+
+def _parameters(factory: Callable) -> dict | None:
+    """The parameters of a factory (a class's ``__init__``'s), or None
+    where its signature cannot be read."""
+    import inspect
+
+    target = factory.__init__ if isinstance(factory, type) else factory
+    try:
+        return dict(inspect.signature(target).parameters)
+    except (TypeError, ValueError):
+        return None
+
+
+def _is_plain_function(factory: Callable) -> bool:
+    """A ``(state, msgs)`` or ``(key, window, msgs)`` processor: two or more
+    positional parameters, defaults or not (a processor like
+    ``(state, msgs=())`` must not be mistaken for a factory and called with
+    zero args)."""
+    if isinstance(factory, type):
+        return False
+    params = _parameters(factory)
+    if params is None:
+        return False
+    positional = [p for p in params.values() if p.kind in (p.POSITIONAL_ONLY,
+                                                          p.POSITIONAL_OR_KEYWORD)]
+    return len(positional) >= 2
+
+
+def option_errors(name: str, options: dict) -> list[str]:
+    """What processor ``name`` cannot take in a stage's ``options``: any
+    option of a plain function; a JAX-only switch (``JAX_ONLY_OPTIONS``)
+    that the factory does not name, with why; and an option its signature
+    does not take (unless it takes ``**kwargs``)."""
+    factory = resolve_processor(name)
+    if _is_plain_function(factory):
+        return [f"processor {name!r} is a plain function; options {sorted(options)} have "
+                "nowhere to go"] if options else []
+    params = _parameters(factory)
+    if params is None:
+        return []
+    named = {n for n, p in params.items() if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)}
+    any_kw = any(p.kind == p.VAR_KEYWORD for p in params.values())
+    errors = []
+    for key in sorted(options):
+        if key in named:
+            continue
+        if key in JAX_ONLY_OPTIONS:
+            errors.append(f"no `{key}` in the port: {JAX_ONLY_OPTIONS[key]} (processor {name!r})")
+        elif not any_kw:
+            errors.append(f"processor {name!r} takes no option {key!r}; it takes "
+                          f"{sorted(named - {'self'})}")
+    return errors
+
+
 def make_processor(name: str, options: dict, *, metrics: Any = None,
                    device: Any = None) -> Any:
     """Instantiate a processor: app factories get ``options`` kwargs; plain
@@ -140,35 +207,16 @@ def make_processor(name: str, options: dict, *, metrics: Any = None,
     factories that take a ``device`` kwarg, which places the port's apps.
     An explicit ``options["metrics"]`` or ``options["device"]`` wins."""
     factory = resolve_processor(name)
-    import inspect
-
-    if not isinstance(factory, type):
-        try:
-            sig = inspect.signature(factory)
-        except (TypeError, ValueError):
-            sig = None
-        if sig is not None:
-            # count positional params regardless of defaults: a processor
-            # like (state, msgs=()) must not be mistaken for a factory and
-            # called with zero args
-            positional = [
-                p for p in sig.parameters.values()
-                if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
-            ]
-            if len(positional) >= 2:
-                if options:
-                    raise TypeError(
-                        f"processor {name!r} is a plain function; stage "
-                        f"options {sorted(options)} have nowhere to go"
-                    )
-                return factory
+    if _is_plain_function(factory):
+        if options:
+            raise TypeError(
+                f"processor {name!r} is a plain function; stage "
+                f"options {sorted(options)} have nowhere to go"
+            )
+        return factory
     injected = {k: v for k, v in (("metrics", metrics), ("device", device))
                 if v is not None and k not in options}
     if injected:
-        target = factory.__init__ if isinstance(factory, type) else factory
-        try:
-            params = inspect.signature(target).parameters
-        except (TypeError, ValueError):
-            params = {}
+        params = _parameters(factory) or {}
         options = dict(options, **{k: v for k, v in injected.items() if k in params})
     return factory(**options)

@@ -106,6 +106,56 @@ def test_decode_plain_matches_pallas_kernel_and_jax_path(dtype, H, KV):
     np.testing.assert_allclose(_np(out), _np(plain), atol=tol)
 
 
+# kimi-k2's attention: 64 query heads over 8 KV heads of 112 (G = 8); a
+# head dim that is no multiple of 32, which the card's kernels take since
+# they were instantiated for it. Here the plain versions at that width.
+KIMI_HEADS = (64, 8, 112)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_pallas_kernel_at_head_dim_112(dtype, causal):
+    H, KV, hd = KIMI_HEADS
+    (jq, jk, jv), (q, k, v) = _inputs(112 + causal, (1, 32, H, hd), (1, 32, KV, hd), dtype)
+    out = attn_ref.flash_attention_plain(q, k, v, causal=causal, block_q=16, block_kv=16)
+    ker = jax_flash_attention(jq, jk, jv, causal=causal, block_q=16, block_kv=16,
+                              use_kernel=True, interpret=True)
+    assert out.dtype == getattr(torch, dtype) and out.shape == (1, 32, H, hd)
+    np.testing.assert_allclose(_np(out), _np(ker), atol=_tol(dtype))
+    np.testing.assert_allclose(_np(tattn.blockwise_attention(q, k, v, causal=causal)), _np(ker),
+                               atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_pallas_kernel_at_head_dim_112(dtype):
+    """Positions 0, a chunk's last entry, the next chunk's first, the last
+    entry and past the cache."""
+    H, KV, hd = KIMI_HEADS
+    B, S = 5, 32
+    (jq, jk, jv), (q, k, v) = _inputs(1120, (B, 1, H, hd), (B, S, KV, hd), dtype)
+    pos = np.array([0, 7, 8, 31, 40], np.int32)
+    out = attn_ref.decode_attention_plain(q, k, v, torch.from_numpy(pos))
+    ker = decode_attention_pallas(jq, jk, jv, jnp.asarray(pos), block_kv=8, interpret=True)
+    plain = jattn.decode_attention(jq, jk, jv, positions=jnp.asarray(pos))
+    assert out.dtype == getattr(torch, dtype) and out.shape == (B, 1, H, hd)
+    np.testing.assert_allclose(_np(out), _np(ker), atol=_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(plain), atol=_tol(dtype))
+
+
+def test_kernel_head_dims_take_112_forward_and_not_backward():
+    """The forward kernels are instantiated at 112, the backward kernels
+    not: training at 112 on the card is refused, naming its ROADMAP item,
+    before any forward runs; the CPU's plain backward takes any head dim."""
+    assert 112 in attn_ops.FLASH_HEAD_DIMS and 112 in attn_ops.DECODE_HEAD_DIMS
+    assert 112 not in attn_ops.FLASH_BWD_HEAD_DIMS
+    with pytest.raises(ValueError, match="ROADMAP B4"):
+        attn_ops._check_bwd_head_dim(112)
+    q = torch.randn(1, 8, 4, 112, dtype=torch.float64, requires_grad=True)
+    k = torch.randn(1, 8, 2, 112, dtype=torch.float64, requires_grad=True)
+    attn_ops.flash_attention(q, k, k).sum().backward()
+    assert q.grad is not None and k.grad is not None
+
+
 def _flash_kernel_arithmetic(q, k, v, p_bits, tile=64):
     """The bf16 flash kernel's arithmetic in plain torch, causal: S in f32
     from the bf16 inputs, scaled in f32; an online softmax over 64-key
@@ -239,6 +289,27 @@ def _split_decode(q, k, v, pos, chunk):
         m = torch.where(take, mn, m)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.reshape(B, 1, H, hd).to(v.dtype)
+
+
+@pytest.mark.parametrize("B,S", [(1, 128), (1, 256)])
+def test_flash_kernel_arithmetic_meets_the_per_element_rule_at_head_dim_112(B, S):
+    """kimi-k2's serving prefill layout (64 query heads over 8 KV heads of
+    112, bf16) through the kernel's arithmetic (hi/lo P), against the plain
+    version under the card checks' per-element rule; and the split decode's
+    chunked merge at 112 under the same rule."""
+    H, KV, hd = KIMI_HEADS
+    rng = np.random.default_rng(S + 112)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+               for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    ref = attn_ref.flash_attention_plain(q, k, v, causal=True).float()
+    tol = 2.0 ** -7 * ref.abs() + 2.0 ** -15 * float(v.float().abs().max())
+    worst = float(((_flash_kernel_arithmetic(q, k, v, "hilo").float() - ref).abs() / tol).max())
+    assert worst <= 1, worst
+    pos = torch.tensor([S - 1], dtype=torch.int32)
+    dref = attn_ref.decode_attention_plain(q[:, -1:], k, v, pos)
+    dout = _split_decode(q[:, -1:], k, v, pos, 64)
+    dtol = 2.0 ** -7 * dref.float().abs() + 2.0 ** -15 * float(v.float().abs().max())
+    assert float(((dout.float() - dref.float()).abs() / dtol).max()) <= 1
 
 
 @pytest.mark.parametrize("chunk", [16, 32, 64, 100, 256])

@@ -2,7 +2,8 @@
 card, over the edge cases the smoke run's main-path shapes do not reach:
 ``pos`` = 0, at and across chunk edges and past the cache, one row over a
 long cache, ragged Sq/Skv, GQA groups of 1, 3, 8 and 12 query heads, head
-dims 32/64/128, f32 and bf16, a side stream, the launch counts and the
+dims 32/64/128 and kimi-k2's 112 (and the backward's refusal there), f32
+and bf16, a side stream, the launch counts and the
 error paths; the training forward's log-sum-exp and the backward kernels
 (``flash_attention_bwd_dq`` / ``_dkdv``) against their plain versions over
 the same cases; and the serving path and a training loss's gradients on
@@ -420,3 +421,81 @@ def test_training_gradients_on_the_card_match_the_cpu(dev, remat):
         scale = float(g.abs().max())
         assert scale > 0 and float(got.abs().max()) > 0, path
         assert float((got - g).abs().max()) <= 1e-4 * scale, path
+
+
+# -- head dim 112 (kimi-k2: 64 query heads over 8 KV heads of 112) ---------------
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,causal", [
+    (1, 128, 128, 64, 8, True), (2, 70, 130, 16, 2, True), (2, 65, 33, 8, 8, False),
+    (1, 1, 1, 8, 1, True), (1, 200, 200, 24, 2, True), (3, 17, 63, 6, 2, False),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_at_head_dim_112(dev, B, Sq, Skv, H, KV, causal, dtype):
+    """The instantiations at 112: bf16 on the tensor cores (seven k-steps of
+    16, the last one alone), f32 with 32-key tiles; kimi's serving prefill
+    (B=1 S=128, G=8), lengths off the tile edges, G = 8, 8, 1, 8, 12, 3."""
+    g = _gen(dev, B * Sq + Skv + H + 112)
+    q = torch.randn((B, Sq, H, 112), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Skv, KV, 112), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Skv, KV, 112), generator=g, device=dev).to(dtype)
+    out = A.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _close(out, R.flash_attention_plain(q, k, v, causal=causal, block_q=64, block_kv=64), v)
+
+
+@pytest.mark.parametrize("B,S,H,KV", [(1, 256, 64, 8), (4, 256, 64, 8), (64, 256, 64, 8),
+                                      (3, 37, 8, 8), (2, 100, 8, 1), (5, 64, 24, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_at_chunk_edges_at_head_dim_112(dev, B, S, H, KV, dtype):
+    """The decode kernel at 112: 16 lanes a key row with 2 idle (bf16), 32
+    with 4 idle (f32); positions at the chunk the launcher picks (C - 1, C,
+    C + 1), 0, S - 1 and past S, cycled over the rows."""
+    g = _gen(dev, B * 100 + H + S)
+    q = torch.randn((B, 1, H, 112), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, KV, 112), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, KV, 112), generator=g, device=dev).to(dtype)
+    C = _decode_chunk(q, k)
+    edges = [min(p, S + 3) for p in (C - 1, C, C + 1, 0, S - 1, S, S + 3, 2 * C + 1)]
+    pos = torch.tensor([edges[i % len(edges)] for i in range(B)], dtype=torch.int32, device=dev)
+    out = A.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    _close(out, R.decode_attention_plain(q, k, v, pos), v)
+    assert torch.equal(out, A.decode_attention(q, k, v, pos))  # a fixed merge order
+
+
+def test_backward_refuses_head_dim_112_naming_its_roadmap_item(dev):
+    """No backward kernel at 112 yet (ROADMAP B4): the wrapper refuses, and
+    a forward that would need it is refused before it launches."""
+    q = torch.zeros((1, 4, 2, 112), device=dev)
+    kv = torch.zeros((1, 4, 1, 112), device=dev)
+    lse = torch.zeros((1, 2, 4), device=dev)
+    with pytest.raises(ValueError, match="ROADMAP B4"):
+        A.flash_attention_bwd_cuda(q, kv, kv, q, lse, q)
+    before = A.FLASH_ATTENTION.launches
+    with pytest.raises(ValueError, match="ROADMAP B4"):
+        A.flash_attention(q.requires_grad_(), kv, kv)
+    assert A.FLASH_ATTENTION.launches == before
+    with torch.no_grad():  # serving at 112 launches
+        A.flash_attention(q, kv, kv)
+    assert A.FLASH_ATTENTION.launches == before + 1
+
+
+def test_moe_serving_on_the_card_matches_the_cpu_at_head_dim_112(dev):
+    """kimi-k2's reduced config at its head dim of 112 (f32, the router
+    scaled to logits of order 1, so no top-2 choice is close) served on the
+    card through both kernels emits the CPU's greedy tokens."""
+    cfg = get_arch("kimi-k2-1t-a32b").reduced(head_dim=112)
+    rng = np.random.default_rng(0)
+    msgs = [type("Msg", (), {"value": rng.integers(1, 512, (2, 20)).astype(np.int32)})()
+            for _ in range(2)]
+    on_cpu = LMServeApp(cfg, prompt_len=20, gen_tokens=6, batch=2, mode="continuous",
+                        n_pages=32, page_size=8, device="cpu")
+    params = on_cpu.model.init(torch.Generator().manual_seed(1))
+    params["layers"]["router"] *= 100
+    on_card = LMServeApp(cfg, prompt_len=20, gen_tokens=6, batch=2, mode="continuous",
+                         n_pages=32, page_size=8, device=dev)
+    before = (A.FLASH_ATTENTION.launches, A.DECODE_ATTENTION.launches)
+    got = on_card.generate_tokens(tree_map_with_paths(lambda _, x: x.to(dev), params), msgs)
+    assert A.FLASH_ATTENTION.launches > before[0] and A.DECODE_ATTENTION.launches > before[1]
+    np.testing.assert_array_equal(got, on_cpu.generate_tokens(params, msgs))

@@ -28,6 +28,7 @@ from repro_torch.models.common import apply_rope, first_argmax, rms_norm, tree_l
 torch.set_num_threads(1)
 
 DENSE = ["smollm-135m", "stablelm-1.6b", "starcoder2-3b", "qwen3-14b"]
+MOE = ["phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b"]  # their parity: test_torch_moe.py
 
 
 def _pair(name, **overrides):
@@ -45,7 +46,7 @@ def _flat(tree, prefix=""):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + MOE)
 def test_param_specs_match_jax_at_full_width(name):
     """Every leaf's shape and storage dtype, on the abstract full-size
     model, and the parameter count."""
@@ -159,12 +160,19 @@ def test_norm_rope_and_argmax_match_jax():
 
 
 def test_build_model_is_dense_only_and_cache_struct_is_meta():
-    with pytest.raises(NotImplementedError, match="A8"):
-        build_model(get_arch("smollm-135m").replace(family="moe"))
+    """The dense and MoE families build (MoE: the same ``DecoderLM`` with
+    expert leaves); every other family still raises naming ROADMAP A8."""
+    for name in MOE:
+        moe = build_model(get_arch(name))
+        assert moe.is_moe and "router" in moe.param_specs()["layers"]
+    assert not build_model(get_arch("smollm-135m")).is_moe
+    for family in ("vlm", "encdec", "ssm", "hybrid"):
+        with pytest.raises(NotImplementedError, match="A8"):
+            build_model(get_arch("smollm-135m").replace(family=family))
     with pytest.raises(ValueError):
         build_model(get_arch("smollm-135m").replace(family="unknown"))
     with pytest.raises(KeyError):
-        get_arch("kimi-k2-1t-a32b")
+        get_arch("llava-next-mistral-7b")
     tm = build_model(get_arch("smollm-135m"))
     kv = tm.cache_struct(ShapeConfig("s", 256, 4, "decode"))["k"]
     assert kv.device.type == "meta" and kv.shape == (30, 4, 256, 3, 64)

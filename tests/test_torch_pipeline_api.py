@@ -463,6 +463,67 @@ def test_cli_validates_and_refuses_what_waits(tmp_path, capsys):
     assert "stage 's': 64 records" in capsys.readouterr().out
 
 
+# the JAX package's processor switches (its apps take them; the port's do
+# not), each with a value the JAX app would take
+JAX_ONLY = {
+    "use_kernel": ("kmeans", True),
+    "interpret": ("mlem", True),
+    "bucketed": ("kmeans", False),
+    "buckets": ("kmeans", [1, 2, 4]),
+    "batched": ("mlem", False),
+    "batch_buckets": ("gridrec", [4, 8]),
+    "mesh": ("lm_serve", None),
+}
+
+
+def _jax_only_program(pipeline, switch):
+    processor, value = JAX_ONLY[switch]
+    return (pipeline.Pipeline.named("c10").topic("a")
+            .stage("s", topic="a", processor=processor, **{switch: value}))
+
+
+@pytest.mark.parametrize("switch", sorted(JAX_ONLY))
+def test_validate_refuses_each_jax_only_option_by_name(switch):
+    """A spec the JAX package takes, with one of its own switches: the
+    port's ``validate()`` names the switch and why there is none (before,
+    it validated and the stage's factory raised a TypeError at run, after
+    the pilots were provisioned)."""
+    assert _jax_only_program(jax_pipeline, switch).validate() == []
+    errors = _jax_only_program(torch_pipeline, switch).validate()
+    assert len(errors) == 1 and errors[0].startswith(f"stage 's': no `{switch}` in the port: ")
+    with pytest.raises(torch_pipeline.PipelineValidationError):
+        _jax_only_program(torch_pipeline, switch).build()
+    processor, value = JAX_ONLY[switch]
+    if processor != "lm_serve":  # (needs a config to construct)
+        with pytest.raises(TypeError, match=switch):
+            torch_registry.make_processor(processor, {switch: value}, device=CPU)
+
+
+def test_validate_takes_real_options_and_names_unknown_ones():
+    """Options the processors' signatures take validate to []; a misspelt
+    one and any option of a plain function are named."""
+    ok = (torch_pipeline.Pipeline.named("ok").topic("a")
+          .stage("k", topic="a", processor="kmeans", n_clusters=4, dim=2, decay=0.5)
+          .stage("m", topic="a", processor="mlem", n=16, mlem_iters=2, async_depth=1)
+          .stage("g", topic="a", processor="gridrec", n=16)
+          .stage("c", topic="a", processor="parity_count"))
+    assert ok.validate() == []
+    bad = (torch_pipeline.Pipeline.named("bad").topic("a")
+           .stage("k", topic="a", processor="kmeans", n_clutsers=4)
+           .stage("c", topic="a", processor="parity_count", decay=0.5))
+    errors = bad.validate()
+    assert len(errors) == 2
+    assert "'k'" in errors[0] and "no option 'n_clutsers'" in errors[0] and "n_clusters" in errors[0]
+    assert "'c'" in errors[1] and "plain function" in errors[1]
+
+
+def test_cli_validate_exits_1_on_a_jax_only_option(tmp_path, capsys):
+    path = tmp_path / "c10.json"
+    path.write_text(_jax_only_program(jax_pipeline, "use_kernel").build().to_json())
+    assert torch_cli.main(["validate", str(path)]) == 1
+    assert "no `use_kernel` in the port" in capsys.readouterr().err
+
+
 def test_elastic_closed_loop_scales_up_and_down_on_cpu_slots():
     """The JAX package's closed-loop scenario, with its settings, on eight
     CPU slots: a rate step overloads a stage whose capacity follows its
