@@ -24,9 +24,12 @@
    shows; flash attention also at B=1 S=2048, where the work is
    operations; flash and decode also at kimi-k2's serving shapes and head
    dim of 112 (64 query heads over 8 KV heads: the prefill of one prompt of
-   128, decode at B=4 S=256 and at its chunk edges); the flash backward kernels at the training shape, B=8
-   S=128, and at B=1 S=2048, on the log-sum-exp-writing forward's output,
-   per element and with a mask off by one shown to fail, timed beside that
+   128, decode at B=4 S=256 and at its chunk edges); the flash backward
+   kernels at the training shape, B=8 S=128, at B=1 S=2048, and at the
+   MoE models' layouts at B=1 S=512 (kimi-k2's 64 query heads over 8 KV
+   heads of 112, phi3.5-moe's 32 over 8 of 128), on the
+   log-sum-exp-writing forward's output, per element, with a mask off by
+   one shown to fail and a second launch bitwise equal, timed beside that
    forward and SDPA's forward plus backward), and times kernel, plain
    version and (where one
    exists) a single PyTorch library call that computes the same function:
@@ -65,9 +68,11 @@
    warm-up steps, one message a step, 20 steps, remat "full"), a checkpoint
    every 10 steps restored bitwise; checks the losses finite and falling,
    60 flash forwards and 30 of each backward kernel per step, the state on
-   the card, and one step at full width but 2 layers against the same step
-   on the CPU; prints one ``path train`` line (step p50/p99, tokens/s, the
-   card's peak memory, the losses);
+   the card, and two steps at full width but 2 layers against the same
+   steps on the CPU, then two steps of kimi-k2 reduced but at its head dim
+   of 112 (16 query heads over 2 KV heads, bf16 compute, the MoE aux loss)
+   the same way (a ``train_moe`` line); prints one ``path train`` line (step
+   p50/p99, tokens/s, the card's peak memory, the losses);
 6. runs the pipeline phase: a ``PipelineSpec`` built by the port's ``Pipeline``
    (one kafka node; light-source frames at a stepped rate into an elastic
    ML-EM stage, the cluster stream into a K-Means stage) through
@@ -234,6 +239,14 @@ PHI_HEADS = (32, 8, 128)  # phi3.5-moe's: 4 query heads a KV head
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 128, 20, 10
 TRAIN_LR, TRAIN_WARMUP, TRAIN_CHECK_LAYERS, TRAIN_CHECK_STEPS = 3e-4, 5, 2, 2
 TRAIN_LOSS_REL, TRAIN_NORM_REL, TRAIN_UPDATE_REL, TRAIN_MOMENT_REL = 1e-4, 1e-3, 0.15, 0.02
+# the MoE family's training on the card: the backward kernels checked at
+# kimi-k2's and phi3.5-moe's attention layouts at B=1 and MOE_TRAIN_SEQ,
+# and TRAIN_CHECK_STEPS steps of kimi-k2 reduced to MOE_TRAIN_ARCH's
+# overrides (2 layers, d 128, 4 experts top-2 and a shared one) but with
+# its head dim of 112 and bf16 compute, card against CPU as above
+MOE_TRAIN_SEQ = 512
+MOE_TRAIN_ARCH = ("kimi-k2-1t-a32b", {"head_dim": 112, "n_heads": 16, "n_kv_heads": 2,
+                                      "compute_dtype": "bfloat16"})
 
 # the MoE serving phase: the MoE family at its published widths on one card,
 # depth cut to fit (PERF.md §4): phi3.5-moe at 8 of 32 layers (about 21 GB of
@@ -868,38 +881,45 @@ def sdpa_bwd_ms(torch, q, k, v, dout, reps: int, replays: int = 5) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def check_flash_bwd(torch, attn, b: int, s: int, gen) -> dict:
-    """The training attention at the serving head layout, causal, bf16:
-    ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkdv`` against
-    ``flash_attention_bwd_plain`` per element, on the LSE-writing forward's
-    output and log-sum-exp; a mask off by one must fail: the plain version
-    with every query row one position later (a zero row in front: row i sees
-    keys 0..i+1) and one earlier (row 0 dropped: row i sees 0..i-1). Times:
-    each kernel alone, the LSE-writing forward, the plain backward and SDPA
-    (``is_causal``, ``enable_gqa``), the PyTorch call that computes the same
-    gradients, its backward alone and with its forward, all from replayed
-    CUDA graphs. The LSE-writing forward's output is held to the plain
-    version per element too.
+def check_flash_bwd(torch, attn, b: int, s: int, gen, heads: tuple = SERVE_HEADS) -> dict:
+    """The training attention in the head layout ``heads`` (the training
+    path's by default), causal, bf16: ``flash_attention_bwd_dq`` and
+    ``flash_attention_bwd_dkdv`` against ``flash_attention_bwd_plain`` per
+    element, on the LSE-writing forward's output and log-sum-exp, and a
+    second launch of the pair bitwise equal to the first; a mask off by one
+    must fail: the plain version with every query row one position later (a
+    zero row in front: row i sees keys 0..i+1) and one earlier (row 0
+    dropped: row i sees 0..i-1). Times: each kernel alone, the LSE-writing
+    forward, the plain backward and SDPA (``is_causal``, ``enable_gqa``),
+    the PyTorch call that computes the same gradients, its backward alone
+    and with its forward, all from replayed CUDA graphs. The LSE-writing
+    forward's output is held to the plain version per element too.
     Bounds: the bytes each kernel must move, and 6 hd flop per causal
     (query, key) pair for (a) (S, dP, dQ), 8 hd for (b) (S, dP, dV, dK), 10 hd
     for the pair, at the bf16 rate."""
+    H, KV, hd = heads
     dev = torch.device("cuda", 0)
-    q = torch.randn((b, s, HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
-    k = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
-    v = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
-    dout = torch.randn((b, s, HEADS, HEAD_DIM), generator=gen, device=dev).bfloat16()
-    lse = torch.empty((b, HEADS, s), dtype=torch.float32, device=dev)
+    q = torch.randn((b, s, H, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s, KV, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, s, KV, hd), generator=gen, device=dev).bfloat16()
+    dout = torch.randn((b, s, H, hd), generator=gen, device=dev).bfloat16()
+    lse = torch.empty((b, H, s), dtype=torch.float32, device=dev)
     out = attn.flash_attention_cuda(q, k, v, causal=True, lse=lse)
     plain_out, plain_lse = attn.flash_attention_plain_lse(q, k, v, causal=True)
-    fwd = _bf16_close(torch, f"flash_attention with lse B={b} S={s}", out, plain_out, v)
+    name = f"flash_attention_bwd B={b} S={s} hd={hd}"
+    fwd = _bf16_close(torch, f"flash_attention with lse B={b} S={s} hd={hd}", out, plain_out, v)
     lse_err = float((lse - plain_lse).abs().max())
     if lse_err > 1e-5:
-        raise AssertionError(f"flash_attention lse B={b} S={s}: max err {lse_err} > 1e-5")
+        raise AssertionError(f"flash_attention lse B={b} S={s} hd={hd}: max err {lse_err} > 1e-5")
     got = attn.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=True)
+    again = attn.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{name}: a second launch differs bitwise")
     ref = attn.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True)
     right = _grads_worst(torch, got, ref)
     if any(w > 1 for w in right.values()) or not all(bool(g.isfinite().all()) for g in got):
-        raise AssertionError(f"flash_attention_bwd B={b} S={s}: worst err/tol {right}")
+        raise AssertionError(f"{name}: worst err/tol {right}")
     z = lambda x: torch.zeros_like(x[:, :1])  # noqa: E731  (one query row)
     zl = torch.zeros_like(lse[..., :1])
     plus = attn.flash_attention_bwd_plain(
@@ -912,27 +932,28 @@ def check_flash_bwd(torch, attn, b: int, s: int, gen) -> dict:
     wrong = {"plus_one": _grads_worst(torch, got, plus), "minus_one": _grads_worst(torch, got, minus)}
     blind = [f"{m} {n}" for m, w in wrong.items() for n, x in w.items() if x <= 1]
     if blind:
-        raise AssertionError(f"flash_attention_bwd B={b} S={s}: a mask off by one passes {blind}")
+        raise AssertionError(f"{name}: a mask off by one passes {blind}")
     res = {"max_abs_err": max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref)),
            "worst_err_over_tol": right, "off_by_one_least_over_tol": {
                m: min(w.values()) for m, w in wrong.items()},
            "fwd_out_max_abs_err": fwd["max_abs_err"],
            "fwd_out_worst_err_over_tol": fwd["worst_err_over_tol"], "lse_max_abs_err": lse_err,
+           "bitwise_repeatable": True,
            "tol_rule": "per element 2^-7 |ref| + 2^-15 max|ref|; forward out 2^-7 |ref| + "
                        "2^-15 max|v|; lse 1e-5"}
-    pairs = b * HEADS * s * (s + 1) // 2  # causal (query, key) pairs over every head
+    pairs = b * H * s * (s + 1) // 2  # causal (query, key) pairs over every head
     el = q.element_size()
     n_q, n_kv = q.numel(), k.numel()
-    rows = b * HEADS * s * 4  # one f32 per row (lse, delta)
+    rows = b * H * s * 4  # one f32 per row (lse, delta)
     res["dq_bound_ms"], res["dq_bound_by"] = bound(
-        (4 * n_q + 2 * n_kv) * el + 2 * rows, 6 * HEAD_DIM * pairs, BF16_OPS_PER_S)
+        (4 * n_q + 2 * n_kv) * el + 2 * rows, 6 * hd * pairs, BF16_OPS_PER_S)
     res["dkdv_bound_ms"], res["dkdv_bound_by"] = bound(
-        (2 * n_q + 4 * n_kv) * el + 2 * rows, 8 * HEAD_DIM * pairs, BF16_OPS_PER_S)
+        (2 * n_q + 4 * n_kv) * el + 2 * rows, 8 * hd * pairs, BF16_OPS_PER_S)
     res["bwd_bound_ms"], res["bwd_bound_by"] = bound(
-        (5 * n_q + 4 * n_kv) * el + rows, 10 * HEAD_DIM * pairs, BF16_OPS_PER_S)
-    delta = torch.empty((b, HEADS, s), dtype=torch.float32, device=dev)
+        (5 * n_q + 4 * n_kv) * el + rows, 10 * hd * pairs, BF16_OPS_PER_S)
+    delta = torch.empty((b, H, s), dtype=torch.float32, device=dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    sizes = (b, s, s, HEADS, KV_HEADS, HEAD_DIM, 1, 1)
+    sizes = (b, s, s, H, KV, hd, 1, 1)
 
     def run_dq():
         attn.FLASH_BWD_DQ.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -946,7 +967,7 @@ def check_flash_bwd(torch, attn, b: int, s: int, gen) -> dict:
 
     run_dq()
     torch.cuda.synchronize()
-    reps = 20 if s <= 512 else 2
+    reps = 20 if s <= 512 else 10
     res["dq_ms"] = graph_ms(torch, run_dq, reps)
     res["dkdv_ms"] = graph_ms(torch, run_dkdv, reps)
     res["fwd_lse_ms"] = graph_ms(
@@ -1433,21 +1454,24 @@ def moe_layer_check(torch, device) -> dict:
     return res
 
 
-def train_check_step(torch, device) -> dict:
-    """TRAIN_CHECK_STEPS train steps at smollm-135m's full width but
-    TRAIN_CHECK_LAYERS layers, from the same weights (drawn on the CPU from
-    SEED) and the same batches, on the card (the flash kernels forward, remat
-    recompute and backward) and on the CPU (their plain versions), held to
-    the tolerances above."""
+def train_check_step(torch, device, cfg=None) -> dict:
+    """TRAIN_CHECK_STEPS train steps of ``cfg`` (smollm-135m's full width but
+    TRAIN_CHECK_LAYERS layers by default), from the same weights (drawn on
+    the CPU from SEED) and the same batches, on the card (the flash kernels
+    forward, remat recompute and backward) and on the CPU (their plain
+    versions), held to the tolerances above; also the backward kernels'
+    launches on the card (one of each a layer and step)."""
     import numpy as np
 
     from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.kernels import attention
     from repro_torch.models import build_model
     from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
     from repro_torch.runtime.steps import build_train_step
     from repro_torch.utils import tree_flatten_with_paths, tree_map_with_paths
 
-    cfg = get_arch("smollm-135m").replace(n_layers=TRAIN_CHECK_LAYERS)
+    if cfg is None:
+        cfg = get_arch("smollm-135m").replace(n_layers=TRAIN_CHECK_LAYERS)
     model = build_model(cfg)
     opt_cfg = OptimizerConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
                               total_steps=TRAIN_STEPS)
@@ -1461,35 +1485,57 @@ def train_check_step(torch, device) -> dict:
         opt = Optimizer(opt_cfg).init(p)
         step = build_train_step(model, shape, opt_cfg, device=where)
         losses, norms = [], []
+        before = attention.FLASH_BWD_DQ.launches, attention.FLASH_BWD_DKDV.launches
         t0 = time.perf_counter()
         for t in tokens:
             p, opt, met = step(p, opt, {"tokens": t})
             losses.append(float(met["loss"]))
             norms.append(float(met["grad_norm"]))
-        out[side] = (p, opt, losses, norms, time.perf_counter() - t0)
-    (cp, co, closs, cnorm, cs), (gp, go, gloss, gnorm, gs) = out["cpu"], out["card"]
+        launched = (attention.FLASH_BWD_DQ.launches - before[0],
+                    attention.FLASH_BWD_DKDV.launches - before[1])
+        out[side] = (p, opt, losses, norms, time.perf_counter() - t0, launched)
+    (cp, co, closs, cnorm, cs, _), (gp, go, gloss, gnorm, gs, launched) = out["cpu"], out["card"]
 
     def leaves(tree):
         return [x.cpu() for _, x in tree_flatten_with_paths(tree)]
 
-    res = {"layers": TRAIN_CHECK_LAYERS, "steps": TRAIN_CHECK_STEPS, "loss_cpu": closs,
+    # per leaf: the card's change of the leaf over the steps against the
+    # CPU's, ||card - cpu|| / ||cpu - start||
+    update = {path: float((a - b).norm() / (b - p0).norm()) for (path, _), a, b, p0 in
+              zip(tree_flatten_with_paths(params), leaves(gp), leaves(cp), leaves(params))}
+
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "head_dim": cfg.resolved_head_dim,
+           "compute_dtype": cfg.compute_dtype, "steps": TRAIN_CHECK_STEPS, "loss_cpu": closs,
            "loss_card": gloss, "grad_norm_cpu": cnorm, "grad_norm_card": gnorm,
-           "steps_s_cpu": cs, "steps_s_card": gs,
+           "steps_s_cpu": cs, "steps_s_card": gs, "bwd_launches_card": launched,
            "loss_rel_err": max(abs(g - c) / abs(c) for g, c in zip(gloss, closs)),
            "grad_norm_rel_err": max(abs(g - c) / abs(c) for g, c in zip(gnorm, cnorm)),
-           # per leaf: the card's change of the leaf over the steps against
-           # the CPU's, ||card - cpu|| / ||cpu - start||
-           "update_rel_err": max(float((a - b).norm() / (b - p0).norm()) for a, b, p0 in
-                                 zip(leaves(gp), leaves(cp), leaves(params))),
+           "update_rel_err": max(update.values()),
+           "update_worst_leaf": max(update, key=update.get),
            "m_worst_err_over_leaf_max": max(float((a - b).abs().max() / b.abs().max())
                                             for a, b in zip(leaves(go["m"]), leaves(co["m"]))),
            "tol": {"loss_rel": TRAIN_LOSS_REL, "grad_norm_rel": TRAIN_NORM_REL,
                    "update_rel": TRAIN_UPDATE_REL, "m_over_leaf_max": TRAIN_MOMENT_REL}}
+    want = (cfg.n_layers * TRAIN_CHECK_STEPS,) * 2
     if not (all(math.isfinite(x) for x in gloss) and res["loss_rel_err"] <= TRAIN_LOSS_REL
             and res["grad_norm_rel_err"] <= TRAIN_NORM_REL
             and res["update_rel_err"] <= TRAIN_UPDATE_REL
-            and res["m_worst_err_over_leaf_max"] <= TRAIN_MOMENT_REL):
-        raise AssertionError(f"train steps on the card vs the CPU: {res}")
+            and res["m_worst_err_over_leaf_max"] <= TRAIN_MOMENT_REL and launched == want):
+        raise AssertionError(f"train steps on the card vs the CPU: {res}; backward launches "
+                             f"want {want}")
+    return res
+
+
+def train_check_moe(torch, device) -> dict:
+    """``train_check_step`` on kimi-k2 reduced to MOE_TRAIN_ARCH: its
+    attention at head dim 112 (16 query heads over 2 KV heads) through the
+    flash forward and backward kernels on the card, its MoE layers (the aux
+    loss in the loss) in plain PyTorch; printed as one line."""
+    from repro_torch.configs import get_arch
+
+    name, overrides = MOE_TRAIN_ARCH
+    res = train_check_step(torch, device, get_arch(name).reduced(**overrides))
+    print("train_moe " + json.dumps(res))
     return res
 
 
@@ -1505,8 +1551,9 @@ def train_path(torch, kernels) -> dict:
     Checks: every loss finite and the last five below the first five on
     average, per step 2 x 30 flash forwards (remat runs each layer again) and
     30 of each backward kernel, params and moments on the card, the last
-    checkpoint restored bitwise against the state as it was saved, and two
-    steps at TRAIN_CHECK_LAYERS layers against the CPU."""
+    checkpoint restored bitwise against the state as it was saved, two
+    steps at TRAIN_CHECK_LAYERS layers against the CPU, and two of the
+    reduced kimi-k2 at head dim 112 (``train_check_moe``)."""
     import shutil
 
     from repro_torch.checkpoint import CheckpointManager
@@ -1572,7 +1619,8 @@ def train_path(torch, kernels) -> dict:
            "losses": losses,
            "checkpoint": {"step": saved["step"], "offsets": meta["offsets"], "bitwise": True},
            "launches_per_step": {k: launches[k] / steps for k in want},
-           "card_vs_cpu": train_check_step(torch, state["params"]["embed"].device)}
+           "card_vs_cpu": train_check_step(torch, state["params"]["embed"].device),
+           "card_vs_cpu_moe": train_check_moe(torch, state["params"]["embed"].device)}
     print("path " + json.dumps(out))
     return {"report": out, "launches": launches}
 
@@ -2426,6 +2474,13 @@ def main() -> None:
           + json.dumps(bwd_main))
     print("check flash_attention_bwd B=1 S=2048 causal bf16 "
           + json.dumps(check_flash_bwd(torch, attention, 1, 2048, gen)))
+    # the MoE models' training layouts: kimi-k2's (hd = 112) and phi3.5-moe's
+    bwd_112 = check_flash_bwd(torch, attention, 1, MOE_TRAIN_SEQ, gen, KIMI_HEADS)
+    print(f"check flash_attention_bwd B=1 S={MOE_TRAIN_SEQ} causal bf16 hd=112 "
+          + json.dumps(bwd_112))
+    bwd_128 = check_flash_bwd(torch, attention, 1, MOE_TRAIN_SEQ, gen, PHI_HEADS)
+    print(f"check flash_attention_bwd B=1 S={MOE_TRAIN_SEQ} causal bf16 hd=128 "
+          + json.dumps(bwd_128))
 
     svc = PilotComputeService()
     try:
@@ -2462,10 +2517,14 @@ def main() -> None:
 
     src = "src/repro_torch/kernels/csrc/"
 
-    def moe_shape(r: dict, shape: str, heads: tuple) -> dict:  # a MoE model's serving shape
+    def moe_shape(r: dict, shape: str, heads: tuple) -> dict:  # a MoE model's layout
         return {"shape": f"{shape}, {heads[0]} heads over {heads[1]} KV heads of {heads[2]}, bf16",
                 **{k: r[k] for k in ("max_abs_err", "worst_err_over_tol", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")}}
+
+    def bwd_row(r: dict, part: str) -> dict:  # one backward kernel's numbers in a check
+        return {**r, "ms": r[f"{part}_ms"], "bound_ms": r[f"{part}_bound_ms"],
+                "bound_by": r[f"{part}_bound_by"]}
 
     rows = [
         ("kmeans_assign", src + "kmeans_assign.cu", "src/repro/kernels/kmeans/kernel.py:45", assign_main),
@@ -2493,14 +2552,14 @@ def main() -> None:
         # no TPU kernel: the reference's flash backward is the pure-JAX
         # custom_vjp of runtime/sharded_attention.py (_flash_bwd); plain_ms
         # and library_ms are the whole backward's, the pair's (dq and dkdv)
-        ("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
-         "src/repro/runtime/sharded_attention.py:165",
-         {**bwd_main, "ms": bwd_main["dq_ms"], "bound_ms": bwd_main["dq_bound_ms"],
-          "bound_by": bwd_main["dq_bound_by"], "scope": BWD_SCOPE}),
-        ("flash_attention_bwd_dkdv", src + "flash_attention_bwd.cu",
-         "src/repro/runtime/sharded_attention.py:165",
-         {**bwd_main, "ms": bwd_main["dkdv_ms"], "bound_ms": bwd_main["dkdv_bound_ms"],
-          "bound_by": bwd_main["dkdv_bound_by"], "scope": BWD_SCOPE}),
+        *((f"flash_attention_bwd_{part}", src + "flash_attention_bwd.cu",
+           "src/repro/runtime/sharded_attention.py:165",
+           {**bwd_row(bwd_main, part), "scope": BWD_SCOPE,
+            "max_abs_err": max(bwd_main["max_abs_err"], bwd_112["max_abs_err"],
+                               bwd_128["max_abs_err"]),
+            "hd112": moe_shape(bwd_row(bwd_112, part), f"B=1 S={MOE_TRAIN_SEQ} causal", KIMI_HEADS),
+            "hd128": moe_shape(bwd_row(bwd_128, part), f"B=1 S={MOE_TRAIN_SEQ} causal", PHI_HEADS)})
+          for part in ("dq", "dkdv")),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

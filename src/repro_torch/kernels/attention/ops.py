@@ -16,9 +16,10 @@ forward also writes each row's log-sum-exp and whose backward launches
 tensors. Elsewhere the forward launches as for serving, with no
 log-sum-exp written.
 
-Kernel notes (each source opens with the full note). Both forward kernels
-are instantiated for head dims 32, 64, 112 (kimi-k2) and 128, the backward
-kernels for 32, 64 and 128; nothing is padded to another head dim.
+Kernel notes (each source opens with the full note). All three are
+instantiated for head dims 32, 64, 112 (kimi-k2) and 128 (``HEAD_DIMS``);
+nothing is padded to another head dim, and any other head dim is refused
+before a launch.
 
 * ``flash_attention`` replaces ``repro/kernels/attention/kernel.py``
   (``flash_attention_pallas``). Bound by operations at prefill lengths of
@@ -35,11 +36,14 @@ kernels for 32, 64 and 128; nothing is padded to another head dim.
   kernel (the Pallas kernel has no backward); they compute the JAX
   package's explicit flash backward (``runtime/sharded_attention.py``
   ``_flash_bwd``). Bound by operations (10 hd flop per pair) at training
-  lengths; this first version runs them in f32 on the CUDA cores: (a) one
-  block per (64 query rows, head, batch row) computes delta and dQ over the
-  key tiles up to the diagonal, (b) one block per (64 keys, KV head, batch
-  row) walks the G query heads and their query tiles from the diagonal on,
-  summing dK and dV in registers: each output written once, no atomics.
+  lengths. In bf16 on the tensor cores, as the forward: (a) packs the G
+  query heads of a KV head as the rows of a block, keeps Q and dO in
+  registers, writes each row's delta and walks the double-buffered K/V
+  tiles up to the diagonal (dQ += dS K); (b) keeps a block's keys' K and
+  V, and its warp groups walk the G heads' query tiles from the diagonal
+  on (dV += P^T dO, dK += dS^T Q), merged in group order and written
+  once. P and dS enter the products as bf16 hi + lo. No atomics: two
+  launches give the same bits. f32 stays on the CUDA cores.
 * ``decode_attention`` replaces ``repro/kernels/attention/decode_kernel.py``
   (``decode_attention_pallas``). Its bound is the bytes of the live cache
   entries, but at the serving path's sizes that bound is far below one
@@ -88,10 +92,9 @@ DECODE_ATTENTION = CudaKernel("decode_attention", DECODE_LIB, "decode_attention"
 
 #: dtypes the kernels take -> their dtype code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims each kernel is instantiated for: the forward kernels also at
-#: kimi-k2's 112, the backward kernels not yet (ROADMAP B4)
-FLASH_HEAD_DIMS = DECODE_HEAD_DIMS = (32, 64, 112, 128)
-FLASH_BWD_HEAD_DIMS = (32, 64, 128)
+#: head dims every attention kernel (forward, backward, decode) is
+#: instantiated for: kimi-k2's 112 beside the powers of two
+HEAD_DIMS = (32, 64, 112, 128)
 
 
 def _one_device(*tensors: torch.Tensor) -> torch.device:
@@ -118,18 +121,7 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name} takes 16-byte aligned tensors")
 
 
-_BWD_MISSING = (": the backward kernels at this head dim (training kimi-k2 on the card) are "
-                "ROADMAP B4's open work")
-
-
-def _check_bwd_head_dim(hd: int) -> None:
-    if hd not in FLASH_BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd takes head dims {FLASH_BWD_HEAD_DIMS}, "
-                         f"got {hd}{_BWD_MISSING}")
-
-
-def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               head_dims: tuple[int, ...], why: str = "") -> None:
+def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}: "
                          f"want (B, Sq, H, hd) and two (B, Skv, KV, hd)")
@@ -138,8 +130,8 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != hd or H % KV or Skv < 1:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not fit: "
                          f"same B and hd, H a multiple of KV, Skv >= 1")
-    if hd not in head_dims:
-        raise ValueError(f"{name} takes head dims {head_dims}, got {hd}{why}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name} takes head dims {HEAD_DIMS}, got {hd}")
 
 
 def _check_rows(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
@@ -157,7 +149,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hd) -> (B, Sq, H, hd) in q's dtype. Given ``lse``, a (B, H, Sq) f32
     tensor, the kernel also writes each row's log-sum-exp into it."""
     _check_cuda("flash_attention", q, k, v)
-    _check_qkv("flash_attention", q, k, v, FLASH_HEAD_DIMS)
+    _check_qkv("flash_attention", q, k, v)
     if lse is not None:
         _check_rows("flash_attention lse", lse, q)
     B, Sq, H, hd = q.shape
@@ -182,7 +174,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in that dtype. (a) also writes each row's delta into a (B, H, Sq) f32
     workspace that (b) reads."""
     _check_cuda("flash_attention_bwd", q, k, v, out, dout)
-    _check_qkv("flash_attention_bwd", q, k, v, FLASH_BWD_HEAD_DIMS, _BWD_MISSING)
+    _check_qkv("flash_attention_bwd", q, k, v)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and dout "
                          f"{tuple(dout.shape)} must have q's shape {tuple(q.shape)}")
@@ -238,8 +230,8 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
             or positions.shape != (B,):
         raise ValueError(f"q {tuple(q.shape)}, cache {tuple(k_cache.shape)} and positions "
                          f"{tuple(positions.shape)} do not fit")
-    if hd not in DECODE_HEAD_DIMS:
-        raise ValueError(f"decode_attention takes head dims {DECODE_HEAD_DIMS}, got {hd}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"decode_attention takes head dims {HEAD_DIMS}, got {hd}")
     out = torch.empty((B, 1, H, hd), dtype=v_cache.dtype, device=q.device)
     code = _DTYPE_CODE[q.dtype]
     with torch.cuda.device(q.device):
@@ -268,7 +260,6 @@ class FlashAttentionFn(torch.autograd.Function):
         if dev.type == "cpu":
             out, lse = flash_attention_plain_lse(q, k, v, causal=causal)
         elif dev.type == "cuda":
-            _check_bwd_head_dim(q.shape[-1])  # before a forward whose backward cannot run
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             B, Sq, H, _ = q.shape
             lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)

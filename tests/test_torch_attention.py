@@ -142,14 +142,30 @@ def test_decode_plain_matches_pallas_kernel_at_head_dim_112(dtype):
     np.testing.assert_allclose(_np(out), _np(plain), atol=_tol(dtype))
 
 
-def test_kernel_head_dims_take_112_forward_and_not_backward():
-    """The forward kernels are instantiated at 112, the backward kernels
-    not: training at 112 on the card is refused, naming its ROADMAP item,
-    before any forward runs; the CPU's plain backward takes any head dim."""
-    assert 112 in attn_ops.FLASH_HEAD_DIMS and 112 in attn_ops.DECODE_HEAD_DIMS
-    assert 112 not in attn_ops.FLASH_BWD_HEAD_DIMS
-    with pytest.raises(ValueError, match="ROADMAP B4"):
-        attn_ops._check_bwd_head_dim(112)
+def test_one_head_dim_set_serves_every_kernel_and_48_is_refused(monkeypatch):
+    """Forward, backward and decode kernels take one set of head dims,
+    kimi-k2's 112 among them. A head dim no kernel takes (48) is refused by
+    the wrappers' shared check before any launch (the device check is
+    patched out so that CPU tensors reach it, the launches are recorded);
+    the CPU's plain backward runs at 112 through autograd."""
+    assert attn_ops.HEAD_DIMS == (32, 64, 112, 128)
+    launched = []
+    for kernel in (attn_ops.FLASH_ATTENTION, attn_ops.FLASH_BWD_DQ, attn_ops.FLASH_BWD_DKDV,
+                   attn_ops.DECODE_ATTENTION):
+        monkeypatch.setattr(kernel, "launch", lambda *a, n=kernel.name: launched.append(n))
+    monkeypatch.setattr(attn_ops, "_check_cuda", lambda *tensors: None)
+    q = torch.zeros(1, 8, 4, 48, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 8, 2, 48, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        attn_ops.flash_attention_cuda(q, kv, kv)
+    with pytest.raises(ValueError, match="head dims"):
+        attn_ops.flash_attention_bwd_cuda(q, kv, kv, q, torch.zeros(1, 4, 8), q)
+    with pytest.raises(ValueError, match="head dims"):
+        attn_ops.decode_attention_cuda(q[:, :1], kv, kv, torch.zeros(1, dtype=torch.int32))
+    assert launched == []
+    for hd in attn_ops.HEAD_DIMS:  # every kernel's head dim passes the shared check
+        attn_ops._check_qkv("flash_attention", q.new_zeros(1, 8, 4, hd), kv.new_zeros(1, 8, 2, hd),
+                            kv.new_zeros(1, 8, 2, hd))
     q = torch.randn(1, 8, 4, 112, dtype=torch.float64, requires_grad=True)
     k = torch.randn(1, 8, 2, 112, dtype=torch.float64, requires_grad=True)
     attn_ops.flash_attention(q, k, k).sum().backward()
@@ -337,14 +353,15 @@ def test_split_decode_merge_matches_plain_under_the_per_element_rule(chunk, G):
 # -- the training backward ------------------------------------------------------
 
 
-@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 64, 4, 2, 16), (2, 128, 9, 3, 32)])
+@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 64, 4, 2, 16), (2, 128, 9, 3, 32),
+                                        (1, 64, 16, 2, 112)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_backward_plain_matches_the_jax_flash_vjp(B, S, H, KV, hd, causal):
     """``flash_attention_plain_lse`` and ``flash_attention_bwd_plain`` against
     ``jax.vjp`` of the JAX package's custom-VJP flash attention (its
     ``_flash_fwd_core`` and ``_flash_bwd``), at the shapes of
-    ``tests/test_kernels.py``'s gradient test and at S = 128 with G = 3;
-    then ``flash_attention`` with grad on (``FlashAttentionFn``) gives the
+    ``tests/test_kernels.py``'s gradient test, at S = 128 with G = 3 and at
+    kimi-k2's head dim of 112 with G = 8; then ``flash_attention`` with grad on (``FlashAttentionFn``) gives the
     same gradients through autograd."""
     rng = np.random.default_rng(B * S + H + causal)
     q, do = (rng.normal(size=(B, S, H, hd)).astype(np.float32) for _ in range(2))
@@ -371,6 +388,101 @@ def test_flash_backward_plain_matches_the_jax_flash_vjp(B, S, H, KV, hd, causal)
     y.backward(tdo)
     for leaf, want in zip(leaves, grads):
         torch.testing.assert_close(leaf.grad, want, rtol=0, atol=0)
+
+
+def _bf16_parts(x, lo: bool):
+    hi = x.bfloat16().float()
+    return (hi, (x - hi).bfloat16().float()) if lo else (hi,)
+
+
+def _flash_bwd_kernel_arithmetic(q, k, v, out, lse, dout, lo=("dq", "dk", "dv"), keys=32,
+                                 groups=4):
+    """The bf16 backward kernels' arithmetic in plain torch, causal, Sq = Skv
+    a multiple of 32: S and dP in f32 from the bf16 operands, P = 2^(s
+    log2(e) / sqrt(hd) - lse log2(e)), delta = rowsum(dO O) and dS = P (dP -
+    delta) in f32; the P or dS entering each product as bf16 hi + lo where
+    ``lo`` names the product's output (else hi alone), bf16 products exact
+    in f32 and summed in f32 in the kernels' order: (a) dQ over 16-key
+    chunks in key order; (b) per block of ``keys`` keys, its (head, 32-row
+    query tile from the block's first key) items round-robin over
+    ``groups`` warp groups, 16 rows a chunk, the groups' sums added in
+    group order. dQ and dK scaled by 1 / sqrt(hd) at the end."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    c2 = math.log2(math.e)
+
+    def heads(x):  # (B, S, H, hd) -> (B, KV, G, S, hd)
+        return x.float().reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4)
+
+    qf, dof = heads(q), heads(dout)
+    kf, vf = (x.float().permute(0, 2, 1, 3) for x in (k, v))  # (B, KV, S, hd)
+    delta = (dof * heads(out)).sum(-1)
+    l2 = lse.reshape(B, KV, G, S) * c2
+    pos = torch.arange(S)
+
+    def p_ds(g, rows, ks):  # P and dS of heads g, query rows, keys (slices)
+        s = torch.einsum("bkgqd,bksd->bkgqs", qf[:, :, g, rows], kf[:, :, ks])
+        dp = torch.einsum("bkgqd,bksd->bkgqs", dof[:, :, g, rows], vf[:, :, ks])
+        p = torch.exp2(s * (c2 / math.sqrt(hd)) - l2[:, :, g, rows, None])
+        p = torch.where(pos[rows][:, None] >= pos[ks][None, :], p, torch.zeros(()))
+        return p, p * (dp - delta[:, :, g, rows, None])
+
+    every = slice(None)
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, S, 16):
+        ks = slice(k0, k0 + 16)
+        for part in _bf16_parts(p_ds(every, every, ks)[1], "dq" in lo):
+            dq = dq + torch.einsum("bkgqs,bksd->bkgqd", part, kf[:, :, ks])
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for k0 in range(0, S, keys):
+        ks, n_qt = slice(k0, k0 + keys), (S - k0 + 31) // 32
+        total_k = total_v = None
+        for grp in range(groups):
+            gk, gv = torch.zeros_like(kf[:, :, ks]), torch.zeros_like(vf[:, :, ks])
+            for i in range(grp, G * n_qt, groups):
+                g, r0 = slice(i // n_qt, i // n_qt + 1), k0 + i % n_qt * 32
+                for rows in (slice(r0, r0 + 16), slice(r0 + 16, r0 + 32)):
+                    p, ds = p_ds(g, rows, ks)
+                    for part in _bf16_parts(p, "dv" in lo):
+                        gv = gv + torch.einsum("bkgqs,bkgqd->bksd", part, dof[:, :, g, rows])
+                    for part in _bf16_parts(ds, "dk" in lo):
+                        gk = gk + torch.einsum("bkgqs,bkgqd->bksd", part, qf[:, :, g, rows])
+            total_k = gk if total_k is None else total_k + gk
+            total_v = gv if total_v is None else total_v + gv
+        dk[:, :, ks], dv[:, :, ks] = total_k, total_v
+    scale = 1.0 / math.sqrt(hd)
+    return ((dq * scale).permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).bfloat16(),
+            (dk * scale).permute(0, 2, 1, 3).bfloat16(), dv.permute(0, 2, 1, 3).bfloat16())
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(8, 128, 9, 3, 64), (1, 128, 64, 8, 112),
+                                        (1, 256, 64, 8, 112)])
+def test_flash_backward_kernels_keep_p_and_ds_at_16_bits_to_meet_the_rule(B, S, H, KV, hd):
+    """The training layout (9 query heads over 3 KV heads of 64) and kimi-k2's
+    (64 over 8 of 112), unit-normal bf16 inputs from a numpy seed, through
+    the backward kernels' arithmetic, against ``flash_attention_bwd_plain``
+    under the rule the card checks use: per element 2^-7 |ref| + 2^-15
+    max|ref| for each of dq, dk and dv. With P and dS as bf16 hi + lo in all
+    three products it passes; dropping lo in any one product alone fails
+    that product's output."""
+    rng = np.random.default_rng(B * S + hd)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+                   for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd)))
+    out, lse = attn_ref.flash_attention_plain_lse(q, k, v, causal=True)
+    ref = attn_ref.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True)
+
+    def worst(got):
+        return {name: float(((g.float() - r.float()).abs() / (
+            2.0 ** -7 * r.float().abs() + 2.0 ** -15 * float(r.float().abs().max()))).max())
+            for name, g, r in zip(("dq", "dk", "dv"), got, ref)}
+
+    kept = worst(_flash_bwd_kernel_arithmetic(q, k, v, out, lse, do))
+    assert max(kept.values()) <= 1, kept
+    for product in ("dq", "dk", "dv"):
+        lo = tuple(n for n in ("dq", "dk", "dv") if n != product)
+        dropped = worst(_flash_bwd_kernel_arithmetic(q, k, v, out, lse, do, lo=lo))
+        assert dropped[product] > 2, (product, dropped)
 
 
 @pytest.mark.parametrize("Sq,Skv,causal", [(6, 6, True), (5, 7, True), (7, 5, False)])

@@ -2,11 +2,10 @@
 card, over the edge cases the smoke run's main-path shapes do not reach:
 ``pos`` = 0, at and across chunk edges and past the cache, one row over a
 long cache, ragged Sq/Skv, GQA groups of 1, 3, 8 and 12 query heads, head
-dims 32/64/128 and kimi-k2's 112 (and the backward's refusal there), f32
-and bf16, a side stream, the launch counts and the
-error paths; the training forward's log-sum-exp and the backward kernels
-(``flash_attention_bwd_dq`` / ``_dkdv``) against their plain versions over
-the same cases; and the serving path and a training loss's gradients on
+dims 32/64/128 and kimi-k2's 112, f32 and bf16, a side stream, the launch
+counts and the error paths; the training forward's log-sum-exp and the
+backward kernels (``flash_attention_bwd_dq`` / ``_dkdv``) against their
+plain versions over the same cases, bitwise across repeats; and the serving path and a training loss's gradients on
 the card against the same paths on the CPU.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so without a card every test
@@ -307,6 +306,9 @@ TRAIN_CASES = [
     (8, 128, 128, 9, 3, 64, True), (1, 300, 300, 9, 3, 64, True), (2, 70, 130, 8, 1, 128, True),
     (1, 130, 70, 8, 8, 64, True), (3, 65, 33, 4, 2, 32, False), (1, 1, 1, 2, 1, 64, True),
     (2, 200, 300, 24, 2, 128, False), (2, 17, 17, 6, 2, 32, True),
+    # kimi-k2's head dim of 112 with G = 8, ragged Sq and Skv
+    (1, 128, 128, 64, 8, 112, True), (2, 70, 130, 16, 2, 112, True),
+    (1, 130, 70, 64, 8, 112, False),
 ]
 
 
@@ -332,7 +334,7 @@ def test_flash_backward_kernels_match_plain(dev, B, Sq, Skv, H, KV, hd, causal, 
     """dq (kernel a) and dk, dv (kernel b) against ``flash_attention_bwd_plain``
     on the same q, k, v, forward output, log-sum-exp and dout: ragged Sq
     and Skv (past and short of 64-row tiles, Sq above and below Skv), G = 3,
-    8, 1, 2 and 12, head dims 32, 64 and 128, both causal flags."""
+    8, 1, 2 and 12, head dims 32, 64, 112 and 128, both causal flags."""
     q, k, v, dout = _train_inputs(dev, B, Sq, Skv, H, KV, hd, dtype, B * Sq + Skv + hd + 1)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     out = A.flash_attention_cuda(q, k, v, causal=causal, lse=lse)
@@ -365,6 +367,22 @@ def test_flash_autograd_on_the_card_counts_its_launches(dev, causal):
     with torch.no_grad():
         assert A.flash_attention(q, k, v, causal=causal).grad_fn is None
     assert A.FLASH_BWD_DQ.launches == before[1] + 1
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(8, 128, 9, 3, 64), (1, 512, 64, 8, 112),
+                                        (1, 512, 32, 8, 128), (1, 2048, 9, 3, 64)])
+def test_flash_backward_kernels_repeat_bitwise(dev, B, S, H, KV, hd):
+    """No atomics and every sum in a fixed order: a second launch of the
+    pair on the same inputs gives the same bits (bf16, causal), at the
+    training layout and at the layouts of kimi-k2 and phi3.5-moe."""
+    q, k, v, dout = _train_inputs(dev, B, S, S, H, KV, hd, torch.bfloat16, S + hd)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    out = A.flash_attention_cuda(q, k, v, causal=True, lse=lse)
+    first = A.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    again = A.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(a, b), name
 
 
 def test_backward_kernels_reject_what_they_cannot_take(dev):
@@ -464,21 +482,32 @@ def test_split_decode_at_chunk_edges_at_head_dim_112(dev, B, S, H, KV, dtype):
     assert torch.equal(out, A.decode_attention(q, k, v, pos))  # a fixed merge order
 
 
-def test_backward_refuses_head_dim_112_naming_its_roadmap_item(dev):
-    """No backward kernel at 112 yet (ROADMAP B4): the wrapper refuses, and
-    a forward that would need it is refused before it launches."""
-    q = torch.zeros((1, 4, 2, 112), device=dev)
-    kv = torch.zeros((1, 4, 1, 112), device=dev)
-    lse = torch.zeros((1, 2, 4), device=dev)
-    with pytest.raises(ValueError, match="ROADMAP B4"):
-        A.flash_attention_bwd_cuda(q, kv, kv, q, lse, q)
-    before = A.FLASH_ATTENTION.launches
-    with pytest.raises(ValueError, match="ROADMAP B4"):
-        A.flash_attention(q.requires_grad_(), kv, kv)
-    assert A.FLASH_ATTENTION.launches == before
-    with torch.no_grad():  # serving at 112 launches
-        A.flash_attention(q, kv, kv)
-    assert A.FLASH_ATTENTION.launches == before + 1
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_match_plain_at_head_dim_112(dev, dtype):
+    """At 112 the backward kernels take what the forward takes: through
+    ``flash_attention`` with grad on, one forward (log-sum-exp written) and
+    one launch of each backward kernel, the gradients held to the plain
+    backward per element (bf16 on the tensor cores: seven k-steps of 16
+    and 14 n-tiles; f32 on the CUDA cores); a head dim no kernel takes (48)
+    is refused before any forward launches."""
+    q, k, v, dout = _train_inputs(dev, 2, 96, 80, 16, 2, 112, dtype, 112)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    before = (A.FLASH_ATTENTION.launches, A.FLASH_BWD_DQ.launches, A.FLASH_BWD_DKDV.launches)
+    out = A.flash_attention(q, k, v, causal=True)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (A.FLASH_ATTENTION.launches, A.FLASH_BWD_DQ.launches, A.FLASH_BWD_DKDV.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    _, lse = R.flash_attention_plain_lse(q.detach(), k.detach(), v.detach(), causal=True)
+    ref = R.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), out.detach(), lse,
+                                      dout, causal=True)
+    for name, got, want in zip(("dq", "dk", "dv"), (q.grad, k.grad, v.grad), ref):
+        _grad_close(name, got, want)
+    q48 = torch.zeros((1, 4, 2, 48), device=dev, dtype=dtype, requires_grad=True)
+    kv48 = torch.zeros((1, 4, 1, 48), device=dev, dtype=dtype)
+    with pytest.raises(ValueError, match="head dims"):
+        A.flash_attention(q48, kv48, kv48)
+    assert A.FLASH_ATTENTION.launches == before[0] + 1
 
 
 def test_moe_serving_on_the_card_matches_the_cpu_at_head_dim_112(dev):

@@ -1,12 +1,21 @@
 #!/usr/bin/env python3
-"""Tile sizes of flash attention (bf16), both projectors, the split
-decode kernel and the K-Means assignment's regimes, side by side on one GPU.
+"""Tile sizes of flash attention (bf16) and its backward, both projectors,
+the split decode kernel and the K-Means assignment's regimes, side by side
+on one GPU.
 
-    python3 tools/tile_sweep.py [flash] [project] [backproject] [decode] [assign]
+    python3 tools/tile_sweep.py [flash] [bwd] [project] [backproject] [decode] [assign]
         [--parent-decode OTHER/decode_attention.cu]
         [--parent-assign OTHER/kmeans_assign.cu]
 
-(all five parts without arguments). Builds ``flash_attention.cu`` as it is
+(all six parts without arguments). ``bwd`` builds
+``flash_attention_bwd.cu`` as it is (the dK/dV kernel's 2 key warps and 4
+warp groups a block) and with other choices of both (``-DBWD_KEY_WARPS``,
+``-DBWD_GROUPS``), holds each build's dk and dv to the plain backward
+(``chip_smoke``'s per-element rule) and times its ``flash_attention_bwd_dkdv``
+in turns, beside ``flash_attention_bwd_dq``, at ``chip_smoke``'s backward
+checks' shapes: B=8 S=128 and B=1 S=2048 at 9 heads over 3 KV heads of
+64, B=1 S=512 at kimi-k2's 64 over 8 of 112 and phi3.5-moe's 32 over 8 of
+128, and at B=8 S=1024 (a grid of many blocks), causal bf16. Builds ``flash_attention.cu`` as it is
 (rows per block chosen per launch) and with 32 and with 64 packed query
 rows per block fixed (``-DFLASH_ROWS``); ``tomo.cu`` with several (frames
 per ``tomo_project`` thread, adjacent angles per block) pairs
@@ -59,6 +68,14 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 FLASH_ROWS = ("chosen", 32, 64)  # rows per block: the launcher's choice, or fixed
+# dK/dV builds: the source's (2 key warps, 4 warp groups), or (key warps,
+# warp groups) set; at most 8 warps a block (256 threads: the 255 registers
+# hd 128 needs) and at most 4 groups (8 groups' stages at hd 112 pass the
+# 227 KB of shared memory)
+BWD_VARIANTS = ("chosen", (4, 1), (4, 2), (2, 2), (1, 2), (1, 4))
+# (B, S, heads): the backward checks' shapes, and a grid of many blocks
+BWD_SHAPES = ((8, 128, (9, 3, 64)), (1, 2048, (9, 3, 64)), (1, 512, (64, 8, 112)),
+              (1, 512, (32, 8, 128)), (8, 1024, (9, 3, 64)))
 TOMO_VARIANTS = ((8, 1), (4, 4), (8, 4), (8, 8))  # (frames, angles)
 FLASH_SHAPES = ((1, 64), (1, 128), (1, 256), (1, 512), (1, 1024), (1, 2048), (4, 512))
 # (frames per thread, tile columns, tile rows, angles per staged chunk)
@@ -124,17 +141,21 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description="tile sizes of the port's kernels, side by side")
     ap.add_argument("parts", nargs="*",
-                    choices=("flash", "project", "backproject", "decode", "assign"))
+                    choices=("flash", "bwd", "project", "backproject", "decode", "assign"))
     ap.add_argument("--parent-decode", type=Path, help="another checkout's decode_attention.cu "
                     "with the one-kernel interface, timed beside the decode builds")
     ap.add_argument("--parent-assign", type=Path, help="another checkout's kmeans_assign.cu "
                     "with the one-regime interface, timed beside the assign builds")
     args = ap.parse_args()
-    parts = set(args.parts) or {"flash", "project", "backproject", "decode", "assign"}
+    parts = set(args.parts) or {"flash", "bwd", "project", "backproject", "decode", "assign"}
     print(cs.card_line())
     flash = {r: _build.CudaKernel(f"flash_attention[rows={r}]", _build.CudaLibrary(
         "flash_attention.cu", attn_ops.FLASH_LIB.signatures,
         () if r == "chosen" else (f"-DFLASH_ROWS={r}",)), "flash_attention") for r in FLASH_ROWS}
+    bwd = {var: _build.CudaKernel(f"flash_attention_bwd_dkdv[{var}]", _build.CudaLibrary(
+        "flash_attention_bwd.cu", attn_ops.FLASH_BWD_LIB.signatures,
+        () if var == "chosen" else (f"-DBWD_KEY_WARPS={var[0]}", f"-DBWD_GROUPS={var[1]}")),
+        "flash_attention_bwd_dkdv") for var in BWD_VARIANTS}
     project = {(f, a): _build.CudaKernel(f"tomo_project[frames={f},angles={a}]", _build.CudaLibrary(
         "tomo.cu", tomo_ops.TOMO_LIB.signatures, (f"-DTOMO_FRAMES={f}", f"-DTOMO_ANGLES={a}")),
         "tomo_project") for f, a in TOMO_VARIANTS}
@@ -156,16 +177,18 @@ def main() -> None:
         assign["parent"] = _build.CudaKernel("kmeans_assign[parent]", _build.CudaLibrary(
             str(args.parent_assign.resolve()), {"kmeans_assign": PARENT_ASSIGN_ARGS}),
             "kmeans_assign")
-    libs = [k.library for part, kernels in (("flash", flash), ("project", project),
+    libs = [k.library for part, kernels in (("flash", flash), ("bwd", bwd), ("project", project),
                                               ("backproject", backproject), ("decode", decode),
                                               ("assign", assign))
             if part in parts for k in kernels.values()]
     for lib, proc in [(lib, lib.start_build()) for lib in libs]:
         lib.finish_build(proc)
-    if "assign" in parts:  # registers and spills of each build's kernels (ptxas -v)
-        for name, kernel in assign.items():
+    for part, kernels in (("assign", assign), ("bwd", bwd)):  # registers and spills (ptxas -v)
+        if part not in parts:
+            continue
+        for name, kernel in kernels.items():
             log = kernel.library.log_path.read_text()
-            print(json.dumps({"kernel": "kmeans_assign", "part": "ptxas", "variant": name,
+            print(json.dumps({"kernel": kernel.name, "part": "ptxas", "variant": str(name),
                               "max_registers": max(map(int, re.findall(r"Used (\d+) registers", log))),
                               "spill_bytes": sum(map(int, re.findall(r"(\d+) bytes spill", log)))}))
 
@@ -173,6 +196,8 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     if "flash" in parts:
         sweep_flash(torch, cs, attn, attn_ops, flash, gen)
+    if "bwd" in parts:
+        sweep_bwd(torch, cs, attn, attn_ops, bwd, gen)
     if "decode" in parts:
         sweep_decode(torch, cs, attn, attn_ops, decode)
     if "assign" in parts:
@@ -213,6 +238,51 @@ def sweep_flash(torch, cs, attn, attn_ops, flash, gen) -> None:
         for r in FLASH_ROWS:
             print(json.dumps({"kernel": "flash_attention", "rows_per_block": r, "B": b, "S": s,
                               **res[r]}))
+
+
+def sweep_bwd(torch, cs, attn, attn_ops, bwd, gen) -> None:
+    """Each dK/dV build at the backward checks' shapes: dk and dv held to the
+    plain backward per element (on the delta the chosen dq kernel wrote),
+    then every build's dkdv timed in turns, and the dq kernel once."""
+    dev = torch.device("cuda", 0)
+    for b, s, (H, KV, hd) in BWD_SHAPES:
+        q, dout = (torch.randn((b, s, H, hd), generator=gen, device=dev).bfloat16()
+                   for _ in range(2))
+        k, v = (torch.randn((b, s, KV, hd), generator=gen, device=dev).bfloat16()
+                for _ in range(2))
+        lse = torch.empty((b, H, s), dtype=torch.float32, device=dev)
+        out = attn_ops.flash_attention_cuda(q, k, v, causal=True, lse=lse)
+        dq, _, _ = attn_ops.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+        ref = attn.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True)
+        delta = torch.empty((b, H, s), dtype=torch.float32, device=dev)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        sizes = (b, s, s, H, KV, hd, 1, 1)
+
+        def run_dq():
+            attn_ops.FLASH_BWD_DQ.launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *sizes,
+                torch.cuda.current_stream().cuda_stream)
+
+        run_dq()
+        runs = {var: (lambda kernel=kernel: kernel.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *sizes,
+            torch.cuda.current_stream().cuda_stream)) for var, kernel in bwd.items()}
+        res = {}
+        for var, run in runs.items():
+            run()
+            torch.cuda.synchronize()
+            res[var] = cs._grads_worst(torch, (dq, dk, dv), ref)
+            if max(res[var].values()) > 1:
+                raise AssertionError(f"bwd {var} B={b} S={s} hd={hd}: worst err/tol {res[var]}")
+        reps = 20 if s <= 512 else 10
+        ms = _time_in_turns(cs, torch, runs, reps)
+        dq_ms = cs.graph_ms(torch, run_dq, reps)
+        for var in runs:
+            print(json.dumps({"kernel": "flash_attention_bwd_dkdv", "variant": str(var), "B": b,
+                              "S": s, "heads": [H, KV, hd], "worst_err_over_tol": res[var],
+                              "ms": ms[var], "dq_ms": dq_ms}))
 
 
 def sweep_decode(torch, cs, attn, attn_ops, decode) -> None:
