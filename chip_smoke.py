@@ -453,12 +453,14 @@ def check_assign(torch, kmeans, n: int, d: int, k: int, dtype, clustered: bool,
     return out
 
 
-def update_close(torch, kmeans, name: str, points, labels, k: int, mask=None) -> dict:
-    """``kmeans_update`` against a float64 sum of the same (weighted) rows:
-    every entry within 2^-20 of the sum of |x| over its rows, the counts
-    exact, and bitwise the same over repeated calls and graph replays."""
+def update_close(torch, name: str, run, points, labels, k: int, mask=None) -> dict:
+    """``run()``, an update of ``points`` over ``labels`` (``mask``: rows of
+    weight 0), against a float64 sum of the same (weighted) rows: every
+    entry of its sums within 2^-20 of the sum of |x| over its rows, its
+    counts exact, and bitwise the same over repeated calls and graph
+    replays."""
     n, d = points.shape
-    sums, counts = kmeans.update_cuda(points, labels, k, mask)
+    sums, counts = run()
     w = (torch.ones(n, dtype=torch.float64, device=points.device) if mask is None
          else mask.double())
     idx = torch.where(w > 0, labels.long(), 0)
@@ -476,7 +478,7 @@ def update_close(torch, kmeans, name: str, points, labels, k: int, mask=None) ->
         raise AssertionError(f"{name}: counts differ from the rows' count")
 
     def joined():
-        s, c = kmeans.update_cuda(points, labels, k, mask)
+        s, c = run()
         return torch.cat([s.flatten(), c])
 
     _bitwise_repeatable(torch, name, joined, torch.cat([sums.flatten(), counts]))
@@ -485,31 +487,49 @@ def update_close(torch, kmeans, name: str, points, labels, k: int, mask=None) ->
             "counts_exact": True, "bitwise_repeatable": True}
 
 
-def check_update(torch, kmeans, n: int, d: int, k: int, gen, worst_cases: bool) -> dict:
+def update_phase_ms(torch, kmeans, points, labels, k: int) -> dict:
+    """Device time of each launch of ``kmeans_update`` in the regime
+    ``update_plan`` chooses: the call stopped after its first i launches
+    (``stop_after=i``), each timed by ``graph_ms``, less the call stopped
+    one launch before."""
+    plan = kmeans.update_plan(points.shape[1], k, points.dtype)
+    out, before = {}, 0.0
+    for i, name in enumerate(kmeans.UPDATE_LAUNCHES[plan.regime], 1):
+        ms = graph_ms(torch, lambda i=i: kmeans.update_launch(points, labels, k, plan=plan,
+                                                              stop_after=i), 20)
+        out[name], before = ms - before, ms
+    return out
+
+
+def check_update(torch, kmeans, n: int, d: int, k: int, gen, floor_ms: float) -> dict:
     """``kmeans_update`` on N x D points with labels from ``kmeans_assign``
     on clustered points (the cluster source's data), held to
-    :func:`update_close` and timed, with its bound, the plain version
-    (``index_add_`` twice) and one ``index_add_`` of the sums; with
-    ``worst_cases`` also masked (70 % of the rows weigh 1) and with every
-    row on one label (timed)."""
+    :func:`update_close` and timed, with its regime, its launches' times,
+    ``floor_ms`` (the least kernel's time), its bound, the plain version
+    (``index_add_`` twice) and one ``index_add_`` of the sums; also masked
+    (70 % of the rows weigh 1) and with every row on one label (timed)."""
     points, centroids = assign_inputs(torch, n, d, k, torch.float32, True, gen)
     labels, _ = kmeans.assign_cuda(points, centroids)
-    out = update_close(torch, kmeans, "kmeans_update", points, labels, k)
+    out = {"regime": kmeans.update_plan(d, k, points.dtype).regime, "launch_floor_ms": floor_ms,
+           **update_close(torch, "kmeans_update", lambda: kmeans.update_cuda(points, labels, k),
+                          points, labels, k)}
     out["labels_used"] = int((torch.bincount(labels.long(), minlength=k) > 0).sum())
     out["bound_ms"], out["bound_by"] = bound(n * d * 4 + n * 4 + k * d * 4 + k * 4, n * d)
     out["ms"] = graph_ms(torch, lambda: kmeans.update_cuda(points, labels, k), 20)
+    out["phase_ms"] = update_phase_ms(torch, kmeans, points, labels, k)
     out["plain_ms"] = graph_ms(torch, lambda: kmeans.update_scatter_ref(points, labels, k), 20)
     idx = labels.long()
     zeros = torch.zeros((k, d), device=points.device)
     out["library_ms"] = graph_ms(torch, lambda: zeros.index_add_(0, idx, points), 20)
     out["call_ms"] = time_ms(torch, lambda: kmeans.update_cuda(points, labels, k), 50, 5)
-    if worst_cases:
-        mask = torch.rand(n, generator=gen, device=points.device) < 0.7
-        out["masked"] = update_close(torch, kmeans, "kmeans_update masked", points, labels, k,
-                                     mask)
-        one = torch.full_like(labels, k // 2)
-        out["one_label"] = update_close(torch, kmeans, "kmeans_update one label", points, one, k)
-        out["one_label_ms"] = graph_ms(torch, lambda: kmeans.update_cuda(points, one, k), 20)
+    mask = torch.rand(n, generator=gen, device=points.device) < 0.7
+    out["masked"] = update_close(torch, "kmeans_update masked",
+                                 lambda: kmeans.update_cuda(points, labels, k, mask),
+                                 points, labels, k, mask)
+    one = torch.full_like(labels, k // 2)
+    out["one_label"] = update_close(torch, "kmeans_update one label",
+                                    lambda: kmeans.update_cuda(points, one, k), points, one, k)
+    out["one_label_ms"] = graph_ms(torch, lambda: kmeans.update_cuda(points, one, k), 20)
     return out
 
 
@@ -2425,10 +2445,10 @@ def main() -> None:
     # the update at the K-Means streams' shape (batches of up to 16 messages
     # of 5000 points over 10 labels: nearly every launch on the main path)
     # and at the wide stream's, where the worst cases are checked too
-    update_main = check_update(torch, kmeans, 80_000, 3, 10, gen, False)
+    update_main = check_update(torch, kmeans, 80_000, 3, 10, gen, floor)
     print("check kmeans_update 80000x3x10 f32 " + json.dumps(update_main))
     print(f"check kmeans_update 65536x{WIDE_D}x{WIDE_K} f32 "
-          + json.dumps(check_update(torch, kmeans, 65_536, WIDE_D, WIDE_K, gen, True)))
+          + json.dumps(check_update(torch, kmeans, 65_536, WIDE_D, WIDE_K, gen, floor)))
     bp, fp = check_tomo(torch, tomo, gen)
     print("check tomo_backproject 8x360x1448 n=1448 " + json.dumps(bp))
     print("check tomo_project 8x1448x1448 A=360 " + json.dumps(fp))

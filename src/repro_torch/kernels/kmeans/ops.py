@@ -36,11 +36,22 @@ from (D, K, dtype) and hands it, with its tile sizes, to the entry point:
 ``index_add_`` (:func:`~repro_torch.kernels.kmeans.ref.update_scatter_ref`,
 row order as the reference), a CUDA tensor launches ``kmeans_update``
 (``kernels/csrc/kmeans_update.cu``), whose sums have a fixed order, so an
-update repeats bit for bit; it replaces no TPU kernel.
+update repeats bit for bit; it replaces no TPU kernel. :func:`update_plan`
+chooses one of its two regimes from (D, K, dtype):
+
+* ``partials`` (K*D <= ``PARTIALS_MAX_KD``: the K-Means streams' 3 x 10).
+  No sort: blocks of consecutive rows, each thread one (label, column)
+  pair of one row group, Kahan sums added by compensated trees into a
+  partial a block, then the partials in block order. Two launches.
+* ``sorted`` (larger K*D: the wide stream's 128 x 1024). A counting sort of
+  the labels (per-block histograms, a scan, a stable scatter), then sums
+  over segments of the sorted rows and a merge of the runs that cross
+  segments, in the first port's order. Five launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -54,7 +65,7 @@ KMEANS_LIB = CudaLibrary("kmeans_assign.cu", {
 })
 KMEANS_ASSIGN = CudaKernel("kmeans_assign", KMEANS_LIB, "kmeans_assign")
 KMEANS_UPDATE_LIB = CudaLibrary("kmeans_update.cu", {
-    "kmeans_update": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "kmeans_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 })
 KMEANS_UPDATE = CudaKernel("kmeans_update", KMEANS_UPDATE_LIB, "kmeans_update")
 
@@ -73,8 +84,22 @@ NARROW_THREADS, NARROW_POINTS_PER_THREAD, NARROW_K_SPLIT = 128, 4, 2
 WIDE_THREADS, WIDE_POINTS, WIDE_CENTROIDS, WIDE_CHUNK_BYTES = 256, 128, 128, 128
 GENERIC_THREADS, GENERIC_SMEM_BYTES = 256, 48 * 1024
 CHUNKED_THREADS, CHUNKED_POINTS, CHUNKED_MAX_K = 256, 32, 16
-# kmeans_update: threads per block, and rows each thread sums per segment
-UPDATE_THREADS, UPDATE_ROWS_PER_THREAD = 256, 8
+# kmeans_update: threads per block; the partials regime up to K*D =
+# PARTIALS_MAX_KD (its threads: one (label, column) pair each), each block
+# at least PARTIALS_MIN_ROWS rows and at most PARTIALS_MAX_BLOCKS blocks
+# (set by tools/tile_sweep.py update), staged PARTIALS_TILE_BYTES of labels
+# and points at a time; the sorted regime's rows per thread and segment,
+# and rows per counting-sort block (as built)
+UPDATE_THREADS = 256
+PARTIALS_MAX_KD, PARTIALS_MIN_ROWS, PARTIALS_MAX_BLOCKS = 256, 256, 256
+PARTIALS_TILE_BYTES = 16 * 1024
+UPDATE_ROWS_PER_THREAD, SORT_ROWS = 8, 2048
+#: update regime -> its code at the C entry point
+UPDATE_REGIME_CODE = {"partials": 0, "sorted": 1}
+#: each update regime's kernels in launch order (``update_launch(stop_after=i)`` runs the first i)
+UPDATE_LAUNCHES = {"partials": ("partial_sums", "merge_partials"),
+                   "sorted": ("sort_count", "sort_columns", "sort_scatter", "segment_sums",
+                              "merge_runs")}
 
 
 @dataclass(frozen=True)
@@ -159,25 +184,91 @@ def assign(points: torch.Tensor, centroids: torch.Tensor):
     raise ValueError(f"no K-Means assignment for device {points.device}")
 
 
-def update_segment_rows(d: int) -> int:
-    """Sorted rows per segment of ``kmeans_update`` for D dimensions: a
-    block takes ``cols`` of them (the least power of two >= D, at most 32)
-    and ``UPDATE_THREADS / cols`` rows at a time, ``UPDATE_ROWS_PER_THREAD``
-    times over. A function of D alone, so the sums' order is too."""
+@dataclass(frozen=True)
+class UpdatePlan:
+    """How ``kmeans_update`` runs one (D, K, dtype).
+
+    ``partials``: a block takes :meth:`block_rows` consecutive rows (at
+    least ``min_rows``, a multiple of 8, so that at most ``max_blocks``
+    blocks cover N), staged ``tile_rows`` at a time; ``groups`` threads
+    share each (label, column) pair, one a row group.
+    ``sorted``: a block of segment sums takes ``cols`` column lanes (the
+    least power of two >= D, at most 32) and ``UPDATE_THREADS / cols`` rows
+    in flight, over segments of ``seg_rows`` sorted rows; the counting sort
+    takes ``sort_rows`` rows a block. Every size is a function of (D, K,
+    dtype) and N alone, and so is the order of every sum."""
+
+    regime: str
+    groups: int = 0
+    tile_rows: int = 0
+    min_rows: int = 0
+    max_blocks: int = 0
+    cols: int = 0
+    seg_rows: int = 0
+    sort_rows: int = 0
+
+    def block_rows(self, n: int) -> int:
+        """Rows a ``partials`` block takes for N rows."""
+        return max(self.min_rows, (-(-n // self.max_blocks) + 7) // 8 * 8)
+
+    def sizes(self, n: int) -> tuple[int, int, int]:
+        """The entry point's three size arguments for N rows."""
+        if self.regime == "partials":
+            return self.block_rows(n), self.tile_rows, self.groups
+        return self.seg_rows, self.cols, self.sort_rows
+
+
+@functools.lru_cache(maxsize=None)
+def update_plan(d: int, k: int, dtype: torch.dtype, regime: str | None = None) -> UpdatePlan:
+    """The regime and sizes of ``kmeans_update`` for D dimensions, K labels
+    and the points' dtype (f32 or bf16): ``partials`` up to K*D =
+    ``PARTIALS_MAX_KD``, else ``sorted``; ``regime`` names one instead
+    (``partials`` takes K*D <= ``UPDATE_THREADS`` alone)."""
+    regime = regime or ("partials" if k * d <= PARTIALS_MAX_KD else "sorted")
+    if regime == "partials":
+        if k * d > UPDATE_THREADS:
+            raise ValueError(f"the partials regime takes K*D <= {UPDATE_THREADS}, got {k * d}")
+        elem = torch.empty((), dtype=dtype).element_size()
+        tile_rows = max(8, PARTIALS_TILE_BYTES // (4 + d * elem) // 8 * 8)
+        return UpdatePlan("partials", groups=UPDATE_THREADS // (k * d), tile_rows=tile_rows,
+                          min_rows=PARTIALS_MIN_ROWS, max_blocks=PARTIALS_MAX_BLOCKS)
+    if regime != "sorted":
+        raise ValueError(f"no kmeans_update regime {regime!r}")
     cols = 1
     while cols < d and cols < 32:
         cols *= 2
-    return UPDATE_ROWS_PER_THREAD * (UPDATE_THREADS // cols)
+    return UpdatePlan("sorted", cols=cols,
+                      seg_rows=UPDATE_ROWS_PER_THREAD * (UPDATE_THREADS // cols),
+                      sort_rows=SORT_ROWS)
 
 
-def update_cuda(points: torch.Tensor, labels: torch.Tensor, k: int,
-                mask: torch.Tensor | None = None):
-    """Launch ``kmeans_update`` on CUDA tensors: points (N, D) f32 or bf16,
-    contiguous; labels (N,) in [0, K); ``mask`` (N,) bool gives rows weight
-    0. The labels are stable-sorted first (deterministic); the kernel sums
-    segments of :func:`update_segment_rows` sorted rows, then each label's
-    segments in order. Returns (sums (K, D) f32, counts (K,) f32), bitwise
-    the same on every call with the same inputs."""
+def update_workspace(plan: UpdatePlan, n: int, d: int, k: int, device) -> tuple:
+    """The int32 and f32 workspace of ``kmeans_update`` for N rows.
+    ``partials``: per-block counts (blocks x K) and sums and compensations
+    (2 x blocks x K*D). ``sorted``: ``starts`` (K + 1) then ``order`` (N,
+    the first ``starts[K]`` filled) then the counting sort's per-block
+    counts, the counts of the blocks before each (2 x blocks x K), the
+    labels' totals (K; and per-warp counts where 8 K ints pass 48 KB), and
+    the segments' head and tail partials (2 x segments x D)."""
+    if plan.regime == "partials":
+        blocks = -(-n // plan.block_rows(n))
+        ints, floats = blocks * k, 2 * blocks * k * d
+    else:
+        units = max(-(-n // plan.sort_rows), 1)
+        spill = units * 8 * k if 8 * k * 4 > 48 * 1024 else 0
+        ints, floats = k + 1 + n + 2 * units * k + k + spill, 2 * -(-n // plan.seg_rows) * d
+    return (torch.empty((max(ints, 1),), dtype=torch.int32, device=device),
+            torch.empty((max(floats, 1),), dtype=torch.float32, device=device))
+
+
+def update_launch(points: torch.Tensor, labels: torch.Tensor, k: int,
+                  mask: torch.Tensor | None = None, *, plan: UpdatePlan | None = None,
+                  work: tuple | None = None, stop_after: int = 0):
+    """:func:`update_cuda` in the regime of ``plan`` (default
+    :func:`update_plan`), into ``work`` (default a new
+    :func:`update_workspace`); ``stop_after`` > 0 launches only the
+    regime's first that many kernels (to time its phases). Returns (sums,
+    counts)."""
     if points.device.type != "cuda" or labels.device != points.device or (
             mask is not None and mask.device != points.device):
         raise ValueError(f"kmeans_update needs its tensors on one CUDA device, got points on "
@@ -188,27 +279,35 @@ def update_cuda(points: torch.Tensor, labels: torch.Tensor, k: int,
             mask is not None and mask.shape != labels.shape):
         raise ValueError(f"points {tuple(points.shape)}, labels {tuple(labels.shape)}: "
                          f"want (N, D) and (N,)")
+    if mask is not None and mask.dtype != torch.bool:
+        raise TypeError(f"kmeans_update takes a bool mask, got {mask.dtype}")
     if not points.is_contiguous():
         raise ValueError("kmeans_update takes contiguous points")
     n, d = points.shape
-    weights = None
-    if mask is not None:
-        weights = mask.to(torch.float32)
-        labels = torch.where(mask, labels, torch.zeros_like(labels))  # in range; weight 0
-    sorted_labels, order = torch.sort(labels.to(torch.int32), stable=True)
-    seg_rows = update_segment_rows(d)
-    segments = -(-n // seg_rows)
-    starts = torch.empty((k + 1,), dtype=torch.int32, device=points.device)
-    part = torch.empty((2 * max(segments, 1), d + 1), dtype=torch.float32, device=points.device)
+    plan = plan or update_plan(d, k, points.dtype)
+    iwork, fwork = work or update_workspace(plan, n, d, k, points.device)
+    labels = labels.to(torch.int32).contiguous()
+    mask = None if mask is None else mask.contiguous()
     sums = torch.empty((k, d), dtype=torch.float32, device=points.device)
     counts = torch.empty((k,), dtype=torch.float32, device=points.device)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        KMEANS_UPDATE.launch(points.data_ptr(), sorted_labels.data_ptr(), order.data_ptr(),
-                             0 if weights is None else weights.data_ptr(), starts.data_ptr(),
-                             part.data_ptr(), sums.data_ptr(), counts.data_ptr(), n, k, d,
-                             _DTYPE_CODE[points.dtype], seg_rows, stream)
+        KMEANS_UPDATE.launch(points.data_ptr(), labels.data_ptr(),
+                             0 if mask is None else mask.data_ptr(), iwork.data_ptr(),
+                             fwork.data_ptr(), sums.data_ptr(), counts.data_ptr(), n, k, d,
+                             _DTYPE_CODE[points.dtype], UPDATE_REGIME_CODE[plan.regime],
+                             *plan.sizes(n), stop_after, stream)
     return sums, counts
+
+
+def update_cuda(points: torch.Tensor, labels: torch.Tensor, k: int,
+                mask: torch.Tensor | None = None):
+    """Launch ``kmeans_update`` on CUDA tensors: points (N, D) f32 or bf16,
+    contiguous; labels (N,) int; ``mask`` (N,) bool gives rows weight 0,
+    and rows whose label lies outside [0, K) add nothing. In the regime
+    :func:`update_plan` chooses. Returns (sums (K, D) f32, counts (K,) f32),
+    bitwise the same on every call with the same inputs."""
+    return update_launch(points, labels, k, mask)
 
 
 def update_scatter(points: torch.Tensor, labels: torch.Tensor, k: int,

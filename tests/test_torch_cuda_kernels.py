@@ -10,6 +10,7 @@ here skips (the ``dev`` fixture decides, at run time). On the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -255,14 +256,16 @@ def test_kmeans_assign_refuses_a_plan_its_build_does_not_take(dev):
     assert K.KMEANS_ASSIGN.launches == before + 1
 
 
-def _update_checked(p, labels, k, mask=None):
-    """``kmeans_update`` against a float64 sum: each entry within 2^-20 of
-    the sum of |x| over its rows, the counts exact; three calls bitwise
-    equal."""
-    sums, counts = K.update_cuda(p, labels, k, mask)
-    again = [K.update_cuda(p, labels, k, mask) for _ in range(2)]
+def _update_checked(p, labels, k, mask=None, plan=None):
+    """``kmeans_update`` (in the regime of ``plan``, default the chosen one)
+    against a float64 sum: each entry within 2^-20 of the sum of |x| over
+    its rows, the counts exact; three calls bitwise equal. Rows whose label
+    lies outside [0, K) add nothing."""
+    sums, counts = K.update_launch(p, labels, k, mask, plan=plan)
+    again = [K.update_launch(p, labels, k, mask, plan=plan) for _ in range(2)]
     w = torch.ones(p.shape[0], dtype=torch.float64, device=p.device) if mask is None \
         else mask.double()
+    w = torch.where((labels >= 0) & (labels < k), w, 0)
     idx = torch.where(w > 0, labels.long(), 0)
     x = p.double() * w[:, None]
     ref = torch.zeros((k, p.shape[1]), dtype=torch.float64, device=p.device).index_add_(0, idx, x)
@@ -358,6 +361,110 @@ def test_kmeans_update_wrapper_routes_and_refuses(dev):
         K.update_cuda(p.T, labels[:16], 50)
     with pytest.raises(ValueError):
         K.update_cuda(p, labels.cpu(), 50)
+    assert K.KMEANS_UPDATE.launches == before + 1
+
+
+def _sorted_plan(d):
+    """The ``sorted`` regime's plan for D (whatever K)."""
+    return K.update_plan(d, 1, torch.float32, "sorted")
+
+
+@pytest.mark.parametrize("n,d,k", [(80_000, 3, 10), (65_536, 1, 256), (65_536, 128, 2),
+                                   (4097, 16, 16), (1, 1, 1), (100, 2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kmeans_update_regimes_agree(dev, n, d, k, dtype):
+    """Each regime forced on one input where both take it (K*D <= 256):
+    both within the f64 rule, so within twice it of each other, the counts
+    equal."""
+    g = _gen(dev, n + d + k + 2)
+    p = (torch.randn((n, d), generator=g, device=dev) * 10 + 3).to(dtype)
+    labels = torch.randint(0, k, (n,), generator=g, device=dev, dtype=torch.int32)
+    mask = torch.rand(n, generator=g, device=dev) < 0.7
+    for m in (None, mask):
+        a_sums, a_counts = _update_checked(p, labels, k, m, K.update_plan(d, k, dtype,
+                                                                          "partials"))
+        b_sums, b_counts = _update_checked(p, labels, k, m, _sorted_plan(d))
+        assert torch.equal(a_counts, b_counts)
+
+
+@pytest.mark.parametrize("d,k", [(1, 256), (1, 257), (128, 2), (128, 3), (16, 16), (16, 17),
+                                 (3, 85), (3, 86)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kmeans_update_at_the_plan_threshold(dev, d, k, dtype):
+    """Shapes on both sides of ``PARTIALS_MAX_KD``, in the regime the plan
+    chooses, with labels out of range among them."""
+    g = _gen(dev, 100 * d + k)
+    p = (torch.randn((30_000, d), generator=g, device=dev) * 10 + 3).to(dtype)
+    labels = torch.randint(-1, k + 1, (30_000,), generator=g, device=dev, dtype=torch.int32)
+    assert K.update_plan(d, k, dtype).regime == ("partials" if k * d <= K_ops.PARTIALS_MAX_KD
+                                                 else "sorted")
+    _update_checked(p, labels, k)
+
+
+@pytest.mark.parametrize("n,k,labelling", [(65_536, 1024, "uniform"), (80_000, 10, "one"),
+                                           (5000, 3000, "uniform"), (4097, 7, "out_of_range"),
+                                           (65_536, 1024, "masked"), (3, 5, "uniform"),
+                                           (70_000, 1600, "uniform")])
+def test_kmeans_update_counting_sort_equals_torch_sort(dev, n, k, labelling):
+    """The ``sorted`` regime's order and starts, read from its workspace:
+    bitwise ``torch.sort(stable=True)``'s indices over the rows that add to
+    a label and their searchsorted starts (K = 1600: the per-warp counts
+    in device memory)."""
+    g = _gen(dev, n + k + 3)
+    p = torch.randn((n, 8), generator=g, device=dev)
+    lo, hi = (-2, k + 2) if labelling == "out_of_range" else (0, k)
+    labels = torch.randint(lo, hi, (n,), generator=g, device=dev, dtype=torch.int32)
+    if labelling == "one":
+        labels.fill_(k - 1)
+    mask = torch.rand(n, generator=g, device=dev) < 0.6 if labelling == "masked" else None
+    plan = _sorted_plan(8)
+    work = K.update_workspace(plan, n, 8, k, dev)
+    K.update_launch(p, labels, k, mask, plan=plan, work=work)
+    kept = (labels >= 0) & (labels < k)
+    if mask is not None:
+        kept &= mask
+    key = torch.where(kept, labels, k)
+    order = torch.sort(key, stable=True).indices[:int(kept.sum())]
+    starts = torch.searchsorted(torch.sort(key).values,
+                                torch.arange(k + 1, device=dev, dtype=torch.int32))
+    torch.cuda.synchronize()
+    assert torch.equal(work[0][:k + 1].long(), starts.long())
+    assert torch.equal(work[0][k + 1:k + 1 + order.numel()].long(), order)
+
+
+@pytest.mark.parametrize("regime", ["partials", "sorted"])
+def test_kmeans_update_second_call_is_bitwise_the_first(dev, regime):
+    """A second call, into a new workspace, after other work on the card:
+    sums and counts bitwise the first call's, masked and not."""
+    g = _gen(dev, 31)
+    d, k = (3, 10) if regime == "partials" else (128, 1024)
+    p = torch.randn((65_536, d), generator=g, device=dev) * 10 + 3
+    labels = torch.randint(0, k, (65_536,), generator=g, device=dev, dtype=torch.int32)
+    mask = torch.rand(65_536, generator=g, device=dev) < 0.5
+    assert K.update_plan(d, k, torch.float32).regime == regime
+    for m in (None, mask):
+        first = K.update_cuda(p, labels, k, m)
+        torch.randn((4096, 4096), generator=g, device=dev).sum()  # other work between
+        second = K.update_cuda(p, labels, k, m)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def test_kmeans_update_refuses_sizes_it_does_not_take(dev):
+    """A plan the entry point does not take raises before any launch and
+    counts none: more threads than a block has, unaligned rows, a counting
+    sort of another block size."""
+    p = torch.randn((1000, 16), device=dev)
+    labels = torch.zeros(1000, dtype=torch.int32, device=dev)
+    good = K.update_plan(16, 16, torch.float32)
+    before = K.KMEANS_UPDATE.launches
+    for plan in (dataclasses.replace(good, groups=2), dataclasses.replace(good, min_rows=12),
+                 dataclasses.replace(_sorted_plan(16), sort_rows=1024),
+                 dataclasses.replace(_sorted_plan(16), seg_rows=100)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            K.update_launch(p, labels, 16, plan=plan)
+    assert K.KMEANS_UPDATE.launches == before
+    K.update_cuda(p, labels, 16)
     assert K.KMEANS_UPDATE.launches == before + 1
 
 

@@ -2,6 +2,8 @@
 package, on the same numpy inputs (CPU: the port's wrapper takes its plain
 version here; the CUDA kernel is held against that version on the card by
 chip_smoke.py)."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,50 +104,155 @@ def test_update_scatter_counts_and_sums():
     np.testing.assert_array_equal(counts.numpy(), onehot.sum(0))
 
 
-def _kahan_rows(x: np.ndarray, rows: int) -> np.ndarray:
-    """``kmeans_update``'s sums of the rows of ``x`` (m, w) in f32: thread
-    row r takes rows r, r + R, ... with Kahan addition, then a halving tree
-    over the R thread rows."""
-    m, w = x.shape
-    x = np.concatenate([x, np.zeros((-m % rows, w), np.float32)]).reshape(-1, rows, w)
-    acc, comp = np.zeros((rows, w), np.float32), np.zeros((rows, w), np.float32)
-    for step in x:
-        y = step - comp
-        t = acc + y
-        comp = (t - acc) - y
-        acc = t
-    s = rows // 2
-    while s > 0:
-        acc[:s] += acc[s:2 * s]
-        s //= 2
-    return acc[0]
+def _kahan(s, c, x, where):
+    """``kmeans_update``'s Kahan step s + x (compensation c, the pair
+    standing for s - c) in f32, applied where ``where`` holds."""
+    y = x - c
+    t = s + y
+    return np.where(where, t, s), np.where(where, (t - s) - y, c)
 
 
-def _segmented_update(points: np.ndarray, labels: np.ndarray, k: int, mask=None):
-    """``kmeans_update.cu``'s decomposition on the CPU: run starts over the
-    stable-sorted labels, segments of ``update_segment_rows(D)`` sorted rows
-    whose pieces are written whole or kept as a head or tail partial, and
-    each crossing run merged in segment order."""
-    n, d = points.shape
-    w = np.ones(n, np.float32) if mask is None else mask.astype(np.float32)
+def _pair_add(s, c, s2, c2):
+    """Two (sum, compensation) pairs added by a TwoSum, its rounding error
+    carried in the compensation (``pair_add`` of the kernel), in f32."""
+    t = s + s2
+    bp = t - s
+    err = (s - (t - bp)) + (s2 - bp)
+    return t, (c + c2) - err
+
+
+def _halving(s, c, n):
+    """The kernel's fixed tree over the first axis: m entries -> ceil(m / 2),
+    entry g taking entry g + ceil(m / 2), pairs by :func:`_pair_add`."""
+    s, c, n = s.copy(), c.copy(), n.copy()
+    m = s.shape[0]
+    while m > 1:
+        h = (m + 1) // 2
+        s[:m - h], c[:m - h] = _pair_add(s[:m - h], c[:m - h], s[h:m], c[h:m])
+        n[:m - h] += n[h:m]
+        m = h
+    return s[0], c[0], n[0]
+
+
+def _row_labels(labels, k, mask):
+    """The label each row adds to, -1 where none: masked or outside [0, K)."""
+    lab = np.asarray(labels, np.int64)
+    none = (lab < 0) | (lab >= k)
     if mask is not None:
-        labels = np.where(mask, labels, 0)
-    order = np.argsort(labels, kind="stable")
-    sorted_labels = labels[order]
-    x = np.concatenate([points[order] * w[order, None], w[order, None]], axis=1)  # count last
-    cols = 1
-    while cols < d and cols < 32:
-        cols *= 2
-    rows, seg = 256 // cols, K_ops.update_segment_rows(d)
-    starts = np.searchsorted(sorted_labels, np.arange(k + 1), side="left")
-    sums, part = np.full((k, d + 1), np.nan, np.float32), {}
-    for s0 in range(0, n, seg):
-        s1, start = min(s0 + seg, n), s0
+        none |= ~mask
+    return np.where(none, -1, lab)
+
+
+def _partials_update(points, labels, k, mask, plan):
+    """The ``partials`` regime's decomposition on the CPU, in f32: blocks of
+    ``plan.block_rows(N)`` rows in tiles; thread (g, c) Kahan-adds rows g,
+    g + G, ... of each tile where the row's label is c's; the groups by
+    :func:`_halving`; then the block partials, warp w taking blocks w, w + 8,
+    ... by :func:`_pair_add`, and the 8 warps by :func:`_halving`."""
+    n, d = points.shape
+    lab = _row_labels(labels, k, mask)
+    g_n, br = plan.groups, plan.block_rows(n)
+    tr = min(plan.tile_rows, br)
+    blocks = -(-n // br)
+    x = points.astype(np.float32)
+    b = np.arange(blocks)[:, None]
+    g = np.arange(g_n)[None, :]
+    s = np.zeros((blocks, g_n, k, d), np.float32)
+    c = np.zeros_like(s)
+    cnt = np.zeros((blocks, g_n, k), np.int64)
+    for t0 in range(0, br, tr):  # tile by tile, each thread's rows in order
+        for step in range(0, tr, g_n):
+            local = t0 + step + g
+            row = b * br + local
+            ok = (step + g < tr) & (local < br) & (row < n)
+            li = np.where(ok, lab[np.minimum(row, n - 1)], -1)
+            hit = li[..., None] == np.arange(k)  # (blocks, G, K)
+            xi = x[np.minimum(row, n - 1)][:, :, None, :]
+            s, c = _kahan(s, c, np.broadcast_to(xi, s.shape), hit[..., None])
+            cnt += hit
+    part = [_halving(s[i], c[i], cnt[i]) for i in range(blocks)]
+    w_s = np.zeros((8, k, d), np.float32)
+    w_c = np.zeros_like(w_s)
+    w_n = np.zeros((8, k), np.int64)
+    for i, (ps, pc, pn) in enumerate(part):
+        w_s[i % 8], w_c[i % 8] = _pair_add(w_s[i % 8], w_c[i % 8], ps, pc)
+        w_n[i % 8] += pn
+    ts, tc, tn = _halving(w_s, w_c, w_n)
+    return ts - tc, tn.astype(np.float32)
+
+
+def _counting_sort(labels, k, mask, sort_rows=K_ops.SORT_ROWS, warps=8):
+    """The ``sorted`` regime's counting sort on the CPU: blocks of
+    ``sort_rows`` rows, 8 warps of chunks of 32; per-warp counts (a chunk's
+    lanes with one label grouped as ``__match_any_sync`` groups them, the
+    highest adding their number), per-block counts, the scan in label then
+    block order, and each row placed at its warp's next slot for its label
+    after the earlier lanes of its chunk with that label. Returns (order of
+    the rows that add to a label, starts (K + 1))."""
+    lab = _row_labels(labels, k, mask)
+    n = lab.shape[0]
+    units = -(-n // sort_rows)
+    padded = np.full(units * sort_rows, -1)
+    padded[:n] = lab
+    chunks = padded.reshape(units, warps, sort_rows // warps // 32, 32)
+    lanes = np.arange(32)
+
+    def walk(counts, place=None):
+        for u in range(units):
+            for w in range(warps):
+                for chunk_no, chunk in enumerate(chunks[u, w]):
+                    same = chunk[:, None] == chunk[None, :]  # match_any: lane x lane
+                    for lane in lanes[chunk >= 0]:
+                        if place is not None:
+                            rank = int(same[lane, :lane].sum())  # popc(same & below)
+                            row = (u * warps + w) * chunks.shape[2] * 32 + chunk_no * 32 + lane
+                            place[counts[u, w, chunk[lane]] + rank] = row
+                    for lane in lanes[chunk >= 0]:
+                        if lane == lanes[same[lane]].max():  # the group's highest lane
+                            counts[u, w, chunk[lane]] += int(same[lane].sum())
+
+    wh = np.zeros((units, warps, k), np.int64)
+    walk(wh)
+    hist = wh.sum(1)
+    starts = np.concatenate([[0], np.cumsum(hist.sum(0))])
+    first = starts[:-1] + np.cumsum(hist, 0) - hist  # block u's first slot of label l
+    warp_first = first[:, None, :] + np.cumsum(wh, 1) - wh
+    order = np.full(n, -1)
+    walk(warp_first, order)
+    return order[:starts[k]], starts
+
+
+def _segmented_update(points, order, starts, k, plan):
+    """The ``sorted`` regime's sums on the CPU, in f32: segments of
+    ``plan.seg_rows`` sorted rows whose pieces are written whole or kept as a
+    head or tail partial, thread row r summing rows r, r + R, ... of a piece
+    (R = 256 / cols) by Kahan addition, a halving tree over R, and each
+    crossing run merged in segment order (the first port's scheme)."""
+    n_sorted, d = order.shape[0], points.shape[1]
+    x = points[order].astype(np.float32)
+    rows, seg = K_ops.UPDATE_THREADS // plan.cols, plan.seg_rows
+
+    def kahan_rows(v):  # (m, w) -> (w,): thread rows, then the tree
+        m, w = v.shape
+        v = np.concatenate([v, np.zeros((-m % rows, w), np.float32)]).reshape(-1, rows, w)
+        acc, comp = np.zeros((rows, w), np.float32), np.zeros((rows, w), np.float32)
+        for step in v:
+            acc, comp = _kahan(acc, comp, step, True)
+        h = rows // 2
+        while h > 0:
+            acc[:h] += acc[h:2 * h]
+            h //= 2
+        return acc[0]
+
+    sums, part = np.full((k, d), np.nan, np.float32), {}
+    lab_sorted = np.repeat(np.arange(k), np.diff(starts))
+    for s0 in range(0, n_sorted, seg):
+        s1, start = min(s0 + seg, n_sorted), s0
         while start < s1:
-            lab = sorted_labels[start]
+            lab = lab_sorted[start]
             lo, hi = starts[lab], starts[lab + 1]
             end = min(hi, s1)
-            piece = _kahan_rows(x[start:end], rows)
+            piece = kahan_rows(x[start:end])
             if lo >= s0 and hi <= s1:
                 sums[lab] = piece
             else:
@@ -158,42 +265,111 @@ def _segmented_update(points: np.ndarray, labels: np.ndarray, k: int, mask=None)
         elif lo // seg != (hi - 1) // seg:
             first, last = lo // seg, (hi - 1) // seg
             heads = np.stack([part[(s, "head")] for s in range(first + 1, last + 1)])
-            sums[lab] = part[(first, "tail")] + _kahan_rows(heads, rows)
-    counts = sums[:, d] if mask is not None else (starts[1:] - starts[:-1]).astype(np.float32)
-    return sums[:, :d], counts
+            sums[lab] = part[(first, "tail")] + kahan_rows(heads)
+    return sums, np.diff(starts).astype(np.float32)
 
 
-@pytest.mark.parametrize("n,d,k,labelling", [
-    (5000, 3, 10, "clustered"),     # the K-Means stream's shape, cut down
-    (3000, 128, 64, "one"),         # every row on one label: one run over every segment
-    (200, 33, 300, "uniform"),      # more labels than rows: empty runs
-    (2049, 1, 4, "uniform"),        # D = 1: the tallest tree
-    (4096, 16, 50, "masked"),       # weights: the counts summed like a column
-])
-def test_update_segments_cover_each_row_once(n, d, k, labelling):
-    """The fixed-order update's decomposition, emulated in f32: each entry
-    within 2^-20 of the sum of |x| over its rows against a float64 sum (the
-    chip check's rule) and the JAX package's scatter, the counts exact."""
+def _update_inputs(n, d, k, labelling):
     rng = np.random.default_rng(n + d + k)
     pts = (rng.normal(size=(n, d)) * 10 + 3).astype(np.float32)
     labels = {"clustered": rng.integers(0, k, n), "one": np.full(n, k // 3),
-              "uniform": rng.integers(0, k, n), "masked": rng.integers(0, k, n)}[labelling]
+              "uniform": rng.integers(0, k, n), "masked": rng.integers(0, k, n),
+              "out_of_range": rng.integers(-2, k + 2, n)}[labelling]
     mask = rng.random(n) < 0.7 if labelling == "masked" else None
-    sums, counts = _segmented_update(pts, labels, k, mask)
-    w = np.ones(n) if mask is None else mask.astype(np.float64)
-    idx = np.where(w > 0, labels, 0)
+    return pts, labels, mask
+
+
+def _hold_update(pts, labels, k, mask, sums, counts, labelling):
+    """The chip check's rule against a float64 sum of the rows that add to a
+    label (each entry within 2^-20 of the sum of |x| over its rows), exact
+    counts, and the JAX package's scatter within its row-order rounding
+    (skipped for labels out of range: the JAX scatter wraps negative
+    indices, the kernel leaves such rows out)."""
+    k_, d = sums.shape
+    lab = _row_labels(labels, k, mask)
+    keep = lab >= 0
     ref, mag, ref_counts = np.zeros((k, d)), np.zeros((k, d)), np.zeros(k)
-    np.add.at(ref, idx, pts * w[:, None])
-    np.add.at(mag, idx, np.abs(pts) * w[:, None])
-    np.add.at(ref_counts, idx, w)
+    np.add.at(ref, lab[keep], pts[keep])
+    np.add.at(mag, lab[keep], np.abs(pts[keep]))
+    np.add.at(ref_counts, lab[keep], 1)
     assert np.all(np.abs(sums - ref) <= 2.0 ** -20 * mag)
     np.testing.assert_array_equal(counts, ref_counts)
+    if labelling == "out_of_range":
+        return
     jax_sums, jax_counts = jax_update_scatter(jnp.asarray(pts), jnp.asarray(labels), k,
                                               None if mask is None else jnp.asarray(mask))
     # the reference adds in row order: m - 1 roundings for a label of m rows
     jax_tol = (2.0 ** -20 + ref_counts[:, None] * 2.0 ** -24) * mag
     assert np.all(np.abs(sums - np.asarray(jax_sums)) <= jax_tol)
     np.testing.assert_array_equal(counts, np.asarray(jax_counts))
+
+
+UPDATE_CASES = [
+    (5000, 3, 10, "clustered"),     # the K-Means stream's shape, cut down
+    (3000, 128, 64, "one"),         # every row on one label: one run over every segment
+    (200, 33, 300, "uniform"),      # more labels than rows: empty runs
+    (2049, 1, 4, "uniform"),        # D = 1: the tallest tree
+    (4096, 16, 50, "masked"),       # rows of weight 0 add nothing
+]
+
+
+@pytest.mark.parametrize("n,d,k,labelling", UPDATE_CASES)
+def test_update_segments_cover_each_row_once(n, d, k, labelling):
+    """The ``sorted`` regime, emulated in f32: its counting sort's order and
+    starts equal a stable argsort's and a searchsorted's, and the segment
+    sums hold the chip check's rule against a float64 sum and the JAX
+    package's scatter, the counts exact."""
+    pts, labels, mask = _update_inputs(n, d, k, labelling)
+    plan = K.update_plan(d, 10_000, torch.float32)  # the sorted regime's sizes for D
+    assert plan.regime == "sorted"
+    order, starts = _counting_sort(labels, k, mask)
+    lab = _row_labels(labels, k, mask)
+    np.testing.assert_array_equal(order, np.argsort(np.where(lab >= 0, lab, k),
+                                                    kind="stable")[:int((lab >= 0).sum())])
+    np.testing.assert_array_equal(starts, np.searchsorted(np.sort(lab[lab >= 0]),
+                                                          np.arange(k + 1)))
+    sums, counts = _segmented_update(pts, order, starts, k, plan)
+    _hold_update(pts, labels, k, mask, sums, counts, labelling)
+
+
+@pytest.mark.parametrize("n,d,k,labelling", [
+    (5000, 3, 10, "clustered"),     # the K-Means stream's shape, cut down
+    (3000, 4, 16, "one"),           # every row on one label
+    (100, 2, 128, "uniform"),       # more labels than rows; K*D = 256, one group
+    (2049, 1, 4, "uniform"),        # D = 1: 64 groups
+    (4096, 16, 8, "masked"),        # rows of weight 0 add nothing; 2 groups
+    (5000, 3, 10, "masked"),
+    (4100, 2, 7, "out_of_range"),   # labels below 0 and from K on add nothing
+])
+@pytest.mark.parametrize("blocks", ["plan", "many"])
+def test_update_partials_decomposition(n, d, k, labelling, blocks):
+    """The ``partials`` regime (row blocks in tiles, per-thread Kahan sums,
+    the compensated trees, the block-order merge), emulated in f32 at the
+    plan's sizes and with many small blocks of several tiles, held as the
+    sorted regime is."""
+    pts, labels, mask = _update_inputs(n, d, k, labelling)
+    plan = K.update_plan(d, k, torch.float32)
+    assert plan.regime == "partials"
+    if blocks == "many":
+        plan = dataclasses.replace(plan, tile_rows=16, min_rows=40, max_blocks=64)
+    sums, counts = _partials_update(pts, labels, k, mask, plan)
+    _hold_update(pts, labels, k, mask, sums, counts, labelling)
+
+
+@pytest.mark.parametrize("n,k,labelling", [(6000, 1024, "uniform"), (4097, 5, "one"),
+                                           (2048, 3, "out_of_range"), (0, 4, "uniform"),
+                                           (70, 70, "masked")])
+def test_update_counting_sort_is_stable(n, k, labelling):
+    """The counting sort alone, over blocks of rows that end mid-chunk and
+    mid-block: ``order`` and ``starts`` equal a stable argsort's and a
+    searchsorted's over the rows that add to a label."""
+    _, labels, mask = _update_inputs(n, 1, k, labelling)
+    order, starts = _counting_sort(labels, k, mask)
+    lab = _row_labels(labels, k, mask)
+    kept = lab >= 0
+    np.testing.assert_array_equal(order, np.argsort(np.where(kept, lab, k), kind="stable")[
+        :int(kept.sum())])
+    np.testing.assert_array_equal(starts, np.searchsorted(np.sort(lab[kept]), np.arange(k + 1)))
 
 
 def test_minibatch_update_converges():
@@ -433,3 +609,57 @@ def test_one_pass_tf32_fails_the_check():
     labels, dist = _tf32_assign(p, c, passes=1)
     worst, _ = _worst_over_tol(p, c, labels, dist, *K.assign_ref(p, c))
     assert worst > 1.0, worst
+
+
+@pytest.mark.parametrize("d,k,dtype,regime", [
+    (3, 10, torch.float32, "partials"),     # the K-Means streams
+    (3, 10, torch.bfloat16, "partials"),
+    (1, 256, torch.float32, "partials"),    # K*D = 256: one group of 256 threads
+    (1, 257, torch.float32, "sorted"),
+    (16, 16, torch.bfloat16, "partials"),
+    (128, 1024, torch.float32, "sorted"),   # the wide stream
+    (128, 1024, torch.bfloat16, "sorted"),
+    (128, 2, torch.float32, "partials"),
+    (128, 3, torch.float32, "sorted"),
+    (20_000, 2, torch.float32, "sorted"),
+])
+def test_update_plan_regimes(d, k, dtype, regime):
+    assert K.update_plan(d, k, dtype).regime == regime
+
+
+@pytest.mark.parametrize("d,k", [(3, 10), (1, 256), (16, 16), (256, 1), (128, 1024), (3, 100),
+                                 (33, 7), (20_000, 2), (1, 100_000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 80_000, 1_000_000])
+def test_update_plan_sizes_are_taken(d, k, dtype, n):
+    """The sizes the entry point checks: a partials block is at least 8 rows
+    in multiples of 8 (16-byte tiles), its tile of labels and points fits
+    48 KB beside its tree, and groups x K x D threads fit a block; at most
+    PARTIALS_MAX_BLOCKS blocks unless a block is at its least. A sorted
+    plan's column lanes are a power of two <= 32 that divides a block, its
+    segments whole steps of its rows in flight."""
+    plan = K.update_plan(d, k, dtype)
+    elem = torch.empty((), dtype=dtype).element_size()
+    if plan.regime == "partials":
+        rows, tile, groups = plan.sizes(n)
+        assert rows >= 8 and rows % 8 == 0 and tile >= 8 and tile % 8 == 0
+        assert min(tile, rows) * (4 + d * elem) <= 48 * 1024 - 3 * 256 * 4
+        assert groups >= 1 and groups * k * d <= K_ops.UPDATE_THREADS
+        assert -(-n // rows) <= plan.max_blocks or rows == plan.min_rows
+    else:
+        seg_rows, cols, sort_rows = plan.sizes(n)
+        assert cols in (1, 2, 4, 8, 16, 32) and cols >= min(d, 32)
+        assert seg_rows % (K_ops.UPDATE_THREADS // cols) == 0 and sort_rows == K_ops.SORT_ROWS
+
+
+def test_update_plan_forces_a_regime_it_takes():
+    """``regime=`` names a regime: sorted for any (D, K), partials up to
+    K*D = 256 threads, and nothing else."""
+    assert K.update_plan(3, 10, torch.float32, "sorted").regime == "sorted"
+    assert K.update_plan(3, 10, torch.float32, "sorted") == K.update_plan(3, 1024, torch.float32)
+    assert K.update_plan(128, 2, torch.bfloat16, "partials").groups == 1
+    with pytest.raises(ValueError, match="K\\*D <= 256"):
+        K.update_plan(128, 3, torch.float32, "partials")
+    with pytest.raises(ValueError, match="no kmeans_update regime"):
+        K.update_plan(3, 10, torch.float32, "scatter")
+

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Tile sizes of flash attention (bf16) and its backward, both projectors,
-the split decode kernel and the K-Means assignment's regimes, side by side
-on one GPU.
+the split decode kernel, the K-Means assignment's regimes and the K-Means
+update's, side by side on one GPU.
 
-    python3 tools/tile_sweep.py [flash] [bwd] [project] [backproject] [decode] [assign]
+    python3 tools/tile_sweep.py [flash] [bwd] [project] [backproject] [decode] [assign] [update]
         [--parent-decode OTHER/decode_attention.cu]
         [--parent-assign OTHER/kmeans_assign.cu]
+        [--parent-update OTHER/kmeans_update.cu]
 
-(all six parts without arguments). ``bwd`` builds
+(all seven parts without arguments). ``bwd`` builds
 ``flash_attention_bwd.cu`` as it is (the dK/dV kernel's 2 key warps and 4
 warp groups a block) and with other choices of both (``-DBWD_KEY_WARPS``,
 ``-DBWD_GROUPS``), holds each build's dk and dv to the plain backward
@@ -49,7 +50,17 @@ one ``assign_plan`` chooses; then it times the builds of
 (``chip_smoke.assign_inputs``), with ``--parent-assign`` also another
 checkout's ``kmeans_assign.cu`` that has the one-regime C interface (no
 regime or tile arguments), all by ``graph_ms``, each held to
-``chip_smoke.assign_close`` first.
+``chip_smoke.assign_close`` first. ``update`` times ``kmeans_update``: with
+``--parent-update``, another checkout's ``kmeans_update.cu`` of the
+sorted-input interface (its caller runs ``torch.sort``) in phases, its
+launches kept by bits of ``-DPARENT_PHASES`` in a patched copy under
+``build/``; then the update's own launches at the checks' shapes (the call
+stopped after each, ``update_launch(stop_after=i)``), the partials
+regime's block sizes at the K-Means batches' 80 000 x 3 x 10, at
+625 000 x 3 x 10 and at two shapes of K*D = 256, and every regime the
+entry point takes (and the parent's kernel, with the sorted regime's sums
+compared to its bitwise) at (D, K) shapes around ``PARTIALS_MAX_KD``, f32 and bf16,
+each held to ``chip_smoke.update_close`` first.
 Prints the card line, then one JSON line per (kernel, variant, shape) with
 both timings of the variant.
 """
@@ -112,6 +123,26 @@ ASSIGN_TILE_SHAPES = ((80_000, 3, 10, "f32", True), (65_536, 128, 1024, "f32", F
                       (65_536, 128, 1024, "bf16", False))
 # kmeans_assign(points, centroids, labels, dist, n, k, d, dtype, stream) before the regimes
 PARENT_ASSIGN_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+# kmeans_update(points, sorted_labels, order, weights, starts, part, sums, counts, n, k, d,
+# dtype, seg_rows, stream) before the counting sort: its caller sorted the labels
+PARENT_UPDATE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+# the parent's three launches; a patched copy keeps launch i where bit i of -DPARENT_PHASES is set
+PARENT_UPDATE_LAUNCHES = ("run_starts<<<", "segment_sums<T><<<", "merge_runs<<<")
+# (N, D, K, clustered): the chip_smoke checks' shapes (labels from kmeans_assign; the wide one
+# on standard normals here, on clustered points there)
+UPDATE_CHECK_SHAPES = ((80_000, 3, 10, True), (65_536, 128, 1024, False))
+# (D, K) around the update's regime threshold (partials takes K*D <= 256), at N = 65 536
+UPDATE_THRESHOLD_SHAPES = ((3, 10), (3, 32), (3, 64), (3, 85), (3, 86), (3, 256), (3, 1024),
+                           (1, 64), (1, 256), (1, 1024), (8, 8), (8, 32), (8, 64), (16, 4),
+                           (16, 16), (16, 64), (32, 8), (64, 4), (128, 2), (128, 8), (128, 64),
+                           (128, 1024))
+# partials block sizes: (least rows a block, most blocks)
+UPDATE_PARTIALS_SIZES = ((256, 256), (640, 1024), (320, 2048), (1280, 512), (640, 128),
+                         (2560, 256))
+# (N, D, K) the partials block sizes are timed at: the K-Means batches (16 messages of 5000
+# points), 125 such messages (five times a continuous window's 25), and K*D = 256 (one group)
+UPDATE_PARTIALS_SHAPES = ((80_000, 3, 10), (625_000, 3, 10), (65_536, 1, 256),
+                          (65_536, 16, 16))
 
 
 @contextmanager
@@ -141,13 +172,17 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description="tile sizes of the port's kernels, side by side")
     ap.add_argument("parts", nargs="*",
-                    choices=("flash", "bwd", "project", "backproject", "decode", "assign"))
+                    choices=("flash", "bwd", "project", "backproject", "decode", "assign",
+                             "update"))
     ap.add_argument("--parent-decode", type=Path, help="another checkout's decode_attention.cu "
                     "with the one-kernel interface, timed beside the decode builds")
     ap.add_argument("--parent-assign", type=Path, help="another checkout's kmeans_assign.cu "
                     "with the one-regime interface, timed beside the assign builds")
+    ap.add_argument("--parent-update", type=Path, help="another checkout's kmeans_update.cu "
+                    "with the sorted-input interface, timed in phases beside the update")
     args = ap.parse_args()
-    parts = set(args.parts) or {"flash", "bwd", "project", "backproject", "decode", "assign"}
+    parts = set(args.parts) or {"flash", "bwd", "project", "backproject", "decode", "assign",
+                                "update"}
     print(cs.card_line())
     flash = {r: _build.CudaKernel(f"flash_attention[rows={r}]", _build.CudaLibrary(
         "flash_attention.cu", attn_ops.FLASH_LIB.signatures,
@@ -177,10 +212,14 @@ def main() -> None:
         assign["parent"] = _build.CudaKernel("kmeans_assign[parent]", _build.CudaLibrary(
             str(args.parent_assign.resolve()), {"kmeans_assign": PARENT_ASSIGN_ARGS}),
             "kmeans_assign")
+    parent_update = (_parent_update_kernels(args.parent_update.resolve())
+                     if args.parent_update and "update" in parts else {})
     libs = [k.library for part, kernels in (("flash", flash), ("bwd", bwd), ("project", project),
                                               ("backproject", backproject), ("decode", decode),
-                                              ("assign", assign))
+                                              ("assign", assign), ("update", parent_update))
             if part in parts for k in kernels.values()]
+    if "update" in parts:
+        libs.append(kmeans_ops.KMEANS_UPDATE_LIB)
     for lib, proc in [(lib, lib.start_build()) for lib in libs]:
         lib.finish_build(proc)
     for part, kernels in (("assign", assign), ("bwd", bwd)):  # registers and spills (ptxas -v)
@@ -203,6 +242,12 @@ def main() -> None:
     if "assign" in parts:
         sweep_assign_regimes(torch, cs, kmeans, kmeans_ops, assign["chosen"], gen)
         sweep_assign_builds(torch, cs, kmeans, kmeans_ops, assign, gen)
+    if "update" in parts:
+        if parent_update:
+            sweep_update_parent(torch, cs, kmeans, parent_update, gen)
+        sweep_update_phases(torch, cs, kmeans, kmeans_ops, gen)
+        sweep_update_sizes(torch, cs, kmeans, kmeans_ops, gen)
+        sweep_update_regimes(torch, cs, kmeans, kmeans_ops, parent_update.get(7), gen)
     a, n_det, n = cs.FRAME_ANGLES, cs.FRAME_BINS, cs.RECON_N
     cos_t, sin_t = tomo.trig(torch.from_numpy(tomo.angle_grid(a)).to(dev))
     if "project" in parts:
@@ -427,6 +472,164 @@ def _parent_assign(torch, kernel, points, centroids):
     kernel.launch(points.data_ptr(), centroids.data_ptr(), labels.data_ptr(), dist.data_ptr(), n,
                   centroids.shape[0], d, 1 if points.dtype == torch.bfloat16 else 0, stream)
     return labels, dist
+
+
+def _parent_update_kernels(source: Path) -> dict:
+    """The parent's ``kmeans_update.cu``, copied under ``build/`` with each
+    launch behind a bit of ``PARENT_PHASES``, built with the first launch,
+    the first two and all three."""
+    from repro_torch.kernels import _build
+
+    text = source.read_text()
+    for i, launch in enumerate(PARENT_UPDATE_LAUNCHES):
+        if text.count(launch) != 1:
+            raise ValueError(f"{source}: want one '{launch}', found {text.count(launch)}")
+        text = text.replace(launch, f"if (PARENT_PHASES & {1 << i}) {launch}")
+    copy = ROOT / "build" / "parent_update" / "kmeans_update_phases.cu"
+    copy.parent.mkdir(parents=True, exist_ok=True)
+    copy.write_text(text)
+    return {phases: _build.CudaKernel(
+        f"kmeans_update[parent, phases {phases}]", _build.CudaLibrary(
+            str(copy), {"kmeans_update": PARENT_UPDATE_ARGS}, (f"-DPARENT_PHASES={phases}",)),
+        "kmeans_update") for phases in (1, 3, 7)}
+
+
+def _parent_update(torch, kernel, points, labels, k: int, pre=None):
+    """The parent's update through its own C interface: ``torch.sort`` of the
+    labels (or ``pre``, a sort made before), then its launches."""
+    n, d = points.shape
+    sorted_labels, order = pre if pre is not None else torch.sort(labels, stable=True)
+    cols = 1
+    while cols < d and cols < 32:
+        cols *= 2
+    seg_rows = 8 * (256 // cols)
+    dev = points.device
+    starts = torch.empty((k + 1,), dtype=torch.int32, device=dev)
+    part = torch.empty((2 * max(-(-n // seg_rows), 1), d + 1), dtype=torch.float32, device=dev)
+    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
+    counts = torch.empty((k,), dtype=torch.float32, device=dev)
+    kernel.launch(points.data_ptr(), sorted_labels.data_ptr(), order.data_ptr(), 0,
+                  starts.data_ptr(), part.data_ptr(), sums.data_ptr(), counts.data_ptr(), n, k, d,
+                  1 if points.dtype == torch.bfloat16 else 0, seg_rows,
+                  torch.cuda.current_stream(dev).cuda_stream)
+    return sums, counts
+
+
+def _update_plans(k_ops, d: int, k: int, dtype) -> dict:
+    """Every regime the entry point takes for (D, K): ``sorted`` always,
+    ``partials`` where K*D <= 256."""
+    regimes = ("sorted", "partials") if k * d <= k_ops.UPDATE_THREADS else ("sorted",)
+    return {regime: k_ops.update_plan(d, k, dtype, regime) for regime in regimes}
+
+
+def _update_labels(torch, cs, kmeans, n, d, k, dtype, clustered, gen):
+    """Points and their ``kmeans_assign`` labels, as ``chip_smoke.check_update`` makes them."""
+    points, centroids = cs.assign_inputs(torch, n, d, k, dtype, clustered, gen)
+    return points, kmeans.assign_cuda(points, centroids)[0]
+
+
+def sweep_update_regimes(torch, cs, kmeans, k_ops, parent, gen) -> None:
+    """Each regime the entry point takes (and the parent's kernel, where
+    given) at shapes around the threshold, f32 and bf16, held to
+    ``chip_smoke.update_close`` and timed in turns; ``chosen`` marks
+    ``update_plan``'s pick: this sets ``PARTIALS_MAX_KD``."""
+    for d, k in UPDATE_THRESHOLD_SHAPES:
+        n = 80_000 if (d, k) == (3, 10) else 65_536
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            points, labels = _update_labels(torch, cs, kmeans, n, d, k, dtype, d <= 16, gen)
+            runs = {regime: lambda plan=plan: k_ops.update_launch(points, labels, k, plan=plan)
+                    for regime, plan in _update_plans(k_ops, d, k, dtype).items()}
+            if parent is not None:
+                runs["parent"] = lambda: _parent_update(torch, parent, points, labels, k)
+            res = {var: cs.update_close(torch, f"kmeans_update {var}", run, points, labels, k)
+                   for var, run in runs.items()}
+            if parent is not None:  # the sorted regime keeps the parent's order of every sum
+                sums, counts = runs["sorted"]()
+                p_sums, p_counts = runs["parent"]()
+                res["sorted"]["bitwise_parent"] = bool(torch.equal(sums, p_sums)
+                                                       and torch.equal(counts, p_counts))
+            ms = _time_in_turns(cs, torch, runs, 20)
+            chosen = k_ops.update_plan(d, k, dtype).regime
+            for var in runs:
+                print(json.dumps({"kernel": "kmeans_update", "part": "regimes", "N": n, "D": d,
+                                  "K": k, "dtype": name, "regime": var, "chosen": var == chosen,
+                                  "ms": ms[var], **res[var]}))
+
+
+def sweep_update_sizes(torch, cs, kmeans, k_ops, gen) -> None:
+    """The partials regime's block sizes (least rows a block, most blocks)
+    at ``UPDATE_PARTIALS_SHAPES``, f32 and bf16, each held to
+    ``chip_smoke.update_close`` and timed in turns."""
+    import dataclasses
+
+    for n, d, k in UPDATE_PARTIALS_SHAPES:
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            points, labels = _update_labels(torch, cs, kmeans, n, d, k, dtype, True, gen)
+            plan = k_ops.update_plan(d, k, dtype)
+            variants = {(rows, blocks): dataclasses.replace(plan, min_rows=rows,
+                                                            max_blocks=blocks)
+                        for rows, blocks in UPDATE_PARTIALS_SIZES}
+            runs = {key: lambda var=var: k_ops.update_launch(points, labels, k, plan=var)
+                    for key, var in variants.items()}
+            res = {key: cs.update_close(torch, f"kmeans_update {key}", run, points, labels, k)
+                   for key, run in runs.items()}
+            ms = _time_in_turns(cs, torch, runs, 50)
+            for (rows, blocks), var in variants.items():
+                print(json.dumps({"kernel": "kmeans_update", "part": "partials sizes", "N": n,
+                                  "D": d, "K": k, "dtype": name, "min_rows": rows,
+                                  "max_blocks": blocks, "block_rows": var.block_rows(n),
+                                  "ms": ms[(rows, blocks)], "worst_err_over_tol":
+                                  res[(rows, blocks)]["worst_err_over_tol"]}))
+
+
+def sweep_update_phases(torch, cs, kmeans, k_ops, gen) -> None:
+    """The update in phases at the checks' shapes (f32), in the regime
+    ``update_plan`` chooses (``chip_smoke.update_phase_ms``: the call
+    stopped after each launch, less the call stopped before it)."""
+    for n, d, k, clustered in UPDATE_CHECK_SHAPES:
+        points, labels = _update_labels(torch, cs, kmeans, n, d, k, torch.float32, clustered,
+                                        gen)
+        phases = cs.update_phase_ms(torch, kmeans, points, labels, k)
+        print(json.dumps({"kernel": "kmeans_update", "part": "phases", "N": n, "D": d, "K": k,
+                          "dtype": "f32", "regime": k_ops.update_plan(d, k, torch.float32).regime,
+                          "phase_ms": phases, "call_ms": cs.graph_ms(
+                              torch, lambda: k_ops.update_cuda(points, labels, k), 20)}))
+
+
+def sweep_update_parent(torch, cs, kmeans, kernels: dict, gen) -> None:
+    """The parent's update in phases at the checks' shapes (f32): its
+    ``torch.sort`` alone; the whole call built with its first launch
+    (``run_starts``), its first two (+ ``segment_sums``) and all three (+
+    ``merge_runs``), with the sort and with the sort made before; the
+    full build held to ``chip_smoke.update_close`` first. Beside them the
+    launch floor and one ``index_add_``."""
+    floor = cs.launch_floor_ms(torch)
+    for n, d, k, clustered in UPDATE_CHECK_SHAPES:
+        points, labels = _update_labels(torch, cs, kmeans, n, d, k, torch.float32, clustered,
+                                        gen)
+        full = kernels[7]
+        res = cs.update_close(torch, "kmeans_update[parent]",
+                              lambda: _parent_update(torch, full, points, labels, k),
+                              points, labels, k)
+        pre = torch.sort(labels, stable=True)
+        runs = {"sort": lambda: torch.sort(labels, stable=True)}
+        for phases, kernel in kernels.items():
+            runs[f"call {phases}"] = lambda kernel=kernel: _parent_update(
+                torch, kernel, points, labels, k)
+            runs[f"kernels {phases}"] = lambda kernel=kernel: _parent_update(
+                torch, kernel, points, labels, k, pre)
+        ms = _time_in_turns(cs, torch, runs, 20)
+        idx, zeros = labels.long(), torch.zeros((k, d), device=points.device)
+        library = cs.graph_ms(torch, lambda: zeros.index_add_(0, idx, points), 20)
+        mean = {name: sum(v) / len(v) for name, v in ms.items()}
+        print(json.dumps({
+            "kernel": "kmeans_update", "part": "parent phases", "N": n, "D": d, "K": k,
+            "dtype": "f32", "ms": ms, "sort_ms": mean["sort"],
+            "run_starts_ms": mean["kernels 1"],
+            "segment_sums_ms": mean["kernels 3"] - mean["kernels 1"],
+            "merge_runs_ms": mean["kernels 7"] - mean["kernels 3"],
+            "call_ms": mean["call 7"], "launch_floor_ms": floor, "index_add_ms": library,
+            "worst_err_over_tol": res["worst_err_over_tol"]}))
 
 
 def sweep_tomo(torch, cs, tomo_ops, attr: str, kernels: dict, run, ref, terms: int,
