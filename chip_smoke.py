@@ -55,9 +55,21 @@
    tokens each, at the published capacity factor, then 1 message at
    capacity_factor = E / K (no token drops) that is re-scored as (c) is,
    near-tied routes reported; and one phi3.5-moe MoE layer at full width in
-   f32 on the card against the CPU, routes compared token by token; every
-   kernel's launch count is set to 0 just before a path and read just after
-   it;
+   f32 on the card against the CPU, routes compared token by token; then
+   (e) the families phase: llava-next-mistral-7b (VLM), seamless-m4t-medium
+   (enc-dec), rwkv6-3b and zamba2-1.2b at full width and full depth, bf16,
+   one at a time: llava and seamless through the model's prefill and decode
+   (4 prompts of 128 tokens behind 576 patch embeddings, or beside 256
+   frame embeddings; 16 greedy tokens, each re-scored by a prefill of its
+   context), rwkv6 and zamba2 through ``LMServeApp(mode="lockstep")`` (2
+   messages of 4 x 128 tokens, 65 greedy tokens, the serving replayed
+   bitwise and the last token re-scored by a prefill of 192 tokens), with a
+   ``path`` line each (wall, tokens/s, peak memory, launches: flash and
+   decode for all but rwkv6, which has no attention), and each family at 2
+   layers in f32 on the card against the CPU; the attention kernels are
+   checked at the phase's shapes first (non-causal, Sq != Skv, G = 1, S =
+   704 and 720), beside SDPA; every kernel's launch count is set to 0 just
+   before a path and read just after it;
 5. re-scores every served sequence with the model's prefill and holds each
    generated token against that forward's argmax, then saves the served
    model's parameters (f32, and cast to bf16) with the port's
@@ -278,6 +290,55 @@ MOE_F32_TIE, MOE_LAYER_REL = 1e-5, 1e-4
 # token at a time) and the prefill path (flash kernel) round their bf16
 # residual streams at different places over 30 layers
 RESCORE_GAP = 0.05
+
+
+# the families phase: the four families that are not decoder-only token
+# models, at full width and full depth, bf16, random weights drawn on the
+# card from SEED, one model at a time (each freed before the next is drawn).
+# llava-next (VLM) and seamless-m4t (enc-dec) take stub embeddings beside
+# their prompts, which a token stream does not carry, so they are driven
+# through the model API as the JAX package's tests drive them: one batch of
+# SERVE_BATCH prompts of PROMPT_LEN tokens (llava: behind its 576 patch
+# embeddings; seamless: with FAM_FRAMES frame embeddings) and FAM_STUB_GEN
+# greedy tokens, each token re-scored by a prefill of its context. rwkv6-3b
+# and zamba2-1.2b serve through LMServeApp(mode="lockstep"): FAM_STATE_MSGS
+# messages of SERVE_BATCH x PROMPT_LEN tokens, FAM_STATE_GEN greedy tokens,
+# so that the last one is checked against a prefill of PROMPT_LEN + 64 = 192
+# tokens, which their chunked scans (chunks of 32 and 64) take whole
+# (``state_replay``: the rule is held in f32, its bf16 reading printed). Then
+# each family at full width but FAM_CHECK_LAYERS layers in f32 (llava's
+# patches cut to FAM_CHECK_PATCHES), prefill and FAM_CHECK_DECODES decode
+# steps on the card against the CPU from the same weights and inputs, and
+# the card's decode path against its prefill of the longer prompt (32 + 32
+# tokens: whole chunks of the RWKV6 and Mamba2 scans): the logits held to
+# FAM_F32_REL of their largest |value| (products over up to 14 336 terms
+# summed in other orders, and the card's f32 attention kernels against the
+# plain versions)
+FAMILIES = ("llava-next-mistral-7b", "seamless-m4t-medium", "rwkv6-3b", "zamba2-1.2b")
+FAM_FRAMES, FAM_STUB_GEN, FAM_STATE_MSGS, FAM_STATE_GEN = 256, 16, 2, 65
+FAM_CHECK_LAYERS, FAM_CHECK_PATCHES, FAM_CHECK_TOKENS, FAM_CHECK_DECODES = 2, 64, 32, 32
+FAM_F32_REL = 1e-4
+# the state families' decode path (64 recurrent steps) against their prefill
+# (a chunked scan over 192 tokens) at full depth, in f32: random weights
+# amplify the two paths' f32 rounding differences with depth (at 2 layers
+# they agree to FAM_F32_REL). PERF.md's families findings hold the H100's
+# sound readings beside those of the faults tools/state_faults.py plants
+FAM_F32_DEPTH_REL = 2e-3
+# the share of an f32 state's elements that may equal their bf16 rounding: a
+# random f32 value does with odds of about 2^-16, a state rounded on the way
+# always does
+FAM_STATE_BF16_EXACT = 0.01
+# the attention shapes the families phase gives the kernels, none of them run
+# on the card before it: (name, B, Sq, Skv, (H, KV, hd), causal) for flash,
+# (name, B, S, (H, KV, hd)) for decode at the cache lengths served
+FAM_FLASH = (("llava prefill", SERVE_BATCH, 704, 704, (32, 8, 128), True),
+             ("seamless encoder", SERVE_BATCH, FAM_FRAMES, FAM_FRAMES, (16, 16, 64), False),
+             ("seamless cross", SERVE_BATCH, PROMPT_LEN, FAM_FRAMES, (16, 16, 64), False),
+             ("seamless decoder", SERVE_BATCH, PROMPT_LEN, PROMPT_LEN, (16, 16, 64), True),
+             ("zamba site", SERVE_BATCH, PROMPT_LEN, PROMPT_LEN, (32, 32, 64), True))
+FAM_DECODE = (("llava", SERVE_BATCH, 704 + FAM_STUB_GEN, (32, 8, 128)),
+              ("seamless", SERVE_BATCH, PROMPT_LEN + FAM_STUB_GEN, (16, 16, 64)),
+              ("zamba", SERVE_BATCH, PROMPT_LEN + FAM_STATE_GEN, (32, 32, 64)))
 
 
 # what the backward kernels' plain_ms and library_ms in the kernels line time
@@ -812,43 +873,67 @@ def check_decode(torch, attn, b: int, s: int, heads: tuple = SERVE_HEADS) -> dic
 
 
 def check_flash(torch, attn, b: int, s: int, gen, timing: bool,
-                heads: tuple = SERVE_HEADS) -> dict:
-    """``flash_attention``, causal, Sq = Skv = s, in the head layout
-    ``heads`` (the serving path's by default), bf16. Query row i of a
-    causal prefill is a decode over keys 0..i, so a sample of rows with
-    LONG_ROW or more keys goes through the off-by-one check against the
-    plain decode version."""
+                heads: tuple = SERVE_HEADS, skv: int | None = None, causal: bool = True) -> dict:
+    """``flash_attention`` over ``s`` query rows and ``skv`` keys (``s`` by
+    default), causal by default (then Sq = Skv), in the head layout
+    ``heads`` (the serving path's by default), bf16, held per element to
+    the plain version. The same rule must fail the plain version with the
+    causal flag flipped (by more than 10x the tolerance somewhere) and a mask
+    off by one: in a causal prefill query row i is a decode over keys
+    0..i, so a sample of rows with LONG_ROW or more keys goes through the
+    off-by-one check against the plain decode version; in a non-causal one
+    the plain version over the keys less the last one must fail. ``timing``:
+    the kernel, the plain version and SDPA from ``graph_ms``, and the bound."""
     H, KV, hd = heads
+    skv = skv or s
+    if causal and skv != s:
+        raise ValueError("a causal check takes Sq = Skv")
     dev = torch.device("cuda", 0)
     q = torch.randn((b, s, H, hd), generator=gen, device=dev).bfloat16()
-    k = torch.randn((b, s, KV, hd), generator=gen, device=dev).bfloat16()
-    v = torch.randn((b, s, KV, hd), generator=gen, device=dev).bfloat16()
-    out = attn.flash_attention_cuda(q, k, v, causal=True)
-    name = f"flash_attention B={b} S={s} hd={hd}"
-    res = _bf16_close(torch, name, out, attn.flash_attention_plain(q, k, v, causal=True), v)
-    rows = torch.arange(LONG_ROW, s - 1, 8, device=dev)  # query rows i, keys 0..i
-    n = len(rows)
+    k = torch.randn((b, skv, KV, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, skv, KV, hd), generator=gen, device=dev).bfloat16()
+    out = attn.flash_attention_cuda(q, k, v, causal=causal)
+    name = (f"flash_attention B={b} Sq={s} Skv={skv} {H}/{KV} hd={hd} "
+            f"{'causal' if causal else 'non-causal'}")
+    res = _bf16_close(torch, name, out, attn.flash_attention_plain(q, k, v, causal=causal), v)
 
-    def expand(x):  # (b, s, KV, hd) -> one cache per sampled row, (b * n, s, KV, hd)
-        return x[:, None].expand(b, n, *x.shape[1:]).reshape(b * n, *x.shape[1:])
+    def worst(ref):
+        return float(((out.float() - ref.float()).abs() / _bf16_tol(torch, ref, v)).max())
 
-    res["off_by_one"] = _off_by_one(
-        torch, attn, name, out[:, rows].reshape(b * n, 1, H, hd),
-        q[:, rows].reshape(b * n, 1, H, hd), expand(k), expand(v),
-        rows.repeat(b), rows.repeat(b).to(torch.int32))
+    res["flipped_flag_over_tol"] = worst(attn.flash_attention_plain(q, k, v, causal=not causal))
+    if res["flipped_flag_over_tol"] <= 10:
+        raise AssertionError(f"{name}: the check is blind to the causal flag flipped "
+                             f"({res['flipped_flag_over_tol']} of the tolerance)")
+    if causal:
+        rows = torch.arange(LONG_ROW, s - 1, 8, device=dev)  # query rows i, keys 0..i
+        n = len(rows)
+
+        def expand(x):  # (b, s, KV, hd) -> one cache per sampled row, (b * n, s, KV, hd)
+            return x[:, None].expand(b, n, *x.shape[1:]).reshape(b * n, *x.shape[1:])
+
+        res["off_by_one"] = _off_by_one(
+            torch, attn, name, out[:, rows].reshape(b * n, 1, H, hd),
+            q[:, rows].reshape(b * n, 1, H, hd), expand(k), expand(v),
+            rows.repeat(b), rows.repeat(b).to(torch.int32))
+    else:
+        short = worst(attn.flash_attention_plain(q, k[:, :-1].contiguous(),
+                                                 v[:, :-1].contiguous(), causal=False))
+        if short <= 1:
+            raise AssertionError(f"{name}: the check is blind to the last key dropped ({short})")
+        res["last_key_dropped_over_tol"] = short
     if timing:
-        pairs = s * (s + 1) // 2  # causal (query, key) pairs per head
+        pairs = s * (s + 1) // 2 if causal else s * skv  # (query, key) pairs per head
         n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
         res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * b * H * hd * pairs, BF16_OPS_PER_S)
-        res["ms"] = graph_ms(torch, lambda: attn.flash_attention_cuda(q, k, v, causal=True), 50)
+        res["ms"] = graph_ms(torch, lambda: attn.flash_attention_cuda(q, k, v, causal=causal), 50)
         res["plain_ms"] = graph_ms(
-            torch, lambda: attn.flash_attention_plain(q, k, v, causal=True), 10)
+            torch, lambda: attn.flash_attention_plain(q, k, v, causal=causal), 10)
         qt = q.transpose(1, 2).contiguous()
         kt, vt = (x.transpose(1, 2).repeat_interleave(H // KV, dim=1).contiguous()
                   for x in (k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        res["library_ms"] = graph_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), 50)
-        res["call_ms"] = time_ms(torch, lambda: attn.flash_attention_cuda(q, k, v, causal=True),
+        res["library_ms"] = graph_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal), 50)
+        res["call_ms"] = time_ms(torch, lambda: attn.flash_attention_cuda(q, k, v, causal=causal),
                                  100, 5)
     return res
 
@@ -1233,7 +1318,7 @@ def serve_path(torch, kernels, miniapps, cluster, ctx, device, n_msgs: int = SER
                    gen_tokens=gen_tokens, launches={k: n for k, n in launches.items() if n})
     print("path " + json.dumps(out))
     return {"report": out, "launches": launches, "app": app, "params": params, "served": served,
-            "gen_tokens": gen_tokens, "stream": stream}
+            "stream": stream}
 
 
 def _route_margins(moe, margins: list):
@@ -1259,55 +1344,77 @@ def _route_margins(moe, margins: list):
     return recording()
 
 
-def rescore(torch, serve: dict, rows_per_call: int | None = None,
-            route_tie: float | None = None) -> dict:
-    """Every generated token against one prefill of its context (prompt +
-    the tokens served before it), batched (``rows_per_call`` rows a
-    prefill): row t of a request is the sequence with ``last_pos =
-    PROMPT_LEN - 1 + t``. That prefill runs the flash kernel; the served
-    tokens came through the decode kernel. For a MoE model, ``route_tie``
-    given: a served token that differs where the top-2 gap exceeds
-    RESCORE_GAP is excused only where its own position was routed, in some
-    layer of the re-scoring prefill, by a margin of at most ``route_tie`` (a
-    near-tie that the two paths' bf16 roundings can flip); such tokens are
-    counted and printed, never dropped silently. The positions that could
-    be excused so are counted too (``excusable``), with how many of the
-    clear-gap positions have own margins of at most 2^-11, 2^-10 and 2^-9,
-    and at least a quarter of all positions must be clear and not
-    excusable: the check binds there."""
-    import numpy as np
-
+def rescore(torch, model, params, served: list, *, steps=None, batch_for=None,
+            rows_per_call: int | None = None, route_tie: float | None = None,
+            enforce: bool = True) -> dict:
+    """Served tokens against prefills of their contexts. ``served`` holds
+    (prompts (B, P), tokens (B, T)) pairs, numpy or on the card; token t of
+    every request, for each t in ``steps`` (all T by default), against a
+    prefill of the prompt and the t tokens served before it. A model whose
+    prefill honours ``last_pos`` (``SUPPORTS_PAGED``) takes rows of every t
+    in one prefill (``rows_per_call`` rows a call) at their full length,
+    ``last_pos = P - 1 + t`` (a VLM's counts its patches); any other takes one
+    prefill per t of its rows cut to P + t tokens. ``batch_for(tokens,
+    requests)`` adds the stub embeddings of each row's request. That prefill
+    runs the flash kernel; the served tokens came through the decode
+    kernel. The dense rule: a served token must be the prefill's argmax
+    wherever the top-2 gap exceeds RESCORE_GAP, and at least a quarter of
+    all positions must be clear (and not excusable) so that the rule binds.
+    For a MoE model, ``route_tie`` given: a served token that differs where
+    the gap is clear is excused only where its own position was routed, in
+    some layer of the re-scoring prefill, by a margin of at most
+    ``route_tie`` (a near-tie that the two paths' bf16 roundings can flip);
+    such tokens are counted and printed, never dropped silently. The
+    positions that could be excused so are counted too (``excusable``),
+    with how many of the clear-gap positions have own margins of at most
+    2^-11, 2^-10 and 2^-9. ``enforce`` False: the rule is read and printed
+    (``met``, each clear-gap difference), not held."""
     from repro_torch.models import moe
-    from repro_torch.models.common import first_argmax
+    from repro_torch.models.common import first_argmax, tree_leaves
 
-    model = serve["app"].model
-    p = model.compute_params(serve["params"])
-    device = serve["params"]["embed"].device
-    gen = serve["gen_tokens"]
-    checked = agree = excusable = 0
+    cfg = model.cfg
+    p = model.compute_params(params)
+    device = tree_leaves(params)[0].device
+    offset = cfg.n_patches if cfg.family == "vlm" else 0
+    checked = agree = excusable = total = 0
     own_at_most = {f"2^{e}": 0 for e in (-11, -10, -9)}  # clear positions, own margin <= 2^e
     worst = 0.0  # the largest top-2 gap at which a served token differed
     excused: list = []  # (gap, own route margin) of each excused token
+    differing: list = []  # (request, t, gap) of each clear-gap difference not excused
     own_margin_min = math.inf
-    for prompts, out in serve["served"]:
-        seqs = torch.from_numpy(np.concatenate([prompts, out], axis=1)).to(device)
-        toks = seqs.repeat_interleave(gen, dim=0)  # (B * T, P + T)
-        last = (PROMPT_LEN - 1 + torch.arange(gen, device=device)).repeat(len(out))
-        step = rows_per_call or len(toks)
-        parts, own = [], []
-        for r0 in range(0, len(toks), step):
-            rows, at = toks[r0:r0 + step], last[r0:r0 + step]
+    for i, (prompts, out) in enumerate(served):
+        prompts = torch.as_tensor(prompts, device=device)
+        out = torch.as_tensor(out, device=device).to(prompts.dtype)
+        (B, P), T = prompts.shape, out.shape[1]
+        ts = torch.arange(T, device=device) if steps is None else torch.tensor(steps, device=device)
+        seqs = torch.cat([prompts, out], dim=1)
+        req = torch.arange(B, device=device).repeat_interleave(len(ts))  # each row's request
+        t_row = ts.repeat(B)
+        if model.SUPPORTS_PAGED:
+            step = rows_per_call or len(req)
+            groups = [slice(r0, r0 + step) for r0 in range(0, len(req), step)]
+        else:
+            groups = [t_row == t for t in ts]
+        parts, own, rows_t = [], [], []
+        for g in groups:
+            at = t_row[g]
+            rows = seqs[req[g]] if model.SUPPORTS_PAGED else seqs[req[g], :P + int(at[0])]
+            batch = batch_for(rows, req[g]) if batch_for else {"tokens": rows}
+            if model.SUPPORTS_PAGED:
+                batch["last_pos"] = offset + P - 1 + at
             margins: list = []
             with _route_margins(moe, margins):
-                logits, _ = model.prefill(p, {"tokens": rows, "last_pos": at})
+                logits, _ = model.prefill(p, batch)
             parts.append(logits[:, 0])
+            rows_t.append(torch.stack([req[g], at], dim=1))
             if route_tie is not None:  # each layer's margin at the rows' own positions
-                own.append(torch.stack([m.reshape(rows.shape)[torch.arange(len(rows)), at]
+                last = P - 1 + at
+                own.append(torch.stack([m.reshape(rows.shape)[torch.arange(len(rows)), last]
                                         for m in margins]).amin(0))
-        logits = torch.cat(parts)
+        logits, rows_t = torch.cat(parts), torch.cat(rows_t)
         top2 = logits.topk(2, dim=-1).values
         gap = top2[:, 0] - top2[:, 1]
-        same = first_argmax(logits, dim=-1) == torch.from_numpy(out).to(device).reshape(-1).long()
+        same = first_argmax(logits, dim=-1) == out[rows_t[:, 0], rows_t[:, 1]].long()
         clear = gap > RESCORE_GAP
         bad = clear & ~same
         if route_tie is not None:
@@ -1320,26 +1427,33 @@ def rescore(torch, serve: dict, rows_per_call: int | None = None,
             excusable += int((clear & near).sum())
             for e in (-11, -10, -9):
                 own_at_most[f"2^{e}"] += int((clear & (own <= 2.0 ** e)).sum())
-        if bool(bad.any()):
-            raise AssertionError(f"{int(bad.sum())} served tokens differ from the prefill argmax "
-                                 f"where the top-2 gap exceeds {RESCORE_GAP}")
+        differing += [(i * B + int(r), int(t), float(g))
+                      for (r, t), g in zip(rows_t[bad].tolist(), gap[bad])]
+        if enforce and bool(bad.any()):
+            raise AssertionError(f"{cfg.name}: {int(bad.sum())} served tokens differ from the "
+                                 f"prefill argmax where the top-2 gap exceeds {RESCORE_GAP}")
         checked += int(clear.sum())
         agree += int(same.sum())
+        total += len(same)
         if not bool((same | clear).all()):
             worst = max(worst, float(gap[~same & ~clear].max()))
-    total = sum(out.size for _, out in serve["served"])
-    res = {"positions": total, "checked": checked, "agree": agree,
+    res = {"model": cfg.name, "positions": total, "checked": checked, "agree": agree,
            "largest_gap_where_differing": worst, "gap_tol": RESCORE_GAP}
+    if steps is not None:
+        res["prefix_tokens"] = [served[0][0].shape[1] + t for t in steps]
     if route_tie is not None:
-        res.update(model=model.cfg.name, capacity_factor=model.cfg.capacity_factor,
+        res.update(capacity_factor=cfg.capacity_factor,
                    rows_per_prefill=rows_per_call, route_tie=route_tie, excusable=excusable,
                    binding=checked - excusable, clear_with_own_margin_at_most=own_at_most,
                    own_route_margin_min=own_margin_min,
                    excused_route_ties=len(excused), excused_gap_and_margin=excused[:8])
+    if not enforce:
+        res.update(enforced=False, met=not differing and checked - excusable >= total // 4,
+                   clear_gap_differences=differing)
     print("rescore " + json.dumps(res))
-    if checked - excusable < total // 4:
-        raise AssertionError(f"only {checked - excusable} of {total} positions had a clear top-2 "
-                             f"gap and could not be excused ({excusable} could)")
+    if enforce and checked - excusable < total // 4:
+        raise AssertionError(f"{cfg.name}: only {checked - excusable} of {total} positions had a "
+                             f"clear top-2 gap and could not be excused ({excusable} could)")
     return res
 
 
@@ -1391,7 +1505,8 @@ def serve_moe_path(torch, kernels, miniapps, cluster, ctx, device) -> dict:
             if kind == "nodrop":
                 seq = PROMPT_LEN + MOE_GEN_TOKENS
                 per_row = seq * full.experts_per_token * cf * full.d_model * 2  # dispatch bytes
-                rescore(torch, sv, rows_per_call=max(1, int(MOE_DISPATCH_BYTES // per_row)),
+                rescore(torch, sv["app"].model, sv["params"], sv["served"],
+                        rows_per_call=max(1, int(MOE_DISPATCH_BYTES // per_row)),
                         route_tie=MOE_ROUTE_TIE)
             ctx.streams.remove(sv["stream"])  # the stopped stream held the params as its state
             del sv
@@ -1472,6 +1587,348 @@ def moe_layer_check(torch, device) -> dict:
     if unexplained or worst > MOE_LAYER_REL or aux_rel > 1e-6 or not bool(y_card.isfinite().all()):
         raise AssertionError(f"MoE layer on the card vs the CPU: {res}; unexplained {unexplained}")
     return res
+
+
+def state_replay(torch, model, params, served: list) -> dict:
+    """rwkv6-3b's or zamba2-1.2b's serving held against itself and its
+    prefill, per message of ``served`` [(prompts, tokens)]:
+
+    * bf16, the app's run repeated: the prefill of the prompt and the decode
+      loop fed the served tokens must pick every served token again;
+    * f32 compute (the same stored bf16 weights; the f32 attention
+      kernels): the replay, fed the served tokens, against a prefill of the
+      prompt and every served token but the last (PROMPT_LEN + FAM_STATE_GEN
+      - 1 = 192 tokens: whole chunks of both scans). Their last logits must
+      agree to FAM_F32_DEPTH_REL of the prefill's largest |logit|, and their
+      argmaxes wherever the prefill's top-2 gap exceeds RESCORE_GAP (the
+      dense rule), which must be clear on a quarter of the rows or more;
+    * the f32 leaves of the bf16 replay's cache (the WKV or SSD states,
+      which the reference keeps in f32 under bf16 compute) must carry f32
+      precision: at most FAM_STATE_BF16_EXACT of their elements may equal
+      their own bf16 rounding (a state rounded to the compute dtype on the
+      way is all such elements);
+    * read, not held: how far bf16 moves each path from its f32 run (the
+      bf16 prefill from the f32 prefill, the bf16 replay from the f32
+      replay) and the two bf16 paths from each other, each over the f32
+      prefill's largest |logit|. Random weights at full depth amplify
+      rounding until the bf16 paths part by about as much as each parts from
+      its own f32 run, so the served tokens' bf16 re-score is read beside
+      this (``rescore``, ``enforce=False``), not held.
+
+    Returns the readings and ``failed``, the rules broken: none in a sound
+    run; ``tools/state_faults.py`` plants faults and reads which rule each
+    one breaks."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import first_argmax, tree_leaves
+
+    cfg = model.cfg
+    model32 = build_model(cfg.replace(compute_dtype="float32"))
+    p = model.compute_params(params)
+    P, T = served[0][0].shape[1], served[0][1].shape[1]
+
+    def replay(m, prompts, out):
+        logits, cache = m.prefill(p, {"tokens": prompts}, cache_len=P + T)
+        picks = [first_argmax(logits[:, -1], dim=-1)]
+        pos = torch.full((len(out),), P - 1, dtype=torch.int32, device=out.device)
+        for j in range(1, T):
+            pos = pos + 1
+            logits, cache = m.decode(p, cache, {"tokens": out[:, j - 1:j], "positions": pos})
+            picks.append(first_argmax(logits[:, 0], dim=-1))
+        return logits[:, 0], torch.stack(picks, dim=1), cache
+
+    failed = []
+    rel = {"f32_decode_vs_prefill": 0.0, "bf16_vs_f32_prefill": 0.0, "bf16_vs_f32_decode": 0.0,
+           "bf16_decode_vs_prefill": 0.0}
+    clear = agree = total = 0
+    differing, scales = [], []
+    exact = n_state = 0
+    for prompts, out in served:
+        dec, picks, cache = replay(model, prompts, out)
+        for leaf in tree_leaves(cache):
+            if leaf.dtype == torch.float32:
+                exact += int((leaf.to(torch.bfloat16).float() == leaf).sum())
+                n_state += leaf.numel()
+        del cache
+        if not torch.equal(picks, out.long()):
+            failed.append(f"the bf16 replay picks other tokens than the served ones at "
+                          f"{int((picks != out.long()).sum())} places")
+        seq = torch.cat([prompts, out[:, :-1]], dim=1)
+        pre = model.prefill(p, {"tokens": seq})[0][:, 0]
+        dec32 = replay(model32, prompts, out)[0]
+        pre32 = model32.prefill(p, {"tokens": seq})[0][:, 0]
+        scale = float(pre32.abs().max())
+        scales.append(scale)
+        for key, (a, b) in {"f32_decode_vs_prefill": (dec32, pre32),
+                            "bf16_vs_f32_prefill": (pre, pre32),
+                            "bf16_vs_f32_decode": (dec, dec32),
+                            "bf16_decode_vs_prefill": (dec, pre)}.items():
+            rel[key] = max(rel[key], float((a - b).abs().max()) / scale)
+        top2 = pre32.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        same = first_argmax(dec32, dim=-1) == first_argmax(pre32, dim=-1)
+        differing += gap[(gap > RESCORE_GAP) & ~same].tolist()
+        clear += int((gap > RESCORE_GAP).sum())
+        agree += int(same.sum())
+        total += len(same)
+    if rel["f32_decode_vs_prefill"] > FAM_F32_DEPTH_REL:
+        failed.append(f"f32 decode and prefill differ by {rel['f32_decode_vs_prefill']} of the "
+                      f"largest logit (limit {FAM_F32_DEPTH_REL})")
+    if differing:
+        failed.append(f"f32 decode and prefill argmaxes differ at top-2 gaps {differing}")
+    if clear < total // 4:
+        failed.append(f"only {clear} of {total} f32 rows had a clear top-2 gap")
+    exact_share = exact / n_state
+    if exact_share > FAM_STATE_BF16_EXACT:
+        failed.append(f"{exact_share} of the f32 states' elements are bf16 values")
+    return {"positions": total, "prefix_tokens": [P + T - 1], "f32_clear": clear,
+            "f32_agree": agree, "gap_tol": RESCORE_GAP, "f32_tol": FAM_F32_DEPTH_REL,
+            "f32_max_logit": max(scales), **rel, "state_elements": n_state,
+            "state_bf16_exact_share": exact_share, "state_bf16_exact_tol": FAM_STATE_BF16_EXACT,
+            "failed": failed}
+
+
+def _stub_batch(cfg, tokens, extra):
+    """A VLM's or enc-dec model's batch: the tokens and its stub embeddings."""
+    if cfg.family == "vlm":
+        return {"tokens": tokens, "patch_embeds": extra}
+    return {"tokens": tokens, "frame_embeds": extra}
+
+
+def family_stub_serve(torch, kernels, model, params, device) -> dict:
+    """llava-next or seamless-m4t through the model API: SERVE_BATCH prompts
+    of PROMPT_LEN tokens and their stub embeddings (llava: n_patches patch
+    embeddings; seamless: FAM_FRAMES frame embeddings), drawn on the card
+    from SEED; a prefill with the cache grown for FAM_STUB_GEN tokens, then
+    the greedy decode loop as ``LMServeApp`` runs it. Positions count a
+    VLM's patches: its decode starts at n_patches + PROMPT_LEN. The kernels'
+    launch counts are read when the loop has run, before the same prefill
+    is timed again."""
+    from repro_torch.models.common import first_argmax
+
+    cfg = model.cfg
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN), generator=gen,
+                            device=device, dtype=torch.int32)
+    n_stub = cfg.n_patches if cfg.family == "vlm" else FAM_FRAMES
+    extra = torch.randn((SERVE_BATCH, n_stub, cfg.d_model), generator=gen, device=device,
+                        dtype=torch.float32).to(model.compute_dtype)
+    s = PROMPT_LEN + (cfg.n_patches if cfg.family == "vlm" else 0)  # positions of the prompt
+    p = model.compute_params(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(p, _stub_batch(cfg, prompts, extra),
+                                  cache_len=s + FAM_STUB_GEN)
+    tok = first_argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pos = torch.full((SERVE_BATCH,), s - 1, dtype=torch.int32, device=device)
+    seq = [tok]
+    for _ in range(FAM_STUB_GEN - 1):
+        pos = pos + 1
+        logits, cache = model.decode(p, cache, {"tokens": tok, "positions": pos})
+        tok = first_argmax(logits, dim=-1).to(torch.int32)
+        seq.append(tok)
+    out = torch.cat(seq, dim=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    del cache
+    t0 = time.perf_counter()  # the same prefill again: what of the first one was one-time
+    model.prefill(p, _stub_batch(cfg, prompts, extra), cache_len=s + FAM_STUB_GEN)
+    torch.cuda.synchronize()
+    prefill_again_s = time.perf_counter() - t0
+    return {"wall_s": wall, "prefill_s": prefill_s, "prefill_again_s": prefill_again_s,
+            "launches": launches, "served": [(prompts, out)], "extra": extra}
+
+
+def family_stream_serve(torch, kernels, miniapps, cluster, ctx, device, model, params) -> dict:
+    """rwkv6-3b or zamba2-1.2b through ``LMServeApp(mode="lockstep")`` on a
+    token stream of FAM_STATE_MSGS messages of SERVE_BATCH x PROMPT_LEN,
+    FAM_STATE_GEN greedy tokens each; the kernels' launch counts are read
+    when the stream has run and the app has synced. Returns every served
+    (prompts, tokens) on the card."""
+    cfg = model.cfg
+    served: list = []
+
+    class TracedServe(miniapps.LMServeApp):
+        def _serve_batch(self, params, msgs):
+            seq, n_req = super()._serve_batch(params, msgs)
+            served.append((self._stack_requests(msgs), seq[:, :n_req, 0].T))
+            return seq, n_req
+
+    app = TracedServe(cfg, mode="lockstep", prompt_len=PROMPT_LEN, gen_tokens=FAM_STATE_GEN,
+                      batch=SERVE_BATCH, device=device)
+    topic = f"requests_{cfg.name}"
+    cluster.create_topic(topic, 2)
+    source = miniapps.TokenSource(
+        cluster, miniapps.SourceConfig(topic, total_messages=FAM_STATE_MSGS, seed=SEED),
+        vocab_size=cfg.vocab_size, seq_len=PROMPT_LEN, seqs_per_msg=SERVE_BATCH)
+    stream = ctx.stream(cluster, topic, group=cfg.name, process_fn=app.process, state=params,
+                        batch_interval=0.1, max_batch_records=1)
+    wall = drive(stream, source, FAM_STATE_MSGS, 600)
+    app.sync()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    ctx.streams.remove(stream)  # the stopped stream holds the params as its state
+    if len(served) != FAM_STATE_MSGS or any(o.shape != (SERVE_BATCH, FAM_STATE_GEN)
+                                            for _, o in served):
+        raise AssertionError(f"{cfg.name}: served {[tuple(o.shape) for _, o in served]}")
+    lat = app.stats.latency
+    return {"wall_s": wall, "launches": launches, "latency_p50_s": lat.p50,
+            "latency_p99_s": lat.p99,
+            "served": [(torch.from_numpy(pr).to(device), o) for pr, o in served]}
+
+
+def family_card_vs_cpu(torch, name: str, device) -> dict:
+    """``name`` at full width but FAM_CHECK_LAYERS layers (llava also
+    FAM_CHECK_PATCHES patches), f32 params and compute, weights drawn on the
+    card from SEED and copied to the CPU: a prefill of 2 x FAM_CHECK_TOKENS
+    tokens (and stub embeddings) and FAM_CHECK_DECODES decode steps fed
+    random tokens, on both devices, every step's logits held to FAM_F32_REL
+    of the CPU's largest |logit|; and on the card, the last decode step's
+    logits against a prefill of the tokens and the fed ones (the decode
+    path and the prefill path compute one function), to the same rule."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    over = {"n_layers": FAM_CHECK_LAYERS, "param_dtype": "float32", "compute_dtype": "float32"}
+    full = get_arch(name)
+    if full.n_enc_layers:
+        over["n_enc_layers"] = FAM_CHECK_LAYERS
+    if full.n_patches:
+        over["n_patches"] = FAM_CHECK_PATCHES
+    cfg = full.replace(**over)
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    p_card = model.init(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, FAM_CHECK_TOKENS), generator=gen,
+                           device=device, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    if cfg.family in ("vlm", "encdec"):
+        n = cfg.n_patches if cfg.family == "vlm" else FAM_CHECK_TOKENS
+        batch = _stub_batch(cfg, tokens, torch.randn((2, n, cfg.d_model), generator=gen,
+                                                     device=device))
+    steps = torch.randint(0, cfg.vocab_size, (FAM_CHECK_DECODES, 2, 1), generator=gen,
+                          device=device, dtype=torch.int32)
+
+    def run(params, batch, steps):
+        s = batch["tokens"].shape[1] + (cfg.n_patches if cfg.family == "vlm" else 0)
+        logits, cache = model.prefill(params, batch, cache_len=s + FAM_CHECK_DECODES)
+        outs = [logits]
+        for i, tok in enumerate(steps):
+            pos = torch.full((2,), s + i, dtype=torch.int32, device=tok.device)
+            logits, cache = model.decode(params, cache, {"tokens": tok, "positions": pos})
+            outs.append(logits)
+        return torch.stack(outs)
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cpu()
+
+    t0 = time.perf_counter()
+    card = run(p_card, batch, steps)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    longer = dict(batch, tokens=torch.cat([tokens, steps[:, :, 0].T], dim=1))
+    pre = model.prefill(p_card, longer)[0]
+    paths = float((card[-1] - pre).abs().max()) / float(pre.abs().max())
+    p_cpu, b_cpu, s_cpu = to_cpu(p_card), to_cpu(batch), steps.cpu()
+    del p_card
+    t0 = time.perf_counter()
+    cpu = run(p_cpu, b_cpu, s_cpu)
+    cpu_s = time.perf_counter() - t0
+    scale = float(cpu.abs().max())
+    err = float((card.cpu() - cpu).abs().max()) / scale
+    res = {"model": name, "layers": FAM_CHECK_LAYERS, "tokens": FAM_CHECK_TOKENS,
+           "decode_steps": FAM_CHECK_DECODES, "worst_err_over_max_logit": err,
+           "decode_vs_prefill_on_card": paths, "tol": FAM_F32_REL, "card_s": card_s,
+           "cpu_s": cpu_s, "argmax_equal": bool((card.cpu().argmax(-1) == cpu.argmax(-1)).all())}
+    if not bool(card.isfinite().all()) or err > FAM_F32_REL or paths > FAM_F32_REL:
+        raise AssertionError(f"{name}: card vs CPU in f32: {res}")
+    return res
+
+
+def families_path(torch, kernels, miniapps, cluster, ctx, device) -> dict:
+    """The families phase (FAMILIES, one model at a time, each freed before
+    the next is drawn): serving at full width and depth, bf16, every
+    kernel's launch count set to 0 before a model's serving and read when
+    it has served, before any check runs (flash and decode must launch for
+    llava, seamless and zamba, neither for rwkv6, which has no attention);
+    then the checks: llava's and seamless's served tokens re-scored under
+    the dense rule (``rescore``), rwkv6's and zamba2's replayed and held to
+    their f32 runs (``state_replay``), their bf16 re-score read beside it;
+    then the f32 card-vs-CPU check. Prints a ``path`` and a ``card_vs_cpu``
+    line per family and one ``path families`` summary."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    t_phase = time.perf_counter()
+    reports = []
+    for name in FAMILIES:
+        cfg = get_arch(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=device).manual_seed(SEED))
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        kernels.reset_launches()
+        if cfg.family in ("vlm", "encdec"):
+            res = family_stub_serve(torch, kernels, model, params, device)
+        else:
+            res = family_stream_serve(torch, kernels, miniapps, cluster, ctx, device, model, params)
+        peak = torch.cuda.max_memory_allocated()
+        run = res["launches"]
+        attn = {k: run[k] for k in ("flash_attention", "decode_attention")}
+        if cfg.family == "ssm":
+            if any(attn.values()):
+                raise AssertionError(f"{name} has no attention but launched {attn}")
+        elif not all(attn.values()):
+            raise AssertionError(f"{name}: an attention kernel was not launched: {attn}")
+        for k, n in run.items():
+            launches[k] += n
+        out = torch.cat([o for _, o in res["served"]])
+        if out.min() < 0 or out.max() >= cfg.padded_vocab:
+            raise AssertionError(f"{name}: served tokens out of the vocabulary")
+        if cfg.family in ("vlm", "encdec"):
+            extra = res["extra"]
+            check = rescore(torch, model, params, res["served"], rows_per_call=FAM_STUB_GEN,
+                            batch_for=lambda t, r: _stub_batch(cfg, t, extra[r]))
+        else:
+            check = state_replay(torch, model, params, res["served"])
+            check["bf16_rescore"] = rescore(torch, model, params, res["served"],
+                                            steps=[FAM_STATE_GEN - 1], enforce=False)
+        del params, model, res["served"]
+        report = {"path": f"family_{cfg.family}", "model": name, "layers": cfg.n_layers,
+                  "d_model": cfg.d_model, "params": n_params, "draw_s": draw_s,
+                  "requests": out.shape[0], "generated_tokens": out.numel(),
+                  "wall_s": res["wall_s"], "tokens_per_s": out.numel() / res["wall_s"],
+                  "peak_allocated_gib": peak / 2 ** 30, "launches": attn,
+                  **{k: res[k] for k in ("prefill_s", "prefill_again_s", "latency_p50_s",
+                                         "latency_p99_s") if k in res},
+                  "torch_dynamo_imported": "torch._dynamo" in sys.modules, "check": check}
+        print("path " + json.dumps(report))
+        if check.get("failed"):
+            raise AssertionError(f"{name}: {check['failed']}")
+        reports.append(report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = []
+    for name in FAMILIES:
+        checks.append(family_card_vs_cpu(torch, name, device))
+        print("card_vs_cpu " + json.dumps(checks[-1]))
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print("path " + json.dumps({"path": "families", "seconds": seconds,
+                                "models": [r["model"] for r in reports],
+                                "launches": {k: n for k, n in launches.items() if n}}))
+    return {"reports": reports, "checks": checks, "launches": launches, "seconds": seconds}
 
 
 def train_check_step(torch, device, cfg=None) -> dict:
@@ -2501,6 +2958,23 @@ def main() -> None:
     bwd_128 = check_flash_bwd(torch, attention, 1, MOE_TRAIN_SEQ, gen, PHI_HEADS)
     print(f"check flash_attention_bwd B=1 S={MOE_TRAIN_SEQ} causal bf16 hd=128 "
           + json.dumps(bwd_128))
+    # the families phase's attention shapes: non-causal, Sq != Skv, G = 1,
+    # S = 704 and 720, each against its plain version, timed beside SDPA
+    fam_flash, fam_decode = [], []
+    for label, b, sq, skv, heads, causal in FAM_FLASH:
+        res = {"shape": f"{label}: B={b} Sq={sq} Skv={skv}, {heads[0]} heads over {heads[1]} KV "
+                        f"of {heads[2]}, {'causal' if causal else 'non-causal'}, bf16",
+               **check_flash(torch, attention, b, sq, gen, True, heads, skv, causal)}
+        print("check flash_attention family " + json.dumps(res))
+        fam_flash.append(res)
+    for label, b, s, heads in FAM_DECODE:
+        res = {"shape": f"{label}: B={b} S={s}, {heads[0]} heads over {heads[1]} KV of "
+                        f"{heads[2]}, bf16", **check_decode(torch, attention, b, s, heads)}
+        res["launch_floor_ms"] = floor
+        print("check decode_attention family " + json.dumps(res))
+        fam_decode.append(res)
+        print(f"check decode_attention split edges family {label} "
+              + json.dumps(check_decode_split(torch, attention, b, s, gen, heads)))
 
     svc = PilotComputeService()
     try:
@@ -2513,9 +2987,10 @@ def main() -> None:
         rc = recon_path(torch, kernels, miniapps, tomo, cluster, ctx, device)
         sv = serve_path(torch, kernels, miniapps, cluster, ctx, device)
         sm = serve_moe_path(torch, kernels, miniapps, cluster, ctx, device)
+        fm = families_path(torch, kernels, miniapps, cluster, ctx, device)
     finally:
         svc.cancel()
-    rescore(torch, sv)
+    rescore(torch, sv["app"].model, sv["params"], sv["served"])
     checkpoint_round_trip(torch, sv["params"])
     del sv["params"], sv["app"]  # the served model's card memory
     tn = train_path(torch, kernels)
@@ -2524,7 +2999,7 @@ def main() -> None:
     tr = transport_path(torch, kernels, pipeline, miniapps, tomo)
     paths = {"kmeans_path": km["launches"], "kmeans_wide_path": kw["launches"],
              "lightsource_path": rc["launches"], "serve_path": sv["launches"],
-             "serve_moe_path": sm["launches"],
+             "serve_moe_path": sm["launches"], "families_path": fm["launches"],
              "train_path": tn["launches"], "pipeline_path": pl["launches"], "continuous_path": ct["launches"],
              "transport_path": tr["launches"]}
     launches = {k.name: sum(p[k.name] for p in paths.values()) for k in kernels.KERNELS}
@@ -2542,6 +3017,11 @@ def main() -> None:
                 **{k: r[k] for k in ("max_abs_err", "worst_err_over_tol", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")}}
 
+    def family_shapes(results: list) -> list:  # the families phase's shapes
+        return [{k: r[k] for k in ("shape", "max_abs_err", "worst_err_over_tol", "ms",
+                                   "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for r in results]
+
     def bwd_row(r: dict, part: str) -> dict:  # one backward kernel's numbers in a check
         return {**r, "ms": r[f"{part}_ms"], "bound_ms": r[f"{part}_bound_ms"],
                 "bound_by": r[f"{part}_bound_by"]}
@@ -2556,7 +3036,9 @@ def main() -> None:
         # log-sum-exp written) is held per element at the training shape too
         ("flash_attention", src + "flash_attention.cu", "src/repro/kernels/attention/kernel.py:81",
          {**flash_main, "max_abs_err": max(flash_main["max_abs_err"], bwd_main["fwd_out_max_abs_err"],
-                                           flash_112["max_abs_err"], flash_128["max_abs_err"]),
+                                           flash_112["max_abs_err"], flash_128["max_abs_err"],
+                                           *(r["max_abs_err"] for r in fam_flash)),
+          "families": family_shapes(fam_flash),
           "hd112": moe_shape(flash_112, f"B=1 S={PROMPT_LEN} causal", KIMI_HEADS),
           "hd128": moe_shape(flash_128, f"B=1 S={PROMPT_LEN} causal", PHI_HEADS),
           "with_lse": {"shape": f"B={TRAIN_BATCH} S={TRAIN_SEQ}",
@@ -2566,7 +3048,9 @@ def main() -> None:
         ("decode_attention", src + "decode_attention.cu",
          "src/repro/kernels/attention/decode_kernel.py:79",
          {**decode_main, "max_abs_err": max(decode_main["max_abs_err"], decode_112["max_abs_err"],
-                                            decode_128["max_abs_err"]),
+                                            decode_128["max_abs_err"],
+                                            *(r["max_abs_err"] for r in fam_decode)),
+          "families": family_shapes(fam_decode),
           "hd112": moe_shape(decode_112, f"B={SERVE_BATCH} S=256", KIMI_HEADS),
           "hd128": moe_shape(decode_128, f"B={SERVE_BATCH} S=256", PHI_HEADS)}),
         # no TPU kernel: the reference's flash backward is the pure-JAX
@@ -2586,7 +3070,8 @@ def main() -> None:
          "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **{key: r[key] for key in ("hd112", "hd128", "with_lse", "scope") if key in r}}
+         **{key: r[key] for key in ("hd112", "hd128", "families", "with_lse", "scope")
+            if key in r}}
         for name, source, replaces, r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,12 @@
 Every architecture is expressed as an :class:`ArchConfig`; the same
 dataclass drives parameter-spec construction (``models.build_model``) and
 the reduced smoke-test configs (``cfg.reduced()``). The fields are the JAX
-package's fields that the dense and MoE families and their training read,
-with the same names and defaults, so a config means the same model in both
-packages; the fields of the other families (SSM, hybrid, enc-dec, VLM) and
-of the multi-device attention routes (``attention_impl`` and its block
-sizes) come with their slices (ROADMAP A8, A9). ``scan_layers`` has no
-counterpart: the port's layer loop is a Python loop.
+package's fields that the six families (dense, MoE, VLM, enc-dec, RWKV6
+"ssm" and the Zamba2 "hybrid") and their training read, with the same
+names and defaults, so a config means the same model in both packages. The
+multi-device attention routes (``attention_impl`` and its block sizes) come
+with their slice (ROADMAP A9). ``scan_layers`` has no counterpart: the
+port's layer loop is a Python loop.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ class ArchConfig:
     """A single architecture (or a reduced variant)."""
 
     name: str
-    family: str  # "dense", "moe" (ported) | "ssm" | "hybrid" | "encdec" | "vlm"
+    family: str  # "dense" | "moe" | "ssm" | "hybrid" | "encdec" | "vlm"
 
     # transformer backbone
     n_layers: int = 0
@@ -57,6 +57,23 @@ class ArchConfig:
     n_shared_experts: int = 0
     moe_group_size: int = 256
     capacity_factor: float = 1.25
+
+    # SSM / RWKV
+    ssm_state: int = 0  # mamba2 d_state
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    conv_width: int = 4
+    rwkv_head_dim: int = 64
+
+    # hybrid (zamba2): shared attention block applied every k inner layers
+    shared_block_every: int = 6
+
+    # enc-dec
+    n_enc_layers: int = 0  # seamless: encoder depth (n_layers = decoder depth)
+
+    # vlm / audio frontend stubs
+    n_patches: int = 0  # llava: patch embeddings prepended to the sequence
+    frontend: str = "none"  # "none" | "vision" | "audio"
 
     # numerics / training
     param_dtype: str = "float32"
@@ -81,6 +98,19 @@ class ArchConfig:
     def padded_vocab(self) -> int:
         """Vocab padded to a multiple of 256, as the JAX package pads it."""
         return _round_up(self.vocab_size, 256)
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def n_rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim
 
     def param_count(self) -> int:
         """Parameter count, from the port's own parameter specs."""
@@ -123,6 +153,13 @@ class ArchConfig:
             # exactly — capacity dropping is group-dependent and differs
             # between the two paths
             small.update(capacity_factor=4.0)
+        if self.family in ("ssm", "hybrid"):
+            small.update(ssm_state=16, ssm_head_dim=32, rwkv_head_dim=32)
+            small.update(shared_block_every=2)
+        if self.n_enc_layers:
+            small.update(n_enc_layers=2)
+        if self.n_patches:
+            small.update(n_patches=16)
         small.update(overrides)
         return dataclasses.replace(self, **small)
 

@@ -7,11 +7,17 @@ request batch. On the card (the default):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --requests 8 --gen-tokens 8
 
-On the CPU, at the reduced config: add ``--reduced --device cpu``. The MoE
-archs serve the same way (``--arch phi3.5-moe-42b-a6.6b`` or
-``kimi-k2-1t-a32b``); at full width they need the card's memory for every
-layer (phi3.5-moe's 32 layers are 84 GB of bf16 weights: more than one
-H100), so ``chip_smoke.py`` serves them with fewer layers.
+On the CPU, at the reduced config: add ``--reduced --device cpu``. ``--arch``
+takes the dense archs, the MoE archs (``phi3.5-moe-42b-a6.6b``,
+``kimi-k2-1t-a32b``; at full width they need the card's memory for every
+layer, and phi3.5-moe's 32 layers are 84 GB of bf16 weights: more than one
+H100, so ``chip_smoke.py`` serves them with fewer layers), and the
+recurrent families ``rwkv6-3b`` and ``zamba2-1.2b`` in lockstep mode (their
+states are no paged K/V cache, so ``--mode continuous`` refuses them). The
+VLM (``llava-next-mistral-7b``) and the enc-dec model
+(``seamless-m4t-medium``) take patch or frame embeddings beside their
+prompts, which a token stream does not carry: the app refuses them, and
+``chip_smoke.py`` drives them through the model's ``prefill``/``decode``.
 
 Params are random, drawn from ``--seed`` on the serving device. The stream
 registers its devices with the service's arbiter as a fixed request, so

@@ -323,6 +323,16 @@ class LMServeApp(_HotPathApp):
     params object. On ``device`` (CUDA unless a CPU device is named) the
     prefill runs the flash kernel and every decode step the decode kernel.
     The JAX app's compile counts have no counterpart.
+
+    Lockstep serves every family that takes token prompts: the dense and
+    MoE ones, RWKV6 and Zamba2. The prefill's ``cache_len`` grows only the
+    self-attention K/V (the JAX app pads axis 2 of every cache leaf, which
+    for the RWKV6 and Mamba2 states is not the sequence). Continuous
+    batching takes the families with the paged (L, B, S, KV, hd) cache
+    (dense and MoE). A VLM or an enc-dec model needs patch or frame
+    embeddings beside its prompts, which a token stream does not carry: it
+    is refused here (the JAX app fails at its first prefill) and driven
+    through the model's ``prefill``/``decode`` instead.
     """
 
     def __init__(self, cfg, *, prompt_len: int = 32, gen_tokens: int = 8, batch: int = 4,
@@ -332,6 +342,11 @@ class LMServeApp(_HotPathApp):
                  device: torch.device | str = "cuda"):
         if mode not in ("lockstep", "continuous"):
             raise ValueError(f"mode must be 'lockstep' or 'continuous', got {mode!r}")
+        if cfg.family in ("vlm", "encdec"):
+            raise ValueError(
+                f"{cfg.name}: a {cfg.family!r} model takes "
+                f"{'patch' if cfg.family == 'vlm' else 'frame'} embeddings beside its tokens; "
+                "LMServeApp serves token prompts only")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)

@@ -1,7 +1,9 @@
 """Model zoo: ``build_model(cfg) -> BaseModel`` dispatch by family.
 
-The port builds the dense and MoE families (``DecoderLM``); the VLM,
-enc-dec, RWKV, Mamba and Zamba families wait for ROADMAP A8.
+``DecoderLM`` (dense, MoE, VLM), ``EncDecLM`` (enc-dec), ``Rwkv6LM``
+(the "ssm" family) and ``ZambaLM`` (the Mamba2 "hybrid"), as in the JAX
+package. Every family's ``loss`` is ported; training the VLM, enc-dec,
+RWKV6 and Zamba2 families on the card is ROADMAP A8.6.
 """
 from __future__ import annotations
 
@@ -11,14 +13,22 @@ from repro_torch.models.params import params_from_jax, train_state_from_jax, tre
 
 
 def build_model(cfg: ArchConfig) -> BaseModel:
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models.transformer import DecoderLM
 
         return DecoderLM(cfg)
-    if cfg.family in ("vlm", "encdec", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP A8); "
-            "the port builds the dense and MoE families")
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import EncDecLM
+
+        return EncDecLM(cfg)
+    if cfg.family == "ssm":
+        from repro_torch.models.rwkv6 import Rwkv6LM
+
+        return Rwkv6LM(cfg)
+    if cfg.family == "hybrid":
+        from repro_torch.models.zamba import ZambaLM
+
+        return ZambaLM(cfg)
     raise ValueError(f"unknown family {cfg.family!r}")
 
 

@@ -40,14 +40,31 @@ class BaseModel:
         """Random params drawn from ``generator``, on its device."""
         return init_params(self.param_specs(), generator)
 
+    def compute_params(self, params: Any) -> Any:
+        """The params as served. Each product casts its weight to the
+        compute dtype (``w.to(cd)``, as the JAX package's ``astype``), which
+        costs nothing where the weights are stored in it (bf16 at full width
+        for the VLM, enc-dec, RWKV6 and Zamba2 configs), so the stored
+        leaves are served as they are. ``DecoderLM`` casts its f32 layer
+        weights once instead."""
+        return params
+
+    def _logits(self, params: Any, x: torch.Tensor) -> torch.Tensor:
+        """(..., V_pad) f32 logits: an f32 product with the ``lm_head``."""
+        return x.to(torch.float32) @ params["lm_head"].to(torch.float32)
+
     # ---- compute ---------------------------------------------------------
 
     def loss(self, params: Any, batch: dict) -> tuple[torch.Tensor, dict]:
         """Training loss of a batch; returns (scalar loss, metrics)."""
         raise NotImplementedError
 
-    def prefill(self, params: Any, batch: dict) -> tuple[torch.Tensor, Any]:
-        """Process the full prompt; returns (last-token logits, cache)."""
+    def prefill(self, params: Any, batch: dict, *,
+                cache_len: int | None = None) -> tuple[torch.Tensor, Any]:
+        """Process the full prompt; returns (last-token logits, cache). Of
+        the cache, only self-attention K/V grow with the sequence: they are
+        allocated ``cache_len`` long (zeros past the prompt) for decoding in
+        place; recurrent states and cross-attention memory keep their size."""
         raise NotImplementedError
 
     def decode(self, params: Any, cache: Any, batch: dict) -> tuple[torch.Tensor, Any]:

@@ -32,7 +32,7 @@ def torch_dtype(name: str) -> torch.dtype:
 class ParamSpec:
     shape: tuple[int, ...]
     dtype: torch.dtype = torch.float32
-    init: str = "fan_in"  # "fan_in" | "normal" | "ones" | "small" (the router's)
+    init: str = "fan_in"  # "fan_in" | "normal" | "zeros" | "ones" | "small"
 
     def struct(self) -> torch.Tensor:
         return torch.empty(self.shape, dtype=self.dtype, device="meta")
@@ -40,9 +40,11 @@ class ParamSpec:
     def initialize(self, generator: torch.Generator) -> torch.Tensor:
         """Draw on the generator's device: normal 0.02 for ``normal``, 1e-3
         for ``small``, 1/sqrt(fan_in) for ``fan_in`` (fan_in = the
-        second-to-last dim), ones for norms; drawn in f32, stored in
-        ``dtype``."""
+        second-to-last dim), zeros for biases, ones for norms; drawn in f32,
+        stored in ``dtype``."""
         device = generator.device
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=self.dtype, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=self.dtype, device=device)
         if self.init == "normal":
@@ -73,6 +75,12 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+def layer_params(stack: dict, i: int) -> dict:
+    """Layer ``i``'s params from a dict of leaves stacked along a leading
+    layer axis (the JAX package scans over that axis)."""
+    return {k: v[i] for k, v in stack.items()}
+
+
 def spec_struct(specs: SpecTree) -> Any:
     return tree_map(lambda s: s.struct(), specs)
 
@@ -92,6 +100,20 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     x = x.to(torch.float32)
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
     return (x * scale.to(torch.float32)).to(dt)
+
+
+def group_norm(x: torch.Tensor, n_groups: int, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the last dim split into ``n_groups`` (the RWKV6 WKV
+    output), in f32, returned in ``x``'s dtype."""
+    dt = x.dtype
+    *lead, d = x.shape
+    g = x.to(torch.float32).reshape(*lead, n_groups, d // n_groups)
+    mu = g.mean(dim=-1, keepdim=True)
+    var = ((g - mu) ** 2).mean(dim=-1, keepdim=True)
+    g = (g - mu) * torch.rsqrt(var + eps)
+    x = g.reshape(*lead, d)
+    return (x * scale.to(torch.float32) + bias.to(torch.float32)).to(dt)
 
 
 def first_argmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -1,0 +1,220 @@
+"""Encoder-decoder transformer (the seamless-m4t backbone).
+
+Own copy of the JAX package's ``models/encdec.py``. The speech frontend is
+a stub: the encoder takes precomputed frame embeddings (B, S_enc, d)
+through ``frame_proj``, then non-causal self-attention layers. The decoder
+is a causal transformer with cross-attention into the encoder memory after
+its self-attention; decode carries a self-attention KV cache, written in
+place, and the static cross-attention cache (``k_mem``/``v_mem``) computed
+once at prefill.
+
+Attention follows the reference's dispatch: self-attention and the
+prefill's cross-attention (S > 1) go through the flash wrapper
+(``blockwise_attention``; non-causal, Sq != Skv for the cross-attention),
+the one-token decode's cross-attention through the plain
+:func:`~repro_torch.models.attention.naive_attention`, as the reference
+runs it (``impl="naive"``). The layer loops are Python loops over the
+stacked (L, ...) leaves.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.base import BaseModel
+from repro_torch.models.common import (
+    ParamSpec,
+    chunked_cross_entropy,
+    embed_lookup,
+    layer_params,
+    rms_norm,
+    shift_targets,
+)
+from repro_torch.models.ffn import mlp_apply, mlp_specs
+from repro_torch.models.transformer import (
+    attn_block_apply,
+    attn_block_decode,
+    attn_block_specs,
+    remat_apply,
+)
+
+
+def _cross_attn_specs(cfg: ArchConfig, L: int, dtype: torch.dtype) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    return {
+        "xattn_norm": ParamSpec((L, d), torch.float32, init="ones"),
+        "wq_x": ParamSpec((L, d, H * hd), dtype),
+        "wkv_x": ParamSpec((L, d, 2 * KV * hd), dtype),
+        "wo_x": ParamSpec((L, H * hd, d), dtype),
+    }
+
+
+class EncDecLM(BaseModel):
+    def param_specs(self) -> dict:
+        cfg = self.cfg
+        d, dt = cfg.d_model, self.param_dtype
+        Le, Ld = cfg.n_enc_layers, cfg.n_layers
+        enc_layers = {
+            "attn_norm": ParamSpec((Le, d), torch.float32, init="ones"),
+            "mlp_norm": ParamSpec((Le, d), torch.float32, init="ones"),
+            **attn_block_specs(cfg, Le, dt),
+            **mlp_specs(d, cfg.d_ff, Le, dt),
+        }
+        dec_layers = {
+            "attn_norm": ParamSpec((Ld, d), torch.float32, init="ones"),
+            "mlp_norm": ParamSpec((Ld, d), torch.float32, init="ones"),
+            **attn_block_specs(cfg, Ld, dt),
+            **_cross_attn_specs(cfg, Ld, dt),
+            **mlp_specs(d, cfg.d_ff, Ld, dt),
+        }
+        return {
+            "embed": ParamSpec((cfg.padded_vocab, d), dt, init="normal"),
+            "frame_proj": ParamSpec((d, d), dt),
+            "enc_final_norm": ParamSpec((d,), torch.float32, init="ones"),
+            "final_norm": ParamSpec((d,), torch.float32, init="ones"),
+            "lm_head": ParamSpec((d, cfg.padded_vocab), dt),
+            "encoder": enc_layers,
+            "decoder": dec_layers,
+        }
+
+    # ---- encoder -----------------------------------------------------------
+
+    def _encode(self, params: dict, frame_embeds: torch.Tensor) -> torch.Tensor:
+        cfg, cd = self.cfg, self.compute_dtype
+        x = frame_embeds.to(cd) @ params["frame_proj"].to(cd)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+
+        def layer(x, lp):
+            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+            a, _ = attn_block_apply(cfg, lp, h, positions=positions, compute_dtype=cd,
+                                    causal=False)
+            x = x + a
+            h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+            return x + mlp_apply(lp, h, cd)
+
+        # the reference remats the encoder layers fully under any remat policy
+        remat = "none" if cfg.remat == "none" else "full"
+        for i in range(cfg.n_enc_layers):
+            x = remat_apply(remat, layer, x, layer_params(params["encoder"], i))
+        return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+    # ---- decoder -----------------------------------------------------------
+
+    def _cross_kv(self, lp: dict, memory: torch.Tensor):
+        cfg, cd = self.cfg, self.compute_dtype
+        KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        kv = memory.to(cd) @ lp["wkv_x"].to(cd)
+        B, S = memory.shape[:2]
+        k, v = torch.chunk(kv, 2, dim=-1)
+        return k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
+
+    def _cross_attend(self, lp: dict, x: torch.Tensor, k_mem: torch.Tensor,
+                      v_mem: torch.Tensor) -> torch.Tensor:
+        cfg, cd = self.cfg, self.compute_dtype
+        H, hd = cfg.n_heads, cfg.resolved_head_dim
+        B, S = x.shape[:2]
+        q = (x.to(cd) @ lp["wq_x"].to(cd)).reshape(B, S, H, hd)
+        if S > 1:
+            out = attn_lib.blockwise_attention(q, k_mem, v_mem, causal=False)
+        else:
+            out = attn_lib.naive_attention(q, k_mem, v_mem, causal=False)
+        return out.reshape(B, S, H * hd) @ lp["wo_x"].to(cd)
+
+    def _decoder_layer(self, lp: dict, x: torch.Tensor, memory: torch.Tensor,
+                       positions: torch.Tensor):
+        """One decoder layer over the whole sequence: (x, (k, v), (k_mem, v_mem))."""
+        cfg, cd = self.cfg, self.compute_dtype
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        a, kv = attn_block_apply(cfg, lp, h, positions=positions, compute_dtype=cd)
+        x = x + a
+        h = rms_norm(x, lp["xattn_norm"], cfg.norm_eps)
+        k_mem, v_mem = self._cross_kv(lp, memory)
+        x = x + self._cross_attend(lp, h, k_mem, v_mem)
+        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        return x + mlp_apply(lp, h, cd), kv, (k_mem, v_mem)
+
+    def _embed_tokens(self, params: dict, tokens: torch.Tensor):
+        x = embed_lookup(params["embed"], tokens).to(self.compute_dtype)
+        B, S = tokens.shape
+        return x, torch.arange(S, device=tokens.device).expand(B, S)
+
+    # ---- public API ----------------------------------------------------------
+
+    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Next-token cross-entropy of ``batch["tokens"]`` (B, S) given
+        ``batch["frame_embeds"]`` (B, S_enc, d) -> (loss, {"ce_loss",
+        "tokens"}), f32 scalars."""
+        cfg = self.cfg
+        memory = self._encode(params, batch["frame_embeds"])
+        tokens = batch["tokens"]
+        x, positions = self._embed_tokens(params, tokens)
+        remat = "none" if cfg.remat == "none" else "full"
+        fn = lambda x, lp: self._decoder_layer(lp, x, memory, positions)[0]  # noqa: E731
+        for i in range(cfg.n_layers):
+            x = remat_apply(remat, fn, x, layer_params(params["decoder"], i))
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        targets, mask = shift_targets(tokens, batch.get("mask"))
+        tot, cnt = chunked_cross_entropy(x, params["lm_head"].T, targets, mask,
+                                         vocab_size=cfg.vocab_size)
+        loss = tot / torch.clamp(cnt, min=1.0)
+        return loss, {"ce_loss": loss, "tokens": cnt}
+
+    def prefill(self, params: dict, batch: dict, *, cache_len: int | None = None):
+        """``batch["frame_embeds"]`` (B, S_enc, d) and ``batch["tokens"]``
+        (B, S) -> (logits (B, 1, V_pad) f32 of the last token, cache
+        {"k", "v"} (L, B, cache_len or S, KV, hd), zeros past S, and
+        {"k_mem", "v_mem"} (L, B, S_enc, KV, hd), all in the compute dtype)."""
+        cfg, cd = self.cfg, self.compute_dtype
+        memory = self._encode(params, batch["frame_embeds"])
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        if cache_len is not None and cache_len < S:
+            raise ValueError(f"cache_len {cache_len} is shorter than the prompt's {S} tokens")
+        x, positions = self._embed_tokens(params, tokens)
+        dev, KV, hd = x.device, cfg.n_kv_heads, cfg.resolved_head_dim
+        alloc = torch.zeros if cache_len else torch.empty
+        shape = (cfg.n_layers, B, cache_len or S, KV, hd)
+        mem_shape = (cfg.n_layers, B, memory.shape[1], KV, hd)
+        cache = {"k": alloc(shape, dtype=cd, device=dev), "v": alloc(shape, dtype=cd, device=dev),
+                 "k_mem": torch.empty(mem_shape, dtype=cd, device=dev),
+                 "v_mem": torch.empty(mem_shape, dtype=cd, device=dev)}
+        for i in range(cfg.n_layers):
+            x, (k, v), (k_mem, v_mem) = self._decoder_layer(
+                layer_params(params["decoder"], i), x, memory, positions)
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+            cache["k_mem"][i] = k_mem
+            cache["v_mem"][i] = v_mem
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._logits(params, x[:, -1:]), cache
+
+    def decode(self, params: dict, cache: dict, batch: dict):
+        """One step: ``tokens`` (B, 1), ``positions`` (B,) write index per
+        row. Writes the new self-attention entries into ``cache`` in place
+        and reads the cross-attention memory; returns (logits (B, 1, V_pad)
+        f32, cache)."""
+        cfg, cd = self.cfg, self.compute_dtype
+        positions = batch["positions"]
+        x = embed_lookup(params["embed"], batch["tokens"]).to(cd)
+        for i in range(cfg.n_layers):
+            lp = layer_params(params["decoder"], i)
+            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+            a, _ = attn_block_decode(cfg, lp, h, cache["k"][i], cache["v"][i],
+                                     positions=positions, compute_dtype=cd)
+            x = x + a
+            h = rms_norm(x, lp["xattn_norm"], cfg.norm_eps)
+            x = x + self._cross_attend(lp, h, cache["k_mem"][i], cache["v_mem"][i])
+            h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+            x = x + mlp_apply(lp, h, cd)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self._logits(params, x), cache
+
+    def cache_struct(self, shape: ShapeConfig) -> dict:
+        """The JAX package's dry-run cache, bf16 ``meta`` tensors: the
+        sequence budget split half encoder frames, half decoder tokens."""
+        cfg = self.cfg
+        kv = torch.empty((cfg.n_layers, shape.global_batch, shape.seq_len // 2, cfg.n_kv_heads,
+                          cfg.resolved_head_dim), dtype=torch.bfloat16, device="meta")
+        return {"k": kv, "v": kv, "k_mem": kv, "v_mem": kv}

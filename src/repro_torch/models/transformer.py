@@ -1,4 +1,6 @@
-"""Decoder-only transformer LM: the dense and MoE families.
+"""Decoder-only transformer LM: the dense, MoE and VLM (stub frontend)
+families. The attention block is shared with the enc-dec and hybrid
+families (``models/encdec.py``, ``models/zamba.py``).
 
 Layers are stacked along a leading "layers" axis, as in the JAX package;
 its ``lax.scan`` over that axis becomes a Python loop here. The residual
@@ -17,6 +19,10 @@ checkpointing) as the JAX package's ``jax.checkpoint`` policies do. The
 loss's logits run in the compute dtype (``chunked_cross_entropy``), as the
 JAX package's do. A MoE layer's FFN is ``models/moe.py``'s ``moe_apply``;
 its load-balance loss enters the training loss as the JAX package adds it.
+A VLM (``cfg.frontend == "vision"``) prepends ``batch["patch_embeds"] @
+vision_proj`` to the token embeddings: the anyres vision tower is a stub,
+as in the JAX package, and positions, the cache and ``last_pos`` count the
+patches.
 """
 from __future__ import annotations
 
@@ -35,25 +41,52 @@ from repro_torch.models.common import (
     apply_rope,
     chunked_cross_entropy,
     embed_lookup,
+    layer_params,
     rms_norm,
     shift_targets,
+    tree_leaves,
 )
 
 #: the ops whose outputs ``remat="dots"`` keeps (``checkpoint_dots``)
 _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default]
+
+
+def remat_apply(remat: str, fn, *args):
+    """``fn(*args)`` under ``cfg.remat``'s policy: "none" runs it as is,
+    "full" recomputes everything in the backward, "dots" keeps the matmul
+    outputs (selective activation checkpointing), as the JAX package's
+    ``jax.checkpoint`` policies. Where no gradient is taken (no argument
+    requires one, or grad mode is off: serving), every policy runs ``fn``
+    as is, as ``jax.checkpoint`` does outside differentiation; the first
+    ``checkpoint`` call of a process imports ``torch._dynamo`` (seconds)."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
+    needs_grad = torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for a in args for t in tree_leaves(a))
+    if remat == "none" or not needs_grad:
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+        create_selective_checkpoint_contexts, _DOTS))
+
 
 # ---------------------------------------------------------------------------
 # attention block
 # ---------------------------------------------------------------------------
 
 
-def attn_block_specs(cfg: ArchConfig, n_layers: int | None, dtype: torch.dtype) -> dict:
-    d = cfg.d_model
+def attn_block_specs(cfg: ArchConfig, n_layers: int | None, dtype: torch.dtype,
+                     d_in: int | None = None) -> dict:
+    """The attention block's params; ``d_in`` is its input width (Zamba's
+    shared block reads ``concat(x, x0)``, 2 d wide), the model width by
+    default. The output is d_model wide either way."""
+    d = d_in or cfg.d_model
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     lead = () if n_layers is None else (n_layers,)
     specs = {
         "wqkv": ParamSpec(lead + (d, (H + 2 * KV) * hd), dtype),
-        "wo": ParamSpec(lead + (H * hd, d), dtype),
+        "wo": ParamSpec(lead + (H * hd, cfg.d_model), dtype),
     }
     if cfg.qk_norm:
         specs["q_norm"] = ParamSpec(lead + (hd,), torch.float32, init="ones")
@@ -113,7 +146,7 @@ def attn_block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, k_cache: torch.
 
 
 class DecoderLM(BaseModel):
-    """Dense / MoE decoder-only language model."""
+    """Dense / MoE / VLM decoder-only language model."""
 
     SUPPORTS_PAGED = True
 
@@ -126,6 +159,10 @@ class DecoderLM(BaseModel):
     @property
     def is_moe(self) -> bool:
         return bool(self.cfg.n_experts)
+
+    @property
+    def is_vlm(self) -> bool:
+        return self.cfg.frontend == "vision"
 
     # ---- specs -----------------------------------------------------------
 
@@ -148,6 +185,8 @@ class DecoderLM(BaseModel):
         }
         if not cfg.tie_embeddings:
             specs["lm_head"] = ParamSpec((d, cfg.padded_vocab), dt)
+        if self.is_vlm:
+            specs["vision_proj"] = ParamSpec((d, d), dt)
         return specs
 
     def expert_param_count(self) -> int:
@@ -178,11 +217,18 @@ class DecoderLM(BaseModel):
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         return x.to(torch.float32) @ self._head(params).T.to(torch.float32)
 
-    @staticmethod
-    def _layer(params: dict, i: int) -> dict:
-        return {k: v[i] for k, v in params["layers"].items()}
 
     # ---- forward ---------------------------------------------------------
+
+    def _embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
+        """(B, S, d) in the compute dtype: the token embeddings, behind the
+        projected patch embeddings (B, n_patches, d) for a VLM."""
+        cd = self.compute_dtype
+        x = embed_lookup(params["embed"], batch["tokens"]).to(cd)
+        if self.is_vlm:
+            patches = batch["patch_embeds"].to(cd) @ params["vision_proj"].to(cd)
+            x = torch.cat([patches, x], dim=1)
+        return x
 
     def _ffn(self, lp: dict, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The layer's FFN: (out, the MoE aux loss or None)."""
@@ -203,31 +249,25 @@ class DecoderLM(BaseModel):
     def _train_layer(self, x: torch.Tensor, lp: dict, positions: torch.Tensor):
         """One layer of the training forward, under ``cfg.remat``: (new
         residual stream, the MoE aux loss or None)."""
-        remat = self.cfg.remat
         fn = lambda x, lp: self._layer_apply(lp, x, positions)[::2]  # noqa: E731  (x, aux)
-        if remat == "none":
-            return fn(x, lp)
-        if remat == "full":
-            return checkpoint(fn, x, lp, use_reentrant=False)
-        if remat == "dots":
-            return checkpoint(fn, x, lp, use_reentrant=False, context_fn=functools.partial(
-                create_selective_checkpoint_contexts, _DOTS))
-        raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
+        return remat_apply(self.cfg.remat, fn, x, lp)
 
-    def _forward(self, params: dict, tokens: torch.Tensor, cache_len: int | None = None):
+    def _forward(self, params: dict, batch: dict, cache_len: int | None = None):
         """Hidden states after the final norm, (B, S, d), and the prompt's
         cache {"k", "v"} (L, B, cache_len or S, KV, hd) in the compute
-        dtype; positions past S are zeros."""
+        dtype; positions past S are zeros. S counts a VLM's patches."""
         cfg, cd = self.cfg, self.compute_dtype
-        B, S = tokens.shape
-        dev = tokens.device
-        x = embed_lookup(params["embed"], tokens).to(cd)
+        x = self._embed_inputs(params, batch)
+        B, S, _ = x.shape
+        dev = x.device
+        if cache_len is not None and cache_len < S:
+            raise ValueError(f"cache_len {cache_len} is shorter than the prompt's {S} positions")
         positions = torch.arange(S, device=dev).expand(B, S)
         shape = (cfg.n_layers, B, cache_len or S, cfg.n_kv_heads, cfg.resolved_head_dim)
         alloc = torch.zeros if cache_len else torch.empty
         cache = {"k": alloc(shape, dtype=cd, device=dev), "v": alloc(shape, dtype=cd, device=dev)}
         for i in range(cfg.n_layers):
-            x, (k, v), _ = self._layer_apply(self._layer(params, i), x, positions)
+            x, (k, v), _ = self._layer_apply(layer_params(params["layers"], i), x, positions)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
         return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
@@ -238,21 +278,24 @@ class DecoderLM(BaseModel):
         """Next-token cross-entropy of ``batch["tokens"]`` (B, S) (and
         ``batch["mask"]`` where given) -> (loss, {"ce_loss", "tokens"}), f32
         scalars; a MoE model adds 0.01 times its aux loss (the layers' mean,
-        also returned as "aux_loss"). ``params`` are the stored leaves (not
+        also returned as "aux_loss"); a VLM's hidden states of its text
+        start after its patches. ``params`` are the stored leaves (not
         ``compute_params``); the layer loop is a Python loop over the
         stacked (L, ...) leaves."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = embed_lookup(params["embed"], tokens).to(self.compute_dtype)
+        x = self._embed_inputs(params, batch)
+        B, S, _ = x.shape
         positions = torch.arange(S, device=tokens.device).expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for i in range(cfg.n_layers):
-            x, layer_aux = self._train_layer(x, self._layer(params, i), positions)
+            x, layer_aux = self._train_layer(x, layer_params(params["layers"], i), positions)
             if layer_aux is not None:
                 aux = aux + layer_aux
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         targets, mask = shift_targets(tokens, batch.get("mask"))
+        if self.is_vlm:  # text hidden states start at the patch offset
+            x = x[:, S - tokens.shape[1]:]
         tot, cnt = chunked_cross_entropy(x, self._head(params), targets, mask,
                                          vocab_size=cfg.vocab_size)
         loss = tot / torch.clamp(cnt, min=1.0)
@@ -264,12 +307,13 @@ class DecoderLM(BaseModel):
         return loss, metrics
 
     def prefill(self, params: dict, batch: dict, *, cache_len: int | None = None):
-        """``batch["tokens"]`` (B, S) -> (logits (B, 1, V_pad) f32 of the
-        last token — of ``batch["last_pos"]`` when given, for prompts
+        """``batch["tokens"]`` (B, T) (and a VLM's ``patch_embeds`` (B, P,
+        d), S = P + T positions) -> (logits (B, 1, V_pad) f32 of the last
+        position — of ``batch["last_pos"]`` when given, for prompts
         right-padded to a bucket — and the cache). ``cache_len`` allocates
-        the cache that long (zeros past S), for decoding in place."""
-        tokens = batch["tokens"]
-        x, cache = self._forward(params, tokens, cache_len)
+        the cache that long (zeros past S; it counts a VLM's patches), for
+        decoding in place."""
+        x, cache = self._forward(params, batch, cache_len)
         last = batch.get("last_pos")
         if last is None:
             xs = x[:, -1:]
@@ -285,7 +329,7 @@ class DecoderLM(BaseModel):
         tokens, positions = batch["tokens"], batch["positions"]
         x = embed_lookup(params["embed"], tokens).to(cd)  # (B, 1, d)
         for i in range(cfg.n_layers):
-            lp = self._layer(params, i)
+            lp = layer_params(params["layers"], i)
             h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
             a, _ = attn_block_decode(cfg, lp, h, cache["k"][i], cache["v"][i],
                                      positions=positions, compute_dtype=cd)

@@ -105,7 +105,9 @@ def build_train_step(model: BaseModel, shape: ShapeConfig, opt_cfg: OptimizerCon
 
 
 def _check_paged(model: BaseModel) -> None:
-    if not getattr(model, "SUPPORTS_PAGED", False):
+    """A VLM is refused too, as the JAX package refuses it: the paged steps
+    take token prompts only, and would serve it with no patch embeddings."""
+    if not getattr(model, "SUPPORTS_PAGED", False) or getattr(model, "is_vlm", False):
         raise ValueError(
             f"{type(model).__name__} does not support the paged serving path "
             "(needs last_pos prefill + the standard (L,B,S,KV,hd) cache dict)")

@@ -528,3 +528,96 @@ def test_moe_serving_on_the_card_matches_the_cpu_at_head_dim_112(dev):
     got = on_card.generate_tokens(tree_map_with_paths(lambda _, x: x.to(dev), params), msgs)
     assert A.FLASH_ATTENTION.launches > before[0] and A.DECODE_ATTENTION.launches > before[1]
     np.testing.assert_array_equal(got, on_cpu.generate_tokens(params, msgs))
+
+
+# -- the families phase's shapes (llava-next, seamless-m4t, zamba2) ------------
+
+FAMILY_FLASH = [  # (B, Sq, Skv, H, KV, hd, causal)
+    (4, 704, 704, 32, 8, 128, True),  # llava: 576 patches + 128 tokens, G = 4
+    (4, 256, 256, 16, 16, 64, False),  # seamless encoder: non-causal, G = 1
+    (4, 128, 256, 16, 16, 64, False),  # seamless cross-attention: Sq != Skv
+    (4, 128, 128, 16, 16, 64, True),  # seamless decoder
+    (4, 128, 128, 32, 32, 64, True),  # zamba's shared sites, G = 1
+    (4, 192, 192, 32, 32, 64, True),  # zamba's re-score prefill
+    (2, 143, 256, 16, 16, 64, False),  # a cross-attention off the tile edges
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", FAMILY_FLASH)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_at_the_families_shapes(dev, B, Sq, Skv, H, KV, hd, causal,
+                                                           dtype):
+    """Non-causal flash (the enc-dec encoder and cross-attention, Sq != Skv),
+    G = 1 (seamless and zamba), llava's S = 704 with G = 4; the same check
+    must fail the plain version with the causal flag flipped."""
+    g = _gen(dev, B * Sq + Skv + H + hd)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Skv, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Skv, KV, hd), generator=g, device=dev).to(dtype)
+    out = A.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _close(out, R.flash_attention_plain(q, k, v, causal=causal, block_q=64, block_kv=64), v)
+    with pytest.raises(AssertionError):
+        _close(out, R.flash_attention_plain(q, k, v, causal=not causal), v)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(4, 720, 32, 8, 128), (4, 144, 16, 16, 64),
+                                         (4, 193, 32, 32, 64), (1, 720, 32, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain_at_the_families_shapes(dev, B, S, H, KV, hd, dtype):
+    """llava's decode over 720 entries (G = 4, hd 128), seamless's and
+    zamba's (G = 1, hd 64), positions at the launcher's chunk edges, 0,
+    S - 1 and past S; bitwise equal on a second call."""
+    g = _gen(dev, B * S + H + hd)
+    q = torch.randn((B, 1, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    C = _decode_chunk(q, k)
+    edges = [min(p, S + 3) for p in (C - 1, C, C + 1, 0, S - 1, S, 2 * C + 1)]
+    pos = torch.tensor([edges[i % len(edges)] for i in range(B)], dtype=torch.int32, device=dev)
+    out = A.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    _close(out, R.decode_attention_plain(q, k, v, pos), v)
+    assert torch.equal(out, A.decode_attention(q, k, v, pos))
+
+
+@pytest.mark.parametrize("name", ["llava-next-mistral-7b", "seamless-m4t-medium", "rwkv6-3b",
+                                  "zamba2-1.2b"])
+def test_families_on_the_card_match_the_cpu(dev, name):
+    """Each family's reduced config in f32 (llava at hd 128 over G = 4, the
+    others as reduced), the same weights and stub inputs: a prefill and
+    three decode steps on the card equal the CPU's logits to 1e-4 of their
+    largest value, and the attention kernels launch (none for rwkv6)."""
+    over = {"head_dim": 128, "n_heads": 8, "n_kv_heads": 2} if name.startswith("llava") else {}
+    cfg = get_arch(name).reduced(**over)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(1, 512, (2, 64)).astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.normal(size=(2, 16, 128)).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = torch.from_numpy(rng.normal(size=(2, 40, 128)).astype(np.float32))
+    steps = torch.from_numpy(rng.integers(1, 512, (3, 2, 1)).astype(np.int32))
+    s = 64 + (16 if cfg.family == "vlm" else 0)
+
+    def run(device):
+        p = tree_map_with_paths(lambda _, x: x.to(device), params)
+        logits, cache = model.prefill(p, {k: v.to(device) for k, v in batch.items()},
+                                      cache_len=s + 3)
+        outs = [logits]
+        for i, tok in enumerate(steps):
+            pos = torch.full((2,), s + i, dtype=torch.int32, device=device)
+            logits, cache = model.decode(p, cache, {"tokens": tok.to(device), "positions": pos})
+            outs.append(logits)
+        return torch.stack(outs).cpu()
+
+    before = (A.FLASH_ATTENTION.launches, A.DECODE_ATTENTION.launches)
+    card = run(dev)
+    launched = (A.FLASH_ATTENTION.launches - before[0], A.DECODE_ATTENTION.launches - before[1])
+    cpu = run(torch.device("cpu"))
+    assert float((card - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
+    if cfg.family == "ssm":
+        assert launched == (0, 0)
+    else:
+        assert launched[0] > 0 and launched[1] > 0

@@ -281,3 +281,14 @@ def test_the_scan_covers_the_workers_transport_and_detector():
                 "miniapps/detector.py"):
         assert mod in scanned, mod
     assert ROOT / "chip_smoke.py" in _port_files()
+
+
+def test_the_scan_covers_the_model_families():
+    """The VLM, enc-dec, RWKV6 and Mamba2/Zamba2 modules and their configs
+    are among the files scanned for JAX imports."""
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    for mod in ("models/transformer.py", "models/encdec.py", "models/rwkv6.py",
+                "models/mamba2.py", "models/zamba.py", "models/common.py", "models/base.py",
+                "configs/llava_next_mistral_7b.py", "configs/seamless_m4t_medium.py",
+                "configs/rwkv6_3b.py", "configs/zamba2_1_2b.py", "configs/registry.py"):
+        assert mod in scanned, mod

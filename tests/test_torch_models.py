@@ -15,11 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import ARCHS as jax_archs_dict
 from repro.configs.registry import get_arch as jax_get_arch
 from repro.models import build_model as jax_build_model
 from repro.models.common import apply_rope as jax_apply_rope
 from repro.models.common import rms_norm as jax_rms_norm
-from repro_torch.configs import ShapeConfig, get_arch
+from repro_torch.configs import ARCHS, ShapeConfig, get_arch
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.models.common import apply_rope, first_argmax, rms_norm, tree_leaves
 
@@ -159,21 +160,49 @@ def test_norm_rope_and_argmax_match_jax():
     assert first_argmax(ties.T, dim=0).tolist() == [1, 0]
 
 
-def test_build_model_is_dense_only_and_cache_struct_is_meta():
-    """The dense and MoE families build (MoE: the same ``DecoderLM`` with
-    expert leaves); every other family still raises naming ROADMAP A8."""
-    for name in MOE:
-        moe = build_model(get_arch(name))
-        assert moe.is_moe and "router" in moe.param_specs()["layers"]
-    assert not build_model(get_arch("smollm-135m")).is_moe
-    for family in ("vlm", "encdec", "ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            build_model(get_arch("smollm-135m").replace(family=family))
+FAMILY_CLASS = {"dense": "DecoderLM", "moe": "DecoderLM", "vlm": "DecoderLM",
+                "encdec": "EncDecLM", "ssm": "Rwkv6LM", "hybrid": "ZambaLM"}
+
+
+def test_registry_knows_every_jax_arch():
+    assert sorted(ARCHS) == sorted(jax_archs_dict) and len(ARCHS) == 10
+    import dataclasses
+
+    for name, cfg in ARCHS.items():
+        ref = jax_archs_dict[name]
+        for f in dataclasses.fields(cfg):  # every field the port has, as the JAX config says
+            assert getattr(cfg, f.name) == getattr(ref, f.name), (name, f.name)
+        small, ref_small = cfg.reduced(), ref.reduced()
+        for f in dataclasses.fields(small):  # and their reduced() forms
+            assert getattr(small, f.name) == getattr(ref_small, f.name), (name, f.name)
+        assert (cfg.d_inner, cfg.n_ssm_heads, cfg.n_rwkv_heads) == (
+            ref.d_inner, ref.n_ssm_heads, ref.n_rwkv_heads)
+
+
+@pytest.mark.parametrize("name", sorted(jax_archs_dict))
+def test_build_model_is_dense_only_and_cache_struct_is_meta(name):
+    """Every one of the JAX package's ten archs is known and builds (since
+    the families of ROADMAP A8 were ported, no family raises): the model
+    class is its family's, the MoE and VLM branches of ``DecoderLM`` are
+    set as the config says, and the decode cache of a dry-run shape is
+    ``meta`` tensors, self-attention K/V (where the family has them) of
+    (layers or sites, B, S, KV, hd) in bf16."""
+    cfg = get_arch(name)
+    model = build_model(cfg)
+    assert type(model).__name__ == FAMILY_CLASS[cfg.family]
+    if cfg.family in ("dense", "moe", "vlm"):
+        assert model.is_moe == (cfg.family == "moe") and model.is_vlm == (cfg.family == "vlm")
+        assert ("router" in model.param_specs()["layers"]) == model.is_moe
+    cache = model.cache_struct(ShapeConfig("s", 256, 4, "decode"))
+    leaves = tree_leaves(cache)
+    assert leaves and all(t.device.type == "meta" for t in leaves)
+    if "k" in cache:
+        kv = cache["k"]
+        assert kv.dtype == torch.bfloat16 and kv.shape[1] == 4 and kv.shape[-2:] == (
+            cfg.n_kv_heads, cfg.resolved_head_dim)
+    if name == "smollm-135m":
+        assert cache["k"].shape == (30, 4, 256, 3, 64)
     with pytest.raises(ValueError):
-        build_model(get_arch("smollm-135m").replace(family="unknown"))
+        build_model(cfg.replace(family="unknown"))
     with pytest.raises(KeyError):
-        get_arch("llava-next-mistral-7b")
-    tm = build_model(get_arch("smollm-135m"))
-    kv = tm.cache_struct(ShapeConfig("s", 256, 4, "decode"))["k"]
-    assert kv.device.type == "meta" and kv.shape == (30, 4, 256, 3, 64)
-    assert kv.dtype == torch.bfloat16
+        get_arch(name + "-unknown")
