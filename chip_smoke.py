@@ -27,9 +27,13 @@
    128, decode at B=4 S=256 and at its chunk edges); the flash backward
    kernels at the training shape, B=8 S=128, at B=1 S=2048, and at the
    MoE models' layouts at B=1 S=512 (kimi-k2's 64 query heads over 8 KV
-   heads of 112, phi3.5-moe's 32 over 8 of 128), on the
+   heads of 112, phi3.5-moe's 32 over 8 of 128) and at the four
+   families' training attention (llava's S = 704, seamless's non-causal
+   encoder, its causal decoder and its cross-attention of 128 rows over 256
+   keys, zamba2's 32 over 32 heads), on the
    log-sum-exp-writing forward's output, per element, with a mask off by
-   one shown to fail and a second launch bitwise equal, timed beside that
+   one (causal) or a key dropped and a zero key added (non-causal) shown to
+   fail and a second launch bitwise equal, timed beside that
    forward and SDPA's forward plus backward), and times kernel, plain
    version and (where one
    exists) a single PyTorch library call that computes the same function:
@@ -84,7 +88,17 @@
    steps on the CPU, then two steps of kimi-k2 reduced but at its head dim
    of 112 (16 query heads over 2 KV heads, bf16 compute, the MoE aux loss)
    the same way (a ``train_moe`` line); prints one ``path train`` line (step
-   p50/p99, tokens/s, the card's peak memory, the losses);
+   p50/p99, tokens/s, the card's peak memory, the losses); then trains the
+   four families at full width, bf16 params and f32 moments, one at a time
+   (rwkv6-3b and zamba2-1.2b at full depth through the launcher on token
+   messages, seamless-m4t at full depth and llava-next at 16 of 32 layers
+   through ``build_train_step`` on stub embeddings), checks the losses
+   finite, the loss falling on one batch repeated from the drawn state, the
+   state on the card and the
+   flash launches a step the model gives, prints a ``path`` line each
+   (tokens/s, step p50, first step, peak memory) and what indexing
+   llava's stacked layer leaves costs a step; then each family at 2 layers, card
+   against CPU (a ``train_card_vs_cpu`` line each);
 6. runs the pipeline phase: a ``PipelineSpec`` built by the port's ``Pipeline``
    (one kafka node; light-source frames at a stepped rate into an elastic
    ML-EM stage, the cluster stream into a K-Means stage) through
@@ -339,6 +353,51 @@ FAM_FLASH = (("llava prefill", SERVE_BATCH, 704, 704, (32, 8, 128), True),
 FAM_DECODE = (("llava", SERVE_BATCH, 704 + FAM_STUB_GEN, (32, 8, 128)),
               ("seamless", SERVE_BATCH, PROMPT_LEN + FAM_STUB_GEN, (16, 16, 64)),
               ("zamba", SERVE_BATCH, PROMPT_LEN + FAM_STATE_GEN, (32, 32, 64)))
+
+# the families training phase, after the training path. The backward kernels
+# are checked first at each family's training attention, FAM_BWD: (name, B,
+# Sq, Skv, (H, KV, hd), causal), TRAIN_BATCH rows of TRAIN_SEQ tokens (llava:
+# behind its 576 patches; seamless: beside FAM_FRAMES frames). Then each
+# family at full width, bf16 params (the configs' own) and AdamW with f32
+# moments, one model at a time, FAM_TRAIN_STEPS steps: rwkv6-3b and
+# zamba2-1.2b at full depth through launch/train.py's run on the training
+# stream's token messages (no checkpoint written: rwkv6's state of 3.1B
+# params is 31 GB); seamless-m4t-medium at full depth and llava-next at
+# FAM_LLAVA_LAYERS of its 32 layers (12 bytes a param: bf16 param and grad,
+# two f32 moments; 16 layers hold 3.77B params, 45 GB, the 32 layers' 87 GB
+# do not fit) through build_train_step on stub embeddings drawn on the card
+# from SEED; the first two steps from the drawn state on one batch, the
+# second's loss below the first's (for rwkv6 and zamba2 through the app's
+# step before the launcher's run). Then each family at full width but TRAIN_CHECK_LAYERS layers
+# (seamless: as many encoder and decoder layers; zamba2: 2 Mamba2 layers
+# around one shared site), f32 params, TRAIN_CHECK_STEPS steps on the card
+# against the CPU from the same weights and batches, held to the TRAIN_*
+# tolerances, on FAM_TCHECK_BATCH rows of FAM_TCHECK_TOKENS tokens (llava:
+# behind FAM_TCHECK_PATCHES patches; seamless: beside twice as many frames,
+# so that its cross-attention runs at Sq != Skv; the CPU's products at full
+# width take seconds a step). seamless computes in bf16, so that the bf16
+# kernels run at its G = 1, non-causal and Sq != Skv shapes; the families of
+# FAM_TCHECK_F32 in f32 (the f32 kernels; the bf16 kernels are held at their
+# shapes by the FAM_BWD checks), since a bf16 evaluation of their step lies
+# further from the f32 one than the tolerances allow on either device, and
+# in the JAX package too (tools/train_precision.py, tests/grad_precision.py
+# --bf16, PERF.md §6): at these inputs llava's loss 8e-5 (CPU) and 2.3e-4
+# (card) of itself from f32 (the limit is 1e-4), zamba2's 1.5e-4 and 6e-6
+# and its gradients 6 % of a leaf on each (the JAX package's: 2.6e-4 and
+# 6.6 %); rwkv6's gradients (it runs no kernel) 0.6x and 2.2x a leaf (the
+# median; the JAX package's 0.5x), and 0.2-2.1x on the CPU over seven
+# copies of the weights each moved by 2^-12 of itself (the f32 gradient
+# norm moving 0.77-1.7x with them: its step is ill-conditioned at this
+# random init); in f32 card and CPU agree to 9e-8 in the loss and to 4e-6,
+# 1.2e-5 and 3.2e-4 of a leaf's gradient at the first step
+FAM_BWD = (("llava self", TRAIN_BATCH, 576 + TRAIN_SEQ, 576 + TRAIN_SEQ, (32, 8, 128), True),
+           ("seamless encoder", TRAIN_BATCH, FAM_FRAMES, FAM_FRAMES, (16, 16, 64), False),
+           ("seamless decoder", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, (16, 16, 64), True),
+           ("seamless cross", TRAIN_BATCH, TRAIN_SEQ, FAM_FRAMES, (16, 16, 64), False),
+           ("zamba2 site", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, (32, 32, 64), True))
+FAM_TRAIN_STEPS, FAM_LLAVA_LAYERS = 6, 16
+FAM_TCHECK_BATCH, FAM_TCHECK_TOKENS, FAM_TCHECK_PATCHES = 2, 64, 64
+FAM_TCHECK_F32 = ("llava-next-mistral-7b", "rwkv6-3b", "zamba2-1.2b")
 
 
 # what the backward kernels' plain_ms and library_ms in the kernels line time
@@ -952,18 +1011,19 @@ def _grads_worst(torch, got, ref) -> dict:
             for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
 
 
-def sdpa_bwd_ms(torch, q, k, v, dout, reps: int, replays: int = 5) -> float:
-    """Device time of SDPA's backward alone (``is_causal``, ``enable_gqa``)
-    on q, k, v (B, H, S, hd) that require grad: the forward runs once, then
-    ``reps`` backwards of it (``retain_graph``) are captured in one CUDA
-    graph and replayed ``replays`` times between CUDA events, as in
-    ``graph_ms``. The forward runs on the capture stream, since autograd
-    runs each backward op on its forward op's stream."""
+def sdpa_bwd_ms(torch, q, k, v, dout, reps: int, replays: int = 5, causal: bool = True) -> float:
+    """Device time of SDPA's backward alone (``is_causal``; ``enable_gqa``
+    where K/V have fewer heads) on q, k, v (B, H, S, hd) that require grad:
+    the forward runs once, then ``reps`` backwards of it (``retain_graph``)
+    are captured in one CUDA graph and replayed ``replays`` times between
+    CUDA events, as in ``graph_ms``. The forward runs on the capture stream,
+    since autograd runs each backward op on its forward op's stream."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = q.shape[1] != k.shape[1]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        o = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        o = sdpa(q, k, v, is_causal=causal, enable_gqa=gqa)
 
         def backward():
             torch.autograd.grad(o, (q, k, v), dout, retain_graph=True)
@@ -986,67 +1046,98 @@ def sdpa_bwd_ms(torch, q, k, v, dout, reps: int, replays: int = 5) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def check_flash_bwd(torch, attn, b: int, s: int, gen, heads: tuple = SERVE_HEADS) -> dict:
-    """The training attention in the head layout ``heads`` (the training
-    path's by default), causal, bf16: ``flash_attention_bwd_dq`` and
-    ``flash_attention_bwd_dkdv`` against ``flash_attention_bwd_plain`` per
-    element, on the LSE-writing forward's output and log-sum-exp, and a
-    second launch of the pair bitwise equal to the first; a mask off by one
-    must fail: the plain version with every query row one position later (a
-    zero row in front: row i sees keys 0..i+1) and one earlier (row 0
-    dropped: row i sees 0..i-1). Times: each kernel alone, the LSE-writing
-    forward, the plain backward and SDPA (``is_causal``, ``enable_gqa``),
-    the PyTorch call that computes the same gradients, its backward alone
-    and with its forward, all from replayed CUDA graphs. The LSE-writing
-    forward's output is held to the plain version per element too.
-    Bounds: the bytes each kernel must move, and 6 hd flop per causal
-    (query, key) pair for (a) (S, dP, dQ), 8 hd for (b) (S, dP, dV, dK), 10 hd
-    for the pair, at the bf16 rate."""
+def _mask_faults(torch, attn, q, k, v, out, lse, dout, causal: bool) -> dict:
+    """The plain backward under planted mask faults, gradients shaped as the
+    kernels'. Causal (Sq = Skv): every query row one position later (a zero
+    row in front: row i sees keys 0..i+1) and one earlier (row 0 dropped:
+    row i sees 0..i-1), on the kernel's own output and log-sum-exp.
+    Non-causal: the last key dropped, and a zero key added (a key past Skv
+    counted as live, as a zero-filled tile row would be), each through the
+    plain forward with its log-sum-exp as well: with the true ones a zero
+    key moves no gradient of the live keys (its dS meets a zero K row)."""
+    z = lambda x: torch.zeros_like(x[:, :1])  # noqa: E731  (one query row or key)
+    plain = attn.flash_attention_bwd_plain
+    if causal:
+        zl = torch.zeros_like(lse[..., :1])
+        plus = plain(torch.cat([z(q), q], 1), k, v, torch.cat([z(out), out], 1),
+                     torch.cat([zl, lse], -1), torch.cat([z(dout), dout], 1), causal=True)
+        minus = plain(q[:, 1:], k, v, out[:, 1:], lse[..., 1:], dout[:, 1:], causal=True)
+        return {"plus_one": (plus[0][:, 1:], plus[1], plus[2]),
+                "minus_one": (torch.cat([z(q), minus[0]], 1), minus[1], minus[2])}
+
+    def through(k2, v2):
+        o2, l2 = attn.flash_attention_plain_lse(q, k2, v2, causal=False)
+        return plain(q, k2, v2, o2, l2, dout, causal=False)
+
+    drop = through(k[:, :-1].contiguous(), v[:, :-1].contiguous())
+    extra = through(torch.cat([k, z(k)], 1), torch.cat([v, z(v)], 1))
+    skv = k.shape[1]
+    return {"last_key_dropped": (drop[0], torch.cat([drop[1], z(k)], 1),
+                                 torch.cat([drop[2], z(v)], 1)),
+            "zero_key_added": (extra[0], extra[1][:, :skv], extra[2][:, :skv])}
+
+
+def check_flash_bwd(torch, attn, b: int, s: int, gen, heads: tuple = SERVE_HEADS,
+                    skv: int | None = None, causal: bool = True) -> dict:
+    """The training attention over ``s`` query rows and ``skv`` keys (``s``
+    by default), causal by default (then Sq = Skv), in the head layout
+    ``heads`` (the training path's by default), bf16:
+    ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkdv`` against
+    ``flash_attention_bwd_plain`` per element, on the LSE-writing forward's
+    output and log-sum-exp, and a second launch of the pair bitwise equal to
+    the first; every planted mask fault of ``_mask_faults`` must fail the
+    rule in each of dq, dk and dv. Times: each kernel alone, the LSE-writing
+    forward, the plain backward and SDPA (``is_causal`` as the case,
+    ``enable_gqa`` where G > 1), the PyTorch call that computes the same
+    gradients, its backward alone and with its forward, all from replayed
+    CUDA graphs. The LSE-writing forward's output is held to the plain
+    version per element too. Bounds: the bytes each kernel must move, and
+    6 hd flop per (query, key) pair for (a) (S, dP, dQ), 8 hd for (b) (S,
+    dP, dV, dK), 10 hd for the pair, at the bf16 rate; the pairs are Sq (Sq
+    + 1) / 2 a head when causal, Sq Skv when not."""
     H, KV, hd = heads
+    skv = skv or s
+    if causal and skv != s:
+        raise ValueError("a causal check takes Sq = Skv")
     dev = torch.device("cuda", 0)
     q = torch.randn((b, s, H, hd), generator=gen, device=dev).bfloat16()
-    k = torch.randn((b, s, KV, hd), generator=gen, device=dev).bfloat16()
-    v = torch.randn((b, s, KV, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, skv, KV, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, skv, KV, hd), generator=gen, device=dev).bfloat16()
     dout = torch.randn((b, s, H, hd), generator=gen, device=dev).bfloat16()
     lse = torch.empty((b, H, s), dtype=torch.float32, device=dev)
-    out = attn.flash_attention_cuda(q, k, v, causal=True, lse=lse)
-    plain_out, plain_lse = attn.flash_attention_plain_lse(q, k, v, causal=True)
-    name = f"flash_attention_bwd B={b} S={s} hd={hd}"
-    fwd = _bf16_close(torch, f"flash_attention with lse B={b} S={s} hd={hd}", out, plain_out, v)
+    out = attn.flash_attention_cuda(q, k, v, causal=causal, lse=lse)
+    plain_out, plain_lse = attn.flash_attention_plain_lse(q, k, v, causal=causal)
+    shape = (f"B={b} S={s} hd={hd}" if skv == s else f"B={b} Sq={s} Skv={skv} hd={hd}") + (
+        "" if causal else " non-causal")
+    name = f"flash_attention_bwd {shape}"
+    fwd = _bf16_close(torch, f"flash_attention with lse {shape}", out, plain_out, v)
     lse_err = float((lse - plain_lse).abs().max())
     if lse_err > 1e-5:
-        raise AssertionError(f"flash_attention lse B={b} S={s} hd={hd}: max err {lse_err} > 1e-5")
-    got = attn.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=True)
-    again = attn.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=True)
+        raise AssertionError(f"flash_attention lse {shape}: max err {lse_err} > 1e-5")
+    got = attn.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal)
+    again = attn.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal)
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"{name}: a second launch differs bitwise")
-    ref = attn.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True)
+    ref = attn.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal)
     right = _grads_worst(torch, got, ref)
     if any(w > 1 for w in right.values()) or not all(bool(g.isfinite().all()) for g in got):
         raise AssertionError(f"{name}: worst err/tol {right}")
-    z = lambda x: torch.zeros_like(x[:, :1])  # noqa: E731  (one query row)
-    zl = torch.zeros_like(lse[..., :1])
-    plus = attn.flash_attention_bwd_plain(
-        torch.cat([z(q), q], 1), k, v, torch.cat([z(out), out], 1), torch.cat([zl, lse], -1),
-        torch.cat([z(dout), dout], 1), causal=True)
-    plus = (plus[0][:, 1:], plus[1], plus[2])
-    minus = attn.flash_attention_bwd_plain(q[:, 1:], k, v, out[:, 1:], lse[..., 1:],
-                                           dout[:, 1:], causal=True)
-    minus = (torch.cat([z(q), minus[0]], 1), minus[1], minus[2])
-    wrong = {"plus_one": _grads_worst(torch, got, plus), "minus_one": _grads_worst(torch, got, minus)}
+    wrong = {m: _grads_worst(torch, got, f)
+             for m, f in _mask_faults(torch, attn, q, k, v, out, lse, dout, causal).items()}
     blind = [f"{m} {n}" for m, w in wrong.items() for n, x in w.items() if x <= 1]
     if blind:
-        raise AssertionError(f"{name}: a mask off by one passes {blind}")
+        raise AssertionError(f"{name}: a planted mask fault passes {blind}")
     res = {"max_abs_err": max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref)),
-           "worst_err_over_tol": right, "off_by_one_least_over_tol": {
+           "worst_err_over_tol": right, "mask_faults_least_over_tol": {
                m: min(w.values()) for m, w in wrong.items()},
            "fwd_out_max_abs_err": fwd["max_abs_err"],
            "fwd_out_worst_err_over_tol": fwd["worst_err_over_tol"], "lse_max_abs_err": lse_err,
            "bitwise_repeatable": True,
            "tol_rule": "per element 2^-7 |ref| + 2^-15 max|ref|; forward out 2^-7 |ref| + "
                        "2^-15 max|v|; lse 1e-5"}
-    pairs = b * H * s * (s + 1) // 2  # causal (query, key) pairs over every head
+    # (query, key) pairs over every head
+    pairs = b * H * (s * (s + 1) // 2 if causal else s * skv)
     el = q.element_size()
     n_q, n_kv = q.numel(), k.numel()
     rows = b * H * s * 4  # one f32 per row (lse, delta)
@@ -1058,7 +1149,7 @@ def check_flash_bwd(torch, attn, b: int, s: int, gen, heads: tuple = SERVE_HEADS
         (5 * n_q + 4 * n_kv) * el + rows, 10 * hd * pairs, BF16_OPS_PER_S)
     delta = torch.empty((b, H, s), dtype=torch.float32, device=dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    sizes = (b, s, s, H, KV, hd, 1, 1)
+    sizes = (b, s, skv, H, KV, hd, int(causal), 1)
 
     def run_dq():
         attn.FLASH_BWD_DQ.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -1076,23 +1167,24 @@ def check_flash_bwd(torch, attn, b: int, s: int, gen, heads: tuple = SERVE_HEADS
     res["dq_ms"] = graph_ms(torch, run_dq, reps)
     res["dkdv_ms"] = graph_ms(torch, run_dkdv, reps)
     res["fwd_lse_ms"] = graph_ms(
-        torch, lambda: attn.flash_attention_cuda(q, k, v, causal=True, lse=lse), reps)
-    res["fwd_ms"] = graph_ms(torch, lambda: attn.flash_attention_cuda(q, k, v, causal=True), reps)
+        torch, lambda: attn.flash_attention_cuda(q, k, v, causal=causal, lse=lse), reps)
+    res["fwd_ms"] = graph_ms(torch, lambda: attn.flash_attention_cuda(q, k, v, causal=causal), reps)
     res["plain_ms"] = graph_ms(
-        torch, lambda: attn.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True),
+        torch, lambda: attn.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal),
         reps if s <= 512 else 1)
     qt, kt, vt, dot = (x.transpose(1, 2).detach().requires_grad_(x is not dout)
                        for x in (q, k, v, dout))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    res["library_ms"] = sdpa_bwd_ms(torch, qt, kt, vt, dot, reps)
+    gqa = H != KV
+    res["library_ms"] = sdpa_bwd_ms(torch, qt, kt, vt, dot, reps, causal=causal)
     res["library_pair_ms"] = graph_ms(torch, lambda: torch.autograd.grad(
-        sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt), dot), reps)
+        sdpa(qt, kt, vt, is_causal=causal, enable_gqa=gqa), (qt, kt, vt), dot), reps)
     res["library_fwd_ms"] = graph_ms(
-        torch, lambda: sdpa(qt.detach(), kt.detach(), vt.detach(), is_causal=True,
-                            enable_gqa=True), reps)
-    res["library"] = ("scaled_dot_product_attention(is_causal, enable_gqa): library_ms its "
-                      "backward alone, against the pair dq + dkdv; library_pair_ms forward + "
-                      "backward, against fwd_lse_ms + dq_ms + dkdv_ms")
+        torch, lambda: sdpa(qt.detach(), kt.detach(), vt.detach(), is_causal=causal,
+                            enable_gqa=gqa), reps)
+    res["library"] = (f"scaled_dot_product_attention(is_causal={causal}, enable_gqa={gqa}): "
+                      "library_ms its backward alone, against the pair dq + dkdv; "
+                      "library_pair_ms forward + backward, against fwd_lse_ms + dq_ms + dkdv_ms")
     return res
 
 
@@ -1931,15 +2023,49 @@ def families_path(torch, kernels, miniapps, cluster, ctx, device) -> dict:
     return {"reports": reports, "checks": checks, "launches": launches, "seconds": seconds}
 
 
-def train_check_step(torch, device, cfg=None) -> dict:
-    """TRAIN_CHECK_STEPS train steps of ``cfg`` (smollm-135m's full width but
-    TRAIN_CHECK_LAYERS layers by default), from the same weights (drawn on
-    the CPU from SEED) and the same batches, on the card (the flash kernels
-    forward, remat recompute and backward) and on the CPU (their plain
-    versions), held to the tolerances above; also the backward kernels'
-    launches on the card (one of each a layer and step)."""
+def flash_per_step(cfg) -> tuple[int, int]:
+    """Flash forward launches, and launches of each backward kernel, in one
+    train step of ``cfg``: an attention per layer (dense, MoE, VLM), per
+    encoder layer and two per decoder layer (self and cross: enc-dec), per
+    shared site (Zamba2), none in RWKV6; under remat each forward runs
+    again in the backward."""
+    if cfg.family == "ssm":
+        n = 0
+    elif cfg.family == "encdec":
+        n = cfg.n_enc_layers + 2 * cfg.n_layers
+    elif cfg.family == "hybrid":
+        n = math.ceil(cfg.n_layers / cfg.shared_block_every)
+    else:
+        n = cfg.n_layers
+    return (1 if cfg.remat == "none" else 2) * n, n
+
+
+def train_batches(cfg, rows: int, seq: int, n: int, n_stub: int = 0, seed: int = SEED) -> list:
+    """``n`` host batches of ``rows`` x ``seq`` zipf tokens (the training
+    stream's), with a VLM's or enc-dec model's ``n_stub`` unit-normal f32
+    patch or frame embeddings, from a numpy generator seeded ``seed``."""
     import numpy as np
 
+    rng = np.random.default_rng(seed)
+    tokens = np.minimum(rng.zipf(1.3, size=(n, rows, seq)) - 1, cfg.vocab_size - 1)
+    batches = []
+    for t in tokens.astype(np.int32):
+        if cfg.family in ("vlm", "encdec"):
+            batches.append(_stub_batch(cfg, t, rng.standard_normal(
+                (rows, n_stub, cfg.d_model), dtype=np.float32)))
+        else:
+            batches.append({"tokens": t})
+    return batches
+
+
+def train_check_step(torch, device, cfg=None, batches=None) -> dict:
+    """TRAIN_CHECK_STEPS train steps of ``cfg`` (smollm-135m's full width but
+    TRAIN_CHECK_LAYERS layers by default) on ``batches`` (TRAIN_BATCH x
+    TRAIN_SEQ zipf tokens by default; one host batch a step), from the same
+    weights (drawn on the CPU from SEED) and the same batches, on the card
+    (the flash kernels forward, remat recompute and backward) and on the CPU
+    (their plain versions), held to the tolerances above; also the backward
+    kernels' launches on the card (``flash_per_step`` of each a step)."""
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.kernels import attention
     from repro_torch.models import build_model
@@ -1949,13 +2075,14 @@ def train_check_step(torch, device, cfg=None) -> dict:
 
     if cfg is None:
         cfg = get_arch("smollm-135m").replace(n_layers=TRAIN_CHECK_LAYERS)
+    if batches is None:
+        batches = train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHECK_STEPS)
     model = build_model(cfg)
     opt_cfg = OptimizerConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
                               total_steps=TRAIN_STEPS)
-    shape = ShapeConfig("stream", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rows, seq = batches[0]["tokens"].shape
+    shape = ShapeConfig("stream", seq, rows, "train")
     params = model.init(torch.Generator().manual_seed(SEED))
-    z = np.random.default_rng(SEED).zipf(1.3, size=(TRAIN_CHECK_STEPS, TRAIN_BATCH, TRAIN_SEQ))
-    tokens = np.minimum(z - 1, cfg.vocab_size - 1).astype(np.int32)
     out = {}
     for side, where in (("cpu", torch.device("cpu")), ("card", device)):
         p = tree_map_with_paths(lambda _, x: x.to(where, copy=True), params)
@@ -1964,8 +2091,8 @@ def train_check_step(torch, device, cfg=None) -> dict:
         losses, norms = [], []
         before = attention.FLASH_BWD_DQ.launches, attention.FLASH_BWD_DKDV.launches
         t0 = time.perf_counter()
-        for t in tokens:
-            p, opt, met = step(p, opt, {"tokens": t})
+        for batch in batches:
+            p, opt, met = step(p, opt, batch)
             losses.append(float(met["loss"]))
             norms.append(float(met["grad_norm"]))
         launched = (attention.FLASH_BWD_DQ.launches - before[0],
@@ -1982,7 +2109,8 @@ def train_check_step(torch, device, cfg=None) -> dict:
               zip(tree_flatten_with_paths(params), leaves(gp), leaves(cp), leaves(params))}
 
     res = {"arch": cfg.name, "layers": cfg.n_layers, "head_dim": cfg.resolved_head_dim,
-           "compute_dtype": cfg.compute_dtype, "steps": TRAIN_CHECK_STEPS, "loss_cpu": closs,
+           "compute_dtype": cfg.compute_dtype, "steps": len(batches),
+           "batch": {k: list(v.shape) for k, v in batches[0].items()}, "loss_cpu": closs,
            "loss_card": gloss, "grad_norm_cpu": cnorm, "grad_norm_card": gnorm,
            "steps_s_cpu": cs, "steps_s_card": gs, "bwd_launches_card": launched,
            "loss_rel_err": max(abs(g - c) / abs(c) for g, c in zip(gloss, closs)),
@@ -1993,7 +2121,7 @@ def train_check_step(torch, device, cfg=None) -> dict:
                                             for a, b in zip(leaves(go["m"]), leaves(co["m"]))),
            "tol": {"loss_rel": TRAIN_LOSS_REL, "grad_norm_rel": TRAIN_NORM_REL,
                    "update_rel": TRAIN_UPDATE_REL, "m_over_leaf_max": TRAIN_MOMENT_REL}}
-    want = (cfg.n_layers * TRAIN_CHECK_STEPS,) * 2
+    want = (flash_per_step(cfg)[1] * len(batches),) * 2
     if not (all(math.isfinite(x) for x in gloss) and res["loss_rel_err"] <= TRAIN_LOSS_REL
             and res["grad_norm_rel_err"] <= TRAIN_NORM_REL
             and res["update_rel_err"] <= TRAIN_UPDATE_REL
@@ -2100,6 +2228,222 @@ def train_path(torch, kernels) -> dict:
            "card_vs_cpu_moe": train_check_moe(torch, state["params"]["embed"].device)}
     print("path " + json.dumps(out))
     return {"report": out, "launches": launches}
+
+
+def falls_on_one_batch(losses: list) -> list:
+    """The losses of two steps on one batch from the state as drawn: the
+    second must be lower, as ``tests/test_models.py`` holds every arch
+    after one step from its init (later in a run, at these models' lr the
+    loss on a batch seen before may rise again)."""
+    if not (all(math.isfinite(x) for x in losses) and losses[1] < losses[0]):
+        raise AssertionError(f"one batch repeated: losses {losses}")
+    return losses
+
+
+def family_train_stub(torch, kernels, name: str, device, lr: float = TRAIN_LR) -> dict:
+    """llava-next (FAM_LLAVA_LAYERS layers) or seamless-m4t (full depth) at
+    full width, bf16 params, through ``build_train_step`` (adamw, lr
+    ``lr``, TRAIN_WARMUP warm-up steps, f32 moments): FAM_TRAIN_STEPS
+    steps of TRAIN_BATCH x TRAIN_SEQ zipf tokens and stub embeddings drawn
+    on the card (576 patches, or FAM_FRAMES frames), the first two on one
+    batch (``falls_on_one_batch``), each step timed to its loss on the
+    host; the launch counts are read when the steps are done."""
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
+    from repro_torch.runtime.steps import build_train_step
+
+    cfg = get_arch(name)
+    if cfg.family == "vlm":
+        cfg = cfg.replace(n_layers=FAM_LLAVA_LAYERS)
+    model = build_model(cfg)
+    n_stub = cfg.n_patches if cfg.family == "vlm" else FAM_FRAMES
+    opt_cfg = OptimizerConfig(name=cfg.optimizer, learning_rate=lr,
+                              warmup_steps=TRAIN_WARMUP, total_steps=max(FAM_TRAIN_STEPS, 10))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = model.init(gen)
+    state = {"params": params, "opt": Optimizer(opt_cfg).init(params)}
+    step = build_train_step(model, ShapeConfig("stream", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                            opt_cfg, device=device)
+    tokens = np.minimum(np.random.default_rng(SEED).zipf(
+        1.3, size=(FAM_TRAIN_STEPS - 1, TRAIN_BATCH, TRAIN_SEQ)) - 1, cfg.vocab_size - 1)
+
+    def batch(i):
+        stub = torch.randn((TRAIN_BATCH, n_stub, cfg.d_model), generator=gen, device=device,
+                           dtype=torch.float32).to(model.compute_dtype)
+        return _stub_batch(cfg, tokens[i].astype(np.int32), stub)
+
+    batches = [batch(i) for i in range(FAM_TRAIN_STEPS - 1)]
+    kernels.reset_launches()
+    losses, walls = [], []
+    for b in batches[:1] + batches:  # steps 1 and 2 on one batch
+        t0 = time.perf_counter()
+        params, opt, met = step(state["params"], state["opt"], b)
+        losses.append(float(met["loss"]))  # waits for the step
+        walls.append(time.perf_counter() - t0)
+        state = {"params": params, "opt": opt}
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    res = {"model": name, "route": "build_train_step", "layers": cfg.n_layers,
+           "steps": FAM_TRAIN_STEPS, "losses": losses, "launches": launches,
+           "tokens": FAM_TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ,
+           "positions": FAM_TRAIN_STEPS * TRAIN_BATCH * (TRAIN_SEQ + n_stub),
+           "wall_s": sum(walls), "first_step_s": walls[0],
+           "step_wall_p50_s": float(np.median(walls[1:])),
+           "repeated_batch_losses": falls_on_one_batch(losses[:2]),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    res["state"] = state
+    return res
+
+
+def family_train_stream(torch, kernels, name: str, lr: float = TRAIN_LR) -> dict:
+    """rwkv6-3b or zamba2-1.2b at full width and depth, bf16 params, through
+    the launcher users run: ``launch/train.py``'s ``run`` with ``--steps
+    FAM_TRAIN_STEPS``, TRAIN_BATCH x TRAIN_SEQ token messages, lr ``lr``
+    and ``--checkpoint-every`` past the last step (no 31 GB write); the
+    launch counts are read when the stream has stopped. Before it, the
+    app's step on one batch twice from the state the launcher draws
+    (``falls_on_one_batch``: its messages are all different)."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.miniapps import LMTrainApp
+    from repro_torch.runtime.optimizer import OptimizerConfig
+
+    # first, the app's own step on one batch twice from the state the
+    # launcher draws (its optimizer settings: lr, 5 warm-up steps)
+    cfg = get_arch(name)
+    app = LMTrainApp(cfg, opt_cfg=OptimizerConfig(
+        name=cfg.optimizer, learning_rate=lr, warmup_steps=TRAIN_WARMUP,
+        total_steps=max(FAM_TRAIN_STEPS, 10)), seqs_per_step=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    batch = train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1)[0]
+    state, first = app.init_state(), []
+    for _ in range(2):
+        params, opt, met = app.step_fn(state["params"], state["opt"], batch)
+        state = {"params": params, "opt": opt}
+        first.append(float(met["loss"]))
+    del app, state, params, opt
+    falls_on_one_batch(first)
+    gc.collect()
+    torch.cuda.empty_cache()
+    directory = ROOT / "build" / "train_families"
+    args = train.parse_args(["--arch", name, "--steps", str(FAM_TRAIN_STEPS),
+                             "--seq-len", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+                             "--lr", str(lr), "--checkpoint-dir", str(directory),
+                             "--checkpoint-every", str(10 ** 6)])
+    kernels.reset_launches()
+    run = train.run(args)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    app, stream, state = run.app, run.stream, run.stream.state
+    losses = app.losses
+    steps = int(state["opt"]["step"])
+    if steps != app.stats.batches or steps < FAM_TRAIN_STEPS or len(losses) != steps:
+        raise AssertionError(f"{name}: {steps} optimizer steps, {app.stats.batches} batches, "
+                             f"{len(losses)} losses")
+    if any(directory.glob("step_*")):
+        raise AssertionError(f"{name}: a checkpoint was written under {directory}")
+    return {"model": name, "route": "launch/train.py run", "layers": app.cfg.n_layers,
+            "steps": steps, "losses": losses, "launches": launches, "tokens": app.stats.items,
+            "positions": app.stats.items, "wall_s": run.wall,
+            "first_step_s": stream.stats.history[0].processing_delay,
+            "step_wall_p50_s": stream.latency.p50, "step_wall_p99_s": stream.latency.p99,
+            "repeated_batch_losses": first,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "state": state}
+
+
+def family_check(name: str, compute_dtype: str | None = None) -> tuple:
+    """``name`` at full width but TRAIN_CHECK_LAYERS layers (and as many
+    encoder layers), f32 params, computing in ``compute_dtype`` (the
+    config's own by default), and its TRAIN_CHECK_STEPS batches of
+    FAM_TCHECK_BATCH x FAM_TCHECK_TOKENS tokens (llava behind
+    FAM_TCHECK_PATCHES patches, seamless beside twice as many frames)."""
+    from repro_torch.configs import get_arch
+
+    full = get_arch(name)
+    over = {"n_layers": TRAIN_CHECK_LAYERS, "param_dtype": "float32"}
+    if full.n_enc_layers:
+        over["n_enc_layers"] = TRAIN_CHECK_LAYERS
+    if full.n_patches:
+        over["n_patches"] = FAM_TCHECK_PATCHES
+    if compute_dtype:
+        over["compute_dtype"] = compute_dtype
+    cfg = full.replace(**over)
+    n_stub = cfg.n_patches if cfg.family == "vlm" else 2 * FAM_TCHECK_TOKENS
+    return cfg, train_batches(cfg, FAM_TCHECK_BATCH, FAM_TCHECK_TOKENS, TRAIN_CHECK_STEPS, n_stub)
+
+
+def families_train_path(torch, kernels, device) -> dict:
+    """The families training phase (see FAM_BWD's comment): each family at
+    full width, one at a time, freed before the next is drawn, every
+    kernel's launch count set to 0 before its steps and read when they are
+    done; checks: every loss finite, the repeated batch's second loss below
+    its first, params and moments on the card, flash launches a step as
+    ``flash_per_step`` gives them (none for rwkv6). Prints a ``path`` line
+    per family (tokens/s over the steps' wall, step wall p50, the first
+    step apart, peak memory, launches a step, the card and its power limit).
+    Then each family at
+    ``family_check``'s size, card against CPU (a ``train_card_vs_cpu`` line
+    each), and one ``path families_train`` summary with the phase's wall."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.utils import tree_flatten_with_paths
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    dynamo_before = "torch._dynamo" in sys.modules
+    launches = {k.name: 0 for k in kernels.KERNELS}
+    reports = []
+    for name in FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if get_arch(name).family in ("vlm", "encdec"):
+            res = family_train_stub(torch, kernels, name, device)
+        else:
+            res = family_train_stream(torch, kernels, name)
+        state = res.pop("state")
+        flat = tree_flatten_with_paths(state)
+        off = [p for p, x in flat if x.device.type != "cuda"]
+        res["state_gib"] = sum(x.numel() * x.element_size() for _, x in flat) / 2 ** 30
+        del state, flat
+        cfg = get_arch(name).replace(n_layers=res["layers"])
+        fwd, bwd = flash_per_step(cfg)
+        steps, run = res["steps"], res["launches"]
+        want = {"flash_attention": fwd * steps, "flash_attention_bwd_dq": bwd * steps,
+                "flash_attention_bwd_dkdv": bwd * steps}
+        got = {k: run[k] for k in want}
+        for k, n in run.items():
+            launches[k] += n
+        report = {"path": f"train_{cfg.family}", **{k: v for k, v in res.items() if k != "launches"},
+                  "tokens_per_s": res["tokens"] / res["wall_s"],
+                  "positions_per_s": res["positions"] / res["wall_s"],
+                  "launches_per_step": {k: n / steps for k, n in got.items()},
+                  "torch_dynamo_imported_before": dynamo_before, "card": card}
+        print("path " + json.dumps(report))
+        if off:
+            raise AssertionError(f"{name}: train state off the card: {off}")
+        if got != want or any(not math.isfinite(x) for x in res["losses"]):
+            raise AssertionError(f"{name}: launches {got}, want {want}; losses {res['losses']}")
+        reports.append(report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = []
+    for name in FAMILIES:
+        cfg, batches = family_check(name, "float32" if name in FAM_TCHECK_F32 else None)
+        checks.append({"model": name, **train_check_step(torch, device, cfg, batches)})
+        print("train_card_vs_cpu " + json.dumps(checks[-1]))
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print("path " + json.dumps({"path": "families_train", "seconds": seconds,
+                                "models": [r["model"] for r in reports],
+                                "launches": {k: n for k, n in launches.items() if n}}))
+    return {"reports": reports, "checks": checks, "launches": launches, "seconds": seconds}
 
 
 def pipeline_spec(pipeline):
@@ -2958,6 +3302,15 @@ def main() -> None:
     bwd_128 = check_flash_bwd(torch, attention, 1, MOE_TRAIN_SEQ, gen, PHI_HEADS)
     print(f"check flash_attention_bwd B=1 S={MOE_TRAIN_SEQ} causal bf16 hd=128 "
           + json.dumps(bwd_128))
+    # the families' training attention: the backward pair at each shape of
+    # FAM_BWD (non-causal, Sq != Skv, G = 1, S = 704), timed beside SDPA's
+    fam_bwd = []
+    for label, b, sq, skv, heads, causal in FAM_BWD:
+        res = {"shape": f"{label}: B={b} Sq={sq} Skv={skv}, {heads[0]} heads over {heads[1]} KV "
+                        f"of {heads[2]}, {'causal' if causal else 'non-causal'}, bf16",
+               **check_flash_bwd(torch, attention, b, sq, gen, heads, skv, causal)}
+        print("check flash_attention_bwd family " + json.dumps(res))
+        fam_bwd.append(res)
     # the families phase's attention shapes: non-causal, Sq != Skv, G = 1,
     # S = 704 and 720, each against its plain version, timed beside SDPA
     fam_flash, fam_decode = [], []
@@ -2994,13 +3347,15 @@ def main() -> None:
     checkpoint_round_trip(torch, sv["params"])
     del sv["params"], sv["app"]  # the served model's card memory
     tn = train_path(torch, kernels)
+    ftr = families_train_path(torch, kernels, device)
     pl = pipeline_path(torch, kernels, pipeline, kmeans, tomo)
     ct = continuous_path(torch, kernels, pipeline, miniapps, kmeans)
     tr = transport_path(torch, kernels, pipeline, miniapps, tomo)
     paths = {"kmeans_path": km["launches"], "kmeans_wide_path": kw["launches"],
              "lightsource_path": rc["launches"], "serve_path": sv["launches"],
              "serve_moe_path": sm["launches"], "families_path": fm["launches"],
-             "train_path": tn["launches"], "pipeline_path": pl["launches"], "continuous_path": ct["launches"],
+             "train_path": tn["launches"], "families_train_path": ftr["launches"],
+             "pipeline_path": pl["launches"], "continuous_path": ct["launches"],
              "transport_path": tr["launches"]}
     launches = {k.name: sum(p[k.name] for p in paths.values()) for k in kernels.KERNELS}
     print("launches " + json.dumps(paths))
@@ -3026,6 +3381,12 @@ def main() -> None:
         return {**r, "ms": r[f"{part}_ms"], "bound_ms": r[f"{part}_bound_ms"],
                 "bound_by": r[f"{part}_bound_by"]}
 
+    def bwd_family_shapes(part: str) -> list:  # the families' training shapes
+        return [{k: bwd_row(r, part)[k] for k in ("shape", "max_abs_err", "worst_err_over_tol",
+                                                  "ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", "fwd_lse_ms")}
+                for r in fam_bwd]
+
     rows = [
         ("kmeans_assign", src + "kmeans_assign.cu", "src/repro/kernels/kmeans/kernel.py:45", assign_main),
         # no TPU kernel: the reference's update is a jnp scatter (update_scatter)
@@ -3037,7 +3398,8 @@ def main() -> None:
         ("flash_attention", src + "flash_attention.cu", "src/repro/kernels/attention/kernel.py:81",
          {**flash_main, "max_abs_err": max(flash_main["max_abs_err"], bwd_main["fwd_out_max_abs_err"],
                                            flash_112["max_abs_err"], flash_128["max_abs_err"],
-                                           *(r["max_abs_err"] for r in fam_flash)),
+                                           *(r["max_abs_err"] for r in fam_flash),
+                                           *(r["fwd_out_max_abs_err"] for r in fam_bwd)),
           "families": family_shapes(fam_flash),
           "hd112": moe_shape(flash_112, f"B=1 S={PROMPT_LEN} causal", KIMI_HEADS),
           "hd128": moe_shape(flash_128, f"B=1 S={PROMPT_LEN} causal", PHI_HEADS),
@@ -3060,7 +3422,8 @@ def main() -> None:
            "src/repro/runtime/sharded_attention.py:165",
            {**bwd_row(bwd_main, part), "scope": BWD_SCOPE,
             "max_abs_err": max(bwd_main["max_abs_err"], bwd_112["max_abs_err"],
-                               bwd_128["max_abs_err"]),
+                               bwd_128["max_abs_err"], *(r["max_abs_err"] for r in fam_bwd)),
+            "families": bwd_family_shapes(part),
             "hd112": moe_shape(bwd_row(bwd_112, part), f"B=1 S={MOE_TRAIN_SEQ} causal", KIMI_HEADS),
             "hd128": moe_shape(bwd_row(bwd_128, part), f"B=1 S={MOE_TRAIN_SEQ} causal", PHI_HEADS)})
           for part in ("dq", "dkdv")),

@@ -10,6 +10,15 @@ LM as the analysis stage. On the card (the default):
 On the CPU, at the reduced config: add ``--reduced --device cpu``. Without
 ``--device cpu`` it asks for CUDA and raises where there is none.
 
+Every family whose batch is its tokens trains here: the dense and MoE
+archs, ``--arch rwkv6-3b`` and ``--arch zamba2-1.2b``. A VLM or enc-dec
+arch needs patch or frame embeddings that a token message does not carry:
+``LMTrainApp`` refuses it, and ``build_train_step`` trains it with the
+embeddings in its batch. A checkpoint is the whole train state (bf16
+params and two f32 moments a param: rwkv6-3b's is about 31 GB), so a
+smoke run that need not restore sets ``--checkpoint-every`` past its last
+step and writes none.
+
 Params are random, drawn on the training device from a generator seeded 0
 (``LMTrainApp.init_state``). Every ``--checkpoint-every`` batches the train
 state and the consumer offsets are saved (asynchronously) through the

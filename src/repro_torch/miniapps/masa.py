@@ -227,11 +227,23 @@ class LMTrainApp(_HotPathApp):
     the card every attention forward, its remat recompute and its backward
     run the flash kernels. The JAX app's compile counts have no
     counterpart.
+
+    A token stream trains every family whose batch is its tokens: the
+    dense and MoE ones, RWKV6 and Zamba2. A VLM or an enc-dec model also
+    needs patch or frame embeddings, which a token message does not carry:
+    it is refused here (the JAX app fails at its first step) and trained
+    through ``build_train_step`` with the embeddings in its batch.
     """
 
     def __init__(self, cfg, *, opt_cfg: OptimizerConfig | None = None, seqs_per_step: int = 8,
                  seq_len: int = 128, async_depth: int = 2, metrics: Any = None,
                  device: torch.device | str = "cuda"):
+        if cfg.family in ("vlm", "encdec"):
+            raise ValueError(
+                f"{cfg.name}: a {cfg.family!r} model takes "
+                f"{'patch' if cfg.family == 'vlm' else 'frame'} embeddings beside its tokens; "
+                "LMTrainApp trains on token messages only: train it through "
+                "repro_torch.runtime.steps.build_train_step with the embeddings in the batch")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)

@@ -2,8 +2,9 @@
 
 ``DecoderLM`` (dense, MoE, VLM), ``EncDecLM`` (enc-dec), ``Rwkv6LM``
 (the "ssm" family) and ``ZambaLM`` (the Mamba2 "hybrid"), as in the JAX
-package. Every family's ``loss`` is ported; training the VLM, enc-dec,
-RWKV6 and Zamba2 families on the card is ROADMAP A8.6.
+package. Every family trains through ``runtime/steps.py``'s
+``build_train_step``, on the card through the flash kernels where it has
+attention.
 """
 from __future__ import annotations
 

@@ -353,30 +353,26 @@ def test_split_decode_merge_matches_plain_under_the_per_element_rule(chunk, G):
 # -- the training backward ------------------------------------------------------
 
 
-@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 64, 4, 2, 16), (2, 128, 9, 3, 32),
-                                        (1, 64, 16, 2, 112)])
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_backward_plain_matches_the_jax_flash_vjp(B, S, H, KV, hd, causal):
+def _flash_vjp_case(B, Sq, Skv, H, KV, hd, causal, seed):
     """``flash_attention_plain_lse`` and ``flash_attention_bwd_plain`` against
     ``jax.vjp`` of the JAX package's custom-VJP flash attention (its
-    ``_flash_fwd_core`` and ``_flash_bwd``), at the shapes of
-    ``tests/test_kernels.py``'s gradient test, at S = 128 with G = 3 and at
-    kimi-k2's head dim of 112 with G = 8; then ``flash_attention`` with grad on (``FlashAttentionFn``) gives the
-    same gradients through autograd."""
-    rng = np.random.default_rng(B * S + H + causal)
-    q, do = (rng.normal(size=(B, S, H, hd)).astype(np.float32) for _ in range(2))
-    k, v = (rng.normal(size=(B, S, KV, hd)).astype(np.float32) for _ in range(2))
-    q_pos = jnp.arange(S, dtype=jnp.float32)
+    ``_flash_fwd_core`` and ``_flash_bwd``, query row i at position i); then
+    ``flash_attention`` with grad on (``FlashAttentionFn``) gives the same
+    gradients through autograd."""
+    rng = np.random.default_rng(seed)
+    q, do = (rng.normal(size=(B, Sq, H, hd)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(B, Skv, KV, hd)).astype(np.float32) for _ in range(2))
+    q_pos = jnp.arange(Sq, dtype=jnp.float32)
 
     def jax_fn(q, k, v):
-        out = jax_flash_vjp(q.reshape(B, S, KV, H // KV, hd), k, v, q_pos, causal, 16, hd ** -0.5)
-        return out.reshape(B, S, H, hd)
+        out = jax_flash_vjp(q.reshape(B, Sq, KV, H // KV, hd), k, v, q_pos, causal, 16, hd ** -0.5)
+        return out.reshape(B, Sq, H, hd)
 
     jout, vjp = jax.vjp(jax_fn, *(jnp.asarray(x) for x in (q, k, v)))
     jgrads = vjp(jnp.asarray(do))
     tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
     out, lse = attn_ref.flash_attention_plain_lse(tq, tk, tv, causal=causal)
-    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
     np.testing.assert_allclose(_np(out), _np(jout), atol=2e-5)
     grads = attn_ref.flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo, causal=causal)
     for got, want in zip(grads, jgrads):
@@ -390,58 +386,82 @@ def test_flash_backward_plain_matches_the_jax_flash_vjp(B, S, H, KV, hd, causal)
         torch.testing.assert_close(leaf.grad, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 64, 4, 2, 16), (2, 128, 9, 3, 32),
+                                        (1, 64, 16, 2, 112)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_plain_matches_the_jax_flash_vjp(B, S, H, KV, hd, causal):
+    """At the shapes of ``tests/test_kernels.py``'s gradient test, at S = 128
+    with G = 3 and at kimi-k2's head dim of 112 with G = 8
+    (``_flash_vjp_case``)."""
+    _flash_vjp_case(B, S, S, H, KV, hd, causal, B * S + H + causal)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd", [(2, 128, 256, 4, 4, 16), (1, 128, 256, 8, 2, 32),
+                                              (2, 128, 128, 4, 4, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_plain_matches_the_jax_flash_vjp_at_the_families_shapes(
+        B, Sq, Skv, H, KV, hd, causal):
+    """``_flash_vjp_case`` at the families' training layouts, scaled down:
+    128 query rows over 256 keys (seamless's cross-attention) with G = 1 and
+    G = 4, and G = 1 at Sq = Skv (seamless's MHA, zamba2's shared site)."""
+    _flash_vjp_case(B, Sq, Skv, H, KV, hd, causal, B * Sq + Skv + H + causal)
+
+
 def _bf16_parts(x, lo: bool):
     hi = x.bfloat16().float()
     return (hi, (x - hi).bfloat16().float()) if lo else (hi,)
 
 
 def _flash_bwd_kernel_arithmetic(q, k, v, out, lse, dout, lo=("dq", "dk", "dv"), keys=32,
-                                 groups=4):
-    """The bf16 backward kernels' arithmetic in plain torch, causal, Sq = Skv
-    a multiple of 32: S and dP in f32 from the bf16 operands, P = 2^(s
-    log2(e) / sqrt(hd) - lse log2(e)), delta = rowsum(dO O) and dS = P (dP -
-    delta) in f32; the P or dS entering each product as bf16 hi + lo where
-    ``lo`` names the product's output (else hi alone), bf16 products exact
-    in f32 and summed in f32 in the kernels' order: (a) dQ over 16-key
-    chunks in key order; (b) per block of ``keys`` keys, its (head, 32-row
-    query tile from the block's first key) items round-robin over
-    ``groups`` warp groups, 16 rows a chunk, the groups' sums added in
-    group order. dQ and dK scaled by 1 / sqrt(hd) at the end."""
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
+                                 groups=4, causal=True):
+    """The bf16 backward kernels' arithmetic in plain torch, Sq and Skv
+    multiples of 32 (Sq = Skv when causal): S and dP in f32 from the bf16
+    operands, P = 2^(s log2(e) / sqrt(hd) - lse log2(e)), delta = rowsum(dO
+    O) and dS = P (dP - delta) in f32; the P or dS entering each product as
+    bf16 hi + lo where ``lo`` names the product's output (else hi alone),
+    bf16 products exact in f32 and summed in f32 in the kernels' order: (a)
+    dQ over 16-key chunks in key order; (b) per block of ``keys`` keys, its
+    (head, 32-row query tile) items round-robin over ``groups`` warp groups,
+    the tiles from the block's first key (causal) or from row 0, 16 rows a
+    chunk, the groups' sums added in group order. dQ and dK scaled by 1 /
+    sqrt(hd) at the end."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     c2 = math.log2(math.e)
 
-    def heads(x):  # (B, S, H, hd) -> (B, KV, G, S, hd)
-        return x.float().reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4)
+    def heads(x):  # (B, Sq, H, hd) -> (B, KV, G, Sq, hd)
+        return x.float().reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4)
 
     qf, dof = heads(q), heads(dout)
-    kf, vf = (x.float().permute(0, 2, 1, 3) for x in (k, v))  # (B, KV, S, hd)
+    kf, vf = (x.float().permute(0, 2, 1, 3) for x in (k, v))  # (B, KV, Skv, hd)
     delta = (dof * heads(out)).sum(-1)
-    l2 = lse.reshape(B, KV, G, S) * c2
-    pos = torch.arange(S)
+    l2 = lse.reshape(B, KV, G, Sq) * c2
+    q_pos, k_pos = torch.arange(Sq), torch.arange(Skv)
 
     def p_ds(g, rows, ks):  # P and dS of heads g, query rows, keys (slices)
         s = torch.einsum("bkgqd,bksd->bkgqs", qf[:, :, g, rows], kf[:, :, ks])
         dp = torch.einsum("bkgqd,bksd->bkgqs", dof[:, :, g, rows], vf[:, :, ks])
         p = torch.exp2(s * (c2 / math.sqrt(hd)) - l2[:, :, g, rows, None])
-        p = torch.where(pos[rows][:, None] >= pos[ks][None, :], p, torch.zeros(()))
+        if causal:
+            p = torch.where(q_pos[rows][:, None] >= k_pos[ks][None, :], p, torch.zeros(()))
         return p, p * (dp - delta[:, :, g, rows, None])
 
     every = slice(None)
     dq = torch.zeros_like(qf)
-    for k0 in range(0, S, 16):
+    for k0 in range(0, Skv, 16):
         ks = slice(k0, k0 + 16)
         for part in _bf16_parts(p_ds(every, every, ks)[1], "dq" in lo):
             dq = dq + torch.einsum("bkgqs,bksd->bkgqd", part, kf[:, :, ks])
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-    for k0 in range(0, S, keys):
-        ks, n_qt = slice(k0, k0 + keys), (S - k0 + 31) // 32
+    for k0 in range(0, Skv, keys):
+        r_begin = k0 if causal else 0
+        ks, n_qt = slice(k0, k0 + keys), (Sq - r_begin + 31) // 32
         total_k = total_v = None
         for grp in range(groups):
             gk, gv = torch.zeros_like(kf[:, :, ks]), torch.zeros_like(vf[:, :, ks])
             for i in range(grp, G * n_qt, groups):
-                g, r0 = slice(i // n_qt, i // n_qt + 1), k0 + i % n_qt * 32
+                g, r0 = slice(i // n_qt, i // n_qt + 1), r_begin + i % n_qt * 32
                 for rows in (slice(r0, r0 + 16), slice(r0 + 16, r0 + 32)):
                     p, ds = p_ds(g, rows, ks)
                     for part in _bf16_parts(p, "dv" in lo):
@@ -452,37 +472,53 @@ def _flash_bwd_kernel_arithmetic(q, k, v, out, lse, dout, lo=("dq", "dk", "dv"),
             total_v = gv if total_v is None else total_v + gv
         dk[:, :, ks], dv[:, :, ks] = total_k, total_v
     scale = 1.0 / math.sqrt(hd)
-    return ((dq * scale).permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).bfloat16(),
+    return ((dq * scale).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).bfloat16(),
             (dk * scale).permute(0, 2, 1, 3).bfloat16(), dv.permute(0, 2, 1, 3).bfloat16())
 
 
-@pytest.mark.parametrize("B,S,H,KV,hd", [(8, 128, 9, 3, 64), (1, 128, 64, 8, 112),
-                                        (1, 256, 64, 8, 112)])
-def test_flash_backward_kernels_keep_p_and_ds_at_16_bits_to_meet_the_rule(B, S, H, KV, hd):
-    """The training layout (9 query heads over 3 KV heads of 64) and kimi-k2's
-    (64 over 8 of 112), unit-normal bf16 inputs from a numpy seed, through
-    the backward kernels' arithmetic, against ``flash_attention_bwd_plain``
-    under the rule the card checks use: per element 2^-7 |ref| + 2^-15
-    max|ref| for each of dq, dk and dv. With P and dS as bf16 hi + lo in all
-    three products it passes; dropping lo in any one product alone fails
-    that product's output."""
-    rng = np.random.default_rng(B * S + hd)
+def _kernel_arithmetic_case(B, Sq, Skv, H, KV, hd, causal, seed):
+    """Unit-normal bf16 inputs from a numpy seed, through the backward
+    kernels' arithmetic, against ``flash_attention_bwd_plain`` under the
+    rule the card checks use: per element 2^-7 |ref| + 2^-15 max|ref| for
+    each of dq, dk and dv. With P and dS as bf16 hi + lo in all three
+    products it passes; dropping lo in any one product alone fails that
+    product's output."""
+    rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
-                   for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd)))
-    out, lse = attn_ref.flash_attention_plain_lse(q, k, v, causal=True)
-    ref = attn_ref.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True)
+                   for shape in ((B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd),
+                                 (B, Sq, H, hd)))
+    out, lse = attn_ref.flash_attention_plain_lse(q, k, v, causal=causal)
+    ref = attn_ref.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
 
     def worst(got):
         return {name: float(((g.float() - r.float()).abs() / (
             2.0 ** -7 * r.float().abs() + 2.0 ** -15 * float(r.float().abs().max()))).max())
             for name, g, r in zip(("dq", "dk", "dv"), got, ref)}
 
-    kept = worst(_flash_bwd_kernel_arithmetic(q, k, v, out, lse, do))
+    kept = worst(_flash_bwd_kernel_arithmetic(q, k, v, out, lse, do, causal=causal))
     assert max(kept.values()) <= 1, kept
     for product in ("dq", "dk", "dv"):
         lo = tuple(n for n in ("dq", "dk", "dv") if n != product)
-        dropped = worst(_flash_bwd_kernel_arithmetic(q, k, v, out, lse, do, lo=lo))
+        dropped = worst(_flash_bwd_kernel_arithmetic(q, k, v, out, lse, do, lo=lo, causal=causal))
         assert dropped[product] > 2, (product, dropped)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(8, 128, 9, 3, 64), (1, 128, 64, 8, 112),
+                                        (1, 256, 64, 8, 112)])
+def test_flash_backward_kernels_keep_p_and_ds_at_16_bits_to_meet_the_rule(B, S, H, KV, hd):
+    """``_kernel_arithmetic_case`` at the training layout (9 query heads over
+    3 KV heads of 64) and kimi-k2's (64 over 8 of 112), causal."""
+    _kernel_arithmetic_case(B, S, S, H, KV, hd, True, B * S + hd)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", [(2, 128, 256, 16, 16, 64, False),
+                                                     (2, 128, 128, 32, 32, 64, True)])
+def test_flash_backward_kernels_keep_p_and_ds_at_16_bits_at_the_families_shapes(
+        B, Sq, Skv, H, KV, hd, causal):
+    """``_kernel_arithmetic_case`` at seamless's non-causal cross-attention
+    (128 query rows over 256 keys, 16 heads over 16 KV heads of 64) and at
+    zamba2's shared site (32 over 32 of 64, causal), batch cut to 2."""
+    _kernel_arithmetic_case(B, Sq, Skv, H, KV, hd, causal, B * Sq + Skv + hd)
 
 
 @pytest.mark.parametrize("Sq,Skv,causal", [(6, 6, True), (5, 7, True), (7, 5, False)])

@@ -309,6 +309,12 @@ TRAIN_CASES = [
     # kimi-k2's head dim of 112 with G = 8, ragged Sq and Skv
     (1, 128, 128, 64, 8, 112, True), (2, 70, 130, 16, 2, 112, True),
     (1, 130, 70, 64, 8, 112, False),
+    # the families' training layouts, lengths cut by 4: llava (576 + 128
+    # positions), seamless's encoder, cross-attention and decoder, zamba2's
+    # shared site (G = 1)
+    (2, 176, 176, 32, 8, 128, True), (2, 64, 64, 16, 16, 64, False),
+    (2, 32, 64, 16, 16, 64, False), (2, 32, 32, 16, 16, 64, True),
+    (2, 32, 32, 32, 32, 64, True),
 ]
 
 
