@@ -97,7 +97,7 @@
    state on the card and the
    flash launches a step the model gives, prints a ``path`` line each
    (tokens/s, step p50, first step, peak memory) and what indexing
-   llava's stacked layer leaves costs a step; then each family at 2 layers, card
+   llava's stacked layer leaves costs a step; then each family at 1 layer, card
    against CPU (a ``train_card_vs_cpu`` line each);
 6. runs the pipeline phase: a ``PipelineSpec`` built by the port's ``Pipeline``
    (one kafka node; light-source frames at a stepped rate into an elastic
@@ -138,7 +138,26 @@
    projectors launched and no segment left in ``/dev/shm``; prints one
    ``path transport`` line, and one ``host_transport`` line (host only) for
    the JAX package's transport benchmark configuration through the port;
-9. prints one JSON line ``{"kernels": [...]}`` and, last, one JSON line
+9. runs the mesh phase (``mesh_path``): one bf16 step of smollm-135m (2
+   layers) through the mesh train step on a world-of-one NCCL mesh in this
+   process, bitwise against the one-device step; then one spawn of a 4-rank
+   gloo group on ``cuda:0`` as a (2, 2) ("data", "model") mesh, its
+   collectives staged through host memory, within 90 s, whose ranks load
+   the kernels built here and hold sharded attention (forward and
+   backward) and ring prefill at llava's S = 704 to the one-device flash
+   kernel, smollm-135m's full-depth f32 mesh steps to the one-device steps
+   under the ``TRAIN_*`` limits, then take 3 counted bf16 steps (losses,
+   step p50, tokens/s, each rank's peak memory), the vocab-parallel loss
+   and embedding at smollm's vocabulary against the dense ones, the
+   sequence-parallel WKV6 (rwkv6-3b's width) and SSD and conv (zamba2's)
+   against the chunked cores, the int8 ``quantized_psum`` over "data", and
+   a save from a (4,) mesh restored onto the (2, 2) one bitwise; prints
+   a ``check mesh`` line each and one ``path mesh`` line (backend, staging,
+   seconds). Before the main paths, step 3 also checks the flash forward
+   and the backward pair at a causal query offset (a sequence shard's rows)
+   at smollm's and llava's shard shapes, per element, with an offset one
+   off shown to fail, timed beside SDPA with an equal boolean mask;
+10. prints one JSON line ``{"kernels": [...]}`` and, last, one JSON line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without printing the
@@ -147,6 +166,7 @@ beside it.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -298,6 +318,21 @@ MOE_DISPATCH_BYTES, MOE_ROUTE_TIE = 4e9, 2.0 ** -10
 # MOE_F32_TIE; outputs of tokens routed alike, products over 4096 and 6400
 # terms in other orders, agree to MOE_LAYER_REL of the largest |y|
 MOE_F32_TIE, MOE_LAYER_REL = 1e-5, 1e-4
+# the flash kernels' causal query offset (a sequence shard's rows against the
+# whole sequence's keys), bf16: smollm's training shape cut into two shards
+# (the second: B = 8, 64 rows at offset 64 over 128 keys, 9 over 3 heads of
+# 64) and llava's S = 704 cut into four (176 rows at each shard's offset over
+# 704 keys, 32 over 8 heads of 128)
+OFFSET_CASES = ((TRAIN_BATCH, 64, 128, (64,), SERVE_HEADS),
+                (TRAIN_BATCH, 176, 704, (0, 176, 352, 528), (32, 8, 128)))
+# the mesh phase: 4 gloo ranks on the one card as a (2, 2) ("data",
+# "model") mesh, within MESH_TIMEOUT_S; llava's attention at B =
+# MESH_ATTN_BATCH in f32 to MESH_F32_TOL; the sequence cores at T =
+# MESH_SEQ_T to MESH_SEQ_TOL (x max(1, max|ref|)); MESH_BF16_STEPS bf16
+# steps of smollm-135m at full width and depth after the f32 check
+MESH_SHAPE, MESH_TIMEOUT_S, MESH_ATTN_BATCH = (2, 2), 90, 2
+MESH_F32_TOL, MESH_SEQ_T, MESH_BF16_STEPS = 2e-5, 512, 3
+MESH_SEQ_TOL = {"wkv6": 2e-4, "ssd": 2e-4, "conv1d": 3e-4}
 
 # a served token must be the re-scoring forward's argmax wherever the top-2
 # logit gap exceeds this: the decode path (decode kernel, cache written one
@@ -368,9 +403,11 @@ FAM_DECODE = (("llava", SERVE_BATCH, 704 + FAM_STUB_GEN, (32, 8, 128)),
 # do not fit) through build_train_step on stub embeddings drawn on the card
 # from SEED; the first two steps from the drawn state on one batch, the
 # second's loss below the first's (for rwkv6 and zamba2 through the app's
-# step before the launcher's run). Then each family at full width but TRAIN_CHECK_LAYERS layers
-# (seamless: as many encoder and decoder layers; zamba2: 2 Mamba2 layers
-# around one shared site), f32 params, TRAIN_CHECK_STEPS steps on the card
+# step before the launcher's run). Then each family at full width but FAM_TCHECK_LAYERS layer
+# (seamless: as many encoder and decoder layers; zamba2: one Mamba2 layer
+# behind one shared site; 1, not TRAIN_CHECK_LAYERS' 2, so that the run fits
+# its time with the mesh phase: the host CPU's side of these steps is most
+# of the phase, PERF.md §5), f32 params, TRAIN_CHECK_STEPS steps on the card
 # against the CPU from the same weights and batches, held to the TRAIN_*
 # tolerances, on FAM_TCHECK_BATCH rows of FAM_TCHECK_TOKENS tokens (llava:
 # behind FAM_TCHECK_PATCHES patches; seamless: beside twice as many frames,
@@ -396,7 +433,7 @@ FAM_BWD = (("llava self", TRAIN_BATCH, 576 + TRAIN_SEQ, 576 + TRAIN_SEQ, (32, 8,
            ("seamless cross", TRAIN_BATCH, TRAIN_SEQ, FAM_FRAMES, (16, 16, 64), False),
            ("zamba2 site", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, (32, 32, 64), True))
 FAM_TRAIN_STEPS, FAM_LLAVA_LAYERS = 6, 16
-FAM_TCHECK_BATCH, FAM_TCHECK_TOKENS, FAM_TCHECK_PATCHES = 2, 64, 64
+FAM_TCHECK_BATCH, FAM_TCHECK_TOKENS, FAM_TCHECK_PATCHES, FAM_TCHECK_LAYERS = 2, 64, 64, 1
 FAM_TCHECK_F32 = ("llava-next-mistral-7b", "rwkv6-3b", "zamba2-1.2b")
 
 
@@ -1149,7 +1186,7 @@ def check_flash_bwd(torch, attn, b: int, s: int, gen, heads: tuple = SERVE_HEADS
         (5 * n_q + 4 * n_kv) * el + rows, 10 * hd * pairs, BF16_OPS_PER_S)
     delta = torch.empty((b, H, s), dtype=torch.float32, device=dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    sizes = (b, s, skv, H, KV, hd, int(causal), 1)
+    sizes = (b, s, skv, H, KV, hd, int(causal), 0, 1)  # q_offset 0, bf16
 
     def run_dq():
         attn.FLASH_BWD_DQ.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -1185,6 +1222,123 @@ def check_flash_bwd(torch, attn, b: int, s: int, gen, heads: tuple = SERVE_HEADS
     res["library"] = (f"scaled_dot_product_attention(is_causal={causal}, enable_gqa={gqa}): "
                       "library_ms its backward alone, against the pair dq + dkdv; "
                       "library_pair_ms forward + backward, against fwd_lse_ms + dq_ms + dkdv_ms")
+    return res
+
+
+def sdpa_masked_ms(torch, q, k, v, mask, dout, reps: int) -> tuple[float, float]:
+    """SDPA with a boolean ``mask`` (Sq, Skv) on (B, H, S, hd) inputs, K/V
+    repeated to H heads: (forward ms, backward-alone ms), each from a
+    replayed CUDA graph (the backward as ``sdpa_bwd_ms`` takes it)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = graph_ms(torch, lambda: sdpa(q.detach(), k.detach(), v.detach(), attn_mask=mask), reps)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        o = sdpa(q, k, v, attn_mask=mask)
+
+        def backward():
+            torch.autograd.grad(o, (q, k, v), dout, retain_graph=True)
+
+        backward()
+        backward()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            backward()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return fwd, start.elapsed_time(end) / (reps * 5)
+
+
+def check_flash_offset(torch, attn, b: int, sq: int, skv: int, offset: int, heads: tuple,
+                       gen) -> dict:
+    """A sequence shard's causal attention, bf16: ``sq`` query rows at
+    positions ``offset``.. against ``skv`` keys from position 0 (what
+    ``runtime/sharded_attention.py`` runs). ``flash_attention`` with its
+    log-sum-exp, and the backward pair on it, held per element to their
+    plain versions at the same offset (the rules of ``check_flash`` and
+    ``check_flash_bwd``); a second launch of each bitwise equal; the plain
+    versions at ``offset + 1`` and, where it exists, ``offset - 1`` (a
+    planted off-by-one) must fail the rule in the output and in each of dq,
+    dk and dv. Times from replayed CUDA graphs: the forward, the pair, their
+    plain versions, and SDPA with an equal boolean mask (forward, and
+    backward alone); bounds as ``check_flash`` / ``check_flash_bwd`` count
+    them, over this shard's (query, key) pairs, Sq offset + Sq (Sq + 1) / 2
+    a head."""
+    H, KV, hd = heads
+    if offset + sq > skv:
+        raise ValueError("a shard's rows lie inside the keys")
+    dev = torch.device("cuda", 0)
+    q = torch.randn((b, sq, H, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, skv, KV, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, skv, KV, hd), generator=gen, device=dev).bfloat16()
+    dout = torch.randn((b, sq, H, hd), generator=gen, device=dev).bfloat16()
+    name = f"flash_attention q_offset={offset} B={b} Sq={sq} Skv={skv} {H}/{KV} hd={hd}"
+    lse = torch.empty((b, H, sq), dtype=torch.float32, device=dev)
+    out = attn.flash_attention_cuda(q, k, v, causal=True, q_offset=offset, lse=lse)
+    plain_out, plain_lse = attn.flash_attention_plain_lse(q, k, v, causal=True, q_offset=offset)
+    res = _bf16_close(torch, name, out, plain_out, v)
+    res["lse_max_abs_err"] = float((lse - plain_lse).abs().max())
+    if res["lse_max_abs_err"] > 1e-5:
+        raise AssertionError(f"{name}: lse max err {res['lse_max_abs_err']} > 1e-5")
+    _bitwise_repeatable(torch, name, lambda: attn.flash_attention_cuda(
+        q, k, v, causal=True, q_offset=offset), out)
+    got = attn.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=True, q_offset=offset)
+    again = attn.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=True, q_offset=offset)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{name} backward: a second launch differs bitwise")
+    ref = attn.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True, q_offset=offset)
+    right = _grads_worst(torch, got, ref)
+    if any(w > 1 for w in right.values()) or not all(bool(g.isfinite().all()) for g in got):
+        raise AssertionError(f"{name} backward: worst err/tol {right}")
+    res["bwd_max_abs_err"] = max(float((g.float() - r.float()).abs().max())
+                                 for g, r in zip(got, ref))
+    res["bwd_worst_err_over_tol"] = right
+    planted = {}
+    for wrong in (offset + 1, offset - 1):
+        if wrong < 0:
+            continue
+        o2, l2 = attn.flash_attention_plain_lse(q, k, v, causal=True, q_offset=wrong)
+        fwd = float(((out.float() - o2.float()).abs() / _bf16_tol(torch, o2, v)).max())
+        bwd = _grads_worst(torch, got, attn.flash_attention_bwd_plain(
+            q, k, v, o2, l2, dout, causal=True, q_offset=wrong))
+        if fwd <= 1 or min(bwd.values()) <= 1:
+            raise AssertionError(f"{name}: the rule is blind to q_offset {wrong} "
+                                 f"(out {fwd}, grads {bwd})")
+        planted[str(wrong)] = {"out": fwd, **bwd}
+    res["planted_offset_least_over_tol"] = planted
+    res["bitwise_repeatable"] = True
+    pairs = b * H * (sq * offset + sq * (sq + 1) // 2)  # (query, key) pairs over every head
+    el = q.element_size()
+    n_q, n_kv, rows = q.numel(), k.numel(), b * H * sq * 4
+    res["bound_ms"], res["bound_by"] = bound((2 * n_q + 2 * n_kv) * el, 4 * hd * pairs,
+                                             BF16_OPS_PER_S)
+    res["bwd_bound_ms"], res["bwd_bound_by"] = bound((5 * n_q + 4 * n_kv) * el + rows,
+                                                     10 * hd * pairs, BF16_OPS_PER_S)
+    reps = 20
+    res["ms"] = graph_ms(torch, lambda: attn.flash_attention_cuda(
+        q, k, v, causal=True, q_offset=offset), reps)
+    res["bwd_ms"] = graph_ms(torch, lambda: attn.flash_attention_bwd_cuda(
+        q, k, v, out, lse, dout, causal=True, q_offset=offset), reps)
+    res["plain_ms"] = graph_ms(torch, lambda: attn.flash_attention_plain(
+        q, k, v, causal=True, q_offset=offset), 5)
+    res["bwd_plain_ms"] = graph_ms(torch, lambda: attn.flash_attention_bwd_plain(
+        q, k, v, out, lse, dout, causal=True, q_offset=offset), 5)
+    mask = (torch.arange(offset, offset + sq, device=dev)[:, None]
+            >= torch.arange(skv, device=dev)[None, :])
+    qt, kt, vt = (x.transpose(1, 2).repeat_interleave(H // x.shape[2], dim=1).contiguous()
+                  .requires_grad_(True) for x in (q, k, v))
+    res["library_ms"], res["library_bwd_ms"] = sdpa_masked_ms(
+        torch, qt, kt, vt, mask, dout.transpose(1, 2).contiguous(), reps)
+    res["library"] = ("scaled_dot_product_attention(attn_mask=bool (Sq, Skv) mask at the "
+                      "offset), K/V repeated to every head; library_bwd_ms its backward alone")
     return res
 
 
@@ -2355,8 +2509,9 @@ def family_train_stream(torch, kernels, name: str, lr: float = TRAIN_LR) -> dict
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "state": state}
 
 
-def family_check(name: str, compute_dtype: str | None = None) -> tuple:
-    """``name`` at full width but TRAIN_CHECK_LAYERS layers (and as many
+def family_check(name: str, compute_dtype: str | None = None,
+                 layers: int = TRAIN_CHECK_LAYERS) -> tuple:
+    """``name`` at full width but ``layers`` layers (and as many
     encoder layers), f32 params, computing in ``compute_dtype`` (the
     config's own by default), and its TRAIN_CHECK_STEPS batches of
     FAM_TCHECK_BATCH x FAM_TCHECK_TOKENS tokens (llava behind
@@ -2364,9 +2519,9 @@ def family_check(name: str, compute_dtype: str | None = None) -> tuple:
     from repro_torch.configs import get_arch
 
     full = get_arch(name)
-    over = {"n_layers": TRAIN_CHECK_LAYERS, "param_dtype": "float32"}
+    over = {"n_layers": layers, "param_dtype": "float32"}
     if full.n_enc_layers:
-        over["n_enc_layers"] = TRAIN_CHECK_LAYERS
+        over["n_enc_layers"] = layers
     if full.n_patches:
         over["n_patches"] = FAM_TCHECK_PATCHES
     if compute_dtype:
@@ -2434,7 +2589,8 @@ def families_train_path(torch, kernels, device) -> dict:
     torch.cuda.empty_cache()
     checks = []
     for name in FAMILIES:
-        cfg, batches = family_check(name, "float32" if name in FAM_TCHECK_F32 else None)
+        cfg, batches = family_check(name, "float32" if name in FAM_TCHECK_F32 else None,
+                                    FAM_TCHECK_LAYERS)
         checks.append({"model": name, **train_check_step(torch, device, cfg, batches)})
         print("train_card_vs_cpu " + json.dumps(checks[-1]))
         gc.collect()
@@ -3154,6 +3310,444 @@ def transport_path(torch, kernels, pipeline, miniapps, tomo) -> dict:
     return {"report": out, "host": host, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase (ROADMAP A9): torch.distributed ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def _mesh_leaves(tree) -> dict:
+    from repro_torch.utils import tree_flatten_with_paths
+
+    return dict(tree_flatten_with_paths(tree))
+
+
+def _within(name: str, got, want, atol: float) -> float:
+    err = float((got.detach().float() - want.float()).abs().max())
+    if not err <= atol:
+        raise AssertionError(f"{name}: max err {err} > {atol}")
+    return err
+
+
+def _mesh_attention(torch, mesh, gen) -> dict:
+    """(b): llava's S = 704 attention (32 heads over 8 of 128), f32, B =
+    MESH_ATTN_BATCH: sharded attention forward and backward (K/V gathered
+    over "model", one flash call at the shard's offset; dK, dV
+    reduce-scattered) and ring prefill on the rank's tile, against the
+    one-device flash kernel (and its backward) on the whole sequence."""
+    from repro_torch.kernels import attention as attn
+    from repro_torch.runtime.ring_attention import ring_attention_shmap
+    from repro_torch.runtime.sharded_attention import sharded_attention
+    from repro_torch.runtime.sharding import ShardingRules
+
+    B, S, (H, KV, hd) = MESH_ATTN_BATCH, 704, (32, 8, 128)
+    q, k, v = (torch.randn((B, S, n, hd), generator=gen, device=mesh.device)
+               for n in (H, KV, KV))
+    tile = _mesh_tiler(mesh)
+    rules = {kind: ShardingRules(mesh=mesh, batch_axes=("data",), kind=kind)
+             for kind in ("train", "prefill")}
+    ql, kl, vl = (tile(x).requires_grad_(True) for x in (q, k, v))
+    out = sharded_attention(ql, kl, vl, rules["train"], causal=True, impl="flash")
+    torch.sin(out).sum().backward()
+    qf, kf, vf = (x.clone().requires_grad_(True) for x in (q, k, v))
+    ref = attn.flash_attention(qf, kf, vf, causal=True)
+    torch.sin(ref).sum().backward()
+    res = {"shape": f"B={B} S={S} {H}/{KV} hd={hd} f32, 2 x 2 mesh",
+           "fwd_max_abs_err": _within("sharded attention", out, tile(ref), MESH_F32_TOL)}
+    for n, a, b in (("dq", ql.grad, qf.grad), ("dk", kl.grad, kf.grad), ("dv", vl.grad, vf.grad)):
+        scale = float(b.abs().max())
+        res[f"{n}_max_abs_err"] = _within(f"sharded attention {n}", a, tile(b),
+                                          MESH_F32_TOL * max(1.0, scale))
+    with torch.no_grad():
+        ring = ring_attention_shmap(tile(q), tile(k), tile(v), rules["prefill"], causal=True)
+    res["ring_max_abs_err"] = _within("ring attention", ring, tile(ref), MESH_F32_TOL)
+    res["tol"] = (f"outputs {MESH_F32_TOL} absolute, gradients {MESH_F32_TOL} of "
+                  "max(1, max|ref|) (the f32 flash's 2e-5, tests/test_kernels.py)")
+    return res
+
+
+def _mesh_tiler(mesh, seq_dim: int = 1):
+    """x -> this rank's rows (over "data") and sequence shard (over "model")."""
+    d, m = mesh.axis_index("data"), mesh.axis_index("model")
+    nd, nm = mesh.shape["data"], mesh.shape["model"]
+
+    def tile(x):
+        b, s = x.shape[0] // nd, x.shape[seq_dim] // nm
+        x = x.detach()[d * b:(d + 1) * b]
+        return x.narrow(seq_dim, m * s, s).contiguous()
+    return tile
+
+
+def _mesh_train(torch, mesh, kernels) -> dict:
+    """(c): smollm-135m at full width and depth, B = TRAIN_BATCH, S =
+    TRAIN_SEQ, on the 2 x 2 mesh: one f32 step held to the same step on one
+    device (rank 0, same weights and batch) under the TRAIN_* limits; then MESH_BF16_STEPS bf16 steps (the launch counts set
+    to 0 before and read after): losses, step p50, tokens/s, peak memory."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.kernels import attention as attn
+    from repro_torch.models import build_model
+    from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
+    from repro_torch.runtime.sharding import flatten_specs, param_shardings, unshard
+    from repro_torch.runtime.steps import build_train_step, mesh_train_state
+
+    base = get_arch("smollm-135m")
+    opt_cfg = OptimizerConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                              total_steps=TRAIN_STEPS)
+    shape = ShapeConfig("mesh", TRAIN_SEQ, TRAIN_BATCH, "train")
+    dev = mesh.device
+
+    def fresh(model):
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+        return params, Optimizer(opt_cfg).init(params)
+
+    # f32: the mesh step against the one-device step
+    cfg = base.replace(compute_dtype="float32")
+    model = build_model(cfg)
+    batches = train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1)
+    step = build_train_step(model, shape, opt_cfg, mesh=mesh)
+    params, opt = mesh_train_state(model, *fresh(model), mesh)
+    mesh_met = [step(params, opt, b)[2] for b in batches]
+    specs = flatten_specs(param_shardings(model, mesh))
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [TRAIN_BATCH, TRAIN_SEQ]}
+    if mesh.rank == 0:
+        p1, o1 = fresh(model)
+        start = {k: v.clone() for k, v in _mesh_leaves(p1).items()}
+        one = build_train_step(model, shape, opt_cfg, device=dev)
+        one_met = [one(p1, o1, b)[2] for b in batches]
+        res["loss_rel_err"] = max(abs(float(a["loss"]) - float(b["loss"])) / abs(float(b["loss"]))
+                                  for a, b in zip(mesh_met, one_met))
+        res["grad_norm_rel_err"] = max(
+            abs(float(a["grad_norm"]) - float(b["grad_norm"])) / abs(float(b["grad_norm"]))
+            for a, b in zip(mesh_met, one_met))
+    update, moment = {}, {}
+    one_p = _mesh_leaves(p1) if mesh.rank == 0 else {}
+    one_m = _mesh_leaves(o1["m"]) if mesh.rank == 0 else {}
+    mesh_m = _mesh_leaves(opt["m"])
+    for path, tile in _mesh_leaves(params).items():  # gathered leaf by leaf
+        full = unshard(tile, specs[path], mesh)
+        m_full = unshard(mesh_m[path], specs[path], mesh)
+        if mesh.rank == 0:
+            update[path] = float((full - one_p[path]).norm() / (one_p[path] - start[path]).norm())
+            moment[path] = float((m_full - one_m[path]).abs().max() / one_m[path].abs().max())
+    if mesh.rank == 0:
+        res.update(update_rel_err=max(update.values()), update_worst_leaf=max(update, key=update.get),
+                   m_worst_err_over_leaf_max=max(moment.values()),
+                   tol={"loss_rel": TRAIN_LOSS_REL, "grad_norm_rel": TRAIN_NORM_REL,
+                        "update_rel": TRAIN_UPDATE_REL, "m_over_leaf_max": TRAIN_MOMENT_REL})
+        if not (res["loss_rel_err"] <= TRAIN_LOSS_REL and res["grad_norm_rel_err"] <= TRAIN_NORM_REL
+                and res["update_rel_err"] <= TRAIN_UPDATE_REL
+                and res["m_worst_err_over_leaf_max"] <= TRAIN_MOMENT_REL):
+            raise AssertionError(f"mesh f32 steps vs one device: {res}")
+        del p1, o1, one_p, one_m, start
+    del params, opt, mesh_m
+    # bf16 (the training path's compute dtype): the counted run
+    model = build_model(base)
+    step = build_train_step(model, shape, opt_cfg, mesh=mesh)
+    params, opt = mesh_train_state(model, *fresh(model), mesh)
+    batches = train_batches(base, TRAIN_BATCH, TRAIN_SEQ, MESH_BF16_STEPS, seed=SEED + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.KERNELS:
+        k.launches = 0
+    losses, times = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        met = step(params, opt, b)[2]
+        losses.append(float(met["loss"]))  # synchronizes
+        times.append(time.perf_counter() - t0)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"mesh bf16 losses {losses}")
+    p50 = sorted(times)[len(times) // 2]
+    res.update(bf16_losses=losses, bf16_step_s=times, bf16_step_p50_s=p50,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / p50,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               tile_bytes=sum(x.numel() * x.element_size() for x in _mesh_leaves(params).values()),
+               launches=launches)
+    want = attn.FLASH_ATTENTION.name
+    if launches[want] < 1 or launches["flash_attention_bwd_dq"] < 1 \
+            or launches["flash_attention_bwd_dkdv"] < 1:
+        raise AssertionError(f"the mesh step launched no flash kernel: {launches}")
+    return res
+
+
+def _mesh_losses(torch, mesh, gen) -> dict:
+    """(d): vocab-parallel embedding and cross-entropy at smollm's width and
+    vocabulary (B = TRAIN_BATCH, S = TRAIN_SEQ, f32) against the dense loss
+    on the whole batch: rtol 1e-5 on the summed loss, 1e-4 on the hidden
+    states' gradient, 1e-6 on the embedding (tests/test_distributed.py)."""
+    from repro_torch.runtime.losses import vocab_parallel_cross_entropy, vocab_parallel_embed
+    from repro_torch.runtime.sharding import ShardingRules
+
+    B, S, D, V = TRAIN_BATCH, TRAIN_SEQ, 576, 49152
+    dev = mesh.device
+    x = torch.randn((B, S, D), generator=gen, device=dev)
+    head = torch.randn((V, D), generator=gen, device=dev) * 0.02
+    targets = torch.randint(0, V, (B, S), generator=gen, device=dev)
+    tokens = torch.randint(0, V, (B, S), generator=gen, device=dev)
+    mask = torch.ones((B, S), device=dev)
+    tile = _mesh_tiler(mesh)
+    m, nm = mesh.axis_index("model"), mesh.shape["model"]
+    hl = head[m * V // nm:(m + 1) * V // nm].contiguous()
+    rules = ShardingRules(mesh=mesh, batch_axes=("data",), kind="train")
+    xl = tile(x).requires_grad_(True)
+    tot, cnt = vocab_parallel_cross_entropy(xl, hl, tile(targets), tile(mask), rules)
+    (tot / mesh.size).backward()
+    xf = x.clone().requires_grad_(True)
+    logits = xf @ head.T
+    dense = ((torch.logsumexp(logits, -1) - logits.gather(-1, targets[..., None])[..., 0])
+             * mask).sum()
+    dense.backward()
+    rel = abs(float(tot.detach()) - float(dense.detach())) / abs(float(dense.detach()))
+    if not rel <= 1e-5 or float(cnt) != float(mask.sum()):
+        raise AssertionError(f"vocab-parallel loss {float(tot)} vs dense {float(dense)}")
+    emb = vocab_parallel_embed(tile(tokens), hl, rules)
+    return {"shape": f"B={B} S={S} d={D} V={V} f32", "loss_rel_err": rel,
+            "grad_max_abs_err": _within("vocab-parallel grad", xl.grad, tile(xf.grad), 1e-4),
+            "embed_max_abs_err": _within("vocab-parallel embed", emb, tile(head[tokens]), 1e-6)}
+
+
+def _mesh_sequence(torch, mesh, gen) -> dict:
+    """(e): the sequence-parallel cores at T = MESH_SEQ_T against the
+    chunked cores on the whole sequence: WKV6 at rwkv6-3b's width (40 heads
+    of 64), SSD and the conv at zamba2-1.2b's (64 heads of 64, state 64,
+    4160 conv channels), f32, B = 2; each within its tolerance times
+    max(1, max|ref|) (tests/test_sequence_parallel.py's 2e-4, 3e-4)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.mamba2 import conv1d_causal, ssd_chunked
+    from repro_torch.models.rwkv6 import wkv6_chunked
+    from repro_torch.runtime.sequence_parallel import conv1d_sharded, ssd_sharded, wkv6_sharded
+    from repro_torch.runtime.sharding import ShardingRules
+
+    dev, T = mesh.device, MESH_SEQ_T
+    rules = ShardingRules(mesh=mesh, batch_axes=("data",), kind="train")
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    res = {}
+    B, H, N = 2, 40, 64
+    r, k, v = rn(B, H, T, N), rn(B, H, T, N), rn(B, H, T, N)
+    w = torch.sigmoid(rn(B, H, T, N) - 1.0)
+    u = rn(H, N) * 0.1
+    tile2 = _mesh_tiler(mesh, seq_dim=2)
+    ref, ref_s = wkv6_chunked(r, k, v, w, u, torch.zeros((B, H, N, N), device=dev))
+    out, out_s = wkv6_sharded(*(tile2(x) for x in (r, k, v, w)), u, rules)
+    d = mesh.axis_index("data")
+    scale = lambda x: MESH_SEQ_TOL["wkv6"] * max(1.0, float(x.abs().max()))  # noqa: E731
+    res["wkv6"] = {"shape": f"B={B} H={H} T={T} N={N}",
+                   "max_abs_err": _within("wkv6_sharded", out, tile2(ref), scale(ref)),
+                   "state_max_abs_err": _within("wkv6_sharded state", out_s, ref_s[d:d + 1],
+                                                scale(ref_s))}
+    Hs, P, Ns, conv_ch = 64, 64, 64, 2 * 2048 + 2 * 64
+    x, dt = rn(B, T, Hs, P), F.softplus(rn(B, T, Hs))
+    A, D = -torch.exp(rn(Hs) * 0.5), rn(Hs) * 0.1
+    Bm, Cm = rn(B, T, 1, Ns), rn(B, T, 1, Ns)
+    tile = _mesh_tiler(mesh)
+    ref, ref_s = ssd_chunked(x, dt, A, Bm, Cm, D, torch.zeros((B, Hs, P, Ns), device=dev))
+    out, out_s = ssd_sharded(tile(x), tile(dt), A, tile(Bm), tile(Cm), D, rules)
+    scale = lambda x: MESH_SEQ_TOL["ssd"] * max(1.0, float(x.abs().max()))  # noqa: E731
+    res["ssd"] = {"shape": f"B={B} T={T} H={Hs} P={P} N={Ns}",
+                  "max_abs_err": _within("ssd_sharded", out, tile(ref), scale(ref)),
+                  "state_max_abs_err": _within("ssd_sharded state", out_s, ref_s[d:d + 1],
+                                               scale(ref_s))}
+    xc, wc, bc = rn(B, T, conv_ch), rn(4, conv_ch) * 0.5, rn(conv_ch) * 0.1
+    ref, _ = conv1d_causal(xc, wc, bc, None)
+    out = conv1d_sharded(tile(xc), wc, bc, rules)
+    res["conv1d"] = {"shape": f"B={B} T={T} channels={conv_ch} K=4",
+                     "max_abs_err": _within("conv1d_sharded", out, tile(ref), MESH_SEQ_TOL["conv1d"]
+                                            * max(1.0, float(ref.abs().max())))}
+    res["tol"] = {k: f"{v} x max(1, max|ref|)" for k, v in MESH_SEQ_TOL.items()}
+    return res
+
+
+def _mesh_compress(torch, mesh, gen) -> dict:
+    """(f): ``quantized_psum`` over "data" of a smollm wqkv-sized gradient
+    tile a rank: int8 tiles (and f32 scales) on the wire, and the result
+    within half an int8 step of every rank's block scale of the exact sum."""
+    from repro_torch.runtime import collectives
+    from repro_torch.runtime.grad_compress import BLOCK, quantized_psum, resid_len
+
+    # independent partials, one per "data" rank (drawn alike on every rank)
+    g = [torch.randn((30, 576, 1728 // 2), generator=gen, device=mesh.device)
+         for _ in range(mesh.shape["data"])][mesh.axis_index("data")]
+    sent = []
+    real = collectives._all_gather
+
+    def spy(mesh_, axes, x, dim):
+        sent.append(str(x.dtype).replace("torch.", ""))
+        return real(mesh_, axes, x, dim)
+
+    collectives._all_gather = spy
+    try:
+        red, _ = quantized_psum(g, torch.zeros(resid_len(g.numel()), device=g.device), mesh,
+                                "data")
+    finally:
+        collectives._all_gather = real
+    every = collectives.all_gather_stack(g, mesh, "data")  # the exact partials
+    exact = every.sum(0)
+    blocks = every.reshape(every.shape[0], -1, BLOCK).abs().amax(-1)  # (ranks, blocks)
+    bound = (blocks / 127.0 * 0.5).sum(0) * (1 + 1e-4)  # half a step of each rank's scale
+    err = (red - exact).reshape(-1, BLOCK).abs().amax(-1)
+    if sent != ["int8", "float32"] or bool((err > bound).any()):
+        raise AssertionError(f"quantized_psum: wire {sent}, worst err/bound "
+                             f"{float((err / bound).max())}")
+    return {"n": g.numel(), "wire": sent, "worst_err_over_bound": float((err / bound).max()),
+            "max_abs_err": float(err.max())}
+
+
+def _mesh_restore(torch, mesh, directory: str, gen) -> dict:
+    """(g): a leaf the size of smollm's wqkv stack, saved from a (4,)
+    "model" mesh (tiles of its last dim, gathered, rank 0 writing) and
+    restored onto the 2 x 2 mesh as P(None, ("data", "model")), each rank's
+    tile bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.sharding import P, shard, unshard
+
+    w = torch.randn((30, 576, 1728), generator=gen, device=mesh.device)
+    mesh4 = make_mesh((4,), ("model",), device=mesh.device)
+    saver = P(None, None, "model")
+    full = unshard(shard(w, saver, mesh4), saver, mesh4)
+    mgr = CheckpointManager(directory)
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        mgr.save(1, {"w": full})
+    dist.barrier()
+    saved = time.perf_counter() - t0
+    spec = P(None, ("data", "model"))
+    restored, _ = mgr.restore({"w": w}, shardings={"w": spec}, mesh=mesh)
+    want = shard(w, spec, mesh)
+    if not torch.equal(restored["w"], want) or restored["w"].device != w.device:
+        raise AssertionError("the cross-mesh restore differs")
+    return {"leaf": list(w.shape), "tile": list(want.shape), "save_s": saved,
+            "restore_s": time.perf_counter() - t0 - saved, "bitwise": True}
+
+
+def _worst_of(ranks: list, key: str) -> dict:
+    """Rank 0's readings of ``key``, each error (a float under a key holding
+    "err") replaced by its largest over the ranks: each rank checks its tile."""
+    def errs(node, parts):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                errs(v, [p[k] for p in parts])
+            elif "err" in k and isinstance(v, float):
+                node[k] = max(p[k] for p in parts)
+        return node
+    return errs(copy.deepcopy(ranks[0][key]), [r[key] for r in ranks])
+
+
+def mesh_rank(rank: int, directory: str) -> dict:
+    """One rank of the mesh phase: a process of the 4-rank gloo group on
+    cuda:0, a (2, 2) ("data", "model") mesh. It loads the kernels the parent
+    built (it never builds) and runs (b)-(g); returns its readings."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+
+    _build.forbid_builds()
+    torch.cuda.set_device(0)
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"), device="cuda:0")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)  # alike on every rank
+    out = {"coords": mesh.coords(), "backend": mesh.backend, "staged": mesh.staged}
+    for name, fn in (("attention", lambda: _mesh_attention(torch, mesh, gen)),
+                     ("train", lambda: _mesh_train(torch, mesh, kernels)),
+                     ("losses", lambda: _mesh_losses(torch, mesh, gen)),
+                     ("sequence", lambda: _mesh_sequence(torch, mesh, gen)),
+                     ("compress", lambda: _mesh_compress(torch, mesh, gen)),
+                     ("restore", lambda: _mesh_restore(torch, mesh, directory, gen))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        out[name]["s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_path(torch, kernels) -> dict:
+    """The mesh phase: (h) a world-of-one NCCL mesh in this process, then
+    one spawn of the 4-rank gloo group (``mesh_rank``), within
+    MESH_TIMEOUT_S. Prints one ``path mesh`` line and returns the ranks'
+    launches (summed) of the bf16 mesh steps."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    h = nccl_world_of_one(torch)
+    print("check mesh world-of-one nccl " + json.dumps(h))
+    d = tempfile.mkdtemp(prefix="mesh-")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(mesh_rank, 4, init_method=f"file://{d}/store", backend="gloo",
+                        args=(d,), timeout=MESH_TIMEOUT_S, threads=2)
+    wall = time.perf_counter() - t0
+    if [r["coords"] for r in ranks] != [{"data": i, "model": j} for i in range(2) for j in range(2)]:
+        raise AssertionError(f"mesh coordinates {[r['coords'] for r in ranks]}")
+    for key in ("attention", "losses", "sequence", "compress", "restore"):
+        print(f"check mesh {key} " + json.dumps(_worst_of(ranks, key)))
+    train = ranks[0]["train"]
+    launches = {k.name: sum(r["train"]["launches"][k.name] for r in ranks)
+                for k in kernels.KERNELS}
+    report = {"mesh": dict(zip(("data", "model"), MESH_SHAPE)), "backend": ranks[0]["backend"],
+              "staged_through_host": ranks[0]["staged"], "ranks_on": "cuda:0",
+              "seconds": wall, "phase_s": {k: max(r[k]["s"] for r in ranks)
+                                           for k in ("attention", "train", "losses",
+                                                     "sequence", "compress", "restore")},
+              "train": {k: v for k, v in train.items() if k != "launches"},
+              "peak_gb_per_rank": [r["train"]["peak_gb"] for r in ranks],
+              "launches": launches, "world_of_one_nccl": h}
+    print("path mesh " + json.dumps(report))
+    return {"launches": launches, "report": report}
+
+
+def nccl_world_of_one(torch) -> dict:
+    """(h): a (1, 1) mesh over a one-rank NCCL group in this process: one
+    bf16 smollm-135m step (full width, TRAIN_CHECK_LAYERS layers) through the
+    mesh step, bitwise equal to the one-device step from the same weights
+    and batch (its collectives are NCCL calls on the card)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
+    from repro_torch.runtime.steps import build_train_step
+
+    d = tempfile.mkdtemp(prefix="nccl-")
+    dist.init_process_group("nccl", init_method=f"file://{d}/store", world_size=1, rank=0)
+    try:
+        dev = torch.device("cuda", 0)
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        cfg = get_arch("smollm-135m").replace(n_layers=TRAIN_CHECK_LAYERS)
+        model = build_model(cfg)
+        opt_cfg = OptimizerConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                                  total_steps=TRAIN_STEPS)
+        shape = ShapeConfig("mesh", TRAIN_SEQ, TRAIN_BATCH, "train")
+        batch = train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1)[0]
+        out = []
+        for kw in ({"mesh": mesh}, {"device": dev}):
+            params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+            opt = Optimizer(opt_cfg).init(params)
+            params, opt, met = build_train_step(model, shape, opt_cfg, **kw)(params, opt, batch)
+            out.append((params, opt, met))
+        (pm, om, mm), (p1, o1, m1) = out
+        same = all(torch.equal(a, b) for a, b in zip(
+            _mesh_leaves({"p": pm, "m": om["m"], "v": om["v"]}).values(),
+            _mesh_leaves({"p": p1, "m": o1["m"], "v": o1["v"]}).values()))
+        same = same and all(torch.equal(mm[k], m1[k]) for k in m1)
+        if not same:
+            raise AssertionError("the world-of-one NCCL mesh step differs from the one-device step")
+        return {"backend": mesh.backend, "layers": cfg.n_layers, "loss": float(mm["loss"]),
+                "bitwise": True}
+    finally:
+        dist.destroy_process_group()
+
+
 def checkpoint_round_trip(torch, params) -> dict:
     """``CheckpointManager`` saves the serving phase's smollm-135m
     parameters on the card — as stored (f32) and cast to the serving
@@ -3311,6 +3905,16 @@ def main() -> None:
                **check_flash_bwd(torch, attention, b, sq, gen, heads, skv, causal)}
         print("check flash_attention_bwd family " + json.dumps(res))
         fam_bwd.append(res)
+    # a sequence shard's causal attention: the flash forward and the backward
+    # pair at each query offset of OFFSET_CASES
+    offsets = []
+    for b, sq, skv, offs, heads in OFFSET_CASES:
+        for off in offs:
+            res = {"shape": f"B={b} Sq={sq} Skv={skv} q_offset={off}, {heads[0]} heads over "
+                            f"{heads[1]} KV of {heads[2]}, causal, bf16",
+                   **check_flash_offset(torch, attention, b, sq, skv, off, heads, gen)}
+            print("check flash_attention q_offset " + json.dumps(res))
+            offsets.append(res)
     # the families phase's attention shapes: non-causal, Sq != Skv, G = 1,
     # S = 704 and 720, each against its plain version, timed beside SDPA
     fam_flash, fam_decode = [], []
@@ -3351,12 +3955,14 @@ def main() -> None:
     pl = pipeline_path(torch, kernels, pipeline, kmeans, tomo)
     ct = continuous_path(torch, kernels, pipeline, miniapps, kmeans)
     tr = transport_path(torch, kernels, pipeline, miniapps, tomo)
+    torch.cuda.empty_cache()  # the ranks share the card
+    ms = mesh_path(torch, kernels)
     paths = {"kmeans_path": km["launches"], "kmeans_wide_path": kw["launches"],
              "lightsource_path": rc["launches"], "serve_path": sv["launches"],
              "serve_moe_path": sm["launches"], "families_path": fm["launches"],
              "train_path": tn["launches"], "families_train_path": ftr["launches"],
              "pipeline_path": pl["launches"], "continuous_path": ct["launches"],
-             "transport_path": tr["launches"]}
+             "transport_path": tr["launches"], "mesh_path": ms["launches"]}
     launches = {k.name: sum(p[k.name] for p in paths.values()) for k in kernels.KERNELS}
     print("launches " + json.dumps(paths))
     for name, count in launches.items():
@@ -3381,6 +3987,15 @@ def main() -> None:
         return {**r, "ms": r[f"{part}_ms"], "bound_ms": r[f"{part}_bound_ms"],
                 "bound_by": r[f"{part}_bound_by"]}
 
+    def offset_shapes(part: str) -> list:  # the q_offset checks' numbers
+        keys = {"fwd": ("max_abs_err", "worst_err_over_tol", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms"),
+                "bwd": ("bwd_max_abs_err", "bwd_worst_err_over_tol", "bwd_ms", "bwd_plain_ms",
+                        "bwd_bound_ms", "bwd_bound_by", "library_bwd_ms")}[part]
+        return [{"shape": r["shape"], **{k.replace("bwd_", ""): r[k] for k in keys},
+                 "planted_offset_least_over_tol": r["planted_offset_least_over_tol"]}
+                for r in offsets]
+
     def bwd_family_shapes(part: str) -> list:  # the families' training shapes
         return [{k: bwd_row(r, part)[k] for k in ("shape", "max_abs_err", "worst_err_over_tol",
                                                   "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3400,7 +4015,7 @@ def main() -> None:
                                            flash_112["max_abs_err"], flash_128["max_abs_err"],
                                            *(r["max_abs_err"] for r in fam_flash),
                                            *(r["fwd_out_max_abs_err"] for r in fam_bwd)),
-          "families": family_shapes(fam_flash),
+          "families": family_shapes(fam_flash), "q_offset": offset_shapes("fwd"),
           "hd112": moe_shape(flash_112, f"B=1 S={PROMPT_LEN} causal", KIMI_HEADS),
           "hd128": moe_shape(flash_128, f"B=1 S={PROMPT_LEN} causal", PHI_HEADS),
           "with_lse": {"shape": f"B={TRAIN_BATCH} S={TRAIN_SEQ}",
@@ -3424,6 +4039,7 @@ def main() -> None:
             "max_abs_err": max(bwd_main["max_abs_err"], bwd_112["max_abs_err"],
                                bwd_128["max_abs_err"], *(r["max_abs_err"] for r in fam_bwd)),
             "families": bwd_family_shapes(part),
+            "q_offset_pair": offset_shapes("bwd"),
             "hd112": moe_shape(bwd_row(bwd_112, part), f"B=1 S={MOE_TRAIN_SEQ} causal", KIMI_HEADS),
             "hd128": moe_shape(bwd_row(bwd_128, part), f"B=1 S={MOE_TRAIN_SEQ} causal", PHI_HEADS)})
           for part in ("dq", "dkdv")),
@@ -3433,8 +4049,8 @@ def main() -> None:
          "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **{key: r[key] for key in ("hd112", "hd128", "families", "with_lse", "scope")
-            if key in r}}
+         **{key: r[key] for key in ("hd112", "hd128", "families", "with_lse", "scope",
+                                    "q_offset", "q_offset_pair") if key in r}}
         for name, source, replaces, r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

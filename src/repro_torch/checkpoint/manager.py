@@ -4,7 +4,8 @@ Supports the streaming exactly-once contract: a checkpoint stores the state
 tree *plus* the consumer offsets in one atomic unit (directory rename), so
 recovery = restore state + rewind consumers to the stored offsets.
 ``restore(device=...)`` places the leaves on another device than the one
-that saved them (elastic restart). Async mode overlaps the file write with
+that saved them (elastic restart); ``restore(shardings=..., mesh=...)``
+keeps each rank's tile of every leaf, onto another mesh than the saver's. Async mode overlaps the file write with
 compute.
 
 The on-disk format is the JAX package's, byte for byte: ``arrays.npz``
@@ -153,9 +154,22 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template: Any, step: int | None = None, *,
-                device: torch.device | str | None = None) -> tuple[Any, dict]:
+                device: torch.device | str | None = None, shardings: Any = None,
+                mesh: Any = None) -> tuple[Any, dict]:
         """Rebuild ``template``-shaped state, each leaf on ``device`` or, by
-        default, on the device of the template's leaf at its path."""
+        default, on the device of the template's leaf at its path.
+
+        ``shardings`` (a tree of ``runtime/sharding.py`` specs parallel to
+        ``template``, with the ``mesh`` they refer to): each rank keeps only
+        its tile of every saved (full) leaf, so a save from one mesh
+        restores onto another (the reference's elastic restart)."""
+        if (shardings is None) != (mesh is None):
+            raise ValueError("restore takes shardings and mesh together")
+        specs = {}
+        if shardings is not None:
+            from repro_torch.runtime.sharding import flatten_specs, shard_slices
+
+            specs = flatten_specs(shardings)
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -171,7 +185,10 @@ class CheckpointManager:
                 leaf = leaves[p]
                 dev = torch.device(device) if device is not None else (
                     tmpl.device if isinstance(tmpl, torch.Tensor) else torch.device("cpu"))
-                return _from_numpy(data[f"a{leaf['index']}"], leaf["dtype"], dev)
+                arr = data[f"a{leaf['index']}"]
+                if specs:
+                    arr = np.ascontiguousarray(arr[shard_slices(specs[p], arr.shape, mesh)])
+                return _from_numpy(arr, leaf["dtype"], dev)
 
             state = tree_map_with_paths(load, template)
         return state, manifest["meta"]

@@ -5,10 +5,10 @@ dataclass drives parameter-spec construction (``models.build_model``) and
 the reduced smoke-test configs (``cfg.reduced()``). The fields are the JAX
 package's fields that the six families (dense, MoE, VLM, enc-dec, RWKV6
 "ssm" and the Zamba2 "hybrid") and their training read, with the same
-names and defaults, so a config means the same model in both packages. The
-multi-device attention routes (``attention_impl`` and its block sizes) come
-with their slice (ROADMAP A9). ``scan_layers`` has no counterpart: the
-port's layer loop is a Python loop.
+names and defaults, so a config means the same model in both packages.
+``attention_impl`` and its block sizes choose the attention route
+(``models/attention.py`` ``attention``), as in the reference.
+``scan_layers`` has no counterpart: the port's layer loop is a Python loop.
 """
 from __future__ import annotations
 
@@ -83,6 +83,12 @@ class ArchConfig:
     first_moment: bool = True  # adafactor: False = momentum-free (1T configs)
     remat: str = "full"  # "none" | "full" | "dots"
     grad_accum: int = 1
+
+    # attention route: "blockwise" (the flash kernel), "naive", "flash",
+    # "ring" (the last two differ only under a mesh)
+    attention_impl: str = "blockwise"
+    attention_block_q: int = 512
+    attention_block_kv: int = 1024
 
     source: str = ""  # provenance note ([hf:...], [arXiv:...])
 

@@ -1,8 +1,9 @@
 """Assemble device batches from broker messages.
 
 Own copy of the JAX package's ``data/batching.py``. ``shard_batch`` places a
-host batch on the one training device (the JAX package's ``device_put`` onto
-shardings; a mesh of several cards waits for ROADMAP A9).
+host batch on a device (the JAX package's ``device_put`` onto shardings); on a
+mesh every rank places the whole batch and keeps its rows and sequence shard
+(``runtime/steps.py``).
 """
 from __future__ import annotations
 

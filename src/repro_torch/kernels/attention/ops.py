@@ -75,12 +75,12 @@ from repro_torch.kernels.attention.ref import (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FLASH_LIB = CudaLibrary("flash_attention.cu", {
-    "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 })
 FLASH_ATTENTION = CudaKernel("flash_attention", FLASH_LIB, "flash_attention")
 FLASH_BWD_LIB = CudaLibrary("flash_attention_bwd.cu", {
-    "flash_attention_bwd_dq": [_P] * 8 + [_I] * 8 + [_P],
-    "flash_attention_bwd_dkdv": [_P] * 8 + [_I] * 8 + [_P],
+    "flash_attention_bwd_dq": [_P] * 8 + [_I] * 9 + [_P],
+    "flash_attention_bwd_dkdv": [_P] * 8 + [_I] * 9 + [_P],
 })
 FLASH_BWD_DQ = CudaKernel("flash_attention_bwd_dq", FLASH_BWD_LIB, "flash_attention_bwd_dq")
 FLASH_BWD_DKDV = CudaKernel("flash_attention_bwd_dkdv", FLASH_BWD_LIB, "flash_attention_bwd_dkdv")
@@ -143,13 +143,23 @@ def _check_rows(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
                          f"got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def _check_offset(q_offset: int) -> int:
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    return q_offset
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True, lse: torch.Tensor | None = None) -> torch.Tensor:
+                         causal: bool = True, q_offset: int = 0,
+                         lse: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``flash_attention``: q (B, Sq, H, hd), k and v (B, Skv, KV,
-    hd) -> (B, Sq, H, hd) in q's dtype. Given ``lse``, a (B, H, Sq) f32
-    tensor, the kernel also writes each row's log-sum-exp into it."""
+    hd) -> (B, Sq, H, hd) in q's dtype; causal query row i sits at position
+    ``q_offset + i``. Given ``lse``, a (B, H, Sq) f32 tensor, the kernel
+    also writes each row's log-sum-exp into it."""
     _check_cuda("flash_attention", q, k, v)
     _check_qkv("flash_attention", q, k, v)
+    q_offset = _check_offset(q_offset)
     if lse is not None:
         _check_rows("flash_attention lse", lse, q)
     B, Sq, H, hd = q.shape
@@ -159,20 +169,22 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         FLASH_ATTENTION.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                lse.data_ptr() if lse is not None else None,
-                               B, Sq, Skv, H, KV, hd, int(bool(causal)),
+                               B, Sq, Skv, H, KV, hd, int(bool(causal)), q_offset,
                                _DTYPE_CODE[q.dtype], stream)
     return out
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
-                             causal: bool = True
+                             causal: bool = True, q_offset: int = 0
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch ``flash_attention_bwd_dq`` then ``flash_attention_bwd_dkdv``
     on the current stream: q, out, dout (B, Sq, H, hd), k, v (B, Skv, KV,
     hd), all one dtype, and the forward's lse (B, H, Sq) f32 -> (dq, dk, dv)
     in that dtype. (a) also writes each row's delta into a (B, H, Sq) f32
-    workspace that (b) reads."""
+    workspace that (b) reads. Causal rows sit at ``q_offset + i``, as in
+    the forward."""
+    q_offset = _check_offset(q_offset)
     _check_cuda("flash_attention_bwd", q, k, v, out, dout)
     _check_qkv("flash_attention_bwd", q, k, v)
     if out.shape != q.shape or dout.shape != q.shape:
@@ -185,7 +197,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_bwd takes Sq >= 1")
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    sizes = (B, Sq, Skv, H, KV, hd, int(bool(causal)), _DTYPE_CODE[q.dtype])
+    sizes = (B, Sq, Skv, H, KV, hd, int(bool(causal)), q_offset, _DTYPE_CODE[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         FLASH_BWD_DQ.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -251,23 +263,24 @@ class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with its gradient: the forward saves q, k, v, the
     output and each row's log-sum-exp; the backward is the backward kernels
     on CUDA tensors, :func:`flash_attention_bwd_plain` on CPU tensors (any
-    other device raises; nothing falls back from one to the other)."""
+    other device raises; nothing falls back from one to the other). The
+    causal query offset goes with the saved tensors into the backward."""
 
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                causal: bool) -> torch.Tensor:
+                causal: bool, q_offset: int = 0) -> torch.Tensor:
         dev = _one_device(q, k, v)
         if dev.type == "cpu":
-            out, lse = flash_attention_plain_lse(q, k, v, causal=causal)
+            out, lse = flash_attention_plain_lse(q, k, v, causal=causal, q_offset=q_offset)
         elif dev.type == "cuda":
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             B, Sq, H, _ = q.shape
             lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-            out = flash_attention_cuda(q, k, v, causal=causal, lse=lse)
+            out = flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset, lse=lse)
         else:
             raise ValueError(f"no flash attention for device {dev}")
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.q_offset = causal, q_offset
         return out
 
     @staticmethod
@@ -275,30 +288,52 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, dout: torch.Tensor):
         q, k, v, out, lse = ctx.saved_tensors
         if q.device.type == "cpu":
-            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=ctx.causal)
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=ctx.causal,
+                                                   q_offset=ctx.q_offset)
         elif q.device.type == "cuda":
             dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout.contiguous(),
-                                                  causal=ctx.causal)
+                                                  causal=ctx.causal, q_offset=ctx.q_offset)
         else:
             raise ValueError(f"no flash attention backward for device {q.device}")
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Prefill attention, (B, Sq, H, hd) out: the model's
     ``blockwise_attention``. The plain version (in the JAX model's default
     512 x 1024 blocks) for CPU tensors; the CUDA kernel (its own tiles), on
     contiguous copies of the inputs, for CUDA tensors. Differentiable
     (:class:`FlashAttentionFn`) where grad mode is on and an input requires
-    grad."""
+    grad. Causal query row i sits at position ``q_offset + i`` (a sequence
+    shard against the whole sequence's keys)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, causal)
+        return FlashAttentionFn.apply(q, k, v, causal, q_offset)
     dev = _one_device(q, k, v)
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
     if dev.type == "cuda":
-        return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+        return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                                    q_offset=q_offset)
+    raise ValueError(f"no flash attention for device {dev}")
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, q_offset: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward with each row's log-sum-exp, not differentiable: (out
+    (B, Sq, H, hd) in q's dtype, lse (B, H, Sq) f32). The plain version for
+    CPU tensors, the kernel writing its LSE for CUDA tensors (the ring's
+    partials, ``runtime/ring_attention.py``)."""
+    dev = _one_device(q, k, v)
+    if dev.type == "cpu":
+        out, lse = flash_attention_plain_lse(q, k, v, causal=causal, q_offset=q_offset)
+        return out, lse.to(torch.float32)
+    if dev.type == "cuda":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        B, Sq, H, _ = q.shape
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+        return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset, lse=lse), lse
     raise ValueError(f"no flash attention for device {dev}")
 
 

@@ -44,9 +44,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _flash_plain_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                      block_q: int, block_kv: int) -> tuple[torch.Tensor, torch.Tensor]:
+                      block_q: int, block_kv: int,
+                      q_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """(out (B, Sq, KV, G, hd), lse (B, KV, G, Sq)), both in the sums' type:
-    f32, or f64 for f64 inputs."""
+    f32, or f64 for f64 inputs. Query row i sits at position q_offset + i."""
     sum_dt = torch.promote_types(q.dtype, torch.float32)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -60,7 +61,7 @@ def _flash_plain_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal:
     for q0 in range(0, Sq, block_q):
         qi = qg[:, q0:q0 + block_q]  # (B, bq, KV, G, hd)
         bq = qi.shape[1]
-        qp = torch.arange(q0, q0 + bq, device=dev)
+        qp = torch.arange(q_offset + q0, q_offset + q0 + bq, device=dev)
         acc = torch.zeros((B, KV, G, bq, hd), dtype=sum_dt, device=dev)
         m = torch.full((B, KV, G, bq), NEG_INF, dtype=sum_dt, device=dev)
         l = torch.zeros((B, KV, G, bq), dtype=sum_dt, device=dev)
@@ -82,35 +83,38 @@ def _flash_plain_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          causal: bool = True, block_q: int = 512,
+                          causal: bool = True, q_offset: int = 0, block_q: int = 512,
                           block_kv: int = 1024) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) -> (B, Sq, H, hd) in v's
-    dtype. Causal masks ``q_pos >= k_pos`` with both counted from 0."""
-    out, _ = _flash_plain_core(q, k, v, causal, block_q, block_kv)
+    dtype. Causal masks ``q_pos >= k_pos``, k_pos counted from 0 and q_pos
+    from ``q_offset`` (the JAX package's ``q_pos = q_offset + arange(Sq)``
+    of ``runtime/sharded_attention.py``)."""
+    out, _ = _flash_plain_core(q, k, v, causal, block_q, block_kv, q_offset)
     return out.reshape(q.shape).to(v.dtype)
 
 
 def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                              causal: bool = True, block_q: int = 512,
+                              causal: bool = True, q_offset: int = 0, block_q: int = 512,
                               block_kv: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention_plain` and each row's log-sum-exp of its
     scaled scores, ``m + log(max(l, 1e-30))``, f32 (f64 for f64 inputs) in
     (B, H, Sq) layout (head h = KV head h // G, member h % G)."""
-    out, lse = _flash_plain_core(q, k, v, causal, block_q, block_kv)
+    out, lse = _flash_plain_core(q, k, v, causal, block_q, block_kv, q_offset)
     B, Sq, H, _ = q.shape
     return out.reshape(q.shape).to(v.dtype), lse.reshape(B, H, Sq)
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
-                              causal: bool = True
+                              causal: bool = True, q_offset: int = 0
                               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The JAX package's ``_flash_bwd`` written out: q, out, dout (B, Sq, H,
     hd), k, v (B, Skv, KV, hd), lse (B, H, Sq) f32 -> (dq, dk, dv) in the
     dtypes of q, k and v. In f32, with s the scaled scores: delta =
     rowsum(dO O), P = exp(s - lse), dV = P^T dO, dS = P (dP - delta) with
     dP = dO V^T, dQ = dS K / sqrt(hd), dK = dS^T Q / sqrt(hd), dK and dV
-    summed over the G query heads of each KV head (f64 inputs: in f64)."""
+    summed over the G query heads of each KV head (f64 inputs: in f64).
+    Causal masks as :func:`flash_attention_plain` with ``q_offset``."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -124,7 +128,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf, vf = k.to(sum_dt), v.to(sum_dt)
     s = torch.einsum("bqkgd,bskd->bkgqs", q32 * scale, kf)
     if causal:
-        mask = torch.arange(Sq, device=dev)[:, None] >= torch.arange(Skv, device=dev)[None, :]
+        qp = torch.arange(q_offset, q_offset + Sq, device=dev)
+        mask = qp[:, None] >= torch.arange(Skv, device=dev)[None, :]
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None].to(sum_dt))
     dv = torch.einsum("bkgqs,bkgqd->bskd", p, do)

@@ -68,6 +68,12 @@
 // Both take any Sq and Skv: keys past Skv (or past a row, when causal) are
 // masked, rows past Sq compute but write nothing.
 //
+// Query offset: a causal call takes q_offset >= 0, and query row p sits at
+// position q_offset + p (a sequence shard's rows, against keys gathered from
+// position 0: runtime/sharded_attention.py). Every causal bound above (a
+// block's key count, a warp's tile skip, its edge test and the mask) counts
+// from that position; with q_offset 0 the kernel is the one it was.
+//
 // Training: given an lse pointer, both also write each row's log-sum-exp of
 // its scaled scores, lse = m + log(max(l, 1e-30)) in natural-log units, f32,
 // in (B, H, Sq) layout (the residual the backward kernels of
@@ -186,7 +192,7 @@ __global__ void __launch_bounds__(ROWS * 2 * SPLIT)
 flash_attention_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                     float* __restrict__ lse, int Sq, int Skv, int H, int KV, int causal,
-                    float scale_log2) {
+                    int q_off, float scale_log2) {
   constexpr int ROW = HD + 8;  // bf16 per smem row: 16 bytes of pad
   constexpr int CH = HD / 8;   // 16-byte chunks per row
   constexpr int KSTEPS = HD / 16;
@@ -212,7 +218,7 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int grp = tid / GROUP;             // the warp's share of the key tiles
 
   const int r_last = min(r0 + ROWS, rows) - 1;
-  const int n_keys = causal ? min(r_last / G + 1, Skv) : Skv;
+  const int n_keys = causal ? min(q_off + r_last / G + 1, Skv) : Skv;
   const int n_tiles = (n_keys + kKeys - 1) / kKeys;
   const int n_steps = (n_tiles + SPLIT - 1) / SPLIT;
 
@@ -248,10 +254,11 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   // this thread's rows: g and g + 8 of its warp's 16
   const int wr0 = r0 + rw * 16;
   const bool warp_live = wr0 < rows;
-  const int w_lo = wr0 / G;                          // first position of the warp
-  const int w_hi = min(wr0 + 15, rows - 1) / G;      // last live position of the warp
-  const int pos_a = (wr0 + (lane >> 2)) / G;
-  const int pos_b = (wr0 + (lane >> 2) + 8) / G;
+  // positions count from q_off (causal: row p sees keys <= q_off + p)
+  const int w_lo = q_off + wr0 / G;                      // first position of the warp
+  const int w_hi = q_off + min(wr0 + 15, rows - 1) / G;  // last live position of the warp
+  const int pos_a = q_off + (wr0 + (lane >> 2)) / G;
+  const int pos_b = q_off + (wr0 + (lane >> 2) + 8) / G;
 
   cp_async_wait<1>();  // Q has landed
   __syncthreads();
@@ -444,7 +451,7 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 
 template <int HD, int ROWS, int SPLIT, bool LSE>
 int launch_tiles(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
-                 int Skv, int H, int KV, int causal, cudaStream_t stream) {
+                 int Skv, int H, int KV, int causal, int q_off, cudaStream_t stream) {
   constexpr int smem = smem_bytes_bf16<HD, ROWS, SPLIT>();
   // group 1's (m, l, O) must fit where its K tiles were
   static_assert(SPLIT == 1 || (HD / 2 + 4) * 4 * ROWS * 2 <= 2 * SPLIT * kKeys * (HD + 8) * 2,
@@ -460,7 +467,7 @@ int launch_tiles(const void* q, const void* k, const void* v, void* out, float* 
   flash_attention_mma<HD, ROWS, SPLIT, LSE><<<grid, ROWS * 2 * SPLIT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, H, KV,
-      causal, scale_log2);
+      causal, q_off, scale_log2);
   return 0;
 }
 
@@ -471,7 +478,7 @@ int launch_tiles(const void* q, const void* k, const void* v, void* out, float* 
 // SMs (the serving path's prompt of 128: 36 blocks of 32 rows).
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
-                int Skv, int H, int KV, int causal, cudaStream_t stream) {
+                int Skv, int H, int KV, int causal, int q_off, cudaStream_t stream) {
   static int sm_count[64];  // per device, read once (0: not yet)
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -487,9 +494,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, float* l
   const auto blocks = [&](int r) { return (rows + r - 1) / r * KV * B; };
 #define FLASH_LAUNCH(R, S)                                                                  \
   (lse != nullptr ? launch_tiles<HD, R, S, true>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal,  \
-                                                 stream)                                        \
+                                                 q_off, stream)                                 \
                   : launch_tiles<HD, R, S, false>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, \
-                                                  stream))
+                                                  q_off, stream))
 #ifdef FLASH_ROWS
   return blocks(FLASH_ROWS) < sm_count[device] ? FLASH_LAUNCH(FLASH_ROWS, 2)
                                                : FLASH_LAUNCH(FLASH_ROWS, 1);
@@ -526,7 +533,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out,
                     float* __restrict__ lse, int Sq, int Skv, int H, int KV, int causal,
-                    float scale) {
+                    int q_off, float scale) {
   constexpr int EPL = 4;                                 // floats per 16-byte load
   constexpr int HALF = HD / 2;                           // head-dim share of one thread
   constexpr int TILE = 4096 / HD / kChunk * kChunk;      // keys per shared-memory tile
@@ -567,8 +574,8 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   // keys the block needs: a causal block stops after its last row
   const int last = min(q0 + kRows, Sq) - 1;
-  const int n_keys = causal ? min(last + 1, Skv) : Skv;
-  const int row_last = causal ? row : Skv - 1;  // last key this row sees
+  const int n_keys = causal ? min(q_off + last + 1, Skv) : Skv;
+  const int row_last = causal ? q_off + row : Skv - 1;  // last key this row sees
   const size_t krow = static_cast<size_t>(KV) * HD;
   const float* kbase = k + static_cast<size_t>(b) * Skv * krow + static_cast<size_t>(kvh) * HD;
   const float* vbase = v + static_cast<size_t>(b) * Skv * krow + static_cast<size_t>(kvh) * HD;
@@ -652,30 +659,30 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
-               int Skv, int H, int KV, int causal, cudaStream_t stream) {
+               int Skv, int H, int KV, int causal, int q_off, cudaStream_t stream) {
   const dim3 grid((Sq + kRows - 1) / kRows, H, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   flash_attention_f32<HD><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), lse, Sq, Skv, H, KV, causal, scale);
+      static_cast<float*>(out), lse, Sq, Skv, H, KV, causal, q_off, scale);
   return 0;
 }
 
 int launch_hd(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
-              int Skv, int H, int KV, int hd, int causal, int dtype, cudaStream_t s) {
+              int Skv, int H, int KV, int hd, int causal, int q_off, int dtype, cudaStream_t s) {
   if (dtype == 0) {
     switch (hd) {
-      case 32: return launch_f32<32>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
-      case 64: return launch_f32<64>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
-      case 112: return launch_f32<112>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
-      case 128: return launch_f32<128>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
+      case 32: return launch_f32<32>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, q_off, s);
+      case 64: return launch_f32<64>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, q_off, s);
+      case 112: return launch_f32<112>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, q_off, s);
+      case 128: return launch_f32<128>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, q_off, s);
     }
   } else if (dtype == 1) {
     switch (hd) {
-      case 32: return launch_bf16<32>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
-      case 64: return launch_bf16<64>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
-      case 112: return launch_bf16<112>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
-      case 128: return launch_bf16<128>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, s);
+      case 32: return launch_bf16<32>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, q_off, s);
+      case 64: return launch_bf16<64>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, q_off, s);
+      case 112: return launch_bf16<112>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, q_off, s);
+      case 128: return launch_bf16<128>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, q_off, s);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -686,16 +693,20 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, float* lse
 extern "C" {
 
 // q (B, Sq, H, hd); k, v (B, Skv, KV, hd); out (B, Sq, H, hd). All
-// contiguous, 16-byte aligned, f32 (dtype 0) or bf16 (dtype 1). lse: null,
+// contiguous, 16-byte aligned, f32 (dtype 0) or bf16 (dtype 1). causal: query
+// row p (counted from 0) sees keys <= q_offset + p (q_offset >= 0: the row's
+// global position on a sequence shard); q_offset is ignored when not causal.
+// lse: null,
 // or (B, H, Sq) f32 for each row's log-sum-exp (the training forward).
 // Returns cudaGetLastError().
 int flash_attention(const void* q, const void* k, const void* v, void* out, void* lse, int B,
-                    int Sq, int Skv, int H, int KV, int hd, int causal, int dtype, void* stream) {
+                    int Sq, int Skv, int H, int KV, int hd, int causal, int q_offset, int dtype,
+                    void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
-  if (Skv < 1 || KV < 1 || H < KV || H % KV != 0 || B > 65535 || KV > 65535)
+  if (Skv < 1 || KV < 1 || H < KV || H % KV != 0 || B > 65535 || KV > 65535 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = launch_hd(q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, H, KV, hd, causal,
-                            dtype, static_cast<cudaStream_t>(stream));
+                            q_offset, dtype, static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,8 +10,12 @@
 //   dS = P (dP - delta) with dP = dO V^T,  dQ = dS K / sqrt(hd),
 //   dK = dS^T Q / sqrt(hd),
 // dK and dV summed over the G query heads of each KV head. Causal masks
-// q_pos >= k_pos with both counted from 0; keys past Skv and rows past Sq
-// take no part.
+// q_pos >= k_pos, k_pos counted from 0 and q_pos from q_offset (query row p
+// sits at position q_offset + p: a sequence shard's rows against keys
+// gathered from position 0, runtime/sharded_attention.py); keys past Skv and
+// rows past Sq take no part. (a)'s key count, tile break and masks count
+// from that position; (b)'s first query row is the one at its first key,
+// k0 - q_offset clamped at 0, and its skip, edge test and masks likewise.
 //
 // What bounds it on the H100: 10 hd flop per (query, key) pair (S again, dP,
 // and three products into dQ, dK, dV) against 2 hd bytes of K/V per key and
@@ -220,8 +224,8 @@ flash_attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ out,
                            const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                            float* __restrict__ delta_ws, __nv_bfloat16* __restrict__ dq, int B,
-                           int Sq, int Skv, int H, int KV, int causal, int n_row_tiles,
-                           float scale) {
+                           int Sq, int Skv, int H, int KV, int causal, int q_off,
+                           int n_row_tiles, float scale) {
   constexpr int ROW = HD + 8;  // bf16 per smem row: 16 bytes of pad
   constexpr int CH = HD / 8;   // 16-byte chunks per row
   constexpr int KSTEPS = HD / 16;
@@ -248,7 +252,7 @@ flash_attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
   const int warp = tid >> 5;
 
   const int r_last = min(r0 + kRows, rows) - 1;
-  const int n_keys = causal ? min(r_last / G + 1, Skv) : Skv;
+  const int n_keys = causal ? min(q_off + r_last / G + 1, Skv) : Skv;
   const int n_tiles = (n_keys + kKeys - 1) / kKeys;
 
   // offset of packed row r's head-dim vector in q, out, dout, dq
@@ -283,8 +287,9 @@ flash_attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
 
   const int wr0 = r0 + warp * 16;
   const bool warp_live = wr0 < rows;
-  const int w_lo = wr0 / G;                      // first position of the warp
-  const int w_hi = min(wr0 + 15, rows - 1) / G;  // last live position of the warp
+  // positions count from q_off (causal: row p sees keys <= q_off + p)
+  const int w_lo = q_off + wr0 / G;                      // first position of the warp
+  const int w_hi = q_off + min(wr0 + 15, rows - 1) / G;  // last live position of the warp
   const float scale_log2 = scale * kLog2e;
 
   cp_async_wait<1>();  // Q, dO and O have landed
@@ -317,7 +322,7 @@ flash_attention_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
       const int r = wr0 + g + 8 * h;
       const size_t roff = (static_cast<size_t>(b) * H + kvh * G + r % G) * Sq + r / G;
       if (r < rows && lane == diag) delta_ws[roff] = dl[h];
-      pos[h] = r / G;
+      pos[h] = q_off + r / G;
       l2[h] = r < rows ? lse[roff] * kLog2e : 0.f;
     }
   }
@@ -412,7 +417,8 @@ flash_attention_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ dout,
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                             int B, int Sq, int Skv, int H, int KV, int causal, float scale) {
+                             int B, int Sq, int Skv, int H, int KV, int causal, int q_off,
+                             float scale) {
   constexpr int ROW = HD + 8;
   constexpr int CH = HD / 8;
   constexpr int KSTEPS = HD / 16;
@@ -453,9 +459,10 @@ flash_attention_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_commit();
 
-  // items: (head member g, query tile) over rows from the block's first key
-  // (causal) to Sq; group grp takes items grp, grp + GS, ...
-  const int r_begin = causal ? k0 : 0;
+  // items: (head member g, query tile) over rows from the one at the block's
+  // first key (causal: row p sits at position q_off + p) to Sq; group grp
+  // takes items grp, grp + GS, ...
+  const int r_begin = causal ? max(k0 - q_off, 0) : 0;
   const int n_qt = r_begin < Sq ? (Sq - r_begin + kQRows - 1) / kQRows : 0;
   const int n_items = G * n_qt;
   const int my_items = grp < n_items ? (n_items - grp + GS - 1) / GS : 0;
@@ -512,7 +519,7 @@ flash_attention_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < kQRows / 16; ++c) {
       const int qc0 = r0 + c * 16;  // the chunk's first query row
-      if (kw0 >= Skv || qc0 >= Sq || (causal && qc0 + 15 < kw0)) continue;
+      if (kw0 >= Skv || qc0 >= Sq || (causal && q_off + qc0 + 15 < kw0)) continue;
       const __nv_bfloat16* qc = sq + c * 16 * ROW;
       const __nv_bfloat16* dc = sdo + c * 16 * ROW;
       // S^T = K Q^T and dP^T = V dO^T over the chunk's 16 rows (two n-tiles)
@@ -531,7 +538,7 @@ flash_attention_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
       }
       // P^T and dS^T in f32 (s becomes P^T, dp dS^T); masked only where
       // the chunk crosses Sq or the warp's diagonal
-      const bool edge = qc0 + 16 > Sq || (causal && qc0 < kw0 + 15);
+      const bool edge = qc0 + 16 > Sq || (causal && q_off + qc0 < kw0 + 15);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
 #pragma unroll
@@ -540,7 +547,7 @@ flash_attention_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
           float p = ex2(s[j][e] * scale_log2 - sl[col] * kLog2e);
           if (edge) {
             const int key = kw0 + (lane >> 2) + 8 * (e >> 1);
-            if (r0 + col >= Sq || (causal && r0 + col < key)) p = 0.f;
+            if (r0 + col >= Sq || (causal && q_off + r0 + col < key)) p = 0.f;
           }
           s[j][e] = p;
           dp[j][e] = p * (dp[j][e] - sd[col]);
@@ -610,7 +617,7 @@ int allow_smem(Kernel kernel, int bytes) {
 template <int HD>
 int launch_dq_bf16(const void* q, const void* k, const void* v, const void* out, const void* dout,
                    const void* lse, void* delta, void* dq, int B, int Sq, int Skv, int H, int KV,
-                   int causal, cudaStream_t s) {
+                   int causal, int q_off, cudaStream_t s) {
   constexpr int smem = dq_smem_bytes<HD>();
   const int err = allow_smem(flash_attention_bwd_dq_mma<HD>, smem);
   if (err) return err;
@@ -620,14 +627,14 @@ int launch_dq_bf16(const void* q, const void* k, const void* v, const void* out,
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(out),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
       static_cast<float*>(delta), static_cast<__nv_bfloat16*>(dq), B, Sq, Skv, H, KV, causal,
-      n_row_tiles, 1.0f / sqrtf(static_cast<float>(HD)));
+      q_off, n_row_tiles, 1.0f / sqrtf(static_cast<float>(HD)));
   return 0;
 }
 
 template <int HD>
 int launch_dkdv_bf16(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
-                     int Skv, int H, int KV, int causal, cudaStream_t s) {
+                     int Skv, int H, int KV, int causal, int q_off, cudaStream_t s) {
   constexpr int KW = kKeyWarps, GS = kGroups;
   constexpr int smem = dkdv_smem_bytes<HD, KW, GS>();
   const int err = allow_smem(flash_attention_bwd_dkdv_mma<HD, KW, GS>, smem);
@@ -638,7 +645,7 @@ int launch_dkdv_bf16(const void* q, const void* k, const void* v, const void* do
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, Sq, Skv, H, KV, causal,
-      1.0f / sqrtf(static_cast<float>(HD)));
+      q_off, 1.0f / sqrtf(static_cast<float>(HD)));
   return 0;
 }
 
@@ -690,7 +697,7 @@ flash_attention_bwd_dq_f32(const float* __restrict__ q, const float* __restrict_
                            const float* __restrict__ v, const float* __restrict__ out,
                            const float* __restrict__ dout, const float* __restrict__ lse,
                            float* __restrict__ delta_ws, float* __restrict__ dq, int Sq, int Skv,
-                           int H, int KV, int causal, float scale) {
+                           int H, int KV, int causal, int q_off, float scale) {
   constexpr int CH = HD / 4;       // 16-byte (4-float) chunks per row
   constexpr int CPT = CH / kLanes;  // chunks per thread: sub, sub + 4, ...
   constexpr int TILE = 4096 / HD;   // keys per staged tile
@@ -728,8 +735,8 @@ flash_attention_bwd_dq_f32(const float* __restrict__ q, const float* __restrict_
 
   // keys the block needs: a causal block stops at its last row
   const int last = min(q0 + kRowsPerBlock, Sq) - 1;
-  const int n_keys = causal ? min(last + 1, Skv) : Skv;
-  const int row_last = !live ? -1 : (causal ? row : Skv - 1);  // last key this row sees
+  const int n_keys = causal ? min(q_off + last + 1, Skv) : Skv;
+  const int row_last = !live ? -1 : (causal ? q_off + row : Skv - 1);  // last key it sees
   const size_t krow = static_cast<size_t>(KV) * HD;
   const float* kbase = k + static_cast<size_t>(b) * Skv * krow + static_cast<size_t>(kvh) * HD;
   const float* vbase = v + static_cast<size_t>(b) * Skv * krow + static_cast<size_t>(kvh) * HD;
@@ -781,7 +788,7 @@ flash_attention_bwd_dkdv_f32(const float* __restrict__ q, const float* __restric
                              const float* __restrict__ v, const float* __restrict__ dout,
                              const float* __restrict__ lse, const float* __restrict__ delta_ws,
                              float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
-                             int H, int KV, int causal, float scale) {
+                             int H, int KV, int causal, int q_off, float scale) {
   constexpr int CH = HD / 4;
   constexpr int CPT = CH / kLanes;
   constexpr int TILE = 4096 / HD;  // query rows per staged tile
@@ -811,7 +818,8 @@ flash_attention_bwd_dkdv_f32(const float* __restrict__ q, const float* __restric
   }
 
   // rows before the block's first key see none of its keys when causal
-  const int r_begin = causal ? k0 : 0;
+  // (row p sits at position q_off + p)
+  const int r_begin = causal ? max(k0 - q_off, 0) : 0;
   const size_t qrow = static_cast<size_t>(H) * HD;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
@@ -846,7 +854,7 @@ flash_attention_bwd_dkdv_f32(const float* __restrict__ q, const float* __restric
         }
         s = quad_sum(s);
         dp = quad_sum(dp);
-        const bool seen = live && (!causal || r0 + i >= key);
+        const bool seen = live && (!causal || q_off + r0 + i >= key);
         const float p = seen ? expf(s * scale - ls[i]) : 0.f;
         const float ds = p * (dp - dl[i]);
 #pragma unroll
@@ -877,32 +885,32 @@ flash_attention_bwd_dkdv_f32(const float* __restrict__ q, const float* __restric
 template <int HD>
 int launch_dq_f32(const void* q, const void* k, const void* v, const void* out, const void* dout,
                   const void* lse, void* delta, void* dq, int B, int Sq, int Skv, int H, int KV,
-                  int causal, cudaStream_t s) {
+                  int causal, int q_off, cudaStream_t s) {
   const dim3 grid((Sq + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
   flash_attention_bwd_dq_f32<HD><<<grid, kThreads, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(out), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<float*>(dq), Sq,
-      Skv, H, KV, causal, 1.0f / sqrtf(static_cast<float>(HD)));
+      Skv, H, KV, causal, q_off, 1.0f / sqrtf(static_cast<float>(HD)));
   return 0;
 }
 
 template <int HD>
 int launch_dkdv_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                     const void* delta, void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
-                    int causal, cudaStream_t s) {
+                    int causal, int q_off, cudaStream_t s) {
   const dim3 grid((Skv + kRowsPerBlock - 1) / kRowsPerBlock, KV, B);
   flash_attention_bwd_dkdv_f32<HD><<<grid, kThreads, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), Sq, Skv,
-      H, KV, causal, 1.0f / sqrtf(static_cast<float>(HD)));
+      H, KV, causal, q_off, 1.0f / sqrtf(static_cast<float>(HD)));
   return 0;
 }
 
-int check_sizes(int B, int Skv, int H, int KV) {
+int check_sizes(int B, int Skv, int H, int KV, int q_offset) {
   // B <= 65535: the f32 grids' z; the bf16 grids are one-dimensional
-  if (Skv < 1 || KV < 1 || H < KV || H % KV != 0 || B > 65535 || H > 65535)
+  if (Skv < 1 || KV < 1 || H < KV || H % KV != 0 || B > 65535 || H > 65535 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
@@ -917,13 +925,14 @@ extern "C" {
 // Returns cudaGetLastError().
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* out,
                            const void* dout, const void* lse, void* delta, void* dq, int B,
-                           int Sq, int Skv, int H, int KV, int hd, int causal, int dtype,
-                           void* stream) {
+                           int Sq, int Skv, int H, int KV, int hd, int causal, int q_offset,
+                           int dtype, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
-  int err = check_sizes(B, Skv, H, KV);
+  int err = check_sizes(B, Skv, H, KV, q_offset);
   if (err) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DQ(LAUNCH, HD) LAUNCH<HD>(q, k, v, out, dout, lse, delta, dq, B, Sq, Skv, H, KV, causal, s)
+#define DQ(LAUNCH, HD) \
+  LAUNCH<HD>(q, k, v, out, dout, lse, delta, dq, B, Sq, Skv, H, KV, causal, q_offset, s)
   err = static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
     switch (hd) {
@@ -949,14 +958,14 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
 // (B, Skv, KV, hd); lse and (a)'s delta (B, H, Sq) f32.
 int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int B,
-                             int Sq, int Skv, int H, int KV, int hd, int causal, int dtype,
-                             void* stream) {
+                             int Sq, int Skv, int H, int KV, int hd, int causal, int q_offset,
+                             int dtype, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
-  int err = check_sizes(B, Skv, H, KV);
+  int err = check_sizes(B, Skv, H, KV, q_offset);
   if (err) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DKDV(LAUNCH, HD) \
-  LAUNCH<HD>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H, KV, causal, s)
+  LAUNCH<HD>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, H, KV, causal, q_offset, s)
   err = static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
     switch (hd) {

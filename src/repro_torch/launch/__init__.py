@@ -1,6 +1,7 @@
-"""Launchers of the port: the serving launcher (``serve.py``) and the
-streaming-training launcher (``train.py``). Mesh construction waits for
-ROADMAP A9, the dry-run and roofline for A10."""
+"""Launchers of the port: the serving launcher (``serve.py``), the
+streaming-training launcher (``train.py``) and the meshes over
+``torch.distributed`` ranks (``mesh.py``). The dry-run and roofline wait
+for ROADMAP A10."""
 import time
 
 

@@ -296,13 +296,15 @@ class LMTrainApp(_HotPathApp):
     def on_rescale(self, devices):
         """Elastic hook: in-flight steps land, then the state and later
         steps go to the slots' device. The slots of one card are all
-        ``cuda:0``; a data-parallel mesh over several cards (the JAX app
-        reshards onto one) waits for ROADMAP A9, so distinct devices raise."""
+        ``cuda:0``. Distinct devices raise: the JAX app reshards onto a mesh
+        of them, but the port's mesh step runs one process per rank
+        (``runtime/steps.py``), and the app would need a rank group of its
+        own, which one card cannot show (ROADMAP A16)."""
         distinct = list(dict.fromkeys(torch.device(d) for d in devices))
         if len(distinct) != 1:
             raise NotImplementedError(
-                f"LMTrainApp trains on one device; got {distinct} (data parallelism "
-                "over several cards is ROADMAP A9)")
+                f"LMTrainApp trains on one device; got {distinct} (a rank group of its own "
+                "over several cards is ROADMAP A16)")
 
         def f(state):
             self.sync()  # in-flight steps must land before buffers move

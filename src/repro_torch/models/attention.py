@@ -13,9 +13,14 @@ kernel, which computes the same function as the JAX package's pure-JAX
 ``blockwise_attention``; in training it is differentiable through
 ``FlashAttentionFn``, whose backward on the card is the hand-written
 backward kernels (the JAX package differentiates its blockwise form, or its
-explicit flash ``custom_vjp`` on a mesh: the same gradients). The JAX
-package's ``attention(impl=...)`` dispatch and its sequence-parallel routes
-come with the multi-device slice (ROADMAP A9).
+explicit flash ``custom_vjp`` on a mesh: the same gradients).
+
+:func:`attention` is the reference's ``attention(impl=...)`` dispatch:
+under a mesh step whose "model" axis has more than one rank, the local
+sequence shard goes through ``runtime/sharded_attention.py`` (K and V
+all-gathered, one flash call at the shard's query offset; or the ring for
+prefill), otherwise through the flash wrapper (``naive`` through
+:func:`naive_attention`).
 """
 from __future__ import annotations
 
@@ -49,6 +54,28 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
     return out.reshape(B, Sq, H, hd)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, impl: str = "blockwise",
+              causal: bool = True, block_q: int = 512, block_kv: int = 1024) -> torch.Tensor:
+    """Full-sequence attention by ``impl`` ("blockwise", "naive", "flash",
+    "ring"); sequence-parallel under a mesh step with a "model" axis. The
+    flash kernel takes its own tiles: the block sizes steer only the
+    sharded path's choice, as in the reference."""
+    from repro_torch.runtime.sharding import model_parallel
+
+    rules = model_parallel()
+    if rules is not None:
+        from repro_torch.runtime.sharded_attention import sharded_attention
+
+        shard_impl = {"ring": "ring", "flash": "flash"}.get(impl, "allgather")
+        return sharded_attention(q, k, v, rules, causal=causal, block_kv=block_kv,
+                                 impl=shard_impl)
+    if impl == "naive":
+        return naive_attention(q, k, v, causal=causal)
+    if impl in ("blockwise", "ring", "flash"):
+        return blockwise_attention(q, k, v, causal=causal)
+    raise ValueError(f"unknown attention impl {impl!r}")
 
 
 def update_cache(cache: torch.Tensor, new: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,14 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.models.common import SpecTree, init_params, spec_struct, torch_dtype, tree_leaves
+from repro_torch.models.common import (
+    SpecTree,
+    init_params,
+    spec_axes,
+    spec_struct,
+    torch_dtype,
+    tree_leaves,
+)
 
 
 class BaseModel:
@@ -32,6 +39,11 @@ class BaseModel:
     def param_struct(self) -> Any:
         """The params as ``meta`` tensors: shapes and dtypes, no storage."""
         return spec_struct(self.param_specs())
+
+    def param_axes(self) -> Any:
+        """Each param's logical axis names (``runtime/sharding.py`` maps
+        them onto a mesh)."""
+        return spec_axes(self.param_specs())
 
     def param_count(self) -> int:
         return sum(s.struct().numel() for s in tree_leaves(self.param_specs()))
@@ -74,3 +86,25 @@ class BaseModel:
     def cache_struct(self, shape: ShapeConfig) -> Any:
         """The decode cache at this shape as ``meta`` tensors."""
         raise NotImplementedError
+
+    # ---- inputs and their axes (the reference's dry-run structs) -----------
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """Every model input of this shape as ``meta`` tensors: a token LM's
+        (families with other inputs override it)."""
+        B, S = shape.global_batch, shape.seq_len
+        i32 = dict(dtype=torch.int32, device="meta")
+        if shape.kind == "decode":
+            return {"tokens": torch.empty((B, 1), **i32), "positions": torch.empty((B,), **i32)}
+        return {"tokens": torch.empty((B, S), **i32)}
+
+    def input_axes(self, shape: ShapeConfig) -> dict:
+        """Logical axes of each input (parallel to :meth:`input_specs`)."""
+        if shape.kind == "decode":
+            return {"tokens": ("batch", None), "positions": ("batch",)}
+        return {"tokens": ("batch", "seq")}
+
+    def cache_axes(self, shape: ShapeConfig) -> Any:
+        """Logical axes of the decode cache: the (L, B, S, KV, hd) K/V."""
+        ax = ("layers", "batch", "cache_seq", None, None)
+        return {"k": ax, "v": ax}

@@ -4,12 +4,20 @@ Parameters are plain nested dicts of tensors. Every leaf is declared
 through a :class:`ParamSpec`; the same spec tree serves real initialization
 (from a ``torch.Generator``, on the generator's device) and allocation-free
 ``meta`` tensors (:func:`spec_struct`), the counterpart of the JAX
-package's ``ShapeDtypeStruct`` trees. The JAX specs' logical sharding axes
-have no counterpart: the port runs on one device.
+package's ``ShapeDtypeStruct`` trees. Each spec carries the JAX spec's
+*logical axis names* (``axes``), which ``runtime/sharding.py`` maps onto a
+mesh.
 
-The loss pieces (``shift_targets``, ``chunked_cross_entropy``) are the
-JAX package's one-device forms; its vocab-parallel cross-entropy
-(``runtime/losses.py``) waits for the multi-device slice (ROADMAP A9).
+Under a mesh step (``runtime/sharding.py`` ``activation_rules``) every
+rank runs these on its local rows and, with a "model" axis of more than
+one rank, its shard of the sequence; the pieces that mix positions or the
+vocabulary then take their shard's context, where the JAX package's GSPMD
+sees whole arrays: :func:`layer_params` all-gathers a layer's sharded
+leaves, :func:`seq_positions` offsets RoPE positions by the shard's start,
+:func:`shift_targets` takes the next shard's first token, and
+:func:`embed_lookup` / :func:`chunked_cross_entropy` run the vocab-parallel
+forms of ``runtime/losses.py`` (the reference's wiring), or sum the local
+loss over the batch axes.
 """
 from __future__ import annotations
 
@@ -33,6 +41,11 @@ class ParamSpec:
     shape: tuple[int, ...]
     dtype: torch.dtype = torch.float32
     init: str = "fan_in"  # "fan_in" | "normal" | "zeros" | "ones" | "small"
+    axes: tuple = ()  # logical axis name per dim (None = replicated dim)
+
+    def __post_init__(self):
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"ParamSpec {self.shape} needs one axis name per dim, got {self.axes}")
 
     def struct(self) -> torch.Tensor:
         return torch.empty(self.shape, dtype=self.dtype, device="meta")
@@ -75,14 +88,47 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+class ShardedLayer(dict):
+    """One layer's params under a mesh step: the rank's tiles of the leaves
+    the step registered as sharded (and the rest whole), with their specs.
+    :meth:`gather` all-gathers the tiles to the full layer
+    (``runtime/sharding.py`` ``unshard_many``); ``remat_apply`` calls it
+    inside the layer's checkpoint, so the full weights live while the layer
+    runs and its backward's recompute gathers them again."""
+
+    def __init__(self, leaves: dict, specs: dict, mesh):
+        super().__init__(leaves)
+        self.specs, self.mesh = specs, mesh
+
+    def gather(self) -> dict:
+        from repro_torch.runtime.sharding import unshard_many
+
+        keys = list(self.specs)
+        full = unshard_many([self[k] for k in keys], [self.specs[k] for k in keys], self.mesh)
+        return {**self, **dict(zip(keys, full))}
+
+
 def layer_params(stack: dict, i: int) -> dict:
     """Layer ``i``'s params from a dict of leaves stacked along a leading
-    layer axis (the JAX package scans over that axis)."""
-    return {k: v[i] for k, v in stack.items()}
+    layer axis (the JAX package scans over that axis). Under a mesh step
+    whose tiles of the stack are sharded: a :class:`ShardedLayer` of their
+    slices, gathered where the layer runs (its gradient reduce-scatters
+    back to the rank's tiles)."""
+    from repro_torch.runtime.sharding import current_rules
+
+    rules = current_rules()
+    out = {k: v[i] for k, v in stack.items()}
+    specs = {} if rules is None else {
+        k: rules.stacked[id(v)] for k, v in stack.items() if id(v) in rules.stacked}
+    return ShardedLayer(out, specs, rules.mesh) if specs else out
 
 
 def spec_struct(specs: SpecTree) -> Any:
     return tree_map(lambda s: s.struct(), specs)
+
+
+def spec_axes(specs: SpecTree) -> Any:
+    return tree_map(lambda s: s.axes, specs)
 
 
 def init_params(specs: SpecTree, generator: torch.Generator) -> Any:
@@ -156,8 +202,53 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Embedding rows for ``tokens`` (any shape of int ids)."""
+    """Embedding rows for ``tokens`` (any shape of int ids); vocab-parallel
+    (``runtime/losses.py``) under a mesh step with a "model" axis, where
+    ``embed`` is the rank's vocab slice."""
+    from repro_torch.runtime.sharding import model_parallel
+
+    rules = model_parallel()
+    if rules is not None and tokens.ndim == 2:
+        from repro_torch.runtime.losses import vocab_parallel_embed
+
+        return vocab_parallel_embed(tokens, embed, rules)
     return embed[tokens]
+
+
+def refuse_mesh(what: str, item: str) -> None:
+    """Raise under a mesh step of more than one rank: ``what`` does not run
+    sharded yet (its ROADMAP ``item``)."""
+    from repro_torch.runtime.sharding import current_rules
+
+    rules = current_rules()
+    if rules is not None and math.prod(rules.mesh.shape.values()) > 1:
+        raise NotImplementedError(f"{what} does not train on a mesh of several ranks yet "
+                                  f"(ROADMAP {item})")
+
+
+def prev_row(x: torch.Tensor) -> torch.Tensor:
+    """(B, d): the row before a (B, T, d) sequence's first one. Zeros; on a
+    sequence shard of a mesh step, the previous shard's last row (by
+    ``ppermute``, zeros on the first shard): the token shift's state."""
+    from repro_torch.runtime.sharding import model_parallel
+
+    rules = model_parallel()
+    if rules is None:
+        return torch.zeros_like(x[:, 0])
+    from repro_torch.runtime.collectives import ppermute
+
+    halo = ppermute(x[:, -1].contiguous(), rules.mesh, "model", shift=1)
+    return halo * (0.0 if rules.mesh.axis_index("model") == 0 else 1.0)
+
+
+def seq_positions(B: int, S: int, device) -> torch.Tensor:
+    """(B, S) positions of a batch's local rows: 0..S-1, offset by the
+    shard's start under a mesh step that shards the sequence."""
+    from repro_torch.runtime.sharding import model_parallel
+
+    rules = model_parallel()
+    start = 0 if rules is None else rules.mesh.axis_index("model") * S
+    return torch.arange(start, start + S, device=device).expand(B, S)
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +268,19 @@ def chunked_cross_entropy(x: torch.Tensor, embedding: torch.Tensor, targets: tor
     the JAX package, the product runs in ``x``'s dtype (the compute dtype:
     ``x @ emb.T.astype(x.dtype)``) and is cast to f32 after it; the serving
     logits are an f32 product instead. Returns (sum_loss, sum_mask), f32.
+
+    Under a mesh step: the vocab-parallel form (``runtime/losses.py``) with
+    a "model" axis, as the reference; otherwise the local rows' sums,
+    summed over the batch axes, so every rank holds the global pair.
     """
+    from repro_torch.runtime.sharding import current_rules
+
+    rules = current_rules()
+    if rules is not None and rules.n_model > 1:
+        from repro_torch.runtime.losses import vocab_parallel_cross_entropy
+
+        return vocab_parallel_cross_entropy(x, embedding, targets, mask.to(torch.float32), rules,
+                                            chunk=chunk)
     B, S, D = x.shape
     chunk = min(chunk, S)
     while S % chunk:
@@ -195,16 +298,34 @@ def chunked_cross_entropy(x: torch.Tensor, embedding: torch.Tensor, targets: tor
         nll = (lse - picked) * mc
         tot = tot + nll.sum()
         cnt = cnt + mc.sum()
+    if rules is not None and rules.batch_axes:
+        from repro_torch.runtime.collectives import psum
+
+        tot = psum(tot, rules.mesh, rules.batch_axes)
+        cnt = psum(cnt.detach(), rules.mesh, rules.batch_axes)
     return tot, cnt
 
 
 def shift_targets(tokens: torch.Tensor,
                   mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Standard LM shift: predict token t+1 at position t. Returns the
-    targets (the last one 0) and an f32 mask that drops the last position."""
-    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    targets (the last one 0) and an f32 mask that drops the last position.
+    On a sequence shard of a mesh step, a shard's last target is the next
+    shard's first token, and only the last shard drops its last position."""
+    from repro_torch.runtime.sharding import model_parallel
+
+    rules = model_parallel()
+    last = torch.zeros_like(tokens[:, :1])
+    drop_last = True
+    if rules is not None:
+        from repro_torch.runtime.collectives import ppermute
+
+        last = ppermute(tokens[:, :1].contiguous(), rules.mesh, "model", shift=-1)
+        drop_last = rules.mesh.axis_index("model") == rules.n_model - 1
+    targets = torch.cat([tokens[:, 1:], last], dim=1)
     m = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     if mask is not None:
         m = m * mask.to(torch.float32)
-    m[:, -1] = 0.0
+    if drop_last:
+        m[:, -1] = 0.0
     return targets, m

@@ -26,6 +26,7 @@ from repro_torch.models.base import BaseModel
 from repro_torch.models.common import (
     ParamSpec,
     chunked_cross_entropy,
+    refuse_mesh,
     embed_lookup,
     layer_params,
     rms_norm,
@@ -43,10 +44,10 @@ from repro_torch.models.transformer import (
 def _cross_attn_specs(cfg: ArchConfig, L: int, dtype: torch.dtype) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     return {
-        "xattn_norm": ParamSpec((L, d), torch.float32, init="ones"),
-        "wq_x": ParamSpec((L, d, H * hd), dtype),
-        "wkv_x": ParamSpec((L, d, 2 * KV * hd), dtype),
-        "wo_x": ParamSpec((L, H * hd, d), dtype),
+        "xattn_norm": ParamSpec((L, d), torch.float32, init="ones", axes=("layers", "embed")),
+        "wq_x": ParamSpec((L, d, H * hd), dtype, axes=("layers", "embed", "heads")),
+        "wkv_x": ParamSpec((L, d, 2 * KV * hd), dtype, axes=("layers", "embed", "kv")),
+        "wo_x": ParamSpec((L, H * hd, d), dtype, axes=("layers", "heads", "embed")),
     }
 
 
@@ -56,24 +57,24 @@ class EncDecLM(BaseModel):
         d, dt = cfg.d_model, self.param_dtype
         Le, Ld = cfg.n_enc_layers, cfg.n_layers
         enc_layers = {
-            "attn_norm": ParamSpec((Le, d), torch.float32, init="ones"),
-            "mlp_norm": ParamSpec((Le, d), torch.float32, init="ones"),
+            "attn_norm": ParamSpec((Le, d), torch.float32, init="ones", axes=("layers", "embed")),
+            "mlp_norm": ParamSpec((Le, d), torch.float32, init="ones", axes=("layers", "embed")),
             **attn_block_specs(cfg, Le, dt),
             **mlp_specs(d, cfg.d_ff, Le, dt),
         }
         dec_layers = {
-            "attn_norm": ParamSpec((Ld, d), torch.float32, init="ones"),
-            "mlp_norm": ParamSpec((Ld, d), torch.float32, init="ones"),
+            "attn_norm": ParamSpec((Ld, d), torch.float32, init="ones", axes=("layers", "embed")),
+            "mlp_norm": ParamSpec((Ld, d), torch.float32, init="ones", axes=("layers", "embed")),
             **attn_block_specs(cfg, Ld, dt),
             **_cross_attn_specs(cfg, Ld, dt),
             **mlp_specs(d, cfg.d_ff, Ld, dt),
         }
         return {
-            "embed": ParamSpec((cfg.padded_vocab, d), dt, init="normal"),
-            "frame_proj": ParamSpec((d, d), dt),
-            "enc_final_norm": ParamSpec((d,), torch.float32, init="ones"),
-            "final_norm": ParamSpec((d,), torch.float32, init="ones"),
-            "lm_head": ParamSpec((d, cfg.padded_vocab), dt),
+            "embed": ParamSpec((cfg.padded_vocab, d), dt, init="normal", axes=("vocab", "embed")),
+            "frame_proj": ParamSpec((d, d), dt, axes=("embed", None)),
+            "enc_final_norm": ParamSpec((d,), torch.float32, init="ones", axes=("embed",)),
+            "final_norm": ParamSpec((d,), torch.float32, init="ones", axes=("embed",)),
+            "lm_head": ParamSpec((d, cfg.padded_vocab), dt, axes=("embed", "vocab")),
             "encoder": enc_layers,
             "decoder": dec_layers,
         }
@@ -146,6 +147,7 @@ class EncDecLM(BaseModel):
         """Next-token cross-entropy of ``batch["tokens"]`` (B, S) given
         ``batch["frame_embeds"]`` (B, S_enc, d) -> (loss, {"ce_loss",
         "tokens"}), f32 scalars."""
+        refuse_mesh("the enc-dec family", "A13")
         cfg = self.cfg
         memory = self._encode(params, batch["frame_embeds"])
         tokens = batch["tokens"]
@@ -218,3 +220,20 @@ class EncDecLM(BaseModel):
         kv = torch.empty((cfg.n_layers, shape.global_batch, shape.seq_len // 2, cfg.n_kv_heads,
                           cfg.resolved_head_dim), dtype=torch.bfloat16, device="meta")
         return {"k": kv, "v": kv, "k_mem": kv, "v_mem": kv}
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        if shape.kind == "decode":
+            return super().input_specs(shape)
+        B, half = shape.global_batch, shape.seq_len // 2
+        return {"frame_embeds": torch.empty((B, half, self.cfg.d_model), dtype=torch.bfloat16,
+                                            device="meta"),
+                "tokens": torch.empty((B, half), dtype=torch.int32, device="meta")}
+
+    def input_axes(self, shape: ShapeConfig) -> dict:
+        if shape.kind == "decode":
+            return super().input_axes(shape)
+        return {"frame_embeds": ("batch", "seq", None), "tokens": ("batch", "seq")}
+
+    def cache_axes(self, shape: ShapeConfig) -> dict:
+        ax = ("layers", "batch", "cache_seq", None, None)
+        return {"k": ax, "v": ax, "k_mem": ax, "v_mem": ax}

@@ -11,12 +11,13 @@ def mlp_specs(d_model: int, d_ff: int, n_layers: int | None, dtype: torch.dtype,
               gated: bool = True) -> dict:
     """(Gated) MLP params; optionally stacked over a leading layer axis."""
     lead = () if n_layers is None else (n_layers,)
+    lax = () if n_layers is None else ("layers",)
     specs = {
-        "w_up": ParamSpec(lead + (d_model, d_ff), dtype),
-        "w_down": ParamSpec(lead + (d_ff, d_model), dtype),
+        "w_up": ParamSpec(lead + (d_model, d_ff), dtype, axes=lax + ("embed", "mlp")),
+        "w_down": ParamSpec(lead + (d_ff, d_model), dtype, axes=lax + ("mlp", "embed")),
     }
     if gated:
-        specs["w_gate"] = ParamSpec(lead + (d_model, d_ff), dtype)
+        specs["w_gate"] = ParamSpec(lead + (d_model, d_ff), dtype, axes=lax + ("embed", "mlp"))
     return specs
 
 

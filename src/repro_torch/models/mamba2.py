@@ -1,6 +1,6 @@
 """Mamba2 block (SSD, state-space duality, in its chunked matmul form).
 
-Own copy of the JAX package's ``models/mamba2.py``, on one device.
+Own copy of the JAX package's ``models/mamba2.py``.
 Recurrence per head (state S in R^{headdim x d_state}):
     S_t = exp(dt_t * A) S_{t-1} + (dt_t x_t) B_t^T
     y_t = S_t C_t + D x_t
@@ -9,9 +9,10 @@ Recurrence per head (state S in R^{headdim x d_state}):
 and decode path. The depthwise causal conv (width 4) is explicit shifts and
 multiply-adds, as in the reference. All three are plain PyTorch, as the
 reference computes them outside any Pallas kernel. The SSD state stays f32
-and the conv state is in the compute dtype, as the reference keeps them;
-its sequence-parallel cores (``conv1d_sharded``, ``ssd_sharded``) come
-with the multi-device slice (ROADMAP A9).
+and the conv state is in the compute dtype, as the reference keeps them.
+Under a mesh step whose "model" axis shards the sequence, the conv and the
+SSD core are ``runtime/sequence_parallel.py``'s ``conv1d_sharded`` and
+``ssd_sharded``, wired where the reference wires them.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ParamSpec, rms_norm
+from repro_torch.runtime.sharding import model_parallel
 
 
 def conv1d_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -100,15 +102,15 @@ def mamba_specs(cfg, n_layers: int, dtype: torch.dtype) -> dict:
     conv_ch = di + 2 * ds  # x, B, C (ngroups = 1)
     L, f32 = n_layers, torch.float32
     return {
-        "norm": ParamSpec((L, d), f32, init="ones"),
-        "w_in": ParamSpec((L, d, 2 * di + 2 * ds + H), dtype),
-        "conv_w": ParamSpec((L, cfg.conv_width, conv_ch), f32),
-        "conv_b": ParamSpec((L, conv_ch), f32, init="zeros"),
-        "A_log": ParamSpec((L, H), f32, init="small"),
-        "D": ParamSpec((L, H), f32, init="ones"),
-        "dt_bias": ParamSpec((L, H), f32, init="small"),
-        "ssd_norm": ParamSpec((L, di), f32, init="ones"),
-        "w_out": ParamSpec((L, di, d), dtype),
+        "norm": ParamSpec((L, d), f32, init="ones", axes=("layers", "embed")),
+        "w_in": ParamSpec((L, d, 2 * di + 2 * ds + H), dtype, axes=("layers", "embed", "mlp")),
+        "conv_w": ParamSpec((L, cfg.conv_width, conv_ch), f32, axes=("layers", None, "mlp")),
+        "conv_b": ParamSpec((L, conv_ch), f32, init="zeros", axes=("layers", "mlp")),
+        "A_log": ParamSpec((L, H), f32, init="small", axes=("layers", None)),
+        "D": ParamSpec((L, H), f32, init="ones", axes=("layers", None)),
+        "dt_bias": ParamSpec((L, H), f32, init="small", axes=("layers", None)),
+        "ssd_norm": ParamSpec((L, di), f32, init="ones", axes=("layers", "mlp")),
+        "w_out": ParamSpec((L, di, d), dtype, axes=("layers", "mlp", "embed")),
     }
 
 
@@ -122,6 +124,13 @@ def mamba_state_struct(cfg, n_layers: int, batch: int, compute_dtype: torch.dtyp
         "conv": torch.empty((n_layers, batch, cfg.conv_width - 1, di + 2 * ds),
                             dtype=compute_dtype, device="meta"),
         "ssd": torch.empty((n_layers, batch, H, P, ds), dtype=torch.float32, device="meta"),
+    }
+
+
+def mamba_state_axes() -> dict:
+    return {
+        "conv": ("layers", "batch", None, "mlp"),
+        "ssd": ("layers", "batch", None, None, None),
     }
 
 
@@ -139,8 +148,15 @@ def mamba_apply(cfg, lp: dict, x: torch.Tensor, state: dict | None, *,
     z, xs, Bm, Cm, dt = torch.split(zxbcdt, [di, di, ds, ds, H], dim=-1)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
     conv_state = None if state is None else state["conv"]
-    conv_out, new_conv = conv1d_causal(conv_in, lp["conv_w"].to(cd), lp["conv_b"].to(cd),
-                                       conv_state)
+    rules = model_parallel() if state is None else None
+    if rules is not None:  # a sequence shard: the conv's halo and the SSD's prefix cross shards
+        from repro_torch.runtime.sequence_parallel import conv1d_sharded
+
+        conv_out = conv1d_sharded(conv_in, lp["conv_w"].to(cd), lp["conv_b"].to(cd), rules)
+        new_conv = conv_in[:, -(cfg.conv_width - 1):]
+    else:
+        conv_out, new_conv = conv1d_causal(conv_in, lp["conv_w"].to(cd), lp["conv_b"].to(cd),
+                                           conv_state)
     xs, Bm, Cm = torch.split(conv_out, [di, ds, ds], dim=-1)
 
     dt = F.softplus(dt.to(torch.float32) + lp["dt_bias"][None, None])  # (B, T, H)
@@ -152,8 +168,13 @@ def mamba_apply(cfg, lp: dict, x: torch.Tensor, state: dict | None, *,
         S0 = torch.zeros((B_, H, P, ds), dtype=torch.float32, device=x.device)
     else:
         S0 = state["ssd"]
-    fn = ssd_chunked if chunked else ssd_recurrent
-    y, new_ssd = fn(xh, dt, A, Bg, Cg, lp["D"].to(torch.float32), S0)
+    if chunked and rules is not None:
+        from repro_torch.runtime.sequence_parallel import ssd_sharded
+
+        y, new_ssd = ssd_sharded(xh, dt, A, Bg, Cg, lp["D"].to(torch.float32), rules)
+    else:
+        fn = ssd_chunked if chunked else ssd_recurrent
+        y, new_ssd = fn(xh, dt, A, Bg, Cg, lp["D"].to(torch.float32), S0)
     y = y.reshape(B_, T, di) * F.silu(z.to(torch.float32))
     y = rms_norm(y.to(cd), lp["ssd_norm"], cfg.norm_eps)
     out = y @ lp["w_out"].to(cd)

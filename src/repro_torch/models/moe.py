@@ -17,8 +17,10 @@ buffer, and each token sums its K experts' outputs at those slots. A slot
 holds at most one token, so the buffer is the reference's dispatch einsum
 exactly; the expert products are batched matmuls over the expert axis
 (every expert computes all its slots, filled or not, as the reference's
-dense dispatch does). The reference's ``constrain`` sharding hints have no
-counterpart (ROADMAP A9).
+dense dispatch does). The reference's ``constrain`` hint on the expert axis
+(expert parallelism) has no counterpart yet (ROADMAP A14), and the family
+refuses a mesh step of several ranks (ROADMAP A13): its token groups and
+capacity drops depend on how the tokens are grouped.
 """
 from __future__ import annotations
 
@@ -33,19 +35,20 @@ from repro_torch.models.common import ParamSpec, first_argmax
 
 def moe_specs(cfg, n_layers: int | None, dtype: torch.dtype) -> dict:
     lead = () if n_layers is None else (n_layers,)
+    lax = () if n_layers is None else ("layers",)
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     specs = {
-        "router": ParamSpec(lead + (d, e), torch.float32, init="small"),
-        "w_gate": ParamSpec(lead + (e, d, f), dtype),
-        "w_up": ParamSpec(lead + (e, d, f), dtype),
-        "w_down": ParamSpec(lead + (e, f, d), dtype),
+        "router": ParamSpec(lead + (d, e), torch.float32, init="small", axes=lax + ("embed", None)),
+        "w_gate": ParamSpec(lead + (e, d, f), dtype, axes=lax + ("experts", "embed", "mlp")),
+        "w_up": ParamSpec(lead + (e, d, f), dtype, axes=lax + ("experts", "embed", "mlp")),
+        "w_down": ParamSpec(lead + (e, f, d), dtype, axes=lax + ("experts", "mlp", "embed")),
     }
     if cfg.n_shared_experts:
         fs = f * cfg.n_shared_experts
         specs.update(
-            shared_gate=ParamSpec(lead + (d, fs), dtype),
-            shared_up=ParamSpec(lead + (d, fs), dtype),
-            shared_down=ParamSpec(lead + (fs, d), dtype),
+            shared_gate=ParamSpec(lead + (d, fs), dtype, axes=lax + ("embed", "mlp")),
+            shared_up=ParamSpec(lead + (d, fs), dtype, axes=lax + ("embed", "mlp")),
+            shared_down=ParamSpec(lead + (fs, d), dtype, axes=lax + ("mlp", "embed")),
         )
     return specs
 

@@ -15,8 +15,11 @@ State per layer and head: S in R^{N x N} (key dim x value dim):
 
 The WKV state stays f32 and the token-shift states are in the compute
 dtype, as the reference keeps them. Decode writes the new states into the
-cache in place. The reference's sequence-parallel core (``wkv6_sharded``)
-comes with the multi-device slice (ROADMAP A9).
+cache in place. Under a mesh step whose "model" axis shards the sequence,
+the WKV core is ``runtime/sequence_parallel.py``'s ``wkv6_sharded`` and
+the token shifts start from the previous shard's last row
+(``models/common.py`` ``prev_row``), where the reference's GSPMD sees the
+whole sequence.
 """
 from __future__ import annotations
 
@@ -31,10 +34,12 @@ from repro_torch.models.common import (
     embed_lookup,
     group_norm,
     layer_params,
+    prev_row,
     rms_norm,
     shift_targets,
 )
 from repro_torch.models.transformer import remat_apply
+from repro_torch.runtime.sharding import model_parallel
 
 MIX_LORA = 32  # ddlerp lora rank (5 heads)
 DECAY_LORA = 64
@@ -110,37 +115,39 @@ class Rwkv6LM(BaseModel):
         H, N = cfg.n_rwkv_heads, cfg.rwkv_head_dim
         dt, f32 = self.param_dtype, torch.float32
         layers = {
-            "ln1": ParamSpec((L, d), f32, init="ones"),
-            "ln2": ParamSpec((L, d), f32, init="ones"),
+            "ln1": ParamSpec((L, d), f32, init="ones", axes=("layers", "embed")),
+            "ln2": ParamSpec((L, d), f32, init="ones", axes=("layers", "embed")),
             # time-mix ddlerp
-            "tm_mix_x": ParamSpec((L, d), f32, init="small"),
-            "tm_mix": ParamSpec((L, 5, d), f32, init="small"),
-            "tm_lora_a": ParamSpec((L, d, 5 * MIX_LORA), dt),
-            "tm_lora_b": ParamSpec((L, 5, MIX_LORA, d), dt, init="small"),
+            "tm_mix_x": ParamSpec((L, d), f32, init="small", axes=("layers", "embed")),
+            "tm_mix": ParamSpec((L, 5, d), f32, init="small", axes=("layers", None, "embed")),
+            "tm_lora_a": ParamSpec((L, d, 5 * MIX_LORA), dt, axes=("layers", "embed", None)),
+            "tm_lora_b": ParamSpec((L, 5, MIX_LORA, d), dt, init="small",
+                                   axes=("layers", None, None, "embed")),
             # projections
-            "w_r": ParamSpec((L, d, H * N), dt),
-            "w_k": ParamSpec((L, d, H * N), dt),
-            "w_v": ParamSpec((L, d, H * N), dt),
-            "w_g": ParamSpec((L, d, H * N), dt),
-            "w_o": ParamSpec((L, H * N, d), dt),
+            "w_r": ParamSpec((L, d, H * N), dt, axes=("layers", "embed", "heads")),
+            "w_k": ParamSpec((L, d, H * N), dt, axes=("layers", "embed", "heads")),
+            "w_v": ParamSpec((L, d, H * N), dt, axes=("layers", "embed", "heads")),
+            "w_g": ParamSpec((L, d, H * N), dt, axes=("layers", "embed", "heads")),
+            "w_o": ParamSpec((L, H * N, d), dt, axes=("layers", "heads", "embed")),
             # data-dependent decay
-            "decay_base": ParamSpec((L, H * N), f32, init="small"),
-            "decay_lora_a": ParamSpec((L, d, DECAY_LORA), dt),
-            "decay_lora_b": ParamSpec((L, DECAY_LORA, H * N), dt, init="small"),
-            "u_bonus": ParamSpec((L, H, N), f32, init="small"),
-            "wkv_norm_scale": ParamSpec((L, H * N), f32, init="ones"),
-            "wkv_norm_bias": ParamSpec((L, H * N), f32, init="zeros"),
+            "decay_base": ParamSpec((L, H * N), f32, init="small", axes=("layers", "heads")),
+            "decay_lora_a": ParamSpec((L, d, DECAY_LORA), dt, axes=("layers", "embed", None)),
+            "decay_lora_b": ParamSpec((L, DECAY_LORA, H * N), dt, init="small",
+                                      axes=("layers", None, "heads")),
+            "u_bonus": ParamSpec((L, H, N), f32, init="small", axes=("layers", None, None)),
+            "wkv_norm_scale": ParamSpec((L, H * N), f32, init="ones", axes=("layers", "heads")),
+            "wkv_norm_bias": ParamSpec((L, H * N), f32, init="zeros", axes=("layers", "heads")),
             # channel-mix
-            "cm_mix_k": ParamSpec((L, d), f32, init="small"),
-            "cm_mix_r": ParamSpec((L, d), f32, init="small"),
-            "cm_k": ParamSpec((L, d, cfg.d_ff), dt),
-            "cm_v": ParamSpec((L, cfg.d_ff, d), dt),
-            "cm_r": ParamSpec((L, d, d), dt),
+            "cm_mix_k": ParamSpec((L, d), f32, init="small", axes=("layers", "embed")),
+            "cm_mix_r": ParamSpec((L, d), f32, init="small", axes=("layers", "embed")),
+            "cm_k": ParamSpec((L, d, cfg.d_ff), dt, axes=("layers", "embed", "mlp")),
+            "cm_v": ParamSpec((L, cfg.d_ff, d), dt, axes=("layers", "mlp", "embed")),
+            "cm_r": ParamSpec((L, d, d), dt, axes=("layers", "embed", None)),
         }
         return {
-            "embed": ParamSpec((cfg.padded_vocab, d), dt, init="normal"),
-            "final_norm": ParamSpec((d,), f32, init="ones"),
-            "lm_head": ParamSpec((d, cfg.padded_vocab), dt),
+            "embed": ParamSpec((cfg.padded_vocab, d), dt, init="normal", axes=("vocab", "embed")),
+            "final_norm": ParamSpec((d,), f32, init="ones", axes=("embed",)),
+            "lm_head": ParamSpec((d, cfg.padded_vocab), dt, axes=("embed", "vocab")),
             "layers": layers,
         }
 
@@ -151,6 +158,8 @@ class Rwkv6LM(BaseModel):
         cfg, cd = self.cfg, self.compute_dtype
         H, N = cfg.n_rwkv_heads, cfg.rwkv_head_dim
         B, T, _ = x.shape
+        if shift_state is None:
+            shift_state = prev_row(x)
         prev = torch.cat([shift_state[:, None], x[:, :-1]], dim=1)
         xx = prev - x
         base = x + xx * lp["tm_mix_x"].to(x.dtype)
@@ -170,9 +179,17 @@ class Rwkv6LM(BaseModel):
         def to_bhtn(a):
             return a.transpose(1, 2).to(torch.float32)
 
-        fn = wkv6_chunked if chunked else wkv6_recurrent
-        o, wkv_state = fn(to_bhtn(r), to_bhtn(k), to_bhtn(v), to_bhtn(w),
-                          lp["u_bonus"].to(torch.float32), wkv_state)
+        u = lp["u_bonus"].to(torch.float32)
+        rules = model_parallel()
+        if chunked and rules is not None and wkv_state is None:
+            from repro_torch.runtime.sequence_parallel import wkv6_sharded
+
+            o, wkv_state = wkv6_sharded(to_bhtn(r), to_bhtn(k), to_bhtn(v), to_bhtn(w), u, rules)
+        else:
+            if wkv_state is None:
+                wkv_state = torch.zeros((B, H, N, N), dtype=torch.float32, device=x.device)
+            fn = wkv6_chunked if chunked else wkv6_recurrent
+            o, wkv_state = fn(to_bhtn(r), to_bhtn(k), to_bhtn(v), to_bhtn(w), u, wkv_state)
         o = o.transpose(1, 2).reshape(B, T, H * N)
         o = group_norm(o, H, lp["wkv_norm_scale"], lp["wkv_norm_bias"], 64e-5)
         out = (o.to(cd) * g) @ lp["w_o"].to(cd)
@@ -180,6 +197,8 @@ class Rwkv6LM(BaseModel):
 
     def _channel_mix(self, lp: dict, x: torch.Tensor, shift_state: torch.Tensor):
         cd = self.compute_dtype
+        if shift_state is None:
+            shift_state = prev_row(x)
         prev = torch.cat([shift_state[:, None], x[:, :-1]], dim=1)
         xx = prev - x
         xk = (x + xx * lp["cm_mix_k"].to(x.dtype)).to(cd)
@@ -190,14 +209,11 @@ class Rwkv6LM(BaseModel):
 
     def _layer_apply(self, lp: dict, x: torch.Tensor, states: dict | None, *, chunked: bool):
         """One layer: (new residual stream, its states {"tm_shift",
-        "cm_shift", "wkv"}); ``states`` None starts from zeros."""
+        "cm_shift", "wkv"}); ``states`` None starts from zeros (or, on a
+        sequence shard, from the previous shards)."""
         cfg = self.cfg
         if states is None:
-            B = x.shape[0]
-            H, N = cfg.n_rwkv_heads, cfg.rwkv_head_dim
-            tm_shift = torch.zeros((B, cfg.d_model), dtype=x.dtype, device=x.device)
-            cm_shift = torch.zeros((B, cfg.d_model), dtype=x.dtype, device=x.device)
-            wkv = torch.zeros((B, H, N, N), dtype=torch.float32, device=x.device)
+            tm_shift = cm_shift = wkv = None
         else:
             tm_shift, cm_shift, wkv = states["tm_shift"], states["cm_shift"], states["wkv"]
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -263,3 +279,10 @@ class Rwkv6LM(BaseModel):
         shift = torch.empty((L, B, cfg.d_model), dtype=self.compute_dtype, device="meta")
         return {"tm_shift": shift, "cm_shift": shift,
                 "wkv": torch.empty((L, B, H, N, N), dtype=torch.float32, device="meta")}
+
+    def cache_axes(self, shape: ShapeConfig) -> dict:
+        return {
+            "tm_shift": ("layers", "batch", "embed"),
+            "cm_shift": ("layers", "batch", "embed"),
+            "wkv": ("layers", "batch", None, None, None),
+        }

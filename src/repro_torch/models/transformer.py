@@ -38,11 +38,14 @@ from repro_torch.models import ffn, moe
 from repro_torch.models.base import BaseModel
 from repro_torch.models.common import (
     ParamSpec,
+    ShardedLayer,
     apply_rope,
     chunked_cross_entropy,
     embed_lookup,
     layer_params,
+    refuse_mesh,
     rms_norm,
+    seq_positions,
     shift_targets,
     tree_leaves,
 )
@@ -58,9 +61,17 @@ def remat_apply(remat: str, fn, *args):
     ``jax.checkpoint`` policies. Where no gradient is taken (no argument
     requires one, or grad mode is off: serving), every policy runs ``fn``
     as is, as ``jax.checkpoint`` does outside differentiation; the first
-    ``checkpoint`` call of a process imports ``torch._dynamo`` (seconds)."""
+    ``checkpoint`` call of a process imports ``torch._dynamo`` (seconds).
+    A :class:`~repro_torch.models.common.ShardedLayer` argument (a mesh
+    step's layer tiles) is gathered inside ``fn``: under "full" the layer's
+    full weights are freed after its forward and gathered again for its
+    backward."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
+    if any(isinstance(a, ShardedLayer) for a in args):  # a mesh step: gather in the layer
+        inner = fn
+        fn = lambda *a: inner(*(x.gather() if isinstance(x, ShardedLayer) else x  # noqa: E731
+                                for x in a))
     needs_grad = torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for a in args for t in tree_leaves(a))
     if remat == "none" or not needs_grad:
@@ -84,13 +95,14 @@ def attn_block_specs(cfg: ArchConfig, n_layers: int | None, dtype: torch.dtype,
     d = d_in or cfg.d_model
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     lead = () if n_layers is None else (n_layers,)
+    lax_ = () if n_layers is None else ("layers",)
     specs = {
-        "wqkv": ParamSpec(lead + (d, (H + 2 * KV) * hd), dtype),
-        "wo": ParamSpec(lead + (H * hd, cfg.d_model), dtype),
+        "wqkv": ParamSpec(lead + (d, (H + 2 * KV) * hd), dtype, axes=lax_ + ("embed", "qkv")),
+        "wo": ParamSpec(lead + (H * hd, cfg.d_model), dtype, axes=lax_ + ("heads", "embed")),
     }
     if cfg.qk_norm:
-        specs["q_norm"] = ParamSpec(lead + (hd,), torch.float32, init="ones")
-        specs["k_norm"] = ParamSpec(lead + (hd,), torch.float32, init="ones")
+        specs["q_norm"] = ParamSpec(lead + (hd,), torch.float32, init="ones", axes=lax_ + (None,))
+        specs["k_norm"] = ParamSpec(lead + (hd,), torch.float32, init="ones", axes=lax_ + (None,))
     return specs
 
 
@@ -117,7 +129,8 @@ def attn_block_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *, positions: to
     q, k = _qk_norm(cfg, p, q, k)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
-    out = attn_lib.blockwise_attention(q, k, v, causal=causal)
+    out = attn_lib.attention(q, k, v, impl=cfg.attention_impl, causal=causal,
+                             block_q=cfg.attention_block_q, block_kv=cfg.attention_block_kv)
     B, S = x.shape[:2]
     return out.reshape(B, S, -1) @ p["wo"].to(cd), (k, v)
 
@@ -170,8 +183,8 @@ class DecoderLM(BaseModel):
         cfg = self.cfg
         L, d, dt = cfg.n_layers, cfg.d_model, self.param_dtype
         layers: dict[str, Any] = {
-            "attn_norm": ParamSpec((L, d), torch.float32, init="ones"),
-            "mlp_norm": ParamSpec((L, d), torch.float32, init="ones"),
+            "attn_norm": ParamSpec((L, d), torch.float32, init="ones", axes=("layers", "embed")),
+            "mlp_norm": ParamSpec((L, d), torch.float32, init="ones", axes=("layers", "embed")),
             **attn_block_specs(cfg, L, dt),
         }
         if self.is_moe:
@@ -179,14 +192,14 @@ class DecoderLM(BaseModel):
         else:
             layers.update(ffn.mlp_specs(d, cfg.d_ff, L, dt, gated=cfg.gated_mlp))
         specs = {
-            "embed": ParamSpec((cfg.padded_vocab, d), dt, init="normal"),
-            "final_norm": ParamSpec((d,), torch.float32, init="ones"),
+            "embed": ParamSpec((cfg.padded_vocab, d), dt, init="normal", axes=("vocab", "embed")),
+            "final_norm": ParamSpec((d,), torch.float32, init="ones", axes=("embed",)),
             "layers": layers,
         }
         if not cfg.tie_embeddings:
-            specs["lm_head"] = ParamSpec((d, cfg.padded_vocab), dt)
+            specs["lm_head"] = ParamSpec((d, cfg.padded_vocab), dt, axes=("embed", "vocab"))
         if self.is_vlm:
-            specs["vision_proj"] = ParamSpec((d, d), dt)
+            specs["vision_proj"] = ParamSpec((d, d), dt, axes=("embed", None))
         return specs
 
     def expert_param_count(self) -> int:
@@ -262,7 +275,7 @@ class DecoderLM(BaseModel):
         dev = x.device
         if cache_len is not None and cache_len < S:
             raise ValueError(f"cache_len {cache_len} is shorter than the prompt's {S} positions")
-        positions = torch.arange(S, device=dev).expand(B, S)
+        positions = seq_positions(B, S, dev)
         shape = (cfg.n_layers, B, cache_len or S, cfg.n_kv_heads, cfg.resolved_head_dim)
         alloc = torch.zeros if cache_len else torch.empty
         cache = {"k": alloc(shape, dtype=cd, device=dev), "v": alloc(shape, dtype=cd, device=dev)}
@@ -283,10 +296,12 @@ class DecoderLM(BaseModel):
         ``compute_params``); the layer loop is a Python loop over the
         stacked (L, ...) leaves."""
         cfg = self.cfg
+        if self.is_moe or self.is_vlm:
+            refuse_mesh(f"the {'MoE' if self.is_moe else 'VLM'} family", "A13")
         tokens = batch["tokens"]
         x = self._embed_inputs(params, batch)
         B, S, _ = x.shape
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        positions = seq_positions(B, S, tokens.device)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for i in range(cfg.n_layers):
             x, layer_aux = self._train_layer(x, layer_params(params["layers"], i), positions)
@@ -337,6 +352,21 @@ class DecoderLM(BaseModel):
             x = x + self._ffn(lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps))[0]
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._logits(params, x), cache
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        specs = super().input_specs(shape)
+        if self.is_vlm and shape.kind != "decode":
+            B, S, P = shape.global_batch, shape.seq_len, self.cfg.n_patches
+            specs = {"tokens": torch.empty((B, S - P), dtype=torch.int32, device="meta"),
+                     "patch_embeds": torch.empty((B, P, self.cfg.d_model), dtype=torch.bfloat16,
+                                                 device="meta")}
+        return specs
+
+    def input_axes(self, shape: ShapeConfig) -> dict:
+        axes = super().input_axes(shape)
+        if self.is_vlm and shape.kind != "decode":
+            axes["patch_embeds"] = ("batch", "seq", None)
+        return axes
 
     def cache_struct(self, shape: ShapeConfig) -> dict:
         """The decode cache of the JAX package's dry-run shapes, bf16, as

@@ -25,6 +25,7 @@ from repro_torch.models.common import (
     embed_lookup,
     layer_params,
     rms_norm,
+    seq_positions,
     shift_targets,
 )
 from repro_torch.models.ffn import mlp_apply, mlp_specs
@@ -50,15 +51,15 @@ class ZambaLM(BaseModel):
         cfg = self.cfg
         d, dt = cfg.d_model, self.param_dtype
         shared = {
-            "attn_norm": ParamSpec((2 * d,), torch.float32, init="ones"),
-            "mlp_norm": ParamSpec((d,), torch.float32, init="ones"),
+            "attn_norm": ParamSpec((2 * d,), torch.float32, init="ones", axes=("embed",)),
+            "mlp_norm": ParamSpec((d,), torch.float32, init="ones", axes=("embed",)),
             **attn_block_specs(cfg, None, dt, d_in=2 * d),
             **mlp_specs(d, cfg.d_ff, None, dt),
         }
         return {
-            "embed": ParamSpec((cfg.padded_vocab, d), dt, init="normal"),
-            "final_norm": ParamSpec((d,), torch.float32, init="ones"),
-            "lm_head": ParamSpec((d, cfg.padded_vocab), dt),
+            "embed": ParamSpec((cfg.padded_vocab, d), dt, init="normal", axes=("vocab", "embed")),
+            "final_norm": ParamSpec((d,), torch.float32, init="ones", axes=("embed",)),
+            "lm_head": ParamSpec((d, cfg.padded_vocab), dt, axes=("embed", "vocab")),
             "shared": shared,
             "mamba": mamba2.mamba_specs(cfg, cfg.n_layers, dt),
         }
@@ -89,7 +90,7 @@ class ZambaLM(BaseModel):
         x0 = x
         B, S = tokens.shape
         dev = tokens.device
-        positions = torch.arange(S, device=dev).expand(B, S)
+        positions = seq_positions(B, S, dev)
         cache = None
         if collect_cache:
             if cache_len is not None and cache_len < S:
@@ -171,3 +172,7 @@ class ZambaLM(BaseModel):
                          dtype=torch.bfloat16, device="meta")
         return {"k": kv, "v": kv,
                 "mamba": mamba2.mamba_state_struct(cfg, cfg.n_layers, B, self.compute_dtype)}
+
+    def cache_axes(self, shape: ShapeConfig) -> dict:
+        ax = ("layers", "batch", "cache_seq", None, None)
+        return {"k": ax, "v": ax, "mamba": mamba2.mamba_state_axes()}

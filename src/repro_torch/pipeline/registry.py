@@ -136,7 +136,8 @@ JAX_ONLY_OPTIONS = {
     "buckets": "nothing is compiled per shape, so no batch is padded to a bucket",
     "batched": "ML-EM takes the whole batch in one call",
     "batch_buckets": "nothing is compiled per shape, so no batch is padded to a bucket",
-    "mesh": "the apps run on their stage's device; multi-device runs wait for ROADMAP A9",
+    "mesh": "the apps run on their stage's device; a mesh is a torch.distributed rank group "
+            "that runs build_train_step(mesh=...) in every rank, not an app option",
 }
 
 

@@ -1,3 +1,8 @@
-"""The port's runtime: the train and serving steps (``steps.py``) and the
-optimizer (``optimizer.py``); the multi-device runtime (sharding, sharded
-attention, vocab-parallel losses) waits for ROADMAP A9."""
+"""The port's runtime: the train step on one device or a mesh and the
+serving steps (``steps.py``), the optimizer (``optimizer.py``), and the
+multi-device layer over ``torch.distributed``: the collectives
+(``collectives.py``), the sharding rules (``sharding.py``), sequence-parallel
+and ring attention (``sharded_attention.py``, ``ring_attention.py``), the
+vocab-parallel losses (``losses.py``), the sequence-parallel recurrence
+cores (``sequence_parallel.py``) and int8 gradient reduction
+(``grad_compress.py``)."""

@@ -17,7 +17,9 @@ leaves are updated one leading slice at a time, as the reference's
 ``lax.map`` does: that bounds the f32 temporaries, and Adafactor's update
 clipping is taken per slice there, so the numbers are the reference's. The
 update is plain PyTorch: the JAX package computes it outside any Pallas
-kernel. ``state_axes`` (sharding) waits for ROADMAP A9.
+kernel. ``state_axes`` gives the state's logical axes (each moment follows
+its param); on a mesh the update runs on each rank's tiles with the global
+grad norm passed in (``runtime/steps.py``).
 """
 from __future__ import annotations
 
@@ -91,6 +93,13 @@ def clip_by_global_norm(tree: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
     return tree_map_with_paths(lambda _, g: g * scale.to(g.dtype), tree), norm
 
 
+def _axes_map(fn: Callable, tree: Any) -> Any:
+    """``fn`` on every axis tuple of a nested dict of them."""
+    if isinstance(tree, dict):
+        return {k: _axes_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def _decay_mask(p: torch.Tensor) -> bool:
     """Weight decay only on >=2D params (skip norms/biases/scalars)."""
     return p.ndim >= 2
@@ -141,17 +150,36 @@ class Optimizer:
         """The state of ``meta`` params, as ``meta`` tensors."""
         return self.init(param_struct)
 
+    def state_axes(self, param_axes: Any) -> dict:
+        """Logical axes of the state, from the params' axes."""
+        cfg = self.cfg
+        if cfg.name == "sgd":
+            return {"step": ()}
+        if cfg.name == "adamw":
+            return {"step": (), "m": param_axes, "v": param_axes}
+        axes = {"step": (),
+                "v_row": _axes_map(lambda ax: tuple(ax[:-1]) if len(ax) >= 2 else tuple(ax),
+                                   param_axes),
+                "v_col": _axes_map(lambda ax: tuple(ax[:-2] + ax[-1:]) if len(ax) >= 2 else (),
+                                   param_axes)}
+        if cfg.first_moment:
+            axes["m"] = param_axes
+        return axes
+
     # -- update -------------------------------------------------------------
 
     @torch.no_grad()
-    def update(self, grads: Any, state: dict, params: Any) -> tuple[Any, dict, dict]:
+    def update(self, grads: Any, state: dict, params: Any, *,
+               grad_norm: torch.Tensor | None = None) -> tuple[Any, dict, dict]:
         """One step: params and moments written in place; returns (params,
-        new state, {"lr", "grad_norm"}) with the stats as device scalars."""
+        new state, {"lr", "grad_norm"}) with the stats as device scalars.
+        ``grad_norm``: the global norm where ``grads`` are one rank's tiles
+        (a mesh step), else computed here from ``grads``."""
         cfg = self.cfg
         step = state["step"] + 1
         lr = lr_at(cfg, step)
         # clip folded into the (layerwise) update: g32 = g.to(f32) * gscale
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
         gscale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
         stats = {"lr": lr, "grad_norm": gnorm}
         p_leaves, g_leaves = _leaves(params), _leaves(grads)

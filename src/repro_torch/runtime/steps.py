@@ -1,10 +1,29 @@
-"""The train step, and the paged serving steps (prefill and
-decode against a KV page pool).
+"""The train step (on one device or on a mesh), and the paged serving
+steps (prefill and decode against a KV page pool).
 
-Own copies of the JAX package's ``build_train_step``,
+Own copies of the JAX package's ``build_train_step``, ``make_rules``,
 ``build_paged_prefill_step`` and ``build_paged_decode_step``
 (``repro/runtime/steps.py``). ``jit`` and buffer donation have no
-counterpart: PyTorch runs eagerly. The train step updates the params and
+counterpart: PyTorch runs eagerly.
+
+On a mesh (``launch/mesh.py``) every rank runs the step on its own tiles,
+where the reference's GSPMD partitions one program: each param and its
+Adam moments live as the rank's tile of their ``param_shardings`` spec
+(tensor axes on "model", ZeRO's largest free dim over the data axes); a
+layer's leaves are all-gathered where the layer runs, a few collectives a
+layer (``models/common.py`` ``ShardedLayer``), and their gradients
+reduce-scatter back to the tiles; the batch rows split over the data axes and the
+sequence over "model", the ops that mix positions taking their shard's
+context (sharded attention, vocab-parallel embedding and loss, the
+sequence-parallel cores, the RoPE offset, the token shift, the target
+shift). Each rank back-propagates the loss every rank holds, divided by the
+number of ranks (the collectives' backward are exact transposes:
+``runtime/collectives.py``); each gradient tile is then summed over the
+axes its param is replicated on, the global grad norm is summed over the
+mesh, and the optimizer updates the local tiles. Under remat the gather
+runs inside the layer's checkpoint: the full weights are freed after the
+layer's forward and gathered again for its backward; without remat
+autograd keeps them until the backward. The train step updates the params and
 optimizer moments in place; the serving steps update the page pools **in
 place** (``index_put_``), returning the same pool tensors so callers read
 like the JAX package's. A step's logical
@@ -25,8 +44,27 @@ from repro_torch.core.service import resolve_device
 from repro_torch.data.batching import shard_batch
 from repro_torch.models.base import BaseModel
 from repro_torch.models.common import first_argmax, torch_dtype
-from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
+from repro_torch.runtime.collectives import psum
+from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig, _leaf_sqnorm
+from repro_torch.runtime.sharding import (
+    ShardingRules,
+    activation_rules,
+    flatten_specs,
+    param_shardings,
+    shard_tree,
+    spec_axes,
+    unshard_many,
+)
 from repro_torch.utils.tree import tree_flatten_with_paths, tree_map_with_paths
+
+
+def make_rules(mesh, shape: ShapeConfig, *, zero: bool = True) -> ShardingRules:
+    return ShardingRules.for_shape(mesh, kind=shape.kind, global_batch=shape.global_batch,
+                                   zero=zero)
+
+
+def _shard_tree(rules: ShardingRules, axes_tree, struct_tree):
+    return rules.shardings(axes_tree, struct_tree)
 
 
 # ---------------------------------------------------------------------------
@@ -35,8 +73,8 @@ from repro_torch.utils.tree import tree_flatten_with_paths, tree_map_with_paths
 
 
 def build_train_step(model: BaseModel, shape: ShapeConfig, opt_cfg: OptimizerConfig | None = None,
-                     *, grad_accum: int | None = None,
-                     device: torch.device | str) -> Callable:
+                     *, grad_accum: int | None = None, device: torch.device | str | None = None,
+                     mesh=None) -> Callable:
     """``fn(params, opt_state, batch) -> (params, opt_state, metrics)``: one
     step of ``model.loss`` and the optimizer on ``device``, as the JAX
     package's ``build_train_step``.
@@ -50,8 +88,16 @@ def build_train_step(model: BaseModel, shape: ShapeConfig, opt_cfg: OptimizerCon
     the backward only; the update writes them and the moments in place, so
     the returned trees are the ones passed in (the step's ``step`` is new).
     ``metrics``: ``loss``, ``lr``, ``grad_norm`` (and ``ce_loss``,
-    ``tokens`` without accumulation) as device scalars. The JAX package's
-    mesh and sharding arguments wait for ROADMAP A9."""
+    ``tokens`` without accumulation) as device scalars.
+
+    With ``mesh`` (instead of ``device``) it is the mesh step of
+    :func:`build_mesh_train_step`."""
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("build_train_step takes a device or a mesh, not both")
+        return build_mesh_train_step(model, shape, opt_cfg, mesh, grad_accum=grad_accum)
+    if device is None:
+        raise ValueError("build_train_step needs a device (or a mesh)")
     cfg = model.cfg
     opt = Optimizer(opt_cfg or OptimizerConfig(
         name=cfg.optimizer, moment_dtype=cfg.moment_dtype, first_moment=cfg.first_moment))
@@ -94,6 +140,125 @@ def build_train_step(model: BaseModel, shape: ShapeConfig, opt_cfg: OptimizerCon
         by_path = dict(zip((path for path, _ in flat), grads))
         grad_tree = tree_map_with_paths(lambda path, _: by_path[path], params)
         params, opt_state, stats = opt.update(grad_tree, opt_state, params)
+        return params, opt_state, dict(metrics, loss=loss, **stats)
+
+    return train_step
+
+
+def mesh_train_state(model: BaseModel, params: Any, opt_state: dict, mesh) -> tuple[Any, dict]:
+    """Full params and optimizer state -> this rank's tiles of them, as the
+    mesh step keeps them (each moment follows its param; ``step`` whole)."""
+    specs = param_shardings(model, mesh)
+    params = shard_tree(params, specs, mesh)
+    opt_state = {k: (v if k == "step" else shard_tree(v, specs, mesh))
+                 for k, v in opt_state.items()}
+    return params, opt_state
+
+
+def build_mesh_train_step(model: BaseModel, shape: ShapeConfig,
+                          opt_cfg: OptimizerConfig | None, mesh, *,
+                          grad_accum: int | None = None) -> Callable:
+    """``fn(params, opt_state, batch) -> (params, opt_state, metrics)`` on
+    one rank of ``mesh``: ``params`` and ``opt_state`` are the rank's tiles
+    (:func:`mesh_train_state`), ``batch`` the whole global batch (every rank
+    passes the same one, as the reference's step takes global arrays; each
+    keeps its rows and sequence shard). Metrics are alike on every rank.
+    AdamW and SGD only: Adafactor's factored moments would need sums across
+    tiles (ROADMAP A13)."""
+    cfg = model.cfg
+    opt = Optimizer(opt_cfg or OptimizerConfig(
+        name=cfg.optimizer, moment_dtype=cfg.moment_dtype, first_moment=cfg.first_moment))
+    if opt.cfg.name == "adafactor":
+        raise NotImplementedError("Adafactor does not run on a mesh yet (ROADMAP A13)")
+    accum = grad_accum if grad_accum is not None else cfg.grad_accum
+    accum_dtype = torch_dtype(cfg.param_dtype)
+    rules = make_rules(mesh, shape)
+    n_model, n_rows = rules.n_model, mesh.axis_size(rules.batch_axes)
+    B, S = shape.global_batch, shape.seq_len
+    if S % n_model or (B // max(accum, 1)) % n_rows or B % max(accum, 1):
+        raise ValueError(f"batch {B} x {S} does not split: {accum} microbatches, rows over "
+                         f"{rules.batch_axes} ({n_rows}), the sequence over model ({n_model})")
+    if n_model > 1 and cfg.padded_vocab % n_model:
+        raise ValueError(f"vocab {cfg.padded_vocab} does not split over {n_model} model ranks")
+    specs = flatten_specs(param_shardings(model, mesh))
+    axes = flatten_specs(model.param_axes())
+    # each leaf's gradient tile is summed over the axes its param is replicated on
+    repl = {path: tuple(a for a in mesh.axis_names if a not in spec_axes(spec))
+            for path, spec in specs.items()}
+    # a tile's share of the global norm: its square sum counted once per copy
+    copies = {path: mesh.axis_size(r) for path, r in repl.items()}
+    world = mesh.size
+    row_i = mesh.axis_index(rules.batch_axes) if rules.batch_axes else 0
+    seq_i = mesh.axis_index("model") if n_model > 1 else 0
+    dev = mesh.device
+
+    def local_rows(x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global microbatch, and its sequence shard
+        of a (rows, S, ...) input."""
+        b = x.shape[0] // n_rows
+        x = x[row_i * b:(row_i + 1) * b]
+        if n_model > 1 and x.ndim >= 2 and x.shape[1] == S:
+            s = S // n_model
+            x = x[:, seq_i * s:(seq_i + 1) * s]
+        return x.contiguous()
+
+    def view(params: Any, stacked: dict) -> Any:
+        """The params as the model reads them: stacked layer leaves as the
+        rank's tiles (``layer_params`` gathers them per layer), the rest
+        gathered whole, but for the vocab-sharded embedding and head, which
+        the vocab-parallel forms take as tiles."""
+        flat = tree_flatten_with_paths(params)
+        whole = [(path, x) for path, x in flat if axes[path][:1] != ("layers",)
+                 and not (n_model > 1 and "vocab" in axes[path])]
+        full = dict(zip((path for path, _ in whole), unshard_many(
+            [x for _, x in whole], [specs[path] for path, _ in whole], mesh)))
+        for path, x in flat:
+            if axes[path][:1] == ("layers",) and specs[path]:
+                stacked[id(x)] = type(specs[path])(*specs[path][1:])
+        return tree_map_with_paths(lambda path, x: full.get(path, x), params)
+
+    def value_and_grad(leaves, params, batch):
+        for p in leaves:
+            p.requires_grad_(True)
+        rules.stacked = {}
+        try:
+            with activation_rules(rules):
+                loss, metrics = model.loss(view(params, rules.stacked), batch)
+                grads = torch.autograd.grad(loss, leaves,
+                                            grad_outputs=torch.full_like(loss, 1.0 / world))
+        finally:
+            rules.stacked = {}
+            for p in leaves:
+                p.requires_grad_(False)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    def train_step(params: Any, opt_state: dict, batch: dict):
+        batch = shard_batch(batch, dev)
+        flat = tree_flatten_with_paths(params)
+        leaves = [p for _, p in flat]
+        if accum <= 1:
+            mb = {k: local_rows(v) for k, v in batch.items()}
+            loss, metrics, grads = value_and_grad(leaves, params, mb)
+        else:
+            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device) for p in leaves]
+            lsum = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(accum):
+                mb = {k: local_rows(v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i])
+                      for k, v in batch.items()}
+                l, _, g = value_and_grad(leaves, params, mb)
+                for acc, gg in zip(grads, g):
+                    acc.add_((gg / accum).to(accum_dtype))
+                lsum = lsum + l
+            loss = lsum / accum
+            metrics = {}
+        with torch.no_grad():
+            grads = [psum(g, mesh, repl[path]) if repl[path] else g
+                     for (path, _), g in zip(flat, grads)]
+            sq = sum(_leaf_sqnorm(g) / copies[path] for (path, _), g in zip(flat, grads))
+            gnorm = torch.sqrt(psum(sq, mesh, mesh.axis_names))
+        by_path = dict(zip((path for path, _ in flat), grads))
+        grad_tree = tree_map_with_paths(lambda path, _: by_path[path], params)
+        params, opt_state, stats = opt.update(grad_tree, opt_state, params, grad_norm=gnorm)
         return params, opt_state, dict(metrics, loss=loss, **stats)
 
     return train_step

@@ -353,16 +353,16 @@ def test_split_decode_merge_matches_plain_under_the_per_element_rule(chunk, G):
 # -- the training backward ------------------------------------------------------
 
 
-def _flash_vjp_case(B, Sq, Skv, H, KV, hd, causal, seed):
+def _flash_vjp_case(B, Sq, Skv, H, KV, hd, causal, seed, q_offset=0):
     """``flash_attention_plain_lse`` and ``flash_attention_bwd_plain`` against
     ``jax.vjp`` of the JAX package's custom-VJP flash attention (its
-    ``_flash_fwd_core`` and ``_flash_bwd``, query row i at position i); then
-    ``flash_attention`` with grad on (``FlashAttentionFn``) gives the same
-    gradients through autograd."""
+    ``_flash_fwd_core`` and ``_flash_bwd``, query row i at position
+    ``q_offset + i``); then ``flash_attention`` with grad on
+    (``FlashAttentionFn``) gives the same gradients through autograd."""
     rng = np.random.default_rng(seed)
     q, do = (rng.normal(size=(B, Sq, H, hd)).astype(np.float32) for _ in range(2))
     k, v = (rng.normal(size=(B, Skv, KV, hd)).astype(np.float32) for _ in range(2))
-    q_pos = jnp.arange(Sq, dtype=jnp.float32)
+    q_pos = q_offset + jnp.arange(Sq, dtype=jnp.float32)
 
     def jax_fn(q, k, v):
         out = jax_flash_vjp(q.reshape(B, Sq, KV, H // KV, hd), k, v, q_pos, causal, 16, hd ** -0.5)
@@ -371,14 +371,15 @@ def _flash_vjp_case(B, Sq, Skv, H, KV, hd, causal, seed):
     jout, vjp = jax.vjp(jax_fn, *(jnp.asarray(x) for x in (q, k, v)))
     jgrads = vjp(jnp.asarray(do))
     tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
-    out, lse = attn_ref.flash_attention_plain_lse(tq, tk, tv, causal=causal)
+    out, lse = attn_ref.flash_attention_plain_lse(tq, tk, tv, causal=causal, q_offset=q_offset)
     assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
     np.testing.assert_allclose(_np(out), _np(jout), atol=2e-5)
-    grads = attn_ref.flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo, causal=causal)
+    grads = attn_ref.flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo, causal=causal,
+                                               q_offset=q_offset)
     for got, want in zip(grads, jgrads):
         np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
     leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
-    y = attn_ops.flash_attention(*leaves, causal=causal)
+    y = attn_ops.flash_attention(*leaves, causal=causal, q_offset=q_offset)
     assert y.grad_fn is not None
     torch.testing.assert_close(y.detach(), out, rtol=0, atol=0)
     y.backward(tdo)
@@ -405,6 +406,35 @@ def test_flash_backward_plain_matches_the_jax_flash_vjp_at_the_families_shapes(
     128 query rows over 256 keys (seamless's cross-attention) with G = 1 and
     G = 4, and G = 1 at Sq = Skv (seamless's MHA, zamba2's shared site)."""
     _flash_vjp_case(B, Sq, Skv, H, KV, hd, causal, B * Sq + Skv + H + causal)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,q_offset", [
+    (2, 32, 64, 4, 2, 16, 32),     # the last of two sequence shards
+    (2, 16, 64, 6, 3, 16, 16),     # an inner one of four
+    (1, 64, 128, 9, 3, 64, 64),    # smollm's heads, the second of two shards
+    (1, 48, 192, 8, 2, 112, 96),   # kimi-k2's head dim, the third of four
+])
+def test_flash_plain_with_a_query_offset_matches_the_jax_flash_vjp(B, Sq, Skv, H, KV, hd,
+                                                                    q_offset):
+    """A sequence shard's rows against the whole sequence's keys: the causal
+    mask at ``q_offset + row`` (the JAX package's ``q_pos``), forward and
+    gradients, f32, 2e-5 (``_flash_vjp_case``); and the forward against
+    naive attention on the whole sequence, whose rows from ``q_offset`` on
+    are the shard's."""
+    _flash_vjp_case(B, Sq, Skv, H, KV, hd, True, B * Sq + q_offset + hd, q_offset=q_offset)
+    rng = np.random.default_rng(q_offset)
+    q = rng.normal(size=(B, Skv, H, hd)).astype(np.float32)
+    k, v = (rng.normal(size=(B, Skv, KV, hd)).astype(np.float32) for _ in range(2))
+    want = jattn.naive_attention(*(jnp.asarray(x) for x in (q, k, v)), causal=True)
+    got = attn_ref.flash_attention_plain(torch.from_numpy(q[:, q_offset:q_offset + Sq]),
+                                         torch.from_numpy(k), torch.from_numpy(v), causal=True,
+                                         q_offset=q_offset)
+    np.testing.assert_allclose(_np(got), _np(want)[:, q_offset:q_offset + Sq], atol=2e-5)
+
+
+def test_a_negative_query_offset_is_refused():
+    with pytest.raises(ValueError, match="q_offset"):
+        attn_ops._check_offset(-1)
 
 
 def _bf16_parts(x, lo: bool):

@@ -351,6 +351,42 @@ def test_flash_backward_kernels_match_plain(dev, B, Sq, Skv, H, KV, hd, causal, 
         _grad_close(name, got, ref)
 
 
+OFFSET_CASES = [
+    # (B, Sq, Skv, H, KV, hd, q_offset): sequence shards against the whole
+    # sequence's keys (smollm's second of two, llava's four of 704), ragged
+    # ones that start and end inside a 64-key tile, kimi-k2's head dim
+    (8, 64, 128, 9, 3, 64, 64), (2, 176, 704, 32, 8, 128, 0), (2, 176, 704, 32, 8, 128, 528),
+    (1, 37, 130, 4, 2, 32, 61), (2, 50, 100, 16, 2, 112, 50), (1, 1, 70, 8, 8, 64, 69),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,q_offset", OFFSET_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_take_a_query_offset(dev, B, Sq, Skv, H, KV, hd, q_offset, dtype):
+    """Causal rows at positions ``q_offset``..: the forward (with its
+    log-sum-exp) and the backward pair against the plain versions at the
+    same offset, the pair bitwise on a second launch; and the plain
+    forward one position off fails the rule."""
+    q, k, v, dout = _train_inputs(dev, B, Sq, Skv, H, KV, hd, dtype, Sq + Skv + q_offset)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    out = A.flash_attention_cuda(q, k, v, causal=True, q_offset=q_offset, lse=lse)
+    plain_out, plain_lse = R.flash_attention_plain_lse(q, k, v, causal=True, q_offset=q_offset)
+    grads = A.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=True, q_offset=q_offset)
+    again = A.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=True, q_offset=q_offset)
+    ref = R.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True, q_offset=q_offset)
+    torch.cuda.synchronize()
+    _close(out, plain_out, v)
+    assert float((lse - plain_lse).abs().max()) <= 1e-5
+    for name, got, want, rep in zip(("dq", "dk", "dv"), grads, ref, again):
+        _grad_close(name, got, want)
+        assert torch.equal(got, rep), name
+    # one position early (every row loses its last key), or late from 0
+    off = q_offset - 1 if q_offset else 1
+    wrong, _ = R.flash_attention_plain_lse(q, k, v, causal=True, q_offset=off)
+    with pytest.raises(AssertionError):
+        _close(out, wrong, v)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_autograd_on_the_card_counts_its_launches(dev, causal):
     """Through ``flash_attention`` with grad on: one forward (log-sum-exp

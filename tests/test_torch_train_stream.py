@@ -117,7 +117,7 @@ def test_on_rescale_keeps_the_state_on_the_slots_device():
     assert app.device == CPU
     assert {x.device for _, x in tree_flatten_with_paths(moved)} == {CPU}
     app.process(moved, [Msg(_tokens(1, 2, 16))])
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A16"):
         app.on_rescale([CPU, torch.device("meta")])
 
 

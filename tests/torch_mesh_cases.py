@@ -1,0 +1,268 @@
+"""Rank bodies of the port's mesh tests: each runs in a spawned gloo rank
+(``repro_torch.launch.mesh.spawn_ranks``) and returns numpy results for
+the pytest process to check. Imports only the port and numpy, so a rank
+starts without JAX. One function per test file runs every case of that
+file once; the inputs come from the pytest process, made there from seeds.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.launch.mesh import make_mesh
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _rules(mesh, kind="train"):
+    from repro_torch.runtime.sharding import ShardingRules
+
+    return ShardingRules(mesh=mesh, batch_axes=("data",), kind=kind)
+
+
+def _tile(x: np.ndarray, mesh, seq_dim: int = 1) -> torch.Tensor:
+    """This rank's rows (dim 0 over "data") and sequence shard (``seq_dim``
+    over "model") of a global array."""
+    d, m = mesh.axis_index("data"), mesh.axis_index("model")
+    nd, nm = mesh.shape["data"], mesh.shape["model"]
+    b, s = x.shape[0] // nd, x.shape[seq_dim] // nm
+    x = x[d * b:(d + 1) * b]
+    idx = [slice(None)] * x.ndim
+    idx[seq_dim] = slice(m * s, (m + 1) * s)
+    return torch.from_numpy(np.ascontiguousarray(x[tuple(idx)]))
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_distributed.py
+# ---------------------------------------------------------------------------
+
+
+def _vocab_parallel(mesh, inp):
+    from repro_torch.runtime.losses import vocab_parallel_cross_entropy, vocab_parallel_embed
+
+    rules = _rules(mesh)
+    m, nm = mesh.axis_index("model"), mesh.shape["model"]
+    V = inp["head"].shape[0]
+    head = torch.from_numpy(inp["head"][m * V // nm:(m + 1) * V // nm].copy())
+    x = _tile(inp["x"], mesh).requires_grad_(True)
+    tot, cnt = vocab_parallel_cross_entropy(x, head, _tile(inp["targets"], mesh),
+                                            _tile(inp["mask"], mesh), rules, chunk=8)
+    # the loss every rank holds, back-propagated once over the ranks
+    (tot / mesh.size).backward()
+    emb = vocab_parallel_embed(_tile(inp["tokens"], mesh), head, rules)
+    return {"tot": float(tot.detach()), "cnt": float(cnt), "grad_x": _np(x.grad), "embed": _np(emb)}
+
+
+def _attention(mesh, inp):
+    from repro_torch.runtime.ring_attention import ring_attention_shmap
+    from repro_torch.runtime.sharded_attention import sharded_attention
+
+    out = {}
+    for kind, impl in (("prefill", "allgather"), ("train", "allgather"), ("train", "flash")):
+        q, k, v = (_tile(inp[n], mesh) for n in "qkv")
+        out[f"{kind}/{impl}"] = _np(sharded_attention(q, k, v, _rules(mesh, kind), causal=True,
+                                                      block_kv=16, impl=impl))
+    # gradients through the flash path, of sum(sin(out)) over every rank
+    q, k, v = (_tile(inp[n], mesh).requires_grad_(True) for n in "qkv")
+    o = sharded_attention(q, k, v, _rules(mesh, "train"), causal=True, block_kv=16, impl="flash")
+    torch.sin(o).sum().backward()
+    out["grads"] = [_np(t.grad) for t in (q, k, v)]
+    q, k, v = (_tile(inp[n], mesh) for n in "qkv")
+    for causal in (True, False):
+        out[f"ring/{causal}"] = _np(ring_attention_shmap(q, k, v, _rules(mesh, "prefill"),
+                                                         causal=causal, block_kv=16))
+    # "ring" in a train-kind rule takes the flash path, as the reference
+    out["ring/train"] = _np(sharded_attention(q, k, v, _rules(mesh, "train"), causal=True,
+                                              impl="ring"))
+    return out
+
+
+def _train_steps(mesh, inp):
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
+    from repro_torch.runtime.sharding import param_shardings, unshard_tree
+    from repro_torch.runtime.steps import build_train_step, mesh_train_state
+
+    # remat recomputes each layer (its collectives too) in the backward; it
+    # changes no arithmetic, so the one-device step runs without it
+    cfg = get_arch("smollm-135m").reduced(remat="full")
+    model = build_model(cfg)
+    B, S = inp["tokens_train"].shape[1:]
+    opt_cfg = OptimizerConfig(learning_rate=1e-3, warmup_steps=0)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen)
+    state = Optimizer(opt_cfg).init(params)
+    params, state = mesh_train_state(model, params, state, mesh)
+    step = build_train_step(model, ShapeConfig("t", S, B, "train"), opt_cfg, mesh=mesh)
+    metrics = []
+    for i in range(3):
+        params, state, met = step(params, state, {"tokens": inp["tokens_train"][i]})
+        metrics.append({k: float(v) for k, v in met.items()})
+    specs = param_shardings(model, mesh)
+    full = unshard_tree(params, specs, mesh)
+    moments = unshard_tree(state["m"], specs, mesh)
+    tiles = {"wqkv": _np(params["layers"]["wqkv"]), "embed": _np(params["embed"])}
+    return {"metrics": metrics, "tiles": tiles,
+            "params": {k: _np(v) for k, v in _flat(full).items()} if mesh.rank == 0 else None,
+            "m": {k: _np(v) for k, v in _flat(moments).items()} if mesh.rank == 0 else None}
+
+
+def _families(mesh, inp):
+    """One mesh step of the reduced rwkv6 and zamba2 (the token shifts,
+    the sequence-parallel cores and the shared attention site cross the
+    shards); the MoE, VLM and enc-dec families refuse a mesh."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
+    from repro_torch.runtime.sharding import param_shardings, unshard_tree
+    from repro_torch.runtime.steps import build_train_step, mesh_train_state
+
+    out = {}
+    tokens = inp["tokens_families"]
+    B, S = tokens.shape
+    opt_cfg = OptimizerConfig(learning_rate=1e-3, warmup_steps=0)
+    for name in ("rwkv6-3b", "zamba2-1.2b"):
+        model = build_model(get_arch(name).reduced())
+        params = model.init(torch.Generator().manual_seed(1))
+        state = Optimizer(opt_cfg).init(params)
+        params, state = mesh_train_state(model, params, state, mesh)
+        step = build_train_step(model, ShapeConfig("t", S, B, "train"), opt_cfg, mesh=mesh)
+        params, state, met = step(params, state, {"tokens": tokens})
+        full = unshard_tree(params, param_shardings(model, mesh), mesh)
+        out[name] = {"metrics": {k: float(v) for k, v in met.items()},
+                     "params": {k: _np(v) for k, v in _flat(full).items()}
+                     if mesh.rank == 0 else None}
+    for name in ("phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b", "seamless-m4t-medium"):
+        model = build_model(get_arch(name).reduced())
+        params = model.init(torch.Generator().manual_seed(1))
+        state = Optimizer(opt_cfg).init(params)
+        params, state = mesh_train_state(model, params, state, mesh)
+        step = build_train_step(model, ShapeConfig("t", S, B, "train"), opt_cfg, mesh=mesh)
+        try:
+            step(params, state, {"tokens": tokens})
+            out[name] = "ran"
+        except NotImplementedError as exc:
+            out[name] = str(exc)
+    return out
+
+
+def _flat(tree):
+    from repro_torch.utils.tree import tree_flatten_with_paths
+
+    return dict(tree_flatten_with_paths(tree))
+
+
+def _restore(mesh8, mesh4, inp, directory):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime.sharding import P, shard, unshard, unshard_many
+
+    w = torch.from_numpy(inp["w"])
+    state = {"w": shard(w, P("model"), mesh8)}
+    full = {"w": unshard(state["w"], P("model"), mesh8)}
+    mgr = CheckpointManager(directory)
+    if mesh8.rank == 0:
+        mgr.save(1, full)
+    torch.distributed.barrier()
+    spec = P(("data", "model"), None)
+    restored, _ = mgr.restore({"w": w}, shardings={"w": spec}, mesh=mesh4)
+    # tiles of one and two mesh axes on either dim, gathered back in one call
+    specs = [spec, P("model", "data"), P(None, ("model", "data")), P("data")]
+    back = unshard_many([shard(w, s, mesh4) for s in specs], specs, mesh4)
+    return {"tile": _np(restored["w"]), "want": _np(shard(w, spec, mesh4)),
+            "gathered": [_np(x) for x in back]}
+
+
+def distributed_cases(rank: int, inp: dict, directory: str) -> dict:
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    out = {"coords": mesh.coords(), "vocab": _vocab_parallel(mesh, inp),
+           "attention": _attention(mesh, inp), "train": _train_steps(mesh, inp),
+           "families": _families(mesh, inp)}
+    from repro_torch.launch.mesh import make_local_mesh
+
+    out["local_mesh"] = make_local_mesh(n_model=2, device="cpu").shape
+    mesh8 = make_mesh((4,), ("model",), device="cpu")
+    out["restore"] = _restore(mesh8, mesh, inp, directory)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_sequence_parallel.py
+# ---------------------------------------------------------------------------
+
+
+def sequence_parallel_cases(rank: int, inp: dict) -> dict:
+    from repro_torch.runtime.sequence_parallel import conv1d_sharded, ssd_sharded, wkv6_sharded
+
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    rules = _rules(mesh)
+    r, k, v, w = (_tile(inp[n], mesh, seq_dim=2).requires_grad_(True)
+                  for n in ("r", "k", "v", "w"))
+    o, s = wkv6_sharded(r, k, v, w, torch.from_numpy(inp["u"]), rules, chunk=8)
+    torch.sin(o).sum().backward()
+    out = {"wkv": (_np(o), _np(s)), "wkv_grads": [_np(t.grad) for t in (r, k, v, w)]}
+    y, s = ssd_sharded(_tile(inp["x"], mesh), _tile(inp["dt"], mesh), torch.from_numpy(inp["A"]),
+                       _tile(inp["Bm"], mesh), _tile(inp["Cm"], mesh),
+                       torch.from_numpy(inp["D"]), rules, chunk=8)
+    out["ssd"] = (_np(y), _np(s))
+    xc = _tile(inp["xc"], mesh).requires_grad_(True)
+    c = conv1d_sharded(xc, torch.from_numpy(inp["wc"]), torch.from_numpy(inp["bc"]), rules)
+    torch.sin(c).sum().backward()
+    out["conv"] = (_np(c), _np(xc.grad))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_grad_compress.py
+# ---------------------------------------------------------------------------
+
+
+def grad_compress_cases(rank: int, inp: dict) -> dict:
+    from repro_torch.runtime import collectives
+    from repro_torch.runtime.grad_compress import quantized_psum, quantized_psum_tree, resid_len
+
+    mesh = make_mesh((2,), ("pod",), device="cpu")
+    sent = []
+    real = collectives._all_gather
+
+    def spy(mesh_, axes, x, dim):  # record what crosses the wire
+        sent.append(str(x.dtype))
+        return real(mesh_, axes, x, dim)
+
+    collectives._all_gather = spy
+    try:
+        g = torch.from_numpy(inp["g"][rank])
+        red, resid = quantized_psum(g, torch.zeros(resid_len(g.numel())), mesh, "pod")
+    finally:
+        collectives._all_gather = real
+    out = {"wire": sent, "reduced": _np(red), "resid": _np(resid)}
+    # the tree form: each leaf as quantized_psum takes it alone
+    tree = {"a": g[:2], "b": {"c": g[2:].reshape(-1)}}
+    zeros = {"a": torch.zeros(resid_len(512)), "b": {"c": torch.zeros(resid_len(512))}}
+    red_t, resid_t = quantized_psum_tree(tree, zeros, mesh, "pod")
+    alone = [quantized_psum(x, torch.zeros(resid_len(512)), mesh, "pod") for x in (g[:2],
+                                                                                 g[2:].reshape(-1))]
+    out["tree_equal"] = all(torch.equal(a, b) for a, b in (
+        (red_t["a"], alone[0][0]), (red_t["b"]["c"], alone[1][0]),
+        (resid_t["a"], alone[0][1]), (resid_t["b"]["c"], alone[1][1])))
+    # data parallelism on a least-squares problem: exact psum vs int8 wire
+    X, y = torch.from_numpy(inp["X"]), torch.from_numpy(inp["y"])
+    half = X.shape[0] // 2
+    Xl, yl = X[rank * half:(rank + 1) * half], y[rank * half:(rank + 1) * half]
+    for compressed in (False, True):
+        w = torch.zeros(X.shape[1])
+        resid = torch.zeros(resid_len(w.numel()))
+        for _ in range(300):
+            wl = w.clone().requires_grad_(True)
+            loss = ((Xl @ wl - yl) ** 2).mean() / 2  # this rank's half of the mean
+            (gl,) = torch.autograd.grad(loss, wl)
+            if compressed:
+                gsum, resid = quantized_psum(gl, resid, mesh, "pod")
+            else:
+                gsum = collectives.psum(gl, mesh, "pod")
+            w = w - 0.05 * gsum
+        out["final/" + ("compressed" if compressed else "exact")] = float(
+            ((X @ w - y) ** 2).mean())
+    return out

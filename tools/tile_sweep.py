@@ -301,7 +301,7 @@ def sweep_bwd(torch, cs, attn, attn_ops, bwd, gen) -> None:
         ref = attn.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True)
         delta = torch.empty((b, H, s), dtype=torch.float32, device=dev)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-        sizes = (b, s, s, H, KV, hd, 1, 1)
+        sizes = (b, s, s, H, KV, hd, 1, 0, 1)  # causal, q_offset 0, bf16
 
         def run_dq():
             attn_ops.FLASH_BWD_DQ.launch(
