@@ -145,19 +145,36 @@
    collectives staged through host memory, within 90 s, whose ranks load
    the kernels built here and hold sharded attention (forward and
    backward) and ring prefill at llava's S = 704 to the one-device flash
-   kernel, smollm-135m's full-depth f32 mesh steps to the one-device steps
-   under the ``TRAIN_*`` limits, then take 3 counted bf16 steps (losses,
+   kernel, smollm-135m's f32 mesh step (15 of its 30 layers) to the
+   one-device step under the ``TRAIN_*`` limits, then take 2 counted bf16
+   steps (losses,
    step p50, tokens/s, each rank's peak memory), the vocab-parallel loss
    and embedding at smollm's vocabulary against the dense ones, the
    sequence-parallel WKV6 (rwkv6-3b's width) and SSD and conv (zamba2's)
    against the chunked cores, the int8 ``quantized_psum`` over "data", and
-   a save from a (4,) mesh restored onto the (2, 2) one bitwise; prints
+   a save from a (4,) mesh restored onto the (2, 2) one bitwise, and the
+   serving steps on the mesh: smollm-135m at full width and depth in f32, 4
+   prompts of 120 tokens prefilled into a 256-entry cache whose sequence is
+   split over "model" (the second rank's tile empty for the first 8 steps,
+   written and merged from position 128 on), 16 decode steps, every call's
+   logits held to the one-device steps'; prints
    a ``check mesh`` line each and one ``path mesh`` line (backend, staging,
    seconds). Before the main paths, step 3 also checks the flash forward
    and the backward pair at a causal query offset (a sequence shard's rows)
    at smollm's and llava's shard shapes, per element, with an offset one
    off shown to fail, timed beside SDPA with an equal boolean mask;
-10. prints one JSON line ``{"kernels": [...]}`` and, last, one JSON line
+10. runs the dry-run phase (``dryrun_path``, within 45 s): the decode kernel
+   on a cache shard (its start and log-sum-exp) at qwen3-14b's decode_32k
+   rank shard against its plain version, its 16 shards merged against the
+   whole-cache kernel, empty rows 0 and -inf, a start one off shown to fail;
+   smollm-135m's training, prefill and decode steps traced under fake
+   tensors (``runtime/cost_analysis.py``) and run on the card, the FLOPs
+   equal and the traced peak within 10 % of the card's, with wall p50 and
+   ``mfu``; and one production cell (qwen3-14b x decode_32k on the 16 x 16
+   mesh) through ``python -m repro_torch.launch.dryrun`` in a process of its
+   own; prints ``check decode_attention shard``, ``estimate``, ``dryrun
+   cell`` and ``path dryrun`` lines;
+11. prints one JSON line ``{"kernels": [...]}`` and, last, one JSON line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without printing the
@@ -180,16 +197,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 rate outside
-# the tensor cores, and the TF32 and bf16 tensor-core rates (dense). A
-# kernel's operations are held against the peak for its inputs' type: f32
-# for K-Means and the projectors, bf16 for the attention kernels at the
-# serving path's width and the bf16 K-Means checks; the wide f32 K-Means
-# check also against the TF32 rate for the 3 products its design issues
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-TF32_OPS_PER_S = 494.5e12
-BF16_OPS_PER_S = 989e12
+# published H100 SXM peaks (NVIDIA data sheet), from the port's roofline
+# (launch/roofline.py, their one source): HBM3 rate, f32 rate outside the
+# tensor cores, and the TF32 and bf16 tensor-core rates (dense). A kernel's
+# operations are held against the peak for its inputs' type: f32 for
+# K-Means and the projectors, bf16 for the attention kernels at the serving
+# path's width and the bf16 K-Means checks; the wide f32 K-Means check also
+# against the TF32 rate for the 3 products its design issues. Without the
+# repo beside this script the import fails and nothing runs.
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch.roofline import H100, H100_F32_FLOPS, H100_TF32_FLOPS  # noqa: E402
+
+HBM_BYTES_PER_S, BF16_OPS_PER_S = H100.hbm, H100.flops
+F32_OPS_PER_S, TF32_OPS_PER_S = H100_F32_FLOPS, H100_TF32_FLOPS
 F32_EPS = 2.0 ** -23
 BF16_STEP = 2.0 ** -7  # one bf16 step, relative (8 significant bits)
 # the f32 sums of an attention kernel and its plain version, in two orders:
@@ -328,11 +348,36 @@ OFFSET_CASES = ((TRAIN_BATCH, 64, 128, (64,), SERVE_HEADS),
 # the mesh phase: 4 gloo ranks on the one card as a (2, 2) ("data",
 # "model") mesh, within MESH_TIMEOUT_S; llava's attention at B =
 # MESH_ATTN_BATCH in f32 to MESH_F32_TOL; the sequence cores at T =
-# MESH_SEQ_T to MESH_SEQ_TOL (x max(1, max|ref|)); MESH_BF16_STEPS bf16
-# steps of smollm-135m at full width and depth after the f32 check
+# MESH_SEQ_T to MESH_SEQ_TOL (x max(1, max|ref|)); smollm-135m at full
+# width and MESH_TRAIN_LAYERS of its 30 layers, one f32 step against one
+# device, then MESH_BF16_STEPS bf16 steps (3 at full depth until the
+# dry-run phase joined the run: PERF.md §5)
 MESH_SHAPE, MESH_TIMEOUT_S, MESH_ATTN_BATCH = (2, 2), 90, 2
-MESH_F32_TOL, MESH_SEQ_T, MESH_BF16_STEPS = 2e-5, 512, 3
+MESH_F32_TOL, MESH_SEQ_T, MESH_BF16_STEPS, MESH_TRAIN_LAYERS = 2e-5, 512, 2, 15
 MESH_SEQ_TOL = {"wkv6": 2e-4, "ssd": 2e-4, "conv1d": 3e-4}
+# the mesh phase's serving check, in the same 4 ranks: smollm-135m at full
+# width and depth in f32, MESH_SERVE_PROMPTS prompts of MESH_SERVE_PROMPT_LEN
+# tokens prefilled into a cache of MESH_SERVE_CACHE positions (rows over
+# "data", the prompts' and the cache's sequence over "model": tiles of 128
+# positions), then MESH_SERVE_STEPS decode steps on the one-device steps'
+# greedy tokens, at positions 120-135: for the first 8 the second "model"
+# rank's tile holds no valid entry, from position 128 on that rank writes
+# the new entry and both tiles' partials merge; every call's logits within
+# MESH_SERVE_REL x max|logit| of the one-device steps', the mesh's argmax
+# the one-device one's wherever the one-device top-2 gap exceeds RESCORE_GAP
+MESH_SERVE_PROMPTS, MESH_SERVE_PROMPT_LEN, MESH_SERVE_CACHE = 4, 120, 256
+MESH_SERVE_STEPS, MESH_SERVE_REL = 16, 1e-4
+# the dry-run phase (DRY_TIMEOUT_S at most): the decode kernel at qwen3-14b's
+# decode_32k rank shard (DRY_SHARD: 128 / 16 rows, 32 768 / 16 entries, 40
+# over 8 heads of 128, bf16), the 16 shards merged against the whole-cache
+# kernel; smollm-135m's training step (TRAIN_BATCH x TRAIN_SEQ), a prefill of
+# SERVE_BATCH x PROMPT_LEN into a DRY_CACHE-entry cache and a decode step on
+# it, each traced under fake tensors and run on the card: FLOPs
+# equal, the traced peak (less the inputs) within DRY_PEAK_REL of the card's,
+# DRY_REPS timed runs; one production cell, DRY_CELL, through the dry run
+DRY_SHARD = (8, 2048, 16, (40, 8, 128))  # rows, entries a shard, shards, heads
+DRY_PEAK_REL, DRY_TIMEOUT_S, DRY_REPS, DRY_CACHE = 0.10, 45, 5, 512
+DRY_CELL = ("qwen3-14b", "decode_32k")
 
 # a served token must be the re-scoring forward's argmax wherever the top-2
 # logit gap exceeds this: the decode path (decode kernel, cache written one
@@ -3378,8 +3423,8 @@ def _mesh_tiler(mesh, seq_dim: int = 1):
 
 
 def _mesh_train(torch, mesh, kernels) -> dict:
-    """(c): smollm-135m at full width and depth, B = TRAIN_BATCH, S =
-    TRAIN_SEQ, on the 2 x 2 mesh: one f32 step held to the same step on one
+    """(c): smollm-135m at full width and MESH_TRAIN_LAYERS layers, B =
+    TRAIN_BATCH, S = TRAIN_SEQ, on the 2 x 2 mesh: one f32 step held to the same step on one
     device (rank 0, same weights and batch) under the TRAIN_* limits; then MESH_BF16_STEPS bf16 steps (the launch counts set
     to 0 before and read after): losses, step p50, tokens/s, peak memory."""
     from repro_torch.configs import ShapeConfig, get_arch
@@ -3389,7 +3434,7 @@ def _mesh_train(torch, mesh, kernels) -> dict:
     from repro_torch.runtime.sharding import flatten_specs, param_shardings, unshard
     from repro_torch.runtime.steps import build_train_step, mesh_train_state
 
-    base = get_arch("smollm-135m")
+    base = get_arch("smollm-135m").replace(n_layers=MESH_TRAIN_LAYERS)
     opt_cfg = OptimizerConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
                               total_steps=TRAIN_STEPS)
     shape = ShapeConfig("mesh", TRAIN_SEQ, TRAIN_BATCH, "train")
@@ -3636,10 +3681,93 @@ def _worst_of(ranks: list, key: str) -> dict:
     return errs(copy.deepcopy(ranks[0][key]), [r[key] for r in ranks])
 
 
+def _mesh_serve(torch, mesh, kernels) -> dict:
+    """(i): the serving steps on the 2 x 2 mesh (``runtime/steps.py``
+    ``build_prefill_step`` and ``build_decode_step``): smollm-135m at full
+    width and depth in f32, weights drawn alike on every rank, cut to the
+    rank's tiles and gathered once (``bundle.load``); MESH_SERVE_PROMPTS
+    prompts of MESH_SERVE_PROMPT_LEN tokens into a MESH_SERVE_CACHE-entry
+    cache, then MESH_SERVE_STEPS decode steps, across the cache tiles'
+    boundary. Held to the one-device prefill and decode
+    steps on the rank's rows (same weights, the one-device steps' greedy
+    tokens fed to both): every call's logits within MESH_SERVE_REL x
+    max|logit|, the argmax equal wherever the one-device top-2 gap exceeds
+    RESCORE_GAP. The launch counts of the mesh calls (set to 0 before, read
+    after) must show the decode kernel on every rank."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import first_argmax
+    from repro_torch.runtime.sharding import shard_tree
+    from repro_torch.runtime.steps import build_decode_step, build_prefill_step
+
+    cfg = get_arch("smollm-135m").replace(compute_dtype="float32")
+    model = build_model(cfg)
+    dev = mesh.device
+    B, T, C, n = MESH_SERVE_PROMPTS, MESH_SERVE_PROMPT_LEN, MESH_SERVE_CACHE, MESH_SERVE_STEPS
+    gen = torch.Generator().manual_seed(SEED + 11)  # alike on every rank
+    prompts = torch.randint(1, cfg.vocab_size, (B, T), generator=gen, dtype=torch.int32)
+    pre = build_prefill_step(model, ShapeConfig("mesh_prefill", T, B, "prefill"), mesh=mesh,
+                             cache_len=C)
+    dec = build_decode_step(model, ShapeConfig("mesh_decode", C, B, "decode"), mesh=mesh)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    t0 = time.perf_counter()
+    served = pre.load(shard_tree(params, pre.in_specs[0], mesh))  # gathered once
+    load_s = time.perf_counter() - t0
+    del params
+    b = B // mesh.shape["data"]
+    rows = slice(mesh.axis_index("data") * b, (mesh.axis_index("data") + 1) * b)
+    # one device, the rank's rows: greedy tokens and every call's logits
+    one_pre = build_prefill_step(model, ShapeConfig("one_prefill", T, b, "prefill"), device=dev,
+                                 cache_len=C)
+    one_dec = build_decode_step(model, ShapeConfig("one_decode", C, b, "decode"), device=dev)
+    logits, cache = one_pre.fn(served, {"tokens": prompts[rows]})
+    want, toks = [logits], []
+    for i in range(n):
+        tok = first_argmax(want[-1][:, -1], dim=-1).to(torch.int32)[:, None]
+        toks.append(tok)
+        logits, cache = one_dec.fn(served, cache, {"tokens": tok, "positions": torch.full(
+            (b,), T + i, dtype=torch.int32, device=dev)})
+        want.append(logits)
+    del cache
+    torch.cuda.synchronize()
+    for k in kernels.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = pre.fn(served, {"tokens": prompts})
+    got = [logits]
+    for i, tok in enumerate(toks):
+        every = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        every[rows] = tok  # this rank's rows; the others are other ranks'
+        logits, cache = dec.fn(served, cache, {"tokens": every, "positions": torch.full(
+            (B,), T + i, dtype=torch.int32)})
+        got.append(logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    errs, flips = [], 0
+    for g, w in zip(got, want):
+        errs.append(float((g - w).abs().max()) / float(w.abs().max()))
+        top2 = w[:, -1].topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > RESCORE_GAP
+        same = first_argmax(g[:, -1], dim=-1) == first_argmax(w[:, -1], dim=-1)
+        flips += int((sure & ~same).sum())
+    res = {"arch": cfg.name, "compute_dtype": "float32", "prompts": [B, T], "cache": C,
+           "steps": n, "rows": [rows.start, rows.stop], "cache_tile": list(cache["k"].shape),
+           "worst_logit_rel_err": max(errs), "sure_token_flips": flips, "load_s": load_s,
+           "wall_s": wall, "launches": launches,
+           "tol": f"logits {MESH_SERVE_REL} x max|logit|; tokens where the top-2 gap > "
+                  f"{RESCORE_GAP}"}
+    if max(errs) > MESH_SERVE_REL or flips:
+        raise AssertionError(f"mesh serving vs one device: {res}")
+    if launches["decode_attention"] < n * cfg.n_layers:
+        raise AssertionError(f"mesh serving launched the decode kernel {launches} times")
+    return res
+
+
 def mesh_rank(rank: int, directory: str) -> dict:
     """One rank of the mesh phase: a process of the 4-rank gloo group on
     cuda:0, a (2, 2) ("data", "model") mesh. It loads the kernels the parent
-    built (it never builds) and runs (b)-(g); returns its readings."""
+    built (it never builds) and runs (b)-(g) and (i); returns its readings."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
 
@@ -3659,7 +3787,8 @@ def mesh_rank(rank: int, directory: str) -> dict:
                      ("losses", lambda: _mesh_losses(torch, mesh, gen)),
                      ("sequence", lambda: _mesh_sequence(torch, mesh, gen)),
                      ("compress", lambda: _mesh_compress(torch, mesh, gen)),
-                     ("restore", lambda: _mesh_restore(torch, mesh, directory, gen))):
+                     ("restore", lambda: _mesh_restore(torch, mesh, directory, gen)),
+                     ("serve", lambda: _mesh_serve(torch, mesh, kernels))):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out[name] = fn()
@@ -3688,14 +3817,21 @@ def mesh_path(torch, kernels) -> dict:
         raise AssertionError(f"mesh coordinates {[r['coords'] for r in ranks]}")
     for key in ("attention", "losses", "sequence", "compress", "restore"):
         print(f"check mesh {key} " + json.dumps(_worst_of(ranks, key)))
+    serve = {**{k: v for k, v in ranks[0]["serve"].items() if k != "launches"},
+             "worst_logit_rel_err": max(r["serve"]["worst_logit_rel_err"] for r in ranks),
+             "decode_launches_per_rank": [r["serve"]["launches"]["decode_attention"]
+                                          for r in ranks],
+             "cache_tiles": [r["serve"]["cache_tile"] for r in ranks]}
+    print("check mesh serve " + json.dumps(serve))
     train = ranks[0]["train"]
-    launches = {k.name: sum(r["train"]["launches"][k.name] for r in ranks)
-                for k in kernels.KERNELS}
+    launches = {k.name: sum(r["train"]["launches"][k.name] + r["serve"]["launches"][k.name]
+                            for r in ranks) for k in kernels.KERNELS}
     report = {"mesh": dict(zip(("data", "model"), MESH_SHAPE)), "backend": ranks[0]["backend"],
               "staged_through_host": ranks[0]["staged"], "ranks_on": "cuda:0",
               "seconds": wall, "phase_s": {k: max(r[k]["s"] for r in ranks)
                                            for k in ("attention", "train", "losses",
-                                                     "sequence", "compress", "restore")},
+                                                     "sequence", "compress", "restore",
+                                                     "serve")},
               "train": {k: v for k, v in train.items() if k != "launches"},
               "peak_gb_per_rank": [r["train"]["peak_gb"] for r in ranks],
               "launches": launches, "world_of_one_nccl": h}
@@ -3790,6 +3926,247 @@ def checkpoint_round_trip(torch, params) -> dict:
     return res
 
 
+def check_decode_shard(torch, attn) -> dict:
+    """``decode_attention`` on a cache shard (its ``start`` and its
+    log-sum-exp) at qwen3-14b's decode_32k rank shard (DRY_SHARD), bf16,
+    on shard 1 of 16: held to the per-element rule against the plain
+    version (the LSE to 1e-5 x max(1, |lse|)), rows before the shard exactly
+    0 and -inf, a start one off failing the rule on every row with
+    LONG_ROW or more live keys in the shard, a second launch bitwise equal;
+    the 16 shards, merged by their LSEs in f32, held to the rule against the
+    whole-cache kernel. Timed (the shard launch with its LSE) beside the
+    plain version and SDPA with the equal boolean mask."""
+    b, n_ent, n_sh, (H, KV, hd) = DRY_SHARD
+    S, dev = n_ent * n_sh, torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    q = torch.randn((b, 1, H, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, S, KV, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, S, KV, hd), generator=gen, device=dev).bfloat16()
+    start = n_ent  # shard 1
+    # rows: the last entry, before the shard (two: empty), its first, inside,
+    # its last, past it, inside
+    pos = torch.tensor([S - 1, 0, start - 1, start, start + 700, start + n_ent - 1,
+                        start + n_ent + 5000, start + 1500], dtype=torch.int32, device=dev)[:b]
+    ks, vs = k[:, start:start + n_ent].contiguous(), v[:, start:start + n_ent].contiguous()
+    name = f"decode_attention shard B={b} S={n_ent} start={start} hd={hd}"
+    out, lse = attn.decode_attention_lse(q, ks, vs, pos, start=start)
+    ref, ref_lse = attn.decode_attention_plain(q, ks, vs, pos, start=start, with_lse=True)
+    empty = pos < start
+    if not (bool((out[empty] == 0).all()) and bool((lse[empty] == -math.inf).all())):
+        raise AssertionError(f"{name}: rows before the shard are not 0 and -inf")
+    res = _bf16_close(torch, name, out[~empty], ref[~empty], vs)
+    lse_err = (lse[~empty] - ref_lse[~empty]).abs()
+    if bool((lse_err > 1e-5 * torch.clamp(ref_lse[~empty].abs(), min=1.0)).any()):
+        raise AssertionError(f"{name}: lse max err {float(lse_err.max())}")
+    res["lse_max_abs_err"] = float(lse_err.max())
+    res["empty_rows"] = int(empty.sum())
+    live = torch.clamp(pos.long() - start + 1, min=0, max=n_ent)
+    rows = torch.nonzero((live >= LONG_ROW) & (live < n_ent)).flatten()
+    bad = attn.decode_attention_lse(q[rows], ks[rows], vs[rows], pos[rows], start=start + 1)[0]
+    worst = ((bad.float() - ref[rows].float()).abs() / _bf16_tol(torch, ref[rows], vs)
+             ).flatten(1).amax(1)
+    if bool((worst <= 1).any()):
+        raise AssertionError(f"{name}: a start one off passes rows {rows.tolist()}: {worst}")
+    res["start_one_off_least_over_tol"] = float(worst.min())
+    again = attn.decode_attention_lse(q, ks, vs, pos, start=start)
+    torch.cuda.synchronize()
+    if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+        raise AssertionError(f"{name}: a second launch differs bitwise")
+    # the 16 shards merged against the whole-cache kernel
+    parts = [attn.decode_attention_lse(q, k[:, j * n_ent:(j + 1) * n_ent].contiguous(),
+                                       v[:, j * n_ent:(j + 1) * n_ent].contiguous(), pos,
+                                       start=j * n_ent) for j in range(n_sh)]
+    ls = torch.stack([p[1] for p in parts])  # (n, b, H)
+    w = torch.exp(ls - ls.max(dim=0).values)[..., None]  # (n, b, H, 1)
+    os_ = torch.stack([p[0][:, 0].float() for p in parts])  # (n, b, H, hd), each rounded to bf16
+    merged = ((os_ * w).sum(0) / w.sum(0))[:, None]
+    whole = attn.decode_attention_cuda(q, k, v, pos)
+    # the rule, plus one bf16 step of each partial (it was rounded before the merge)
+    tol = _bf16_tol(torch, whole, v) + BF16_STEP * ((os_.abs() * w).sum(0) / w.sum(0))[:, None]
+    err = (merged - whole.float()).abs()
+    if bool((err > tol).any()):
+        raise AssertionError(f"{name}: {n_sh} shards merged against the whole cache: max err "
+                             f"{float(err.max())}, worst err/tol {float((err / tol).max())}")
+    res["merged"] = {"shards": n_sh, "max_abs_err": float(err.max()),
+                     "worst_err_over_tol": float((err / tol).max()),
+                     "tol_rule": "per element 2^-7 |ref| + 2^-15 max|v| + 2^-7 x the partials' "
+                                 "weighted mean |o|"}
+    n_live = int(live.sum())
+    n_bytes = 2 * n_live * KV * hd * 2 + 2 * q.numel() * 2 + b * H * 4 + b * 4
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * n_live * H * hd, BF16_OPS_PER_S)
+    res["ms"] = graph_ms(torch, lambda: attn.decode_attention_lse(q, ks, vs, pos, start=start), 50)
+    res["plain_ms"] = graph_ms(torch, lambda: attn.decode_attention_plain(
+        q, ks, vs, pos, start=start, with_lse=True), 10)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(H // KV, dim=1).contiguous() for x in (ks, vs))
+    mask = (start + torch.arange(n_ent, device=dev)[None, :] <= pos[:, None].long())
+    mask[empty] = True  # SDPA takes no empty row; these rows' work is not in the bound
+    mask = mask[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res["library_ms"] = graph_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask), 50)
+    res["shape"] = (f"qwen3-14b decode_32k rank shard: B={b}, {n_ent} entries from {start}, "
+                    f"{H} heads over {KV} KV of {hd}, bf16, with the LSE")
+    return res
+
+
+def _card_run(torch, fn, args, reps: int) -> dict:
+    """``fn(*args)`` on the card: its FLOPs under ``FlopCounterMode``, the
+    most two back-to-back calls allocate beyond what was allocated before
+    them (with the garbage collector off, so what a call leaves in a
+    reference cycle shows in the next call's peak), and the wall of
+    ``reps`` calls (the FLOP count's call is the warm-up)."""
+    import gc
+
+    from repro_torch.runtime.cost_analysis import count_flops
+
+    flops = count_flops(fn, *args)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gc.disable()
+    try:
+        fn(*args)
+        fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        gc.enable()
+    peak = torch.cuda.max_memory_allocated() - before
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return {"flops": flops, "peak_bytes": peak, "wall_s": walls,
+            "wall_p50_s": sorted(walls)[len(walls) // 2]}
+
+
+def estimate_vs_card(torch, kernels) -> dict:
+    """smollm-135m on one card: the training step (TRAIN_BATCH x TRAIN_SEQ,
+    bf16 compute, f32 AdamW state), a prefill of SERVE_BATCH x PROMPT_LEN
+    into a DRY_CACHE-entry cache and one decode step on it, each
+    built by ``runtime/steps.py`` and traced under fake tensors
+    (``StepBundle.trace``) on the same inputs as its run on the card: the
+    traced FLOPs equal ``FlopCounterMode``'s over the card's step, the
+    traced peak less the inputs within DRY_PEAK_REL of the card's most
+    allocated less what was allocated before; the wall p50 of DRY_REPS
+    runs, ``mfu`` (the roofline's model FLOPs over wall x the datasheet bf16
+    peak) and the counted FLOPs' share (readings). The launch counts of the
+    runs on the card are returned."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.roofline import H100, model_flops
+    from repro_torch.models import build_model
+    from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
+    from repro_torch.runtime.steps import (
+        build_decode_step,
+        build_prefill_step,
+        build_train_bundle,
+    )
+
+    dev = torch.device("cuda", 0)
+    cfg = get_arch("smollm-135m")
+    model = build_model(cfg)
+    opt_cfg = OptimizerConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                              total_steps=TRAIN_STEPS)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    opt = Optimizer(opt_cfg).init(params)
+    batch = {k: torch.as_tensor(x, device=dev)
+             for k, x in train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1)[0].items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    prompts = torch.randint(1, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN), generator=gen,
+                            device=dev, dtype=torch.int32)
+    train = build_train_bundle(model, ShapeConfig("est_train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                               opt_cfg, device=dev)
+    prefill = build_prefill_step(model, ShapeConfig("est_prefill", PROMPT_LEN, SERVE_BATCH,
+                                                    "prefill"), device=dev,
+                                 cache_len=DRY_CACHE)
+    decode = build_decode_step(model, ShapeConfig("est_decode", DRY_CACHE, SERVE_BATCH,
+                                                  "decode"), device=dev)
+    served = model.compute_params(params)
+    _, cache = prefill.fn(served, {"tokens": prompts})
+    step = {"tokens": prompts[:, -1:].contiguous(),
+            "positions": torch.full((SERVE_BATCH,), PROMPT_LEN, dtype=torch.int32, device=dev)}
+    cases = {"train": (train, (params, opt, batch), "train", TRAIN_SEQ, TRAIN_BATCH),
+             "prefill": (prefill, (served, {"tokens": prompts}), "prefill", PROMPT_LEN,
+                         SERVE_BATCH),
+             "decode": (decode, (served, cache, step), "decode", DRY_CACHE, SERVE_BATCH)}
+    out, launches, faults = {}, {k.name: 0 for k in kernels.KERNELS}, []
+    for name, (bundle, args, kind, seq, rows) in cases.items():
+        _, cost = bundle.trace(*args)
+        kernels.reset_launches()
+        card = _card_run(torch, bundle.fn, args, DRY_REPS)
+        for k in kernels.KERNELS:
+            launches[k.name] += k.launches
+        traced_peak = cost.peak_bytes - cost.input_bytes
+        rel = abs(traced_peak - card["peak_bytes"]) / max(card["peak_bytes"], 1)
+        mf = model_flops(cfg.name, kind, seq, rows, 1)
+        p50 = card["wall_p50_s"]
+        out[name] = {"flops_traced": cost.flops, "flops_card": card["flops"],
+                     "peak_traced_bytes": traced_peak, "peak_card_bytes": card["peak_bytes"],
+                     "peak_rel_err": rel, "input_bytes": cost.input_bytes,
+                     "trace_s": cost.seconds, "wall_s": card["wall_s"], "wall_p50_s": p50,
+                     "mfu": mf / (p50 * H100.flops), "counted_share": cost.flops / (p50 * H100.flops),
+                     "model_flops": mf}
+        if cost.flops != card["flops"]:
+            faults.append(f"{name}: traced FLOPs {cost.flops} != the card's {card['flops']}")
+        if rel > DRY_PEAK_REL:
+            faults.append(f"{name}: traced peak {traced_peak} B against the card's "
+                          f"{card['peak_bytes']} B ({rel:.3f} > {DRY_PEAK_REL})")
+    if faults:
+        raise AssertionError(f"estimate against the card: {faults}; {out}")
+    if launches["decode_attention"] < 1 or launches["flash_attention"] < 1 \
+            or launches["flash_attention_bwd_dq"] < 1:
+        raise AssertionError(f"the estimate's steps launched no attention kernel: {launches}")
+    return {"cases": out, "launches": launches, "peaks": H100.name}
+
+
+def production_cell() -> subprocess.Popen:
+    """DRY_CELL on the single-pod 16 x 16 mesh through ``python -m
+    repro_torch.launch.dryrun`` in a process of its own (its fake process
+    group is process-wide). It needs no card: ``main`` starts it beside the
+    kernels' build, and ``dryrun_path`` reads it."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                             DRY_CELL[0], "--shape", DRY_CELL[1]], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def dryrun_path(torch, kernels, cell: subprocess.Popen) -> dict:
+    """The dry-run phase, within DRY_TIMEOUT_S: the decode shard check; the
+    estimate against the card; the record of the production cell, whose
+    trace (``cell``, from ``production_cell``) ran in its own process
+    meanwhile. Prints its lines and seconds."""
+    from repro_torch.kernels import attention
+
+    t0 = time.perf_counter()
+    try:
+        shard = check_decode_shard(torch, attention)
+        print("check decode_attention shard " + json.dumps(shard))
+        est = estimate_vs_card(torch, kernels)
+        for name, r in est["cases"].items():
+            print(f"estimate {name} " + json.dumps(r))
+        out, err = cell.communicate(timeout=max(1.0, DRY_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        if cell.poll() is None:
+            cell.kill()
+            cell.wait()
+    if cell.returncode != 0:
+        raise AssertionError(f"dry run of {DRY_CELL} exited {cell.returncode}: {err[-2000:]}")
+    records = [line[len("[dryrun] record "):] for line in out.splitlines()
+               if line.startswith("[dryrun] record ")]
+    if len(records) != 1:
+        raise AssertionError(f"dry run of {DRY_CELL} printed {len(records)} records: {out[-2000:]}")
+    print("dryrun cell " + records[0])
+    seconds = time.perf_counter() - t0
+    print("path dryrun " + json.dumps({"seconds": seconds, "limit_s": DRY_TIMEOUT_S,
+                                      "cell_trace_s": json.loads(records[0])["trace_s"],
+                                      "peaks": est["peaks"], "launches": est["launches"]}))
+    if seconds > DRY_TIMEOUT_S:
+        raise AssertionError(f"the dry-run phase took {seconds:.1f} s > {DRY_TIMEOUT_S} s")
+    return {"launches": est["launches"], "shard": shard, "estimate": est["cases"],
+            "seconds": seconds}
+
+
 def main() -> None:
     import torch
 
@@ -3797,18 +4174,29 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout of the repo")
-    sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
-
-    from repro_torch import kernels, miniapps, pipeline
-    from repro_torch.core import PilotComputeService
-    from repro_torch.kernels import attention, kmeans, tomo
 
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     print("host " + json.dumps(host_probe(torch)))
+
+    cell = production_cell()  # the dry run's production cell needs no card
+    try:
+        run(torch, cell)
+    finally:
+        if cell.poll() is None:
+            cell.kill()
+            cell.wait()
+
+
+def run(torch, cell: subprocess.Popen) -> None:
+    """Steps 2-11 of the module's docstring; ``cell`` is the dry run's
+    production cell, started beside the build."""
+    from repro_torch import kernels, miniapps, pipeline
+    from repro_torch.core import PilotComputeService
+    from repro_torch.kernels import attention, kmeans, tomo
 
     build_s = kernels.build_all()
     print(f"build: {build_s:.1f} s for {len(kernels.KERNELS)} kernels")
@@ -3957,12 +4345,15 @@ def main() -> None:
     tr = transport_path(torch, kernels, pipeline, miniapps, tomo)
     torch.cuda.empty_cache()  # the ranks share the card
     ms = mesh_path(torch, kernels)
+    torch.cuda.empty_cache()
+    dr = dryrun_path(torch, kernels, cell)
     paths = {"kmeans_path": km["launches"], "kmeans_wide_path": kw["launches"],
              "lightsource_path": rc["launches"], "serve_path": sv["launches"],
              "serve_moe_path": sm["launches"], "families_path": fm["launches"],
              "train_path": tn["launches"], "families_train_path": ftr["launches"],
              "pipeline_path": pl["launches"], "continuous_path": ct["launches"],
-             "transport_path": tr["launches"], "mesh_path": ms["launches"]}
+             "transport_path": tr["launches"], "mesh_path": ms["launches"],
+             "dryrun_path": dr["launches"]}
     launches = {k.name: sum(p[k.name] for p in paths.values()) for k in kernels.KERNELS}
     print("launches " + json.dumps(paths))
     for name, count in launches.items():
@@ -4025,9 +4416,12 @@ def main() -> None:
         ("decode_attention", src + "decode_attention.cu",
          "src/repro/kernels/attention/decode_kernel.py:79",
          {**decode_main, "max_abs_err": max(decode_main["max_abs_err"], decode_112["max_abs_err"],
-                                            decode_128["max_abs_err"],
+                                            decode_128["max_abs_err"], dr["shard"]["max_abs_err"],
                                             *(r["max_abs_err"] for r in fam_decode)),
           "families": family_shapes(fam_decode),
+          "shard": {k: dr["shard"][k] for k in ("shape", "max_abs_err", "worst_err_over_tol",
+                                                "lse_max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")},
           "hd112": moe_shape(decode_112, f"B={SERVE_BATCH} S=256", KIMI_HEADS),
           "hd128": moe_shape(decode_128, f"B={SERVE_BATCH} S=256", PHI_HEADS)}),
         # no TPU kernel: the reference's flash backward is the pure-JAX
@@ -4050,7 +4444,7 @@ def main() -> None:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
          **{key: r[key] for key in ("hd112", "hd128", "families", "with_lse", "scope",
-                                    "q_offset", "q_offset_pair") if key in r}}
+                                    "q_offset", "q_offset_pair", "shard") if key in r}}
         for name, source, replaces, r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

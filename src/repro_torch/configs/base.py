@@ -25,6 +25,15 @@ class ShapeConfig:
     kind: str  # "train" | "prefill" | "decode"
 
 
+#: the JAX package's dry-run shapes of the LM family (seq_len, global_batch, kind)
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 

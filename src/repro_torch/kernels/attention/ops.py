@@ -16,6 +16,23 @@ forward also writes each row's log-sum-exp and whose backward launches
 tensors. Elsewhere the forward launches as for serving, with no
 log-sum-exp written.
 
+The kernels are ``torch.library`` ops (``repro_torch::flash_attention``,
+``flash_attention_lse``, ``flash_attention_bwd``, ``decode_attention``,
+``decode_attention_lse``), defined with ``torch.library.Library``: the
+dispatcher sends CUDA tensors to the kernel's launch and CPU tensors to
+the plain version; a fake tensor (``FakeTensorMode``) takes the op's fake
+implementation, which gives the outputs' shapes and dtypes only, and any
+other device raises, a ``meta`` tensor outside fake mode included.
+(``torch.library.custom_op`` is not used: its kernels import
+``torch._dynamo`` on their first call, seconds.) Each op has a FLOP
+formula (``torch.utils.flop_counter``): the kernel's own work, as
+``PERF.md`` §6 counts its bound, 4 hd per live (query, key) pair and query
+head forward and 10 hd for the backward pair, causal pairs counted from
+``q_offset`` and decode pairs from the valid entries of the shard.
+``FlopCounterMode`` counts the formula once and does not descend into the
+plain version, so a step counts the same FLOPs whichever implementation
+runs (``runtime/cost_analysis.py``).
+
 Kernel notes (each source opens with the full note). All three are
 instantiated for head dims 32, 64, 112 (kimi-k2) and 128 (``HEAD_DIMS``);
 nothing is padded to another head dim, and any other head dim is refused
@@ -56,7 +73,9 @@ before a launch.
   second kernel, launched as the first one's programmatic dependent,
   merges the chunks' partials in chunk order (deterministic). With as many
   pairs as SMs (B=64) there is no split. Blocks past a row's position
-  exit at once.
+  exit at once. A cache shard (``start``: the global position of its
+  first entry) counts entry j valid where ``start + j <= pos``; a row with
+  no valid entry gives 0, and, with the log-sum-exp asked for, -inf.
 """
 from __future__ import annotations
 
@@ -64,6 +83,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._build import CudaKernel, CudaLibrary
 from repro_torch.kernels.attention.ref import (
@@ -85,7 +105,7 @@ FLASH_BWD_LIB = CudaLibrary("flash_attention_bwd.cu", {
 FLASH_BWD_DQ = CudaKernel("flash_attention_bwd_dq", FLASH_BWD_LIB, "flash_attention_bwd_dq")
 FLASH_BWD_DKDV = CudaKernel("flash_attention_bwd_dkdv", FLASH_BWD_LIB, "flash_attention_bwd_dkdv")
 DECODE_LIB = CudaLibrary("decode_attention.cu", {
-    "decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "decode_attention_chunk": [_I, _I, _I, _I, _I, _I, _I],
 })
 DECODE_ATTENTION = CudaKernel("decode_attention", DECODE_LIB, "decode_attention")
@@ -224,10 +244,15 @@ def decode_chunk(library: CudaLibrary, device: torch.device, B: int, S: int, H: 
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                          positions: torch.Tensor) -> torch.Tensor:
+                          positions: torch.Tensor, *, start: int = 0,
+                          lse: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``decode_attention``: q (B, 1, H, hd), caches (B, S, KV, hd),
-    positions (B,) int32 >= 0 on the same device -> (B, 1, H, hd) in v's
-    dtype."""
+    positions (B,) int32 on the same device -> (B, 1, H, hd) in v's dtype.
+    The cache is the shard of a longer one that starts at global position
+    ``start`` >= 0: entry j is valid where ``start + j <= positions``; a row
+    with none gives 0. Given ``lse``, a (B, H) f32 tensor, the kernel also
+    writes each row's log-sum-exp of its scaled scores into it (-inf for a
+    row with no valid entry)."""
     _check_cuda("decode_attention", q, k_cache, v_cache)
     if positions.device != q.device or positions.dtype != torch.int32 \
             or not positions.is_contiguous():
@@ -244,6 +269,11 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
                          f"{tuple(positions.shape)} do not fit")
     if hd not in HEAD_DIMS:
         raise ValueError(f"decode_attention takes head dims {HEAD_DIMS}, got {hd}")
+    start = _check_offset(start)
+    if lse is not None and (lse.shape != (B, H) or lse.dtype != torch.float32
+                            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"decode_attention lse: want a contiguous ({B}, {H}) f32 tensor on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
     out = torch.empty((B, 1, H, hd), dtype=v_cache.dtype, device=q.device)
     code = _DTYPE_CODE[q.dtype]
     with torch.cuda.device(q.device):
@@ -254,47 +284,231 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
         ws = torch.empty(B * H * splits * (hd + 2) if splits > 1 else 0, dtype=torch.float32,
                          device=q.device)
         DECODE_ATTENTION.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                                positions.data_ptr(), out.data_ptr(), ws.data_ptr(), B, S, H, KV,
-                                hd, code, chunk, stream)
+                                positions.data_ptr(), out.data_ptr(),
+                                lse.data_ptr() if lse is not None else None, ws.data_ptr(), B, S,
+                                H, KV, hd, code, chunk, start, stream)
     return out
 
 
+# ---------------------------------------------------------------------------
+# the torch.library ops: CUDA -> the kernel, CPU -> the plain version
+# ---------------------------------------------------------------------------
+
+
+def _fake_only(name: str, *tensors: torch.Tensor) -> None:
+    """The fake implementations serve fake tensors only: a ``meta`` tensor
+    outside ``FakeTensorMode`` has no kernel, as any other device."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if not all(is_fake(t) for t in tensors):
+        raise ValueError(f"no {name} for device {tensors[0].device} (fake tensors take shapes "
+                         f"only; the kernel takes CUDA tensors, the plain version CPU ones)")
+
+
+#: the ops' library: each op a schema, a CUDA kernel (the launch), a CPU
+#: kernel (the plain version) and a fake implementation; the dispatcher
+#: raises for any other device
+_LIB = torch.library.Library("repro_torch", "DEF")
+
+
+def _op(schema: str, cuda, cpu, fake):
+    name = schema.split("(")[0]
+    _LIB.define(schema)
+    _LIB.impl(name, cuda, "CUDA")
+    _LIB.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIB)
+    return getattr(torch.ops.repro_torch, name)
+
+
+def _flash_cuda(q, k, v, causal, q_offset):
+    return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                                q_offset=q_offset)
+
+
+def _flash_cpu(q, k, v, causal, q_offset):
+    return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def _flash_fake(q, k, v, causal, q_offset):
+    _fake_only("flash attention", q, k, v)
+    return q.new_empty(q.shape, dtype=v.dtype)
+
+
+def _flash_lse_cuda(q, k, v, causal, q_offset):
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    B, Sq, H, _ = q.shape
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset, lse=lse), lse
+
+
+def _flash_lse_cpu(q, k, v, causal, q_offset):
+    out, lse = flash_attention_plain_lse(q, k, v, causal=causal, q_offset=q_offset)
+    return out, lse.to(torch.float32)
+
+
+def _flash_lse_fake(q, k, v, causal, q_offset):
+    _fake_only("flash attention", q, k, v)
+    B, Sq, H, _ = q.shape
+    return q.new_empty(q.shape, dtype=v.dtype), q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, dout, causal, q_offset):
+    return flash_attention_bwd_cuda(q, k, v, out, lse, dout.contiguous(), causal=causal,
+                                    q_offset=q_offset)
+
+
+def _flash_bwd_cpu(q, k, v, out, lse, dout, causal, q_offset):
+    return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal, q_offset=q_offset)
+
+
+def _flash_bwd_fake(q, k, v, out, lse, dout, causal, q_offset):
+    _fake_only("flash attention backward", q, k, v, out, lse, dout)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _decode_cuda(q, k_cache, v_cache, positions, start):
+    return decode_attention_cuda(q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
+                                 positions.to(torch.int32).contiguous(), start=start)
+
+
+def _decode_cpu(q, k_cache, v_cache, positions, start):
+    return decode_attention_plain(q, k_cache, v_cache, positions, start=start)
+
+
+def _decode_fake(q, k_cache, v_cache, positions, start):
+    _fake_only("decode attention", q, k_cache, v_cache, positions)
+    return q.new_empty(q.shape, dtype=v_cache.dtype)
+
+
+def _decode_lse_cuda(q, k_cache, v_cache, positions, start):
+    B, _, H, _ = q.shape
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    out = decode_attention_cuda(q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
+                                positions.to(torch.int32).contiguous(), start=start, lse=lse)
+    return out, lse
+
+
+def _decode_lse_cpu(q, k_cache, v_cache, positions, start):
+    return decode_attention_plain(q, k_cache, v_cache, positions, start=start, with_lse=True)
+
+
+def _decode_lse_fake(q, k_cache, v_cache, positions, start):
+    _fake_only("decode attention", q, k_cache, v_cache, positions)
+    B, _, H, _ = q.shape
+    return q.new_empty(q.shape, dtype=v_cache.dtype), q.new_empty((B, H), dtype=torch.float32)
+
+
+#: prefill attention (B, Sq, H, hd) in v's dtype
+flash_attention_op = _op("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+                         "int q_offset) -> Tensor", _flash_cuda, _flash_cpu, _flash_fake)
+#: (out (B, Sq, H, hd) in v's dtype, lse (B, H, Sq) f32)
+flash_attention_lse_op = _op("flash_attention_lse(Tensor q, Tensor k, Tensor v, bool causal, "
+                             "int q_offset) -> (Tensor, Tensor)", _flash_lse_cuda,
+                             _flash_lse_cpu, _flash_lse_fake)
+#: (dq, dk, dv) in the dtypes of q, k and v: the backward pair
+flash_attention_bwd_op = _op("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+                             "Tensor lse, Tensor dout, bool causal, int q_offset) -> "
+                             "(Tensor, Tensor, Tensor)", _flash_bwd_cuda, _flash_bwd_cpu,
+                             _flash_bwd_fake)
+#: one-token attention over a cache shard, (B, 1, H, hd) in v's dtype
+decode_attention_op = _op("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
+                          "Tensor positions, int start) -> Tensor", _decode_cuda, _decode_cpu,
+                          _decode_fake)
+#: (out (B, 1, H, hd) in v's dtype, lse (B, H) f32; -inf and 0 out where a
+#: row has no valid entry in the shard)
+decode_attention_lse_op = _op("decode_attention_lse(Tensor q, Tensor k_cache, Tensor v_cache, "
+                              "Tensor positions, int start) -> (Tensor, Tensor)",
+                              _decode_lse_cuda, _decode_lse_cpu, _decode_lse_fake)
+
+
+# -- FLOP formulas: the kernels' own work (PERF.md §6's bounds) --------------
+
+
+def causal_pairs(sq: int, skv: int, causal: bool, q_offset: int) -> int:
+    """Live (query, key) pairs of one head: every pair, or, causal, row i
+    (at position ``q_offset + i``) against keys 0..q_offset + i (at most skv)."""
+    if not causal:
+        return sq * skv
+    first = q_offset + 1  # keys of row 0
+    below = min(max(skv - first, 0), sq)  # rows short of all skv keys
+    return below * first + below * (below - 1) // 2 + (sq - below) * skv
+
+
+def decode_pairs(positions: torch.Tensor, s: int, start: int) -> int | None:
+    """Valid (row, entry) pairs of a cache shard: min(max(pos - start + 1,
+    0), s) a row. Fake positions are read from the cost trace's known
+    values (``runtime/cost_analysis.py``); None where none is known."""
+    from torch._subclasses.fake_tensor import is_fake, unset_fake_temporarily
+
+    if is_fake(positions) or positions.device.type == "meta":
+        from repro_torch.runtime.cost_analysis import known_value
+
+        positions = known_value(positions)
+        if positions is None:
+            return None
+    with unset_fake_temporarily():
+        pos = positions.detach().to("cpu", torch.int64)
+        return int(torch.clamp(pos - start + 1, min=0, max=s).sum())
+
+
+def _attn_flops(q, k, causal, q_offset, per_pair: int) -> int:
+    B, Sq, H, hd = q.shape
+    return per_pair * hd * B * H * causal_pairs(Sq, k.shape[1], causal, q_offset)
+
+
+def _decode_flops(q, k_cache, positions, start) -> int:
+    B, _, H, hd = q.shape
+    S = k_cache.shape[1]
+    pairs = decode_pairs(positions, S, start)
+    return 4 * hd * H * (B * S if pairs is None else pairs)  # unknown: every entry
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention, get_raw=True)
+def _flash_flop(q, k, v, causal, q_offset, *args, out_val=None, **kwargs) -> int:
+    return _attn_flops(q, k, causal, q_offset, 4)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_lse, get_raw=True)
+def _flash_lse_flop(q, k, v, causal, q_offset, *args, out_val=None, **kwargs) -> int:
+    return _attn_flops(q, k, causal, q_offset, 4)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd, get_raw=True)
+def _flash_bwd_flop(q, k, v, out, lse, dout, causal, q_offset, *args, out_val=None,
+                    **kwargs) -> int:
+    return _attn_flops(q, k, causal, q_offset, 10)
+
+
+@register_flop_formula([torch.ops.repro_torch.decode_attention,
+                        torch.ops.repro_torch.decode_attention_lse], get_raw=True)
+def _decode_flop(q, k_cache, v_cache, positions, start, *args, out_val=None, **kwargs) -> int:
+    return _decode_flops(q, k_cache, positions, start)
+
+
 class FlashAttentionFn(torch.autograd.Function):
-    """Flash attention with its gradient: the forward saves q, k, v, the
-    output and each row's log-sum-exp; the backward is the backward kernels
-    on CUDA tensors, :func:`flash_attention_bwd_plain` on CPU tensors (any
-    other device raises; nothing falls back from one to the other). The
-    causal query offset goes with the saved tensors into the backward."""
+    """Flash attention with its gradient: the forward (``flash_attention_lse``)
+    saves q, k, v, the output and each row's log-sum-exp; the backward is
+    ``flash_attention_bwd``: the backward kernels on CUDA tensors,
+    :func:`flash_attention_bwd_plain` on CPU tensors (any other device
+    raises; nothing falls back from one to the other). The causal query
+    offset goes with the saved tensors into the backward."""
 
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 causal: bool, q_offset: int = 0) -> torch.Tensor:
-        dev = _one_device(q, k, v)
-        if dev.type == "cpu":
-            out, lse = flash_attention_plain_lse(q, k, v, causal=causal, q_offset=q_offset)
-        elif dev.type == "cuda":
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            B, Sq, H, _ = q.shape
-            lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-            out = flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset, lse=lse)
-        else:
-            raise ValueError(f"no flash attention for device {dev}")
+        _one_device(q, k, v)
+        q_offset = _check_offset(q_offset)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention_lse_op(q, k, v, bool(causal), q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.q_offset = causal, q_offset
+        ctx.causal, ctx.q_offset = bool(causal), q_offset
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout: torch.Tensor):
         q, k, v, out, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=ctx.causal,
-                                                   q_offset=ctx.q_offset)
-        elif q.device.type == "cuda":
-            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout.contiguous(),
-                                                  causal=ctx.causal, q_offset=ctx.q_offset)
-        else:
-            raise ValueError(f"no flash attention backward for device {q.device}")
+        dq, dk, dv = flash_attention_bwd_op(q, k, v, out, lse, dout, ctx.causal, ctx.q_offset)
         return dq, dk, dv, None, None
 
 
@@ -309,13 +523,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     shard against the whole sequence's keys)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, q_offset)
-    dev = _one_device(q, k, v)
-    if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
-    if dev.type == "cuda":
-        return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-                                    q_offset=q_offset)
-    raise ValueError(f"no flash attention for device {dev}")
+    _one_device(q, k, v)
+    return flash_attention_op(q, k, v, bool(causal), _check_offset(q_offset))
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -325,27 +534,26 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Sq, H, hd) in q's dtype, lse (B, H, Sq) f32). The plain version for
     CPU tensors, the kernel writing its LSE for CUDA tensors (the ring's
     partials, ``runtime/ring_attention.py``)."""
-    dev = _one_device(q, k, v)
-    if dev.type == "cpu":
-        out, lse = flash_attention_plain_lse(q, k, v, causal=causal, q_offset=q_offset)
-        return out, lse.to(torch.float32)
-    if dev.type == "cuda":
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        B, Sq, H, _ = q.shape
-        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-        return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset, lse=lse), lse
-    raise ValueError(f"no flash attention for device {dev}")
+    _one_device(q, k, v)
+    return flash_attention_lse_op(q, k, v, bool(causal), _check_offset(q_offset))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     positions: torch.Tensor) -> torch.Tensor:
+                     positions: torch.Tensor, *, start: int = 0) -> torch.Tensor:
     """One-token attention over a cache, (B, 1, H, hd) out: the model's
     ``decode_attention``. The plain version for CPU tensors; the CUDA
-    kernel, on contiguous copies and int32 positions, for CUDA tensors."""
-    dev = _one_device(q, k_cache, v_cache, positions)
-    if dev.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, positions)
-    if dev.type == "cuda":
-        return decode_attention_cuda(q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
-                                     positions.to(torch.int32).contiguous())
-    raise ValueError(f"no decode attention for device {dev}")
+    kernel, on contiguous copies and int32 positions, for CUDA tensors.
+    ``start``: the global position of the cache's first entry, where it is
+    the shard of a longer cache (a row with no valid entry gives 0)."""
+    _one_device(q, k_cache, v_cache, positions)
+    return decode_attention_op(q, k_cache, v_cache, positions, _check_offset(start))
+
+
+def decode_attention_lse(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         positions: torch.Tensor, *, start: int = 0
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`decode_attention` and each row's log-sum-exp, (B, H) f32:
+    -inf where the shard holds no valid entry (the partial of a
+    ``cache_seq``-sharded cache, ``runtime/sharded_attention.py``)."""
+    _one_device(q, k_cache, v_cache, positions)
+    return decode_attention_lse_op(q, k_cache, v_cache, positions, _check_offset(start))

@@ -11,7 +11,8 @@
   gradients of q, k and v from the saved output and log-sum-exp.
 * :func:`decode_attention_plain` — one-token attention over a cache as
   ``models/attention.py`` ``decode_attention`` computes it without the
-  kernel: a dense masked softmax where entries ``<= positions`` are valid.
+  kernel: a dense masked softmax where entries ``<= positions`` are valid;
+  on a cache shard from ``start``, with its log-sum-exp for the merge.
 * :func:`attention_ref` — the oracle of ``kernels/attention/ref.py``, in
   the Pallas kernel's (B, H, S, hd) layout.
 
@@ -142,16 +143,26 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                           positions: torch.Tensor) -> torch.Tensor:
+                           positions: torch.Tensor, *, start: int = 0, with_lse: bool = False):
     """q: (B, 1, H, hd); caches: (B, S, KV, hd); positions: (B,) — the new
     token attends to cache entries ``<= positions`` (all S when
-    ``positions >= S``). Output (B, 1, H, hd) in v's dtype."""
+    ``positions >= S``). Output (B, 1, H, hd) in v's dtype. The cache may
+    be the shard of a longer one that starts at global position ``start``:
+    entry j is valid where ``start + j <= positions``, and a row with no
+    valid entry gives 0. ``with_lse`` also returns each row's log-sum-exp
+    of its scaled scores, (B, H) f32, -inf for a row with no valid entry."""
     B, _, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, KV, H // KV, hd).to(torch.float32) * (1.0 / math.sqrt(hd))
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(torch.float32))
-    valid = torch.arange(S, device=q.device)[None, :] <= positions.to(q.device)[:, None]  # (B, S)
+    pos = positions.to(q.device).to(torch.int64) - start
+    valid = torch.arange(S, device=q.device)[None, :] <= pos[:, None]  # (B, S)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
-    return out.reshape(B, 1, H, hd).to(v_cache.dtype)
+    empty = (pos < 0)[:, None, None, None]  # no valid entry in the shard
+    out = torch.where(empty, torch.zeros_like(out), out).reshape(B, 1, H, hd).to(v_cache.dtype)
+    if not with_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1).reshape(B, H)
+    return out, torch.where(empty.reshape(B, 1), torch.full_like(lse, -math.inf), lse)

@@ -58,6 +58,15 @@
 //   atomics touch output values. A merge by the last split block to
 //   finish (a counter, __threadfence, atomicAdd) lost to it by about
 //   0.001 ms at B=4 (PERF.md).
+// * A cache shard. The cache may be the shard of a longer one (a
+//   cache_seq-sharded cache on a mesh) whose first entry sits at global
+//   position `start`: entry j is valid where start + j <= pos. A row with no
+//   valid entry (pos < start) runs chunk 0 over no key and writes 0. Given
+//   an `lse` pointer, the kernel that writes the output (the split kernel
+//   without a split, else the merge) also writes each row's log-sum-exp of
+//   its scaled scores, ln(sum exp) = (m + log2 l) ln 2 from its (m, l), and
+//   -inf where l = 0: the partial that a merge across shards weighs. With
+//   start = 0 and no lse pointer the arithmetic is the unsharded kernel's.
 // Softmax in base 2 (exp2f), with the scale folded into q; the output is
 // acc / max(l, 1e-30).
 //
@@ -77,6 +86,7 @@ constexpr int kWarps = 4;
 constexpr int kSteps = 4;  // keys per lane whose loads go out at once
 constexpr int kMinChunk = 64;  // fewest keys per block when the cache is split
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T>
 struct Slice;  // one lane's 16-byte slice of a key or value row, in f32
@@ -128,10 +138,16 @@ struct Layout {
   static_assert(HD % EPL == 0 && LPK <= 32, "head dim");
 };
 
-// live entries of row b: positions <= pos are valid, all S once pos >= S
-__device__ __forceinline__ int live_keys(const int32_t* pos, int b, int S) {
-  const int p = pos[b];
+// live entries of row b in a shard from global position `start`: entry j is
+// valid where start + j <= pos, all S once pos >= start + S, none below start
+__device__ __forceinline__ int live_keys(const int32_t* pos, int b, int S, int start) {
+  const int p = pos[b] - start;
   return p >= S ? S : max(p + 1, 0);
+}
+
+// natural log-sum-exp of a row from its base-2 running max m and sum l
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * kLn2 : -INFINITY;
 }
 
 // Wait until the grid this one depends on (programmatic dependent launch)
@@ -150,9 +166,9 @@ template <typename T, int HD, int GB>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int32_t* __restrict__ pos,
-                        T* __restrict__ out, float* __restrict__ ws_acc,
-                        float2* __restrict__ ws_ml, int S, int H, int KV, int chunk, int splits,
-                        float scale_log2) {
+                        T* __restrict__ out, float* __restrict__ lse,
+                        float* __restrict__ ws_acc, float2* __restrict__ ws_ml, int S, int H,
+                        int KV, int chunk, int splits, int start, float scale_log2) {
   using L = Layout<T, HD>;
   constexpr int EPL = L::EPL, LPK = L::LPK, KPW = L::KPW, NS = L::NS, R = L::R;
 
@@ -197,7 +213,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the first round's loads go out with the position's, before it is known
   // which of the keys are live
   issue(c0, min(c0 + chunk, S));
-  const int n = live_keys(pos, b, S);
+  const int n = live_keys(pos, b, S, start);
   const int live_chunks = max(1, (n + chunk - 1) / chunk);  // chunk 0 runs even for n = 0
   if (c >= live_chunks) return;
   const int c1 = min(c0 + chunk, n);
@@ -335,6 +351,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t row = static_cast<size_t>(b) * H + h0 + g;
     if (splits == 1) {
       Slice<T>::store(out + row * HD + d, asum / fmaxf(lsum, 1e-30f));
+      if (lse != nullptr && d == 0) lse[row] = row_lse(mx, lsum);
     } else {
       ws_acc[(row * splits + c) * HD + d] = asum;
       if (d == 0) ws_ml[row * splits + c] = make_float2(mx, lsum);
@@ -348,11 +365,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // SMs before that kernel ends: it reads the position, then waits.
 template <typename T>
 __global__ void merge_kernel(const int32_t* __restrict__ pos, T* __restrict__ out,
-                             const float* __restrict__ ws_acc, const float2* __restrict__ ws_ml,
-                             int S, int H, int chunk, int splits) {
+                             float* __restrict__ lse, const float* __restrict__ ws_acc,
+                             const float2* __restrict__ ws_ml, int S, int H, int chunk,
+                             int splits, int start) {
   const size_t row = blockIdx.x;
   const int d = threadIdx.x, hd = blockDim.x;
-  const int n = live_keys(pos, static_cast<int>(row / H), S);  // not written by the split kernel
+  // not written by the split kernel
+  const int n = live_keys(pos, static_cast<int>(row / H), S, start);
   const int live_chunks = max(1, (n + chunk - 1) / chunk);
   wait_for_primary();
   float m = kNegInf, l = 0.f, acc = 0.f;
@@ -368,6 +387,7 @@ __global__ void merge_kernel(const int32_t* __restrict__ pos, T* __restrict__ ou
     m = mn;
   }
   Slice<T>::store(out + row * hd + d, acc / fmaxf(l, 1e-30f));
+  if (lse != nullptr && d == 0) lse[row] = row_lse(m, l);
 }
 
 // the query heads of a KV head go GB to a block: the largest divisor of G
@@ -404,8 +424,8 @@ int choose_chunk(int pairs, int S, int R, int sms) {
 
 template <typename T, int HD, int GB>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pos, void* out,
-                   void* ws, int B, int S, int H, int KV, int chunk, int splits,
-                   cudaStream_t stream) {
+                   float* lse, void* ws, int B, int S, int H, int KV, int chunk, int splits,
+                   int start, cudaStream_t stream) {
   const int ngb = H / KV / GB;
   const dim3 grid(splits, KV * ngb, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
@@ -413,8 +433,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
   float2* ws_ml = reinterpret_cast<float2*>(ws_acc + static_cast<size_t>(B) * H * splits * HD);
   decode_attention_kernel<T, HD, GB><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int32_t*>(pos), static_cast<T*>(out), ws_acc, ws_ml, S, H, KV, chunk,
-      splits, scale_log2);
+      static_cast<const int32_t*>(pos), static_cast<T*>(out), lse, ws_acc, ws_ml, S, H, KV, chunk,
+      splits, start, scale_log2);
   if (splits == 1) return cudaSuccess;
   // the merge, as a programmatic dependent of the split kernel
   cudaLaunchAttribute attr[1];
@@ -428,23 +448,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, merge_kernel<T>, static_cast<const int32_t*>(pos),
-                            static_cast<T*>(out), static_cast<const float*>(ws_acc),
-                            static_cast<const float2*>(ws_ml), S, H, chunk, splits);
+                            static_cast<T*>(out), lse, static_cast<const float*>(ws_acc),
+                            static_cast<const float2*>(ws_ml), S, H, chunk, splits, start);
 }
 
 template <typename T, int HD>
 cudaError_t launch_group(const void* q, const void* k, const void* v, const void* pos,
-                         void* out, void* ws, int B, int S, int H, int KV, int chunk, int splits,
-                         cudaStream_t s) {
+                         void* out, float* lse, void* ws, int B, int S, int H, int KV, int chunk,
+                         int splits, int start, cudaStream_t s) {
   switch (group_block(H / KV)) {
-    case 1: return launch<T, HD, 1>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s);
-    case 2: return launch<T, HD, 2>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s);
-    case 3: return launch<T, HD, 3>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s);
-    case 4: return launch<T, HD, 4>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s);
-    case 5: return launch<T, HD, 5>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s);
-    case 6: return launch<T, HD, 6>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s);
-    case 7: return launch<T, HD, 7>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s);
-    default: return launch<T, HD, 8>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s);
+    case 1: return launch<T, HD, 1>(q, k, v, pos, out, lse, ws, B, S, H, KV, chunk, splits, start, s);
+    case 2: return launch<T, HD, 2>(q, k, v, pos, out, lse, ws, B, S, H, KV, chunk, splits, start, s);
+    case 3: return launch<T, HD, 3>(q, k, v, pos, out, lse, ws, B, S, H, KV, chunk, splits, start, s);
+    case 4: return launch<T, HD, 4>(q, k, v, pos, out, lse, ws, B, S, H, KV, chunk, splits, start, s);
+    case 5: return launch<T, HD, 5>(q, k, v, pos, out, lse, ws, B, S, H, KV, chunk, splits, start, s);
+    case 6: return launch<T, HD, 6>(q, k, v, pos, out, lse, ws, B, S, H, KV, chunk, splits, start, s);
+    case 7: return launch<T, HD, 7>(q, k, v, pos, out, lse, ws, B, S, H, KV, chunk, splits, start, s);
+    default: return launch<T, HD, 8>(q, k, v, pos, out, lse, ws, B, S, H, KV, chunk, splits, start, s);
   }
 }
 
@@ -489,36 +509,39 @@ int decode_attention_chunk(int B, int S, int H, int KV, int hd, int dtype, int s
   return (S + chunk - 1) / chunk > 65535 ? -static_cast<int>(cudaErrorInvalidValue) : chunk;
 }
 
-// q (B, 1, H, hd); k, v (B, S, KV, hd); pos (B,) int32; out (B, 1, H, hd);
-// chunk: keys per block, from decode_attention_chunk (a positive multiple of
-// the round, at most 65535 chunks over S); ws: B H splits (hd + 2) f32,
-// splits = ceil(S / chunk) (unused without a split). All contiguous, 16-byte
-// aligned, f32 (dtype 0) or bf16 (dtype 1). Returns cudaGetLastError().
+// q (B, 1, H, hd); k, v (B, S, KV, hd): the shard of a cache from global
+// position start >= 0; pos (B,) int32; out (B, 1, H, hd); lse: (B, H) f32
+// or null; chunk: keys per block, from decode_attention_chunk (a positive
+// multiple of the round, at most 65535 chunks over S); ws: B H splits
+// (hd + 2) f32, splits = ceil(S / chunk) (unused without a split). All
+// contiguous, 16-byte aligned, f32 (dtype 0) or bf16 (dtype 1). Returns
+// cudaGetLastError().
 int decode_attention(const void* q, const void* k, const void* v, const void* pos, void* out,
-                     void* ws, int B, int S, int H, int KV, int hd, int dtype, int chunk,
-                     void* stream) {
+                     void* lse, void* ws, int B, int S, int H, int KV, int hd, int dtype,
+                     int chunk, int start, void* stream) {
   if (B <= 0) return 0;
   const int R = round_keys(hd, dtype);
-  if (R == 0 || !valid_shape(B, S, H, KV) || chunk < R || chunk % R != 0)
+  if (R == 0 || !valid_shape(B, S, H, KV) || chunk < R || chunk % R != 0 || start < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int splits = (S + chunk - 1) / chunk;
   if (splits > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   cudaError_t err;
   if (dtype == 0) {
     switch (hd) {
-      case 32: err = launch_group<float, 32>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
-      case 64: err = launch_group<float, 64>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
-      case 112: err = launch_group<float, 112>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
-      default: err = launch_group<float, 128>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
+      case 32: err = launch_group<float, 32>(q, k, v, pos, out, l, ws, B, S, H, KV, chunk, splits, start, s); break;
+      case 64: err = launch_group<float, 64>(q, k, v, pos, out, l, ws, B, S, H, KV, chunk, splits, start, s); break;
+      case 112: err = launch_group<float, 112>(q, k, v, pos, out, l, ws, B, S, H, KV, chunk, splits, start, s); break;
+      default: err = launch_group<float, 128>(q, k, v, pos, out, l, ws, B, S, H, KV, chunk, splits, start, s); break;
     }
   } else {
     using bf = __nv_bfloat16;
     switch (hd) {
-      case 32: err = launch_group<bf, 32>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
-      case 64: err = launch_group<bf, 64>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
-      case 112: err = launch_group<bf, 112>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
-      default: err = launch_group<bf, 128>(q, k, v, pos, out, ws, B, S, H, KV, chunk, splits, s); break;
+      case 32: err = launch_group<bf, 32>(q, k, v, pos, out, l, ws, B, S, H, KV, chunk, splits, start, s); break;
+      case 64: err = launch_group<bf, 64>(q, k, v, pos, out, l, ws, B, S, H, KV, chunk, splits, start, s); break;
+      case 112: err = launch_group<bf, 112>(q, k, v, pos, out, l, ws, B, S, H, KV, chunk, splits, start, s); break;
+      default: err = launch_group<bf, 128>(q, k, v, pos, out, l, ws, B, S, H, KV, chunk, splits, start, s); break;
     }
   }
   const cudaError_t last = cudaGetLastError();

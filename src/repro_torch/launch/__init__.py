@@ -1,7 +1,9 @@
 """Launchers of the port: the serving launcher (``serve.py``), the
-streaming-training launcher (``train.py``) and the meshes over
-``torch.distributed`` ranks (``mesh.py``). The dry-run and roofline wait
-for ROADMAP A10."""
+streaming-training launcher (``train.py``), the meshes over
+``torch.distributed`` ranks (``mesh.py``), the dry run of the production
+meshes (``dryrun.py``: one rank's train, prefill and decode step traced
+under fake tensors and a fake process group) and the roofline over its
+records (``roofline.py``, against the H100's datasheet peaks)."""
 import time
 
 

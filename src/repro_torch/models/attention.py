@@ -57,11 +57,15 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, impl: str = "blockwise",
-              causal: bool = True, block_q: int = 512, block_kv: int = 1024) -> torch.Tensor:
+              causal: bool = True, block_q: int = 512, block_kv: int = 1024,
+              with_kv: bool = False):
     """Full-sequence attention by ``impl`` ("blockwise", "naive", "flash",
     "ring"); sequence-parallel under a mesh step with a "model" axis. The
     flash kernel takes its own tiles: the block sizes steer only the
-    sharded path's choice, as in the reference."""
+    sharded path's choice, as in the reference. ``with_kv`` returns (out,
+    k, v) with the whole sequence's K and V of the local rows: on a
+    sequence shard the ones the sharded path gathered (a prefill's cache
+    tile is cut from them), else ``k`` and ``v``."""
     from repro_torch.runtime.sharding import model_parallel
 
     rules = model_parallel()
@@ -70,24 +74,30 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, impl: str = 
 
         shard_impl = {"ring": "ring", "flash": "flash"}.get(impl, "allgather")
         return sharded_attention(q, k, v, rules, causal=causal, block_kv=block_kv,
-                                 impl=shard_impl)
+                                 impl=shard_impl, with_kv=with_kv)
     if impl == "naive":
-        return naive_attention(q, k, v, causal=causal)
-    if impl in ("blockwise", "ring", "flash"):
-        return blockwise_attention(q, k, v, causal=causal)
-    raise ValueError(f"unknown attention impl {impl!r}")
+        out = naive_attention(q, k, v, causal=causal)
+    elif impl in ("blockwise", "ring", "flash"):
+        out = blockwise_attention(q, k, v, causal=causal)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return (out, k, v) if with_kv else out
 
 
-def update_cache(cache: torch.Tensor, new: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def update_cache(cache: torch.Tensor, new: torch.Tensor, positions: torch.Tensor,
+                 start: int = 0) -> torch.Tensor:
     """Write ``new`` (B,1,KV,hd) into ``cache`` (B,S,KV,hd) at per-row
     ``positions``, **in place** (the JAX version returns an updated copy);
     returns ``cache``. As a JAX scatter drops out-of-range updates, a row
     whose position is ``>= S`` keeps its cache unchanged: its index is
-    clamped and the old entry written back, so nothing waits on the host."""
+    clamped and the old entry written back, so nothing waits on the host.
+    ``cache`` may be the tile of a longer cache that starts at global
+    position ``start`` (a ``cache_seq`` shard): only rows whose position
+    lies in [start, start + S) write."""
     B, S = cache.shape[:2]
     rows = torch.arange(B, device=cache.device)
-    pos = positions.to(device=cache.device, dtype=torch.long)
-    at = torch.clamp(pos, max=S - 1)
-    keep = (pos >= S)[:, None, None]
+    pos = positions.to(device=cache.device, dtype=torch.long) - start
+    at = torch.clamp(pos, min=0, max=S - 1)
+    keep = ((pos >= S) | (pos < 0))[:, None, None]
     cache[rows, at] = torch.where(keep, cache[rows, at], new[:, 0].to(cache.dtype))
     return cache

@@ -113,14 +113,18 @@ def layer_params(stack: dict, i: int) -> dict:
     layer axis (the JAX package scans over that axis). Under a mesh step
     whose tiles of the stack are sharded: a :class:`ShardedLayer` of their
     slices, gathered where the layer runs (its gradient reduce-scatters
-    back to the rank's tiles)."""
+    back to the rank's tiles); a serving step, which takes no gradient,
+    gathers them here."""
     from repro_torch.runtime.sharding import current_rules
 
     rules = current_rules()
     out = {k: v[i] for k, v in stack.items()}
     specs = {} if rules is None else {
         k: rules.stacked[id(v)] for k, v in stack.items() if id(v) in rules.stacked}
-    return ShardedLayer(out, specs, rules.mesh) if specs else out
+    if not specs:
+        return out
+    layer = ShardedLayer(out, specs, rules.mesh)
+    return layer if rules.kind == "train" else layer.gather()
 
 
 def spec_struct(specs: SpecTree) -> Any:
@@ -208,22 +212,76 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     from repro_torch.runtime.sharding import model_parallel
 
     rules = model_parallel()
-    if rules is not None and tokens.ndim == 2:
+    if rules is not None and rules.vocab_parallel and tokens.ndim == 2:
         from repro_torch.runtime.losses import vocab_parallel_embed
 
         return vocab_parallel_embed(tokens, embed, rules)
     return embed[tokens]
 
 
-def refuse_mesh(what: str, item: str) -> None:
-    """Raise under a mesh step of more than one rank: ``what`` does not run
-    sharded yet (its ROADMAP ``item``)."""
+def refuse_mesh(what: str, item: str, verb: str = "train") -> None:
+    """Raise under a mesh step of more than one rank: ``what`` does not
+    ``verb`` (train, serve) sharded yet (its ROADMAP ``item``)."""
     from repro_torch.runtime.sharding import current_rules
 
     rules = current_rules()
     if rules is not None and math.prod(rules.mesh.shape.values()) > 1:
-        raise NotImplementedError(f"{what} does not train on a mesh of several ranks yet "
+        raise NotImplementedError(f"{what} does not {verb} on a mesh of several ranks yet "
                                   f"(ROADMAP {item})")
+
+
+def cache_segment(length: int) -> tuple[int, int, tuple]:
+    """(start, size, axes) of this rank's segment of a K/V cache ``length``
+    long: its tile along the sequence under a serving mesh step (the
+    "cache_seq" axes of the rules, ``axes``), the whole cache otherwise
+    (``(0, length, ())``)."""
+    from repro_torch.runtime.sharding import current_rules
+
+    rules = current_rules()
+    if rules is None or rules.kind == "train":
+        return 0, length, ()
+    axes = rules.cache_seq_axes(length)
+    if not axes:
+        return 0, length, ()
+    n = rules.mesh.axis_size(axes)
+    size = length // n
+    return rules.mesh.axis_index(axes) * size, size, axes
+
+
+def decode_segment() -> tuple[int, tuple]:
+    """(start, axes) of this rank's K/V cache tile in a decode step: under
+    a mesh step the global cache length is the rules' ``cache_len``."""
+    from repro_torch.runtime.sharding import current_rules
+
+    rules = current_rules()
+    if rules is None or rules.cache_len is None:
+        return 0, ()
+    start, _, axes = cache_segment(rules.cache_len)
+    return start, axes
+
+
+def write_prompt_cache(cache: torch.Tensor, kv: torch.Tensor, start: int) -> None:
+    """Write the prompt's K or V ``kv`` (B, S, KV, hd), the whole sequence,
+    into a cache tile (B, C, KV, hd) that starts at global position
+    ``start``: the positions of [start, start + C) the prompt holds."""
+    n = max(0, min(cache.shape[1], kv.shape[1] - start))
+    if n:
+        cache[:, :n] = kv[:, start:start + n]
+
+
+def last_shard(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the last "model" rank holds it, on every rank, under a mesh
+    step that shards the sequence (a prompt's last row, a recurrent state
+    after the last shard); ``x`` as is otherwise."""
+    from repro_torch.runtime.sharding import model_parallel
+
+    rules = model_parallel()
+    if rules is None:
+        return x
+    from repro_torch.runtime.collectives import psum
+
+    last = rules.mesh.axis_index("model") == rules.n_model - 1
+    return psum(x * (1.0 if last else 0.0), rules.mesh, "model")
 
 
 def prev_row(x: torch.Tensor) -> torch.Tensor:
@@ -239,6 +297,15 @@ def prev_row(x: torch.Tensor) -> torch.Tensor:
 
     halo = ppermute(x[:, -1].contiguous(), rules.mesh, "model", shift=1)
     return halo * (0.0 if rules.mesh.axis_index("model") == 0 else 1.0)
+
+
+def seq_shards() -> int:
+    """How many shards the sequence is cut into: the "model" ranks under a
+    mesh step that shards it, else 1."""
+    from repro_torch.runtime.sharding import model_parallel
+
+    rules = model_parallel()
+    return 1 if rules is None else rules.n_model
 
 
 def seq_positions(B: int, S: int, device) -> torch.Tensor:

@@ -168,6 +168,7 @@ class EncDecLM(BaseModel):
         (B, S) -> (logits (B, 1, V_pad) f32 of the last token, cache
         {"k", "v"} (L, B, cache_len or S, KV, hd), zeros past S, and
         {"k_mem", "v_mem"} (L, B, S_enc, KV, hd), all in the compute dtype)."""
+        refuse_mesh("the enc-dec family", "A13", "serve")
         cfg, cd = self.cfg, self.compute_dtype
         memory = self._encode(params, batch["frame_embeds"])
         tokens = batch["tokens"]
@@ -197,6 +198,7 @@ class EncDecLM(BaseModel):
         row. Writes the new self-attention entries into ``cache`` in place
         and reads the cross-attention memory; returns (logits (B, 1, V_pad)
         f32, cache)."""
+        refuse_mesh("the enc-dec family", "A13", "serve")
         cfg, cd = self.cfg, self.compute_dtype
         positions = batch["positions"]
         x = embed_lookup(params["embed"], batch["tokens"]).to(cd)

@@ -33,6 +33,7 @@ from repro_torch.models.common import (
     chunked_cross_entropy,
     embed_lookup,
     group_norm,
+    last_shard,
     layer_params,
     prev_row,
     rms_norm,
@@ -254,7 +255,11 @@ class Rwkv6LM(BaseModel):
             per_layer.append(states)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         cache = {k: torch.stack([s[k] for s in per_layer]) for k in per_layer[0]}
-        return self._logits(params, x[:, -1:]), cache
+        # on a sequence shard the token shifts' states are the last shard's
+        # rows (the WKV state is already alike on every "model" rank)
+        for k in ("tm_shift", "cm_shift"):
+            cache[k] = last_shard(cache[k])
+        return self._logits(params, last_shard(x[:, -1:])), cache
 
     def decode(self, params: dict, cache: dict, batch: dict):
         """One step of ``tokens`` (B, 1) (positions are not needed): writes

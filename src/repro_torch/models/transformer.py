@@ -40,14 +40,19 @@ from repro_torch.models.common import (
     ParamSpec,
     ShardedLayer,
     apply_rope,
+    cache_segment,
     chunked_cross_entropy,
+    decode_segment,
     embed_lookup,
+    last_shard,
     layer_params,
     refuse_mesh,
     rms_norm,
     seq_positions,
+    seq_shards,
     shift_targets,
     tree_leaves,
+    write_prompt_cache,
 )
 
 #: the ops whose outputs ``remat="dots"`` keeps (``checkpoint_dots``)
@@ -122,15 +127,18 @@ def _qk_norm(cfg: ArchConfig, p: dict, q: torch.Tensor, k: torch.Tensor):
 
 def attn_block_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *, positions: torch.Tensor,
                      compute_dtype: torch.dtype, causal: bool = True):
-    """Full-sequence attention (prefill). Returns (out, (k, v))."""
+    """Full-sequence attention (prefill). Returns (out, (k, v)), k and v the
+    whole sequence's of the local rows (on a sequence shard, the ones the
+    sharded attention gathered)."""
     cd = compute_dtype
     qkv = x.to(cd) @ p["wqkv"].to(cd)
     q, k, v = _split_qkv(cfg, qkv)
     q, k = _qk_norm(cfg, p, q, k)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
-    out = attn_lib.attention(q, k, v, impl=cfg.attention_impl, causal=causal,
-                             block_q=cfg.attention_block_q, block_kv=cfg.attention_block_kv)
+    out, k, v = attn_lib.attention(q, k, v, impl=cfg.attention_impl, causal=causal,
+                                   block_q=cfg.attention_block_q,
+                                   block_kv=cfg.attention_block_kv, with_kv=True)
     B, S = x.shape[:2]
     return out.reshape(B, S, -1) @ p["wo"].to(cd), (k, v)
 
@@ -139,7 +147,11 @@ def attn_block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, k_cache: torch.
                       v_cache: torch.Tensor, *, positions: torch.Tensor,
                       compute_dtype: torch.dtype):
     """Single-token attention against the cache, ``x``: (B,1,d). Writes the
-    new K/V entry into the caches in place; returns (out, (k_cache, v_cache))."""
+    new K/V entry into the caches in place; returns (out, (k_cache, v_cache)).
+    Under a serving mesh step the caches are the rank's ``cache_seq`` tiles:
+    only the rank whose tile holds a row's position writes its entry, and
+    the tiles' partial attentions merge over the cache axes
+    (``runtime/sharded_attention.py`` ``sharded_decode_attention``)."""
     cd = compute_dtype
     qkv = x.to(cd) @ p["wqkv"].to(cd)
     q, k, v = _split_qkv(cfg, qkv)
@@ -147,9 +159,17 @@ def attn_block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, k_cache: torch.
     pos = positions[:, None]  # (B, 1)
     q = apply_rope(q, pos, cfg.rope_theta, cfg.rope_pct)
     k = apply_rope(k, pos, cfg.rope_theta, cfg.rope_pct)
-    attn_lib.update_cache(k_cache, k, positions)
-    attn_lib.update_cache(v_cache, v, positions)
-    out = attn_lib.decode_attention(q, k_cache, v_cache, positions=positions)
+    start, axes = decode_segment()
+    attn_lib.update_cache(k_cache, k, positions, start)
+    attn_lib.update_cache(v_cache, v, positions, start)
+    if axes:
+        from repro_torch.runtime.sharded_attention import sharded_decode_attention
+        from repro_torch.runtime.sharding import current_rules
+
+        out = sharded_decode_attention(q, k_cache, v_cache, positions, current_rules().mesh,
+                                       start=start, axes=axes)
+    else:
+        out = attn_lib.decode_attention(q, k_cache, v_cache, positions=positions)
     return out.reshape(x.shape[0], 1, -1) @ p["wo"].to(cd), (k_cache, v_cache)
 
 
@@ -268,21 +288,27 @@ class DecoderLM(BaseModel):
     def _forward(self, params: dict, batch: dict, cache_len: int | None = None):
         """Hidden states after the final norm, (B, S, d), and the prompt's
         cache {"k", "v"} (L, B, cache_len or S, KV, hd) in the compute
-        dtype; positions past S are zeros. S counts a VLM's patches."""
+        dtype; positions past S are zeros. S counts a VLM's patches. Under
+        a serving mesh step, S is the rank's sequence shard and the cache
+        the rank's tile of the whole prompt's (``cache_segment``), cut from
+        the K/V the sharded attention gathered."""
         cfg, cd = self.cfg, self.compute_dtype
         x = self._embed_inputs(params, batch)
         B, S, _ = x.shape
         dev = x.device
-        if cache_len is not None and cache_len < S:
-            raise ValueError(f"cache_len {cache_len} is shorter than the prompt's {S} positions")
         positions = seq_positions(B, S, dev)
-        shape = (cfg.n_layers, B, cache_len or S, cfg.n_kv_heads, cfg.resolved_head_dim)
+        whole = S * seq_shards()
+        if cache_len is not None and cache_len < whole:
+            raise ValueError(f"cache_len {cache_len} is shorter than the prompt's {whole} "
+                             f"positions")
+        start, size, _ = cache_segment(cache_len or whole)
+        shape = (cfg.n_layers, B, size, cfg.n_kv_heads, cfg.resolved_head_dim)
         alloc = torch.zeros if cache_len else torch.empty
         cache = {"k": alloc(shape, dtype=cd, device=dev), "v": alloc(shape, dtype=cd, device=dev)}
         for i in range(cfg.n_layers):
             x, (k, v), _ = self._layer_apply(layer_params(params["layers"], i), x, positions)
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+            write_prompt_cache(cache["k"][i], k, start)
+            write_prompt_cache(cache["v"][i], v, start)
         return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
     # ---- public API ------------------------------------------------------
@@ -327,11 +353,18 @@ class DecoderLM(BaseModel):
         position — of ``batch["last_pos"]`` when given, for prompts
         right-padded to a bucket — and the cache). ``cache_len`` allocates
         the cache that long (zeros past S; it counts a VLM's patches), for
-        decoding in place."""
-        x, cache = self._forward(params, batch, cache_len)
+        decoding in place. Under a serving mesh step (``runtime/steps.py``
+        ``build_prefill_step``) the batch is the rank's rows and sequence
+        shard, the logits its rows' and the cache its tile."""
+        if self.is_moe or self.is_vlm:
+            refuse_mesh(f"the {'MoE' if self.is_moe else 'VLM'} family", "A13", "serve")
         last = batch.get("last_pos")
+        if last is not None and seq_shards() > 1:
+            raise NotImplementedError("prefill with last_pos (the paged steps) does not run on "
+                                      "a sequence-sharded mesh")
+        x, cache = self._forward(params, batch, cache_len)
         if last is None:
-            xs = x[:, -1:]
+            xs = last_shard(x[:, -1:])  # the last position: the last "model" rank's
         else:
             xs = x[torch.arange(x.shape[0], device=x.device), last.to(torch.long)][:, None]
         return self._logits(params, xs), cache
@@ -339,8 +372,12 @@ class DecoderLM(BaseModel):
     def decode(self, params: dict, cache: dict, batch: dict):
         """One step: ``tokens`` (B, 1), ``positions`` (B,) write index per
         row. Writes the new entries into ``cache`` in place (the JAX version
-        returns a new cache); returns (logits (B, 1, V_pad) f32, cache)."""
+        returns a new cache); returns (logits (B, 1, V_pad) f32, cache).
+        Under a serving mesh step the rows are the rank's and the cache its
+        ``cache_seq`` tile (``attn_block_decode``)."""
         cfg, cd = self.cfg, self.compute_dtype
+        if self.is_moe or self.is_vlm:
+            refuse_mesh(f"the {'MoE' if self.is_moe else 'VLM'} family", "A13", "serve")
         tokens, positions = batch["tokens"], batch["positions"]
         x = embed_lookup(params["embed"], tokens).to(cd)  # (B, 1, d)
         for i in range(cfg.n_layers):

@@ -22,11 +22,15 @@ from repro_torch.models.base import BaseModel
 from repro_torch.models.common import (
     ParamSpec,
     chunked_cross_entropy,
+    cache_segment,
     embed_lookup,
+    last_shard,
     layer_params,
     rms_norm,
     seq_positions,
+    seq_shards,
     shift_targets,
+    write_prompt_cache,
 )
 from repro_torch.models.ffn import mlp_apply, mlp_specs
 from repro_torch.models.transformer import (
@@ -93,9 +97,12 @@ class ZambaLM(BaseModel):
         positions = seq_positions(B, S, dev)
         cache = None
         if collect_cache:
-            if cache_len is not None and cache_len < S:
-                raise ValueError(f"cache_len {cache_len} is shorter than the prompt's {S} tokens")
-            shape = (self.n_sites, B, cache_len or S, cfg.n_kv_heads, cfg.resolved_head_dim)
+            whole = S * seq_shards()  # on a sequence shard: the whole prompt's length
+            if cache_len is not None and cache_len < whole:
+                raise ValueError(f"cache_len {cache_len} is shorter than the prompt's {whole} "
+                                 f"tokens")
+            start, size, _ = cache_segment(cache_len or whole)
+            shape = (self.n_sites, B, size, cfg.n_kv_heads, cfg.resolved_head_dim)
             alloc = torch.zeros if cache_len else torch.empty
             cache = {"k": alloc(shape, dtype=cd, device=dev),
                      "v": alloc(shape, dtype=cd, device=dev), "mamba": {"conv": [], "ssd": []}}
@@ -107,8 +114,8 @@ class ZambaLM(BaseModel):
         for site, (s, e) in enumerate(self._groups()):
             x, (k, v) = remat_apply(site_remat, shared, x, params["shared"])
             if collect_cache:
-                cache["k"][site, :, :S] = k
-                cache["v"][site, :, :S] = v
+                write_prompt_cache(cache["k"][site], k, start)
+                write_prompt_cache(cache["v"][site], v, start)
             for i in range(s, e):
                 x, state = remat_apply(cfg.remat, mamba, x, layer_params(params["mamba"], i))
                 if collect_cache:
@@ -116,6 +123,9 @@ class ZambaLM(BaseModel):
                     cache["mamba"]["ssd"].append(state["ssd"])
         if collect_cache:
             cache["mamba"] = {k: torch.stack(v) for k, v in cache["mamba"].items()}
+            # on a sequence shard the conv states are the last shard's rows
+            # (the SSD state is already alike on every "model" rank)
+            cache["mamba"]["conv"] = last_shard(cache["mamba"]["conv"])
         return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
     # ---- public API ------------------------------------------------------
@@ -136,7 +146,7 @@ class ZambaLM(BaseModel):
         (B, 1, V_pad) f32 of the last token, cache). ``cache_len`` grows
         only the sites' K/V (zeros past T), for decoding in place."""
         x, cache = self._forward(params, batch["tokens"], cache_len, collect_cache=True)
-        return self._logits(params, x[:, -1:]), cache
+        return self._logits(params, last_shard(x[:, -1:])), cache
 
     def decode(self, params: dict, cache: dict, batch: dict):
         """One step: ``tokens`` (B, 1), ``positions`` (B,) write index per

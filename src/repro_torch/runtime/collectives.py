@@ -17,7 +17,8 @@ Staging: on a gloo mesh with CUDA tensors (``mesh.staged``), each
 collective copies its input to host memory, runs there and copies the
 result back; the choice follows the backend, fixed when the mesh was built.
 gloo's reduce-scatter is an all-reduce and a slice (each rank keeps its
-chunk); NCCL's is ``reduce_scatter_tensor``.
+chunk); NCCL's is ``reduce_scatter_tensor``, and so is that of the ``fake``
+group the dry run traces a production mesh with (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ def _reduce_scatter(mesh: Mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor
     n, i = len(ranks), mesh.axis_index(axes)
     if x.shape[dim] % n:
         raise ValueError(f"reduce-scatter of dim {dim} ({x.shape[dim]}) over {n} ranks")
-    if mesh.backend == "nccl":
+    if mesh.backend in ("nccl", "fake"):  # the fake group stands for NCCL's (the dry run)
         h = x.detach().movedim(dim, 0).contiguous()
         out = torch.empty((h.shape[0] // n,) + h.shape[1:], dtype=h.dtype, device=h.device)
         dist.reduce_scatter_tensor(out, h, group=group)

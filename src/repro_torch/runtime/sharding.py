@@ -70,6 +70,11 @@ class ShardingRules:
     #: stacked param leaves of the running step: id(local tensor) -> spec
     #: of one layer's slice (``models/common.py`` ``layer_params``)
     stacked: dict = field(default_factory=dict, repr=False)
+    #: the embedding and head are the rank's vocab tiles (the train step's
+    #: vocab-parallel forms); the serving steps hold them whole
+    vocab_parallel: bool = True
+    #: a serving step's global K/V cache length (its "cache_seq" tiles)
+    cache_len: int | None = None
 
     @classmethod
     def for_shape(cls, mesh, *, kind: str, global_batch: int, zero: bool = True) -> "ShardingRules":
@@ -83,6 +88,11 @@ class ShardingRules:
     @property
     def n_model(self) -> int:
         return self.mesh.shape.get("model", 1)
+
+    def cache_seq_axes(self, length: int) -> tuple[str, ...]:
+        """The mesh axes a K/V cache ``length`` long splits its sequence
+        over (the "cache_seq" rule), in mesh order; () for none."""
+        return _flat(self._map_name("cache_seq", length))
 
     # -- logical name -> candidate mesh axes --------------------------------
 
@@ -303,9 +313,10 @@ def current_rules() -> "ShardingRules | None":
 
 def model_parallel() -> "ShardingRules | None":
     """The active rules where activations are sequence-sharded on a
-    "model" axis of more than one rank, else None."""
+    "model" axis of more than one rank (training and prefill; a decode
+    step's one token is not), else None."""
     rules = current_rules()
-    if rules is not None and rules.n_model > 1:
+    if rules is not None and rules.n_model > 1 and rules.kind != "decode":
         return rules
     return None
 

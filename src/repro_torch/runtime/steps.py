@@ -35,6 +35,7 @@ reads it.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
@@ -47,10 +48,12 @@ from repro_torch.models.common import first_argmax, torch_dtype
 from repro_torch.runtime.collectives import psum
 from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig, _leaf_sqnorm
 from repro_torch.runtime.sharding import (
+    TENSOR_AXES,
     ShardingRules,
     activation_rules,
     flatten_specs,
     param_shardings,
+    shard_slices,
     shard_tree,
     spec_axes,
     unshard_many,
@@ -202,28 +205,14 @@ def build_mesh_train_step(model: BaseModel, shape: ShapeConfig,
             x = x[:, seq_i * s:(seq_i + 1) * s]
         return x.contiguous()
 
-    def view(params: Any, stacked: dict) -> Any:
-        """The params as the model reads them: stacked layer leaves as the
-        rank's tiles (``layer_params`` gathers them per layer), the rest
-        gathered whole, but for the vocab-sharded embedding and head, which
-        the vocab-parallel forms take as tiles."""
-        flat = tree_flatten_with_paths(params)
-        whole = [(path, x) for path, x in flat if axes[path][:1] != ("layers",)
-                 and not (n_model > 1 and "vocab" in axes[path])]
-        full = dict(zip((path for path, _ in whole), unshard_many(
-            [x for _, x in whole], [specs[path] for path, _ in whole], mesh)))
-        for path, x in flat:
-            if axes[path][:1] == ("layers",) and specs[path]:
-                stacked[id(x)] = type(specs[path])(*specs[path][1:])
-        return tree_map_with_paths(lambda path, x: full.get(path, x), params)
-
     def value_and_grad(leaves, params, batch):
         for p in leaves:
             p.requires_grad_(True)
         rules.stacked = {}
         try:
             with activation_rules(rules):
-                loss, metrics = model.loss(view(params, rules.stacked), batch)
+                loss, metrics = model.loss(
+                    _mesh_view(params, specs, axes, mesh, rules.stacked, n_model > 1), batch)
                 grads = torch.autograd.grad(loss, leaves,
                                             grad_outputs=torch.full_like(loss, 1.0 / world))
         finally:
@@ -262,6 +251,269 @@ def build_mesh_train_step(model: BaseModel, shape: ShapeConfig,
         return params, opt_state, dict(metrics, loss=loss, **stats)
 
     return train_step
+
+
+def _mesh_view(params: Any, specs: dict, axes: dict, mesh, stacked: dict,
+               vocab_tiles: bool) -> Any:
+    """The params as the model reads them on a mesh: stacked layer leaves
+    as the rank's tiles (registered in ``stacked``; ``layer_params``
+    gathers them per layer), the rest gathered whole, but, with
+    ``vocab_tiles``, for the vocab-sharded embedding and head, which the
+    vocab-parallel forms take as tiles."""
+    flat = tree_flatten_with_paths(params)
+    whole = [(path, x) for path, x in flat if axes[path][:1] != ("layers",)
+             and not (vocab_tiles and "vocab" in axes[path])]
+    full = dict(zip((path for path, _ in whole), unshard_many(
+        [x for _, x in whole], [specs[path] for path, _ in whole], mesh)))
+    for path, x in flat:
+        if axes[path][:1] == ("layers",) and specs[path]:
+            stacked[id(x)] = type(specs[path])(*specs[path][1:])
+    return tree_map_with_paths(lambda path, x: full.get(path, x), params)
+
+
+# ---------------------------------------------------------------------------
+# serve on one device or a mesh: prefill & decode (the dry run's steps)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class StepBundle:
+    """A step and what describes it, the reference's ``StepBundle``:
+    ``fn`` (one rank's step), ``in_structs`` (its inputs as ``meta``
+    structs, or small real tensors where their values matter: a decode
+    step's positions), ``in_specs`` and ``out_specs`` (the partition specs
+    of their tiles; None on one device), ``rules``, ``device`` and ``kind``.
+    ``jit`` and ``lower()`` have no counterpart: :meth:`trace` runs one call
+    under fake tensors and the cost counter (``runtime/cost_analysis.py``).
+    ``load`` turns the rank's param tiles into the params the step takes
+    (the serving steps gather whole weights once, here)."""
+
+    fn: Callable
+    in_structs: tuple
+    in_specs: Any
+    out_specs: Any
+    rules: ShardingRules | None
+    device: torch.device
+    kind: str
+    load: Callable = field(default=lambda params: params, repr=False)
+
+    def trace(self, *args, cost: bool = True, device: torch.device | str | None = None):
+        """One call of ``fn`` on ``args`` (by default ``in_structs``) under
+        fake tensors on ``device`` (the bundle's by default): (fake outputs,
+        :class:`~repro_torch.runtime.cost_analysis.StepCost`), or the
+        outputs alone without ``cost``."""
+        from repro_torch.runtime.cost_analysis import trace_cost
+
+        out, c = trace_cost(self.fn, *(args or self.in_structs), device=device or self.device)
+        return (out, c) if cost else out
+
+
+def _serving_zero(model: BaseModel, mesh) -> bool:
+    """Serving shards weights over the batch axes too when the model-axis
+    shard alone would not fit HBM (the 1T config); small models keep weights
+    whole on every rank, gathered once, so that no step moves weights."""
+    from repro_torch.utils.tree import tree_bytes
+
+    per_chip = tree_bytes(model.param_struct()) / mesh.shape.get("model", 1)
+    return per_chip > 8e9
+
+
+def _tile_struct(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The ``meta`` struct of a rank's tile of ``x`` under ``spec``."""
+    sl = shard_slices(spec, x.shape, mesh)
+    shape = [len(range(*s.indices(d))) for s, d in zip(sl, x.shape)]
+    return torch.empty(shape, dtype=x.dtype, device="meta")
+
+
+def _tiles(tree: Any, specs: Any, mesh) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tiles(tree[k], specs[k], mesh) for k in tree}
+    return _tile_struct(tree, specs, mesh)
+
+
+def serving_cache_specs(rules: ShardingRules, model: BaseModel, shape: ShapeConfig,
+                        struct: Any) -> Any:
+    """The serving cache's tile specs: rows over the batch axes and the K/V
+    sequence over the "cache_seq" axes (``model.cache_axes``); tensor axes
+    of the recurrent states (Mamba2's conv channels, "mlp") stay whole, as
+    no tensor-parallel product runs on the serving path (ROADMAP A17)."""
+    def untensor(axes):
+        if isinstance(axes, dict):
+            return {k: untensor(v) for k, v in axes.items()}
+        return tuple(None if a in TENSOR_AXES else a for a in axes)
+    return rules.shardings(untensor(model.cache_axes(shape)), struct)
+
+
+def _serving(model: BaseModel, shape: ShapeConfig, mesh, cache_len: int | None):
+    """What the mesh prefill and decode steps share: (rules, whether the
+    weights stay ZeRO tiles, the params' specs and axes, the rows' and
+    sequence's split, the local-rows function)."""
+    zero = _serving_zero(model, mesh)
+    rules = make_rules(mesh, shape, zero=zero)
+    rules.vocab_parallel = False  # the serving steps hold the embedding and head whole
+    rules.cache_len = cache_len or shape.seq_len
+    n_model, n_rows = rules.n_model, mesh.axis_size(rules.batch_axes)
+    B, S = shape.global_batch, shape.seq_len
+    n_cache = mesh.axis_size(rules.cache_seq_axes(rules.cache_len))
+    if B % n_rows or rules.cache_len % n_cache or (shape.kind == "prefill" and S % n_model):
+        raise ValueError(f"{shape.kind} {B} x {S} (cache {rules.cache_len}) does not split: "
+                         f"rows over {rules.batch_axes} ({n_rows}), the prompt over model "
+                         f"({n_model}), the cache over {rules.cache_seq_axes(rules.cache_len)}")
+    nested = param_shardings(model, mesh, zero=zero)
+    specs = flatten_specs(nested)
+    axes = flatten_specs(model.param_axes())
+    row_i = mesh.axis_index(rules.batch_axes) if rules.batch_axes else 0
+    seq_i = mesh.axis_index("model") if n_model > 1 else 0
+
+    def local(x: torch.Tensor, seq: bool) -> torch.Tensor:
+        b = x.shape[0] // n_rows
+        x = x[row_i * b:(row_i + 1) * b]
+        if seq and n_model > 1:
+            s = x.shape[1] // n_model
+            x = x[:, seq_i * s:(seq_i + 1) * s]
+        return x.contiguous()
+
+    def load(params: Any) -> Any:
+        """The rank's param tiles -> the params the step takes: without ZeRO
+        every leaf gathered whole, once (layer weights in the compute
+        dtype, as the serving path keeps them); with it, the tiles."""
+        if zero:
+            return params
+        flat = tree_flatten_with_paths(params)
+        full = dict(zip((path for path, _ in flat), unshard_many(
+            [x for _, x in flat], [specs[path] for path, _ in flat], mesh)))
+        return model.compute_params(tree_map_with_paths(lambda path, _: full[path], params))
+
+    def view(params: Any) -> Any:
+        if not zero:
+            return params
+        rules.stacked = {}
+        return _mesh_view(params, specs, axes, mesh, rules.stacked, False)
+
+    return rules, zero, nested, local, load, view
+
+
+def _serving_structs(model: BaseModel, mesh, zero: bool, specs: Any) -> Any:
+    """The params a serving step takes, as ``meta`` structs: whole (in the
+    serving dtypes) or, with ZeRO, the rank's tiles."""
+    struct = model.param_struct()
+    return _tiles(struct, specs, mesh) if zero else model.compute_params(struct)
+
+
+def build_prefill_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,
+                       device: torch.device | str | None = None,
+                       cache_len: int | None = None) -> StepBundle:
+    """Prefill of ``shape``'s prompts: ``fn(params, batch) -> (logits
+    (B, 1, V_pad) f32 of the last position, cache)``, the cache ``cache_len``
+    long (the prompt's length by default, as the reference's). On one
+    ``device`` it is ``model.prefill``. On ``mesh`` every rank passes the
+    whole batch and keeps its rows (over the batch axes) and its sequence
+    shard (over "model"), as the train step does; the sharded attention,
+    the sequence-parallel cores and the RoPE offset take the shard's
+    context; the logits are the rank's rows' and the cache its tile by
+    :func:`serving_cache_specs`. ``params`` are what ``bundle.load`` makes
+    of the rank's tiles."""
+    if (mesh is None) == (device is None):
+        raise ValueError("build_prefill_step takes a device or a mesh")
+    batch_struct = model.input_specs(shape)
+    if mesh is None:
+        dev = resolve_device(device)
+
+        @torch.no_grad()
+        def prefill(params, batch):
+            return model.prefill(params, shard_batch(batch, dev), cache_len=cache_len)
+
+        return StepBundle(prefill, (model.compute_params(model.param_struct()), batch_struct),
+                          None, None, None, dev, "prefill")
+    rules, zero, specs, local, load, view = _serving(model, shape, mesh, cache_len)
+    dev = mesh.device
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        batch = {k: local(v, v.ndim >= 2) for k, v in shard_batch(batch, dev).items()}
+        with activation_rules(rules):
+            return model.prefill(view(params), batch, cache_len=rules.cache_len)
+
+    cache_shape = ShapeConfig(shape.name, rules.cache_len, shape.global_batch, "decode")
+    out_specs = serving_cache_specs(rules, model, cache_shape, model.cache_struct(cache_shape))
+    return StepBundle(prefill, (_serving_structs(model, mesh, zero, specs), batch_struct),
+                      (specs, model.input_axes(shape)), out_specs, rules, dev, "prefill", load)
+
+
+def build_decode_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,
+                      device: torch.device | str | None = None) -> StepBundle:
+    """One decode step at ``shape``: ``fn(params, cache, batch) -> (logits
+    (B, 1, V_pad) f32, cache)``, the cache written in place; ``batch``:
+    ``tokens`` (B, 1) and ``positions`` (B,). On one ``device`` it is
+    ``model.decode``. On ``mesh`` every rank passes the whole batch and
+    keeps its rows; ``cache`` is the rank's tile (:func:`serving_cache_specs`:
+    the K/V sequence over the "cache_seq" axes, which take unused data axes
+    too when the batch is too small for them). The bundle's positions are
+    the cache's last entry (a full cache, as the reference's decode reads
+    every entry)."""
+    if (mesh is None) == (device is None):
+        raise ValueError("build_decode_step takes a device or a mesh")
+    B = shape.global_batch
+    batch_struct = {**model.input_specs(shape),
+                    "positions": torch.full((B,), shape.seq_len - 1, dtype=torch.int32)}
+    cache_struct = model.cache_struct(shape)
+    if mesh is None:
+        dev = resolve_device(device)
+
+        @torch.no_grad()
+        def decode(params, cache, batch):
+            return model.decode(params, cache, shard_batch(batch, dev))
+
+        return StepBundle(decode, (model.compute_params(model.param_struct()), cache_struct,
+                                   batch_struct), None, None, None, dev, "decode")
+    rules, zero, specs, local, load, view = _serving(model, shape, mesh, shape.seq_len)
+    dev = mesh.device
+    cache_specs = serving_cache_specs(rules, model, shape, cache_struct)
+
+    @torch.no_grad()
+    def decode(params, cache, batch):
+        batch = {k: local(v, False) for k, v in shard_batch(batch, dev).items()}
+        with activation_rules(rules):
+            return model.decode(view(params), cache, batch)
+
+    return StepBundle(decode, (_serving_structs(model, mesh, zero, specs),
+                               _tiles(cache_struct, cache_specs, mesh), batch_struct),
+                      (specs, cache_specs, model.input_axes(shape)), cache_specs, rules, dev,
+                      "decode", load)
+
+
+def build_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,
+               device: torch.device | str | None = None, **kw) -> StepBundle:
+    """Dispatch on the shape kind (train, prefill, decode), as the
+    reference's ``build_step``. A train bundle's ``fn(params, opt_state,
+    batch)`` takes the rank's tiles (:func:`mesh_train_state`)."""
+    if shape.kind == "prefill":
+        return build_prefill_step(model, shape, mesh=mesh, device=device, **kw)
+    if shape.kind == "decode":
+        return build_decode_step(model, shape, mesh=mesh, device=device, **kw)
+    return build_train_bundle(model, shape, mesh=mesh, device=device, **kw)
+
+
+def build_train_bundle(model: BaseModel, shape: ShapeConfig, opt_cfg: OptimizerConfig | None = None,
+                       *, mesh=None, device: torch.device | str | None = None,
+                       grad_accum: int | None = None) -> StepBundle:
+    """:func:`build_train_step` as a :class:`StepBundle`: its inputs are the
+    rank's param and optimizer-state tiles and the global batch."""
+    cfg = model.cfg
+    opt = Optimizer(opt_cfg or OptimizerConfig(
+        name=cfg.optimizer, moment_dtype=cfg.moment_dtype, first_moment=cfg.first_moment))
+    fn = build_train_step(model, shape, opt.cfg, grad_accum=grad_accum, device=device, mesh=mesh)
+    p_struct = model.param_struct()
+    o_struct = opt.state_struct(p_struct)
+    if mesh is None:
+        return StepBundle(fn, (p_struct, o_struct, model.input_specs(shape)), None, None, None,
+                          resolve_device(device), "train")
+    specs = param_shardings(model, mesh)
+    p_tiles = _tiles(p_struct, specs, mesh)
+    o_tiles = {k: (v if k == "step" else _tiles(v, specs, mesh)) for k, v in o_struct.items()}
+    rules = make_rules(mesh, shape)
+    return StepBundle(fn, (p_tiles, o_tiles, model.input_specs(shape)),
+                      (specs, model.input_axes(shape)), specs, rules, mesh.device, "train")
 
 
 # ---------------------------------------------------------------------------

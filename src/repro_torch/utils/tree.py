@@ -34,36 +34,39 @@ def _children(node: Any) -> list[tuple[str, Any]] | None:
 def tree_flatten_with_paths(tree: Any) -> list[tuple[str, Any]]:
     """Flatten a tree into ``[("a/b/0", leaf), ...]`` with stable paths."""
     out: list[tuple[str, Any]] = []
-
-    def walk(node: Any, prefix: tuple[str, ...]) -> None:
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out.append(("/".join(prefix), node))
-            return
-        for key, child in kids:
-            walk(child, prefix + (key,))
-
-    walk(tree, ())
+    _flatten(tree, (), out)
     return out
+
+
+# The walks are module functions, not closures that call themselves: such
+# a closure is a reference cycle holding what it captured (the leaves, a
+# train step's gradients) until the garbage collector runs.
+def _flatten(node: Any, prefix: tuple[str, ...], out: list) -> None:
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out.append(("/".join(prefix), node))
+        return
+    for key, child in kids:
+        _flatten(child, prefix + (key,), out)
 
 
 def tree_map_with_paths(fn: Callable[[str, Any], Any], tree: Any) -> Any:
     """The same nesting with every leaf replaced by ``fn(path, leaf)``."""
+    return _map(fn, tree, ())
 
-    def walk(node: Any, prefix: tuple[str, ...]) -> Any:
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: walk(node[k], prefix + (str(k),)) for k in node}
-        if _is_namedtuple(node):
-            return type(node)(*(walk(getattr(node, f), prefix + (f,)) for f in node._fields))
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v, prefix + (str(i),)) for i, v in enumerate(node))
-        return fn("/".join(prefix), node)
 
-    return walk(tree, ())
+def _map(fn: Callable[[str, Any], Any], node: Any, prefix: tuple[str, ...]) -> Any:
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _map(fn, node[k], prefix + (str(k),)) for k in node}
+    if _is_namedtuple(node):
+        return type(node)(*(_map(fn, getattr(node, f), prefix + (f,)) for f in node._fields))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map(fn, v, prefix + (str(i),)) for i, v in enumerate(node))
+    return fn("/".join(prefix), node)
 
 
 def _leaves(tree: Any) -> list:

@@ -1,0 +1,330 @@
+"""The port's static cost analysis (``runtime/cost_analysis.py``), the
+attention kernels as ``torch.library`` ops with their FLOP formulas, the
+decode plain version on a cache shard, and the dry run
+(``launch/dryrun.py``) on small fake meshes.
+
+* The reference's tanh-MLP gradient (``tests/test_hlo_analysis.py``'s
+  ``_compiled``), written in torch, counts exactly 3 L 2 32 128 128 FLOPs
+  (every layer's input gradient taken, as the reference's scan body takes
+  it); the reference's ``analyze_hlo`` of its scan lies within 10 % of that,
+  and depth 8 counts exactly twice depth 4.
+* The column-sharded ``x @ w`` of ``test_collective_bytes_on_sharded_module``
+  on a fake 8-rank group counts one all-reduce of 4 bytes.
+* Each attention op's fake output has its plain output's shape and dtype,
+  ``FlopCounterMode`` over a CPU call counts the op's formula (not the plain
+  version's products), and a ``meta`` tensor outside fake mode is refused.
+* The decode plain version on 4 shards of a cache (``start`` and the
+  log-sum-exp), merged, equals the JAX package's ``decode_attention`` over
+  the whole cache within 1e-5 (f32); a row with no valid entry gives 0 and
+  -inf.
+* The dry run's records on ``reduced()`` configs over fake (2, 2) and
+  (2, 2, 2) meshes, each step kind, have the reference's keys; a train
+  cell's peak holds at least the rank's param and moment tiles; the FLOPs
+  of all ranks sum to the one-device count of the same global step (train:
+  within 1 %; the gaps of prefill and decode are the work each "model" rank
+  repeats, computed and checked); a refused family is recorded as skipped.
+
+The cases that start a fake process group run in a subprocess (the group
+is process-wide).
+"""
+import json
+import math
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro.models.attention import decode_attention as jax_decode_attention
+from repro.runtime.hlo_analysis import analyze_hlo
+from repro_torch.kernels.attention import ops
+from repro_torch.kernels.attention.ref import decode_attention_plain
+from repro_torch.runtime.cost_analysis import trace_cost
+
+ROOT = Path(__file__).resolve().parents[1]
+torch.set_num_threads(1)
+
+
+def _run(code: str, timeout: float = 600) -> dict:
+    """Run ``code`` in a fresh process (it owns the fake process group);
+    its last printed line is a JSON object."""
+    res = subprocess.run([sys.executable, "-c", textwrap.dedent(code)], capture_output=True,
+                         text=True, timeout=timeout, cwd=ROOT,
+                         env={**__import__("os").environ, "PYTHONPATH": "src"})
+    assert res.returncode == 0, f"STDOUT:\n{res.stdout}\nSTDERR:\n{res.stderr}"
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+# -- the counter -----------------------------------------------------------------
+
+
+def _mlp_grad(L: int):
+    def f(w, x):
+        w.requires_grad_(True)
+        x.requires_grad_(True)
+        h = x
+        for i in range(L):
+            h = torch.tanh(h @ w[i])
+        return torch.autograd.grad(h.sum(), (w, x))
+    return trace_cost(f, torch.empty(L, 128, 128, device="meta"),
+                      torch.empty(32, 128, device="meta"), device="cpu")[1]
+
+
+def _jax_scan_grad(L: int):
+    def f(w, x):
+        def layer(x, wi):
+            return jnp.tanh(x @ wi), ()
+        x, _ = jax.lax.scan(layer, x, w)
+        return x.sum()
+    return jax.jit(jax.grad(f)).lower(jax.ShapeDtypeStruct((L, 128, 128), jnp.float32),
+                                      jax.ShapeDtypeStruct((32, 128), jnp.float32)).compile()
+
+
+def test_tanh_mlp_gradient_counts_the_analytic_flops():
+    L = 8
+    analytic = 3 * L * 2 * 32 * 128 * 128  # forward and the backward's two products
+    cost = _mlp_grad(L)
+    assert cost.flops == analytic
+    ref = analyze_hlo(_jax_scan_grad(L).as_text()).flops
+    assert abs(ref - analytic) / analytic < 0.10
+    # the inputs (and the two gradients the step returns) are live at the end
+    assert cost.input_bytes == (L * 128 * 128 + 32 * 128) * 4
+    assert cost.peak_bytes >= cost.input_bytes + cost.output_bytes
+
+
+def test_flops_scale_with_depth_exactly():
+    assert _mlp_grad(8).flops == 2 * _mlp_grad(4).flops
+
+
+def test_peak_counts_live_storage_once():
+    """A chain that frees as it goes: the inputs, then at most two 4 KiB
+    temporaries at once; an in-place update adds nothing."""
+    def f(x):
+        a = x * 2.0
+        b = a + 1.0
+        b.add_(1.0)
+        return b
+    _, c = trace_cost(f, torch.empty(1024, device="meta"), device="cpu")
+    assert c.input_bytes == 4096 and c.peak_bytes == 3 * 4096
+    assert c.bytes_moved == 4096 + 3 * 2 * 4096  # inputs once, each op's output twice
+    _, c = trace_cost(f, torch.empty(1000, device="meta"), device="cuda")
+    assert c.peak_bytes == 3 * 4096  # 4000 bytes a storage, in 512-byte blocks
+
+
+def test_collective_bytes_on_a_sharded_product():
+    out = _run("""
+        import json, torch
+        import torch.distributed as dist
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.runtime.collectives import psum
+        from repro_torch.runtime.cost_analysis import trace_cost
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+        mesh = make_mesh((8,), ("model",), device="cpu")
+        def f(x, w):  # w column-sharded: the rank's (256, 64) tile; a cross-shard sum
+            return psum((x @ w).sum(), mesh, "model")
+        _, c = trace_cost(f, torch.empty(64, 256, device="meta"),
+                          torch.empty(256, 512 // 8, device="meta"), device="cpu")
+        print(json.dumps({"counts": c.collective_counts, "bytes": c.collective_bytes,
+                          "in_node": c.collective_bytes_in_node, "flops": c.flops}))
+    """)
+    assert out["counts"] == {"all-reduce": 1} and out["bytes"] == 4.0
+    assert out["in_node"] == 4.0  # ranks 0-7: one node
+    assert out["flops"] == 2 * 64 * 256 * 64
+
+
+# -- the ops -----------------------------------------------------------------------
+
+
+def _qkv(B=2, Sq=24, Skv=40, H=4, KV=2, hd=32, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(B, Sq, H, hd, generator=g), torch.randn(B, Skv, KV, hd, generator=g),
+            torch.randn(B, Skv, KV, hd, generator=g))
+
+
+def _pairs(sq, skv, causal, off):
+    if not causal:
+        return sq * skv
+    return sum(min(max(off + i + 1, 0), skv) for i in range(sq))
+
+
+def _cases():
+    q, k, v = _qkv()
+    out, lse = ops.flash_attention_lse(q, k, v, causal=True, q_offset=16)
+    dout = torch.randn_like(out)
+    pos = torch.tensor([5, 37])
+    qd = q[:, :1].contiguous()
+    B, H, hd = 2, 4, 32
+    fl = lambda causal, off, per: per * hd * B * H * _pairs(24, 40, causal, off)  # noqa: E731
+    valid = sum(min(max(int(p) - 8 + 1, 0), 40) for p in pos)
+    return {
+        "flash_attention": (ops.flash_attention_op, (q, k, v, True, 16), fl(True, 16, 4)),
+        "flash_attention_lse": (ops.flash_attention_lse_op, (q, k, v, False, 0), fl(False, 0, 4)),
+        "flash_attention_bwd": (ops.flash_attention_bwd_op, (q, k, v, out, lse, dout, True, 16),
+                                fl(True, 16, 10)),
+        "decode_attention": (ops.decode_attention_op, (qd, k, v, pos, 8), 4 * hd * H * valid),
+        "decode_attention_lse": (ops.decode_attention_lse_op, (qd, k, v, pos, 8),
+                                 4 * hd * H * valid),
+    }
+
+
+@pytest.mark.parametrize("name", list(_cases()))
+def test_op_fake_outputs_match_the_plain_outputs(name):
+    op, args, _ = _cases()[name]
+    real = op(*args)
+    with FakeTensorMode() as mode:
+        fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
+    real = real if isinstance(real, tuple) else (real,)
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    assert [(t.shape, t.dtype) for t in fake] == [(t.shape, t.dtype) for t in real]
+
+
+@pytest.mark.parametrize("name", list(_cases()))
+def test_flop_counter_counts_the_op_formula_not_the_plain_products(name):
+    op, args, want = _cases()[name]
+    with FlopCounterMode(display=False) as fc:
+        op(*args)
+    assert fc.get_total_flops() == want
+    assert list(fc.get_flop_counts()["Global"]) == [getattr(torch.ops.repro_torch, name)]
+
+
+@pytest.mark.parametrize("name", list(_cases()))
+def test_a_meta_tensor_outside_fake_mode_is_refused(name):
+    op, args, _ = _cases()[name]
+    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
+    with pytest.raises(ValueError, match="no .* for device meta"):
+        op(*meta)
+
+
+def test_decode_shards_merged_match_the_jax_decode_over_the_whole_cache():
+    rng = np.random.default_rng(4)
+    B, S, H, KV, hd, n = 4, 64, 6, 2, 32, 4
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, KV, hd)).astype(np.float32) for _ in range(2))
+    pos = np.array([0, 15, 16, 63], np.int32)  # rows ending in each shard
+    want = np.asarray(jax_decode_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                           positions=jnp.asarray(pos)))
+    outs, lses = [], []
+    for j in range(n):
+        c = slice(j * S // n, (j + 1) * S // n)
+        o, lse = decode_attention_plain(torch.from_numpy(q), torch.from_numpy(k[:, c]),
+                                        torch.from_numpy(v[:, c]), torch.from_numpy(pos),
+                                        start=j * S // n, with_lse=True)
+        outs.append(o)
+        lses.append(lse)
+        empty = pos < j * S // n
+        assert not o[torch.from_numpy(empty)].any()  # rows before the shard: 0 and -inf
+        assert bool((lse[torch.from_numpy(empty)] == -math.inf).all())
+    lse = torch.stack(lses)  # (n, B, H)
+    w = torch.exp(lse - lse.max(dim=0).values)[..., None]  # (n, B, H, 1)
+    merged = (torch.stack([o[:, 0] for o in outs]) * w).sum(0) / w.sum(0)
+    np.testing.assert_allclose(merged[:, None].numpy(), want, atol=1e-5)
+    # one shard with its start: the whole cache's rule, entries past the position masked
+    one = decode_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), torch.from_numpy(pos))
+    np.testing.assert_allclose(one.numpy(), want, atol=1e-5)
+
+
+# -- the dry run ---------------------------------------------------------------------
+
+_DRYRUN = """
+    import json, torch
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.runtime.steps import build_step
+    out = {}
+    SHAPES = {"train": ShapeConfig("train", 64, 8, "train"),
+              "prefill": ShapeConfig("prefill", 64, 8, "prefill"),
+              "decode": ShapeConfig("decode", 64, 8, "decode")}
+    for mesh in ((2, 2), (2, 2, 2)):
+        for kind, shape in SHAPES.items():
+            cfg = get_arch("smollm-135m").reduced()
+            rec = dryrun.run_cell("smollm-135m", kind, multi_pod=len(mesh) == 3, device="cpu",
+                                  cfg=cfg, mesh_shape=mesh, shape=shape, verbose=False)
+            key = f"{'x'.join(map(str, mesh))}/{kind}"
+            out[key] = {k: v for k, v in rec.items() if k != "ranks"}
+            out[key]["n_ranks"] = len(rec["ranks"])
+            model = build_model(cfg)
+            axes = dryrun.PRODUCTION[len(mesh) == 3][1]
+            out[key]["rank_flops"] = [
+                dryrun.trace_rank(model, shape, mesh, axes, r, "cpu")["hlo"]["flops_per_device"]
+                for r in range(rec["chips"])]
+            _, one = build_step(model, shape, device="cpu").trace()
+            out[key]["one_flops"] = one.flops
+    rec = dryrun.run_cell("phi3.5-moe-42b-a6.6b", "decode", multi_pod=False, device="cpu",
+                          cfg=get_arch("phi3.5-moe-42b-a6.6b").reduced(), mesh_shape=(2, 2),
+                          shape=SHAPES["decode"], verbose=False)
+    out["moe"] = rec
+    print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def dry():
+    return _run(_DRYRUN)
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "2x2x2"])
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_dry_run_records_have_the_reference_keys(dry, mesh, kind):
+    rec = dry[f"{mesh}/{kind}"]
+    assert {"arch", "shape", "mesh", "chips", "kind", "memory", "peak_bytes_per_device",
+            "cost_analysis", "hlo", "trace_s"} <= set(rec)
+    assert set(rec["memory"]) == {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes"}
+    m = rec["memory"]
+    assert rec["peak_bytes_per_device"] >= m["argument_bytes"] + m["output_bytes"] \
+        + m["temp_bytes"] - m["alias_bytes"]
+    assert set(rec["cost_analysis"]) == {"flops", "bytes_accessed"}
+    assert {"flops_per_device", "bytes_per_device", "bytes_fused_per_device",
+            "collective_bytes_per_device", "collectives"} <= set(rec["hlo"])
+    assert rec["n_ranks"] == 2 and rec["mesh"] == mesh
+    assert rec["hlo"]["flops_per_device"] == max(rec["rank_flops"])  # the heavier rank's
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "2x2x2"])
+def test_a_train_cell_holds_its_param_and_moment_tiles(dry, mesh):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    n_params = build_model(get_arch("smollm-135m").reduced()).param_count()
+    rec = dry[f"{mesh}/train"]
+    # each rank's tiles: at least its share of the f32 params and both moments
+    assert rec["memory"]["argument_bytes"] >= 3 * 4 * n_params / rec["chips"]
+    assert rec["peak_bytes_per_device"] >= rec["memory"]["argument_bytes"]
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "2x2x2"])
+def test_rank_flops_sum_to_the_one_device_step(dry, mesh):
+    """Train: the ranks split the rows and the sequence, the vocab-parallel
+    loss and the causal shards' pairs; together exactly the one-device
+    step's work (within 1 %). Prefill: also, but for the last position's
+    logits, which every "model" rank computes for its rows (2 d V_pad a row,
+    n_model times). Decode: each "model" rank computes its rows' whole
+    token (no tensor-parallel products yet), so the ranks do n_model times
+    the one-device work, but for the attention, which the cache shards
+    split: n_model x (one - attention) + attention."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("smollm-135m").reduced()
+    n_model = 2
+    train = dry[f"{mesh}/train"]
+    assert abs(sum(train["rank_flops"]) - train["one_flops"]) <= 0.01 * train["one_flops"]
+    pre = dry[f"{mesh}/prefill"]
+    logits = 2 * cfg.d_model * cfg.padded_vocab * 8  # the 8 rows' last position
+    assert sum(pre["rank_flops"]) == pre["one_flops"] + (n_model - 1) * logits
+    dec = dry[f"{mesh}/decode"]
+    attn = 4 * cfg.resolved_head_dim * cfg.n_heads * 8 * 64 * cfg.n_layers  # full caches
+    assert sum(dec["rank_flops"]) == n_model * (dec["one_flops"] - attn) + attn
+
+
+def test_a_refused_family_is_recorded_as_skipped(dry):
+    rec = dry["moe"]
+    assert "hlo" not in rec and "the MoE family" in rec["skipped"] and "A13" in rec["skipped"]

@@ -24,6 +24,8 @@ term alone): each is a sum over up to G x Sq (query, key) pairs in f32 on
 both sides, from the same operands. The log-sum-exp is f32 on both sides:
 1e-5 absolute.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -227,6 +229,35 @@ def test_split_decode_at_chunk_edges(dev, B, G, hd, dtype):
     _close(out, R.decode_attention_plain(q, k, v, pos), v)
 
 
+@pytest.mark.parametrize("B", [1, 4, 64])
+@pytest.mark.parametrize("G", [1, 5, 8])
+@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_on_a_cache_shard_writes_its_log_sum_exp(dev, B, G, hd, dtype):
+    """A shard of a cache from global position ``start``: rows before it
+    (0 and -inf), at its edges, inside and past it, split and not split;
+    the output and LSE against the plain version; with start 0 and no LSE
+    the output is the unsharded call's, bitwise."""
+    S, KV, start = 256, 2, 300
+    g = _gen(dev, 7000 + B * 100 + G * 10 + hd)
+    q = torch.randn((B, 1, G * KV, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    edges = [0, start - 1, start, start + 1, start + 100, start + S - 1, start + S + 9]
+    pos = torch.tensor([edges[i % len(edges)] for i in range(B)], dtype=torch.int32, device=dev)
+    out, lse = A.decode_attention_lse(q, k, v, pos, start=start)
+    ref, ref_lse = R.decode_attention_plain(q, k, v, pos, start=start, with_lse=True)
+    torch.cuda.synchronize()
+    empty = pos < start
+    assert bool((out[empty] == 0).all()) and bool((lse[empty] == -math.inf).all())
+    _close(out, ref, v)
+    torch.testing.assert_close(lse[~empty], ref_lse[~empty], atol=1e-5, rtol=1e-5)
+    plain0 = A.decode_attention(q, k, v, pos)
+    with_lse0, _ = A.decode_attention_lse(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(plain0, with_lse0)
+
+
 @pytest.mark.parametrize("B,S", [(1, 256), (4, 256), (4, 1000), (64, 256)])
 def test_decode_is_bitwise_repeatable_across_calls_and_graph_replays(dev, B, S):
     """Two calls, then a CUDA graph of one call replayed three times: all
@@ -275,8 +306,8 @@ def test_decode_entry_point_checks_the_chunk_it_is_given(dev):
     for bad in (0, -chunk, chunk + 1):
         with pytest.raises(RuntimeError, match="decode_attention"):
             A.DECODE_ATTENTION.launch(q.data_ptr(), kv.data_ptr(), kv.data_ptr(), pos.data_ptr(),
-                                      out.data_ptr(), ws.data_ptr(), B, S, H, KV, hd, 1, bad,
-                                      stream)
+                                      out.data_ptr(), None, ws.data_ptr(), B, S, H, KV, hd, 1,
+                                      bad, 0, stream)
 
 
 # -- training: the forward's log-sum-exp and the backward kernels ---------------

@@ -82,6 +82,15 @@ def test_the_scan_covers_the_training_path():
         assert mod in scanned, mod
 
 
+def test_the_scan_covers_the_cost_analysis_path():
+    """The static cost analysis, the roofline, the dry run and the serving
+    steps on a mesh are scanned too."""
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    for mod in ("runtime/cost_analysis.py", "launch/roofline.py", "launch/dryrun.py",
+                "runtime/sharded_attention.py", "configs/registry.py"):
+        assert mod in scanned, mod
+
+
 def test_wrappers_have_no_fallback_paths():
     """No ``try`` in the wrapper modules: a CUDA launch that fails raises,
     it is never retried on the plain version."""
@@ -191,14 +200,22 @@ def test_cuda_tensor_goes_to_the_kernel_not_the_plain_version(monkeypatch):
     monkeypatch.setattr(attn_ops, "flash_attention_plain", plain)
     monkeypatch.setattr(attn_ops, "decode_attention_plain", plain)
     monkeypatch.setattr(attn_ops, "flash_attention_cuda", lambda *a, **k: calls.append("fa") or "k")
-    monkeypatch.setattr(attn_ops, "decode_attention_cuda", lambda *a: calls.append("da") or "k")
+    monkeypatch.setattr(attn_ops, "decode_attention_cuda",
+                        lambda *a, **k: calls.append("da") or "k")
     x = _FakeCuda()
     assert kmeans_ops.assign(x, x) == "k"
     assert kmeans_ops.update_scatter(x, x, 3) == "k"
     assert tomo_ops.backproject_batch(x, x, 8) == "k"
     assert tomo_ops.project_batch(x, x, 8) == "k"
-    assert attn_ops.flash_attention(x, x, x) == "k"
-    assert attn_ops.decode_attention(x, x, x, x) == "k"
+    # the attention wrappers hand their tensors to torch.library ops, whose
+    # dispatcher picks the implementation by device (a stand-in cannot pass
+    # through it): each op's CUDA implementation is the kernel's launch
+    for op in ("flash_attention", "flash_attention_lse", "flash_attention_bwd",
+               "decode_attention", "decode_attention_lse"):
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(f"repro_torch::{op}", "CUDA")
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(f"repro_torch::{op}", "CPU")
+    assert attn_ops._flash_cuda(x, x, x, True, 0) == "k"
+    assert attn_ops._decode_cuda(x, x, x, x, 0) == "k"
     assert calls == ["assign", "update", "bp", "fp", "fa", "da"]
 
 

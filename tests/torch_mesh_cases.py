@@ -266,3 +266,91 @@ def grad_compress_cases(rank: int, inp: dict) -> dict:
         out["final/" + ("compressed" if compressed else "exact")] = float(
             ((X @ w - y) ** 2).mean())
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_serve_mesh.py
+# ---------------------------------------------------------------------------
+
+
+def _serve_one(mesh, model, params, inp) -> dict:
+    """Prefill the global prompts and decode ``inp["steps"]`` on the mesh:
+    the rank's rows' logits of each call, its cache tile after the prefill
+    and its K/V tiles after the last decode step, and the decode-attention
+    merge at the right and at a one-off shard start."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models.common import decode_segment
+    from repro_torch.runtime.collectives import all_gather
+    from repro_torch.runtime.sharded_attention import sharded_decode_attention
+    from repro_torch.runtime.sharding import activation_rules, shard_tree
+    from repro_torch.runtime.steps import build_decode_step, build_prefill_step
+    from repro_torch.kernels.attention import decode_attention
+
+    tokens, steps, cache_len = inp["tokens"], inp["steps"], inp["cache_len"]
+    B, T = tokens.shape
+    pre = build_prefill_step(model, ShapeConfig("p", T, B, "prefill"), mesh=mesh,
+                             cache_len=cache_len)
+    dec = build_decode_step(model, ShapeConfig("d", cache_len, B, "decode"), mesh=mesh)
+    served = pre.load(shard_tree(params, pre.in_specs[0], mesh))  # gathered once
+    logits, cache = pre.fn(served, {"tokens": tokens})
+    out = {"logits": [_np(logits)], "cache": {k: _np(v).copy() for k, v in _flat(cache).items()}}
+    for i, tok in enumerate(steps):
+        pos = np.full((B,), T + i, np.int32)
+        logits, cache = dec.fn(served, cache, {"tokens": tok, "positions": pos})
+        out["logits"].append(_np(logits))
+    out["final_cache"] = {k: _np(cache[k]).copy() for k in ("k", "v") if k in cache}
+    if "k" in cache:  # the merge of the first site's tiles at a shard start one off
+        with activation_rules(dec.rules):
+            start, axes = decode_segment()
+        b = B // mesh.shape["data"]
+        g = torch.Generator().manual_seed(3)
+        H, hd = model.cfg.n_heads, model.cfg.resolved_head_dim
+        q = torch.randn((b, 1, H, hd), generator=g)
+        pos = torch.full((b,), T + len(steps), dtype=torch.int32)
+        kc, vc = cache["k"][0], cache["v"][0]
+        whole = [all_gather(c, mesh, axes, dim=1) for c in (kc, vc)]
+        ref = decode_attention(q, *whole, pos)
+        errs = {}
+        for name, at in (("right", start), ("one_off", start + 1)):
+            got = sharded_decode_attention(q, kc, vc, pos, mesh, start=at, axes=axes)
+            errs[name] = float((got - ref).abs().max())
+        out["start_errs"] = errs
+        out["start"], out["axes"] = start, list(axes)
+    return out
+
+
+def serve_mesh_cases(rank: int, inp: dict) -> dict:
+    """The serving steps on a (2, 2) ("data", "model") mesh: the reduced
+    smollm, rwkv6 and zamba2 from the JAX weights (``inp["params"]``), and
+    the families the mesh refuses."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models import build_model, params_from_jax
+    from repro_torch.runtime.steps import build_prefill_step
+
+    from repro_torch.runtime import steps
+
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    out = {"coords": mesh.coords()}
+    for name, tree in inp["params"].items():
+        model = build_model(get_arch(name).reduced())
+        out[name] = _serve_one(mesh, model, params_from_jax(tree, "cpu"), inp)
+    # the weights kept as ZeRO tiles, gathered a layer at a time (the path of
+    # a model too big for whole weights on every rank)
+    zero, steps._serving_zero = steps._serving_zero, lambda model, mesh: True
+    try:
+        model = build_model(get_arch("smollm-135m").reduced())
+        out["smollm-135m/zero"] = _serve_one(
+            mesh, model, params_from_jax(inp["params"]["smollm-135m"], "cpu"), inp)
+    finally:
+        steps._serving_zero = zero
+    B, T = inp["tokens"].shape
+    for name in ("phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b", "seamless-m4t-medium"):
+        model = build_model(get_arch(name).reduced())
+        pre = build_prefill_step(model, ShapeConfig("p", T, B, "prefill"), mesh=mesh)
+        params = model.compute_params(model.init(torch.Generator().manual_seed(1)))
+        try:
+            pre.fn(params, {"tokens": inp["tokens"]})
+            out[name] = "ran"
+        except NotImplementedError as exc:
+            out[name] = str(exc)
+    return out
