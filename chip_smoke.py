@@ -142,10 +142,10 @@
    layers) through the mesh train step on a world-of-one NCCL mesh in this
    process, bitwise against the one-device step; then one spawn of a 4-rank
    gloo group on ``cuda:0`` as a (2, 2) ("data", "model") mesh, its
-   collectives staged through host memory, within 90 s, whose ranks load
+   collectives staged through host memory, within 240 s, whose ranks load
    the kernels built here and hold sharded attention (forward and
    backward) and ring prefill at llava's S = 704 to the one-device flash
-   kernel, smollm-135m's f32 mesh step (15 of its 30 layers) to the
+   kernel, smollm-135m's f32 mesh step (5 of its 30 layers) to the
    one-device step under the ``TRAIN_*`` limits, then take 2 counted bf16
    steps (losses,
    step p50, tokens/s, each rank's peak memory), the vocab-parallel loss
@@ -157,9 +157,17 @@
    prompts of 120 tokens prefilled into a 256-entry cache whose sequence is
    split over "model" (the second rank's tile empty for the first 8 steps,
    written and merged from position 128 on), 16 decode steps, every call's
-   logits held to the one-device steps'; prints
-   a ``check mesh`` line each and one ``path mesh`` line (backend, staging,
-   seconds). Before the main paths, step 3 also checks the flash forward
+   logits held to the one-device steps', and the families case:
+   phi3.5-moe (groups across the sequence shards and, in decode, across
+   the "data" ranks; trained under kimi-k2's Adafactor), llava-next (a rank
+   of patches only) and seamless-m4t (frames and tokens split, the memory's
+   tiles) at full width and one layer in f32, a train step and serving
+   each, against the one-device steps; prints a ``check mesh`` line each, a
+   ``check mesh family`` line a families part and one ``path mesh`` line
+   (backend, staging, seconds). Step 3 also checks the flash kernel
+   (non-causal, at the encoder shard's offset and the decoder's
+   cross-attention over the gathered memory) and the decode kernel over an
+   enc-dec memory tile at the families case's f32 shapes. Before the main paths, step 3 also checks the flash forward
    and the backward pair at a causal query offset (a sequence shard's rows)
    at smollm's and llava's shard shapes, per element, with an offset one
    off shown to fail, timed beside SDPA with an equal boolean mask;
@@ -351,9 +359,10 @@ OFFSET_CASES = ((TRAIN_BATCH, 64, 128, (64,), SERVE_HEADS),
 # MESH_SEQ_T to MESH_SEQ_TOL (x max(1, max|ref|)); smollm-135m at full
 # width and MESH_TRAIN_LAYERS of its 30 layers, one f32 step against one
 # device, then MESH_BF16_STEPS bf16 steps (3 at full depth until the
-# dry-run phase joined the run: PERF.md §5)
-MESH_SHAPE, MESH_TIMEOUT_S, MESH_ATTN_BATCH = (2, 2), 90, 2
-MESH_F32_TOL, MESH_SEQ_T, MESH_BF16_STEPS, MESH_TRAIN_LAYERS = 2e-5, 512, 2, 15
+# dry-run phase joined the run, 15 layers until the families case did:
+# PERF.md §4-5)
+MESH_SHAPE, MESH_TIMEOUT_S, MESH_ATTN_BATCH = (2, 2), 240, 2
+MESH_F32_TOL, MESH_SEQ_T, MESH_BF16_STEPS, MESH_TRAIN_LAYERS = 2e-5, 512, 2, 5
 MESH_SEQ_TOL = {"wkv6": 2e-4, "ssd": 2e-4, "conv1d": 3e-4}
 # the mesh phase's serving check, in the same 4 ranks: smollm-135m at full
 # width and depth in f32, MESH_SERVE_PROMPTS prompts of MESH_SERVE_PROMPT_LEN
@@ -367,6 +376,40 @@ MESH_SEQ_TOL = {"wkv6": 2e-4, "ssd": 2e-4, "conv1d": 3e-4}
 # the one-device one's wherever the one-device top-2 gap exceeds RESCORE_GAP
 MESH_SERVE_PROMPTS, MESH_SERVE_PROMPT_LEN, MESH_SERVE_CACHE = 4, 120, 256
 MESH_SERVE_STEPS, MESH_SERVE_REL = 16, 1e-4
+# the mesh phase's families case, in the same 4 ranks, one family at a time:
+# phi3.5-moe and llava-next at 1 layer, seamless-m4t at 1 encoder and 1
+# decoder layer, each at full width with f32 params and compute, weights
+# drawn alike on every rank from SEED (phi's router x MESH_FAM_ROUTER, as the
+# MoE parity tests scale it, so that no top-k set hangs on the two layouts'
+# f32 rounding). Train: one step on MESH_FAM_TRAIN_B rows: phi at
+# MESH_FAM_PHI_SEQ tokens (groups of 256 over sequence shards of 128, so
+# each group spans both "model" ranks, at the config's capacity factor,
+# drops counted) under kimi-k2's optimizer config (Adafactor, factored, no
+# first moment), llava at its 576 patches and MESH_FAM_TOKENS text tokens
+# (S = 704, shards of 352: the first "model" rank holds only patches) and
+# seamless at FAM_FRAMES frames and MESH_FAM_TOKENS tokens, each split over
+# "model", under SGD at MESH_FAM_SGD_LR: the update is the clipped gradient,
+# of norm 1 over the model, so its rounding into the f32 params stays near
+# 1e-5 of it (at lr 3e-4 the rounding alone reached 6.6e-4 of the update on
+# the H100: PERF.md §6). Each against the
+# one-device step from the same weights on rank 0, run first and alone (its
+# results kept on the host, its card memory freed; each rank compares its
+# tiles with its tiles of the results, scattered from rank 0):
+# the loss and grad norm to TRAIN_LOSS_REL / TRAIN_NORM_REL relative, each
+# leaf's update to MESH_FAM_UPDATE_REL of its norm, Adafactor's factored
+# moments to MESH_FAM_UPDATE_REL of their leaf's largest |value|. Serve: the
+# serving check's MESH_SERVE_PROMPTS prompts and MESH_SERVE_STEPS decode
+# steps (phi: MESH_SERVE_PROMPT_LEN tokens into MESH_SERVE_CACHE entries,
+# its 4 decode rows one group across both "data" ranks; llava: 576 patches
+# and MESH_FAM_TOKENS tokens into MESH_FAM_VLM_CACHE entries, whose tiles
+# meet at 712, inside the decode; seamless: FAM_FRAMES frames, whose K/V
+# tiles of 128 each decode step's cross-attention reads, and
+# MESH_SERVE_PROMPT_LEN tokens into MESH_SERVE_CACHE entries), held as the
+# serving check holds smollm
+MESH_FAMILIES = ("phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b", "seamless-m4t-medium")
+MESH_FAM_ROUTER, MESH_FAM_TRAIN_B, MESH_FAM_PHI_SEQ, MESH_FAM_TOKENS = 100.0, 2, 256, 128
+MESH_FAM_VLM_CACHE, MESH_FAM_UPDATE_REL, MESH_FAM_SGD_LR = 1424, 1e-3, 1.0
+MESH_FAM_TOKENS_HALF = MESH_FAM_TOKENS // 2
 # the dry-run phase (DRY_TIMEOUT_S at most): the decode kernel at qwen3-14b's
 # decode_32k rank shard (DRY_SHARD: 128 / 16 rows, 32 768 / 16 entries, 40
 # over 8 heads of 128, bf16), the 16 shards merged against the whole-cache
@@ -480,6 +523,18 @@ FAM_BWD = (("llava self", TRAIN_BATCH, 576 + TRAIN_SEQ, 576 + TRAIN_SEQ, (32, 8,
 FAM_TRAIN_STEPS, FAM_LLAVA_LAYERS = 6, 16
 FAM_TCHECK_BATCH, FAM_TCHECK_TOKENS, FAM_TCHECK_PATCHES, FAM_TCHECK_LAYERS = 2, 64, 64, 1
 FAM_TCHECK_F32 = ("llava-next-mistral-7b", "rwkv6-3b", "zamba2-1.2b")
+# the new attention shapes the mesh phase's families case gives the kernels, checked in
+# f32 (its dtype) against the plain versions before the paths, at seamless's
+# 16 heads of 64 (G = 1): (name, B, Sq, Skv, q_offset) for flash, non-causal
+# (the encoder's second "model" shard: its rows at offset FAM_FRAMES / 2
+# against every frame's keys, the offset ignored; a decoder shard's
+# cross-attention over the gathered memory), and (name, B, entries, start)
+# for the decode kernel over the second memory tile, every row at the
+# memory's last position FAM_FRAMES - 1
+MESH_FAM_FLASH = (("seamless encoder shard", 1, FAM_FRAMES // 2, FAM_FRAMES, FAM_FRAMES // 2),
+                  ("seamless cross shard", 1, MESH_FAM_TOKENS_HALF, FAM_FRAMES, 0))
+MESH_FAM_DECODE = ("seamless memory tile", 2, FAM_FRAMES // 2, FAM_FRAMES // 2)
+MESH_FAM_HEADS = (16, 16, 64)
 
 
 # what the backward kernels' plain_ms and library_ms in the kernels line time
@@ -1612,9 +1667,9 @@ def serve_path(torch, kernels, miniapps, cluster, ctx, device, n_msgs: int = SER
             "stream": stream}
 
 
-def _route_margins(moe, margins: list):
-    """A context in which every routing the MoE layers compute appends its
-    per-token margins (``Routing.margin``, G x gs) to ``margins``."""
+def _routes(moe, record):
+    """A context in which every routing the MoE layers compute is handed to
+    ``record`` (a ``Routing``)."""
     import contextlib
 
     @contextlib.contextmanager
@@ -1623,7 +1678,7 @@ def _route_margins(moe, margins: list):
 
         def wrapped(*args, **kwargs):
             r = route(*args, **kwargs)
-            margins.append(r.margin())
+            record(r)
             return r
 
         moe.moe_route = wrapped
@@ -1633,6 +1688,12 @@ def _route_margins(moe, margins: list):
             moe.moe_route = route
 
     return recording()
+
+
+def _route_margins(moe, margins: list):
+    """A context in which every routing appends its per-token margins
+    (``Routing.margin``, G x gs) to ``margins``."""
+    return _routes(moe, lambda r: margins.append(r.margin()))
 
 
 def rescore(torch, model, params, served: list, *, steps=None, batch_for=None,
@@ -3764,10 +3825,269 @@ def _mesh_serve(torch, mesh, kernels) -> dict:
     return res
 
 
+def _fam_cfg(name: str):
+    """A families-case config: full width, 1 layer (seamless: 1 encoder
+    and 1 decoder layer), f32 params and compute, no remat."""
+    from repro_torch.configs import get_arch
+
+    over = {"n_layers": 1, "compute_dtype": "float32", "param_dtype": "float32", "remat": "none"}
+    if name == "seamless-m4t-medium":
+        over["n_enc_layers"] = 1
+    return get_arch(name).replace(**over)
+
+
+def _fam_params(torch, model, dev):
+    """The case's weights, drawn alike on every rank (the router scaled)."""
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    if model.cfg.n_experts:
+        params["layers"]["router"].mul_(MESH_FAM_ROUTER)
+    return params
+
+
+def _fam_batch(torch, cfg, rows: int, n_tokens: int, dev) -> dict:
+    """A global batch, alike on every rank: tokens, and the patch or frame
+    embeddings the family takes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (rows, n_tokens), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    if cfg.n_patches:
+        batch["patch_embeds"] = torch.randn((rows, cfg.n_patches, cfg.d_model), generator=gen,
+                                            device=dev)
+    if cfg.n_enc_layers:
+        batch["frame_embeds"] = torch.randn((rows, FAM_FRAMES, cfg.d_model), generator=gen,
+                                            device=dev)
+    return batch
+
+
+def _fam_routes(moe, seen: list):
+    """A context in which each MoE routing appends its (routed, kept)."""
+    return _routes(moe, lambda r: seen.append((int((r.gates > 0).sum()), int(r.keep.sum()))))
+
+
+def _rank_tile(torch, mesh, ref, spec, shape: tuple, dtype):
+    """This rank's tile under ``spec`` of rank 0's host tensor ``ref`` (None
+    on the other ranks), scattered from rank 0 over the host."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.runtime.sharding import shard_slices
+
+    def tile_of(rank):
+        return shard_slices(spec, shape, Mesh(mesh.shape, rank, mesh.device, mesh.backend))
+    buf = torch.empty([len(range(*s.indices(d))) for s, d in zip(tile_of(mesh.rank), shape)],
+                      dtype=dtype)
+    parts = [ref[tile_of(r)].contiguous() for r in range(mesh.size)] if mesh.rank == 0 else None
+    dist.scatter(buf, parts, src=0)
+    return buf
+
+
+def _fam_train(torch, mesh, kernels, name: str) -> dict:
+    """One mesh train step of the case ``name`` (phi3.5-moe: kimi-k2's
+    Adafactor; the others: SGD) against the one-device step on rank 0, run
+    first and alone, its results kept on the host: the metrics, each leaf's
+    update (||mesh - one|| / ||one - start|| over the leaf, each rank
+    comparing its tile with its tile of the reference, scattered from rank
+    0) and the factored moments; the routed and kept choices of the mesh
+    step (summed over this rank's tokens), its seconds, peak memory and
+    launches (the counts set to 0 before, read after)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models import build_model, moe
+    from repro_torch.runtime.collectives import psum
+    from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
+    from repro_torch.runtime.sharding import flatten_specs, param_shardings, spec_axes
+    from repro_torch.runtime.steps import build_train_step, mesh_train_state, opt_state_shardings
+    from repro_torch.utils import tree_flatten_with_paths
+
+    cfg = _fam_cfg(name)
+    model, dev = build_model(cfg), mesh.device
+    kimi = get_arch("kimi-k2-1t-a32b")
+    opt_cfg = (OptimizerConfig(name=kimi.optimizer, moment_dtype=kimi.moment_dtype,
+                               first_moment=kimi.first_moment, learning_rate=TRAIN_LR,
+                               warmup_steps=0) if cfg.n_experts
+               else OptimizerConfig(name="sgd", learning_rate=MESH_FAM_SGD_LR, warmup_steps=0))
+    opt = Optimizer(opt_cfg)
+    n_tok = MESH_FAM_PHI_SEQ if cfg.n_experts else MESH_FAM_TOKENS
+    batch = _fam_batch(torch, cfg, MESH_FAM_TRAIN_B, n_tok, dev)
+    seq = n_tok + cfg.n_patches if not cfg.n_enc_layers else 2 * n_tok
+    shape = ShapeConfig("mesh_family", seq, MESH_FAM_TRAIN_B, "train")
+    params = _fam_params(torch, model, dev)
+    state = opt.init(params)
+    tiles, tstate = mesh_train_state(model, params, state, mesh)
+    host = lambda x: x.detach().to("cpu", copy=True)  # noqa: E731
+    start = {k: host(v) for k, v in _mesh_leaves(tiles).items()}  # this rank's tiles
+    res, ref, ref_state = {"optimizer": opt_cfg.name}, {}, {}
+    if mesh.rank == 0:  # the one-device step first, alone; its results on the host
+        t0 = time.perf_counter()
+        params, state, one = build_train_step(model, shape, opt_cfg, device=dev)(
+            params, state, batch)
+        torch.cuda.synchronize()
+        res["one_device_s"] = time.perf_counter() - t0
+        ref = {k: host(v) for k, v in _mesh_leaves(params).items()}
+        ref_state = {k: {p: host(x) for p, x in _mesh_leaves(v).items()}
+                     for k, v in state.items() if k in ("v_row", "v_col")}
+        one = {k: float(v) for k, v in one.items()}
+    del params, state
+    torch.cuda.empty_cache()
+    dist.barrier()
+    step = build_train_step(model, shape, opt_cfg, mesh=mesh)
+    seen: list = []
+    for k in kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _fam_routes(moe, seen):
+        tiles, tstate, met = step(tiles, tstate, batch)
+    torch.cuda.synchronize()
+    res["mesh_step_s"] = time.perf_counter() - t0
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["launches"] = {k.name: k.launches for k in kernels.KERNELS}
+    res["metrics"] = {k: float(v) for k, v in met.items()}
+    if seen:
+        res["routed"], res["kept"] = sum(r for r, _ in seen), sum(k for _, k in seen)
+    # each leaf's update: its squares summed over the ranks' tiles, once a copy
+    t0 = time.perf_counter()
+    shapes = {p: tuple(x.shape) for p, x in tree_flatten_with_paths(model.param_struct())}
+    specs = flatten_specs(param_shardings(model, mesh))
+    sums = []
+    for path, tile in _mesh_leaves(tiles).items():
+        want = _rank_tile(torch, mesh, ref.get(path), specs[path], shapes[path], tile.dtype)
+        du, dj = host(tile) - start[path], want - start[path]
+        copies = mesh.size // mesh.axis_size(spec_axes(specs[path]))
+        sums.append(torch.stack([(du - dj).square().sum(), dj.square().sum()]) / copies)
+    total = psum(torch.stack(sums), mesh, mesh.axis_names)
+    update = {p: float(e.sqrt() / n.sqrt()) for p, (e, n) in zip(_mesh_leaves(tiles), total)}
+    if cfg.n_experts:  # Adafactor's factored moments: worst |mesh - one| / max|one| a leaf
+        ospecs = opt_state_shardings(model, opt, mesh)
+        struct = opt.state_struct(model.param_struct())
+        worst = {}
+        for which in ("v_row", "v_col"):
+            wspecs, wshapes = flatten_specs(ospecs[which]), _mesh_leaves(struct[which])
+            for path, tile in _mesh_leaves(tstate[which]).items():
+                want = _rank_tile(torch, mesh, ref_state.get(which, {}).get(path), wspecs[path],
+                                  tuple(wshapes[path].shape), tile.dtype)
+                pair = torch.stack([(host(tile) - want).abs().max(), want.abs().max()])
+                dist.all_reduce(pair, op=dist.ReduceOp.MAX)
+                worst[f"{which}/{path}"] = float(pair[0] / pair[1].clamp(min=1e-30))
+        res["factored_err_over_leaf_max"] = max(worst.values())
+        res["factored_worst"] = max(worst, key=worst.get)
+    res["compare_s"] = time.perf_counter() - t0
+    res.update(update_rel_err=max(update.values()), update_worst_leaf=max(update, key=update.get))
+    if mesh.rank == 0:
+        rel = {k: abs(res["metrics"][k] - one[k]) / abs(one[k]) for k in one
+               if k in ("loss", "ce_loss", "aux_loss", "grad_norm")}
+        res["rel_err"] = rel
+        bad = (rel["loss"] > TRAIN_LOSS_REL or rel["grad_norm"] > TRAIN_NORM_REL
+               or res["update_rel_err"] > MESH_FAM_UPDATE_REL
+               or res.get("factored_err_over_leaf_max", 0.0) > MESH_FAM_UPDATE_REL)
+        if bad:
+            raise AssertionError(f"mesh {name} {opt_cfg.name} step vs one device: {res}")
+    return res
+
+
+def _fam_serve(torch, mesh, kernels, name: str) -> dict:
+    """The case ``name``'s mesh prefill and MESH_SERVE_STEPS decode steps
+    against the one-device steps on the whole batch (a MoE group holds
+    tokens of every row), the rank's rows compared as ``_mesh_serve``
+    compares them (same weights, the one-device greedy tokens fed to
+    both)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.common import first_argmax
+    from repro_torch.runtime.steps import build_decode_step, build_prefill_step
+
+    cfg = _fam_cfg(name)
+    model, dev = build_model(cfg), mesh.device
+    B, n = MESH_SERVE_PROMPTS, MESH_SERVE_STEPS
+    T = MESH_FAM_TOKENS if cfg.n_patches else MESH_SERVE_PROMPT_LEN
+    C = MESH_FAM_VLM_CACHE if cfg.n_patches else MESH_SERVE_CACHE
+    S = T + cfg.n_patches  # the prompt's positions
+    seq = 2 * T if cfg.n_enc_layers else S  # an enc-dec shape splits frames and tokens
+    dlen = 2 * C if cfg.n_enc_layers else C
+    batch = _fam_batch(torch, cfg, B, T, dev)
+    pre = build_prefill_step(model, ShapeConfig("fam_prefill", seq, B, "prefill"), mesh=mesh,
+                             cache_len=C)
+    dec = build_decode_step(model, ShapeConfig("fam_decode", dlen, B, "decode"), mesh=mesh)
+    if pre.rules.zero:
+        raise AssertionError(f"the families case serves {name} from whole weights")
+    # every rank drew the whole weights: what ``pre.load`` gathers from the
+    # tiles (the smollm serve check takes that route; here it would move a
+    # MoE layer's experts through host memory once more)
+    served = model.compute_params(_fam_params(torch, model, dev))
+    b = B // mesh.shape["data"]
+    rows = slice(mesh.axis_index("data") * b, (mesh.axis_index("data") + 1) * b)
+    # one device, the whole batch (a MoE group holds tokens of every row)
+    one_pre = build_prefill_step(model, ShapeConfig("one_prefill", seq, B, "prefill"), device=dev,
+                                 cache_len=C)
+    one_dec = build_decode_step(model, ShapeConfig("one_decode", dlen, B, "decode"), device=dev)
+    logits, cache = one_pre.fn(served, batch)
+    want, toks = [logits[rows]], []
+    for i in range(n):
+        tok = first_argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        toks.append(tok)
+        logits, cache = one_dec.fn(served, cache, {"tokens": tok, "positions": torch.full(
+            (B,), S + i, dtype=torch.int32, device=dev)})
+        want.append(logits[rows])
+    del cache
+    seen: list = []
+    torch.cuda.synchronize()
+    for k in kernels.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with _fam_routes(moe, seen):
+        logits, cache = pre.fn(served, batch)
+        got = [logits]
+        for i, tok in enumerate(toks):
+            logits, cache = dec.fn(served, cache, {"tokens": tok, "positions": torch.full(
+                (B,), S + i, dtype=torch.int32)})
+            got.append(logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    errs, flips = [], 0
+    for g, w in zip(got, want):
+        errs.append(float((g - w).abs().max()) / float(w.abs().max()))
+        top2 = w[:, -1].topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > RESCORE_GAP
+        same = first_argmax(g[:, -1], dim=-1) == first_argmax(w[:, -1], dim=-1)
+        flips += int((sure & ~same).sum())
+    res = {"prompts": [B, S], "cache": C, "steps": n,
+           "cache_tiles": {k: list(v.shape) for k, v in cache.items()},
+           "worst_logit_rel_err": max(errs), "sure_token_flips": flips, "wall_s": wall,
+           "launches": launches}
+    if seen:
+        res["routed"], res["kept"] = sum(r for r, _ in seen), sum(k for _, k in seen)
+    if max(errs) > MESH_SERVE_REL or flips:
+        raise AssertionError(f"mesh {name} serving vs one device: {res}")
+    if launches["decode_attention"] < n * cfg.n_layers * (2 if cfg.n_enc_layers else 1):
+        raise AssertionError(f"mesh {name} serving launched the decode kernel {launches} times")
+    return res
+
+
+def _mesh_families(torch, mesh, kernels) -> dict:
+    """(j): the families case (MESH_FAMILIES), one family at a time, each
+    freed before the next: its train step (phi3.5-moe's under kimi-k2's
+    Adafactor, the others' SGD) and its serving; their seconds."""
+    out = {}
+    for name in MESH_FAMILIES:
+        short = name.split("-")[0]
+        for key, fn in (("train", lambda: _fam_train(torch, mesh, kernels, name)),
+                        ("serve", lambda: _fam_serve(torch, mesh, kernels, name))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[f"{short}_{key}"] = fn()
+            torch.cuda.empty_cache()
+            out[f"{short}_{key}"]["s"] = time.perf_counter() - t0
+    return out
+
+
 def mesh_rank(rank: int, directory: str) -> dict:
     """One rank of the mesh phase: a process of the 4-rank gloo group on
     cuda:0, a (2, 2) ("data", "model") mesh. It loads the kernels the parent
-    built (it never builds) and runs (b)-(g) and (i); returns its readings."""
+    built (it never builds) and runs (b)-(g), (i) and (j); returns its
+    readings."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
 
@@ -3788,7 +4108,8 @@ def mesh_rank(rank: int, directory: str) -> dict:
                      ("sequence", lambda: _mesh_sequence(torch, mesh, gen)),
                      ("compress", lambda: _mesh_compress(torch, mesh, gen)),
                      ("restore", lambda: _mesh_restore(torch, mesh, directory, gen)),
-                     ("serve", lambda: _mesh_serve(torch, mesh, kernels))):
+                     ("serve", lambda: _mesh_serve(torch, mesh, kernels)),
+                     ("families", lambda: _mesh_families(torch, mesh, kernels))):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out[name] = fn()
@@ -3797,11 +4118,57 @@ def mesh_rank(rank: int, directory: str) -> dict:
     return out
 
 
+def _family_parts(rank: dict) -> dict:
+    """A rank's families-case readings by part (its "s" is the case's)."""
+    return {k: v for k, v in rank["families"].items() if k != "s"}
+
+
+def _families_report(ranks: list, kernels) -> dict:
+    """The families case's readings over the ranks: one ``check mesh
+    family`` line a part (its largest error against one device with its
+    rule, the MoE's dropped share over every rank's tokens, each kernel's
+    launches a rank, its seconds); each part must have launched an
+    attention kernel on every rank."""
+    families = {}
+    for part, first in _family_parts(ranks[0]).items():
+        every = [r["families"][part] for r in ranks]
+        line = {k: v for k, v in first.items() if k not in ("launches", "metrics")}
+        if "routed" in first:  # the MoE's choices dropped, over every rank's tokens
+            routed, kept = (sum(e[k] for e in every) for k in ("routed", "kept"))
+            line.update(routed=routed, kept=kept, dropped_share=1 - kept / routed)
+        if "worst_logit_rel_err" in first:
+            line["worst_logit_rel_err"] = max(e["worst_logit_rel_err"] for e in every)
+            line["tol"] = (f"logits {MESH_SERVE_REL} x max|logit|; tokens where the top-2 gap > "
+                           f"{RESCORE_GAP}")
+        else:
+            line["metrics"] = first["metrics"]
+            line["tol"] = {"loss_rel": TRAIN_LOSS_REL, "grad_norm_rel": TRAIN_NORM_REL,
+                           "update_rel": MESH_FAM_UPDATE_REL,
+                           "factored_over_leaf_max": MESH_FAM_UPDATE_REL}
+        line["launches_per_rank"] = {k.name: [e["launches"][k.name] for e in every]
+                                     for k in kernels.KERNELS
+                                     if any(e["launches"][k.name] for e in every)}
+        line["s"] = max(e["s"] for e in every)
+        print(f"check mesh family {part} " + json.dumps(line))
+        families[part] = line
+    for part, line in families.items():
+        runs = line["launches_per_rank"]
+        fwd = [sum(runs.get(n, [0] * len(ranks))[i] for n in ("flash_attention",
+                                                             "decode_attention"))
+               for i in range(len(ranks))]
+        if min(fwd) < 1:
+            raise AssertionError(f"the mesh families case {part} launched no attention kernel "
+                                 f"on a rank: {runs}")
+    return families
+
+
 def mesh_path(torch, kernels) -> dict:
     """The mesh phase: (h) a world-of-one NCCL mesh in this process, then
     one spawn of the 4-rank gloo group (``mesh_rank``), within
-    MESH_TIMEOUT_S. Prints one ``path mesh`` line and returns the ranks'
-    launches (summed) of the bf16 mesh steps."""
+    MESH_TIMEOUT_S. Prints a ``check mesh`` line a check, a ``check mesh
+    family`` line a families-case part and one ``path mesh`` line, and
+    returns the ranks' launches (summed) of the bf16 mesh steps, the
+    serving check and the families case."""
     import tempfile
 
     from repro_torch.launch.mesh import spawn_ranks
@@ -3823,15 +4190,18 @@ def mesh_path(torch, kernels) -> dict:
                                           for r in ranks],
              "cache_tiles": [r["serve"]["cache_tile"] for r in ranks]}
     print("check mesh serve " + json.dumps(serve))
+    families = _families_report(ranks, kernels)
     train = ranks[0]["train"]
     launches = {k.name: sum(r["train"]["launches"][k.name] + r["serve"]["launches"][k.name]
+                            + sum(f["launches"][k.name] for f in _family_parts(r).values())
                             for r in ranks) for k in kernels.KERNELS}
     report = {"mesh": dict(zip(("data", "model"), MESH_SHAPE)), "backend": ranks[0]["backend"],
               "staged_through_host": ranks[0]["staged"], "ranks_on": "cuda:0",
               "seconds": wall, "phase_s": {k: max(r[k]["s"] for r in ranks)
                                            for k in ("attention", "train", "losses",
                                                      "sequence", "compress", "restore",
-                                                     "serve")},
+                                                     "serve", "families")},
+              "families_s": {part: line["s"] for part, line in families.items()},
               "train": {k: v for k, v in train.items() if k != "launches"},
               "peak_gb_per_rank": [r["train"]["peak_gb"] for r in ranks],
               "launches": launches, "world_of_one_nccl": h}
@@ -4006,6 +4376,104 @@ def check_decode_shard(torch, attn) -> dict:
     res["library_ms"] = graph_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask), 50)
     res["shape"] = (f"qwen3-14b decode_32k rank shard: B={b}, {n_ent} entries from {start}, "
                     f"{H} heads over {KV} KV of {hd}, bf16, with the LSE")
+    return res
+
+
+def check_flash_mesh_family(torch, attn, label: str, b: int, sq: int, skv: int, offset: int,
+                            gen) -> dict:
+    """The flash kernel, non-causal, at a families-case shard's shape
+    (MESH_FAM_FLASH; MESH_FAM_HEADS, f32): ``sq`` query rows at
+    ``q_offset = offset`` against ``skv`` keys, held to the plain version
+    (which takes no offset) within MESH_F32_TOL x max(1, max|ref|); bitwise
+    the same call at offset 0 (a non-causal kernel ignores the offset); at
+    an offset, the shard's rows of the whole sequence's call within the
+    tolerance; the plain version made causal at the offset fails it (the
+    check sees a mask). Timed beside the plain version and SDPA, with its
+    bound."""
+    H, KV, hd = MESH_FAM_HEADS
+    dev = torch.device("cuda", 0)
+    rows = skv if offset else sq  # the rows are a shard of the keys' sequence, or their own
+    q_all = torch.randn((b, rows, H, hd), generator=gen, device=dev)
+    q = q_all[:, offset:offset + sq].contiguous()
+    k, v = (torch.randn((b, skv, KV, hd), generator=gen, device=dev) for _ in range(2))
+    name = f"flash_attention {label} B={b} Sq={sq} Skv={skv} q_offset={offset} f32"
+    out = attn.flash_attention_cuda(q, k, v, causal=False, q_offset=offset)
+    ref = attn.flash_attention_plain(q, k, v, causal=False)
+    tol = MESH_F32_TOL * max(1.0, float(ref.abs().max()))
+    err = _within(name, out, ref, tol)
+    res = {"shape": f"{label}: B={b} Sq={sq} Skv={skv} q_offset={offset}, {H} heads over {KV} "
+                    f"KV of {hd}, non-causal, f32",
+           "max_abs_err": err, "worst_err_over_tol": err / tol, "tol": tol}
+    if not torch.equal(out, attn.flash_attention_cuda(q, k, v, causal=False, q_offset=0)):
+        raise AssertionError(f"{name}: the offset changes a non-causal call")
+    if offset:
+        whole = attn.flash_attention_cuda(q_all, k, v, causal=False)
+        res["whole_rows_max_abs_err"] = _within(name + " vs the whole sequence's rows", out,
+                                                whole[:, offset:offset + sq], tol)
+    masked = float((out - attn.flash_attention_plain(q, k, v, causal=True, q_offset=offset)
+                    ).abs().max())
+    if masked <= 10 * tol:
+        raise AssertionError(f"{name}: the check is blind to a causal mask ({masked})")
+    res["causal_mask_err_over_tol"] = masked / tol
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 4
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * b * H * hd * sq * skv)
+    res["ms"] = graph_ms(torch, lambda: attn.flash_attention_cuda(q, k, v, causal=False,
+                                                                  q_offset=offset), 50)
+    res["plain_ms"] = graph_ms(torch, lambda: attn.flash_attention_plain(q, k, v, causal=False),
+                               10)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # G = 1: no repeat
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res["library_ms"] = graph_ms(torch, lambda: sdpa(qt, kt, vt), 50)
+    return res
+
+
+def check_decode_memory_tile(torch, attn, gen) -> dict:
+    """The decode kernel over an enc-dec memory tile (MESH_FAM_DECODE,
+    MESH_FAM_HEADS, f32): every row at the memory's last position, the
+    tile's ``start`` and its log-sum-exp, held to the plain version within
+    MESH_F32_TOL x max(1, max|ref|) (the LSE to 1e-5 x max(1, |lse|)); the
+    two tiles merged by their LSEs against the plain attention over the
+    whole memory (the one-device cross-attention); a start one off fails the
+    rule. Timed beside the plain version and SDPA, with its bound."""
+    label, b, n_ent, start = MESH_FAM_DECODE
+    H, KV, hd = MESH_FAM_HEADS
+    dev = torch.device("cuda", 0)
+    S = start + n_ent  # the memory's frames; this tile is its last
+    q = torch.randn((b, 1, H, hd), generator=gen, device=dev)
+    k, v = (torch.randn((b, S, KV, hd), generator=gen, device=dev) for _ in range(2))
+    ks, vs = k[:, start:].contiguous(), v[:, start:].contiguous()
+    pos = torch.full((b,), S - 1, dtype=torch.int32, device=dev)
+    name = f"decode_attention {label} B={b} entries={n_ent} start={start} f32"
+    out, lse = attn.decode_attention_lse(q, ks, vs, pos, start=start)
+    ref, ref_lse = attn.decode_attention_plain(q, ks, vs, pos, start=start, with_lse=True)
+    tol = MESH_F32_TOL * max(1.0, float(ref.abs().max()))
+    err = _within(name, out, ref, tol)
+    res = {"shape": f"{label}: B={b}, {n_ent} entries from {start} of {S}, every row at {S - 1}, "
+                    f"{H} heads over {KV} KV of {hd}, f32, with the LSE",
+           "max_abs_err": err, "worst_err_over_tol": err / tol, "tol": tol,
+           "lse_max_abs_err": _within(name + " lse", lse, ref_lse,
+                                      1e-5 * max(1.0, float(ref_lse.abs().max())))}
+    first = attn.decode_attention_lse(q, k[:, :start].contiguous(), v[:, :start].contiguous(),
+                                      pos, start=0)
+    ls = torch.stack([first[1], lse])  # (2, b, H)
+    w = torch.exp(ls - ls.max(dim=0).values)[..., None]
+    merged = ((torch.stack([first[0][:, 0], out[:, 0]]) * w).sum(0) / w.sum(0))[:, None]
+    whole = attn.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                               causal=False).transpose(1, 2)
+    res["merged_max_abs_err"] = _within(name + " merged vs the whole memory", merged, whole, tol)
+    bad = attn.decode_attention_lse(q, ks, vs, pos, start=start + 1)[0]
+    off = float((bad - ref).abs().max())
+    if off <= tol:
+        raise AssertionError(f"{name}: a start one off passes ({off})")
+    res["start_one_off_err_over_tol"] = off / tol
+    n_bytes = (2 * ks.numel() + 2 * q.numel()) * 4 + b * H * 4 + b * 4
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, 4 * b * n_ent * H * hd)
+    res["ms"] = graph_ms(torch, lambda: attn.decode_attention_lse(q, ks, vs, pos, start=start), 50)
+    res["plain_ms"] = graph_ms(torch, lambda: attn.decode_attention_plain(
+        q, ks, vs, pos, start=start, with_lse=True), 10)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, ks, vs))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res["library_ms"] = graph_ms(torch, lambda: sdpa(qt, kt, vt), 50)
     return res
 
 
@@ -4320,6 +4788,14 @@ def run(torch, cell: subprocess.Popen) -> None:
         fam_decode.append(res)
         print(f"check decode_attention split edges family {label} "
               + json.dumps(check_decode_split(torch, attention, b, s, gen, heads)))
+    # the mesh families case's new shard shapes, in its f32
+    mesh_flash = []
+    for label, b, sq, skv, off in MESH_FAM_FLASH:
+        res = check_flash_mesh_family(torch, attention, label, b, sq, skv, off, gen)
+        print("check flash_attention mesh family " + json.dumps(res))
+        mesh_flash.append(res)
+    mesh_decode = check_decode_memory_tile(torch, attention, gen)
+    print("check decode_attention mesh family " + json.dumps(mesh_decode))
 
     svc = PilotComputeService()
     try:
@@ -4407,6 +4883,7 @@ def run(torch, cell: subprocess.Popen) -> None:
                                            *(r["max_abs_err"] for r in fam_flash),
                                            *(r["fwd_out_max_abs_err"] for r in fam_bwd)),
           "families": family_shapes(fam_flash), "q_offset": offset_shapes("fwd"),
+          "mesh_families": family_shapes(mesh_flash),
           "hd112": moe_shape(flash_112, f"B=1 S={PROMPT_LEN} causal", KIMI_HEADS),
           "hd128": moe_shape(flash_128, f"B=1 S={PROMPT_LEN} causal", PHI_HEADS),
           "with_lse": {"shape": f"B={TRAIN_BATCH} S={TRAIN_SEQ}",
@@ -4419,6 +4896,7 @@ def run(torch, cell: subprocess.Popen) -> None:
                                             decode_128["max_abs_err"], dr["shard"]["max_abs_err"],
                                             *(r["max_abs_err"] for r in fam_decode)),
           "families": family_shapes(fam_decode),
+          "mesh_families": family_shapes([mesh_decode]),
           "shard": {k: dr["shard"][k] for k in ("shape", "max_abs_err", "worst_err_over_tol",
                                                 "lse_max_abs_err", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
@@ -4444,7 +4922,8 @@ def run(torch, cell: subprocess.Popen) -> None:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
          **{key: r[key] for key in ("hd112", "hd128", "families", "with_lse", "scope",
-                                    "q_offset", "q_offset_pair", "shard") if key in r}}
+                                    "q_offset", "q_offset_pair", "shard", "mesh_families")
+            if key in r}}
         for name, source, replaces, r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -186,8 +186,8 @@ class CheckpointManager:
                 dev = torch.device(device) if device is not None else (
                     tmpl.device if isinstance(tmpl, torch.Tensor) else torch.device("cpu"))
                 arr = data[f"a{leaf['index']}"]
-                if specs:
-                    arr = np.ascontiguousarray(arr[shard_slices(specs[p], arr.shape, mesh)])
+                if specs:  # the tile (a scalar, the step, stays 0-d)
+                    arr = np.array(arr[shard_slices(specs[p], arr.shape, mesh)], order="C")
                 return _from_numpy(arr, leaf["dtype"], dev)
 
             state = tree_map_with_paths(load, template)

@@ -25,9 +25,10 @@ more FLOPs), since the step waits for the slowest rank. The process group
 is process-wide, so the dry run owns its process, as the reference's owns
 its process through ``XLA_FLAGS``; callers run it in a subprocess.
 
-``cell_supported``'s skips come first. A family the mesh refuses by name
-(MoE, VLM, enc-dec: ROADMAP A13) is recorded as ``"skipped"`` with the
-refusal's text; any other failure is an error and ``main`` exits 1.
+``cell_supported``'s skips come first (long_500k's quadratic archs); any
+failure of a cell is an error and ``main`` exits 1. The MoE cells count
+every expert gathered whole per layer on each rank: the reference keeps
+1/n_model of them a rank (expert parallelism, ROADMAP A14).
 
 It traces the card's path (fake ``cuda`` tensors) unless ``--device cpu``
 is given. It never touches a GPU, but indexing a fake ``cuda`` tensor needs
@@ -124,16 +125,7 @@ def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool, verbose: bool 
     t0 = time.time()
     ranks = []
     for r in dict.fromkeys((0, n_model - 1)):  # the origin and the last rank of "model"
-        try:
-            entry = trace_rank(model, shape, dims, axes, r, device)
-        except NotImplementedError as exc:
-            if "ROADMAP A13" not in str(exc):
-                raise
-            rec["skipped"] = str(exc)
-            if verbose:
-                print(f"[dryrun] SKIP {arch_name} x {shape_name} ({rec['mesh']}): {exc}")
-            return rec
-        ranks.append(entry)
+        ranks.append(trace_rank(model, shape, dims, axes, r, device))
     heavy = max(ranks, key=lambda e: (e["hlo"]["flops_per_device"], e["peak_bytes_per_device"]))
     rec.update({k: heavy[k] for k in ("memory", "peak_bytes_per_device", "cost_analysis",
                                       "hlo")})

@@ -165,17 +165,20 @@ def make_local_mesh(n_model: int = 1, n_data: int | None = None, *,
 
 def _rank_main(fn, rank: int, world: int, backend: str, init_method: str, threads: int,
                args: tuple, results) -> None:
+    import traceback
+
     torch.set_num_threads(threads)
     try:
         dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
         try:
             out = fn(rank, *args)
+        except BaseException as exc:  # reported before the group goes (the others fail on it)
+            results.put((rank, False, f"{type(exc).__name__}: {exc}\n{traceback.format_exc()}"))
+            return
         finally:
             dist.destroy_process_group()
         results.put((rank, True, out))
     except BaseException as exc:  # reported to the parent, which raises
-        import traceback
-
         results.put((rank, False, f"{type(exc).__name__}: {exc}\n{traceback.format_exc()}"))
 
 
@@ -219,6 +222,16 @@ def spawn_ranks(fn, world: int, *, init_method: str, backend: str = "gloo", args
             else:
                 errors.append(f"rank {rank}: {val}")
                 break
+        # the ranks a failed rank's exit disconnects report too: keep every
+        # report that comes within a few seconds, so the first cause shows
+        settle = time.monotonic() + 5.0
+        while errors and len(out) + len(errors) < world and time.monotonic() < settle:
+            try:
+                rank, ok, val = results.get(timeout=0.5)
+            except queue.Empty:
+                continue
+            if not ok:
+                errors.append(f"rank {rank}: {val}")
     finally:
         for p in procs:
             p.join(timeout=5 if not errors else 0.5)

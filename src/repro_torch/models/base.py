@@ -108,3 +108,46 @@ class BaseModel:
         """Logical axes of the decode cache: the (L, B, S, KV, hd) K/V."""
         ax = ("layers", "batch", "cache_seq", None, None)
         return {"k": ax, "v": ax}
+
+    # ---- a mesh rank's share of a global batch -------------------------------
+
+    def local_batch(self, batch: dict, rows: tuple[int, int],
+                    shard: tuple[int, int] = (0, 1)) -> dict:
+        """This rank's inputs of a global ``batch``: block ``rows = (i, n)``
+        of the rows, and, with ``shard = (j, m)``, the j-th of m equal
+        shards of each input's sequence (dim 1 of every input of two or more
+        dims; one-dim inputs, a decode step's positions, keep theirs). A
+        family whose sequence is not each input's own dim 1 overrides it
+        (the VLM's [patches; text]). Raises ``ValueError``, naming the
+        input, where one does not split (meta tensors check a batch's
+        shapes)."""
+        out = {}
+        for k, x in batch.items():
+            x = _row_block(k, x, rows)
+            if shard[1] > 1 and x.ndim >= 2:
+                x = _seq_block(k, x, shard, 0, x.shape[1])
+            out[k] = x.contiguous()
+        return out
+
+
+def _row_block(name: str, x: torch.Tensor, rows: tuple[int, int]) -> torch.Tensor:
+    i, n = rows
+    if x.shape[0] % n:
+        raise ValueError(f"input {name!r} {tuple(x.shape)}: {x.shape[0]} rows do not split "
+                         f"over {n} ranks")
+    b = x.shape[0] // n
+    return x[i * b:(i + 1) * b]
+
+
+def _seq_block(name: str, x: torch.Tensor, shard: tuple[int, int], lo: int,
+               length: int) -> torch.Tensor:
+    """Shard ``shard = (j, m)`` of a sequence ``length`` long whose
+    positions [lo, lo + x.shape[1]) ``x`` holds: its part of that shard
+    (possibly empty)."""
+    j, m = shard
+    if length % m:
+        raise ValueError(f"input {name!r} {tuple(x.shape)}: a sequence of {length} positions "
+                         f"does not split over {m} ranks")
+    s = length // m
+    a, b = max(j * s, lo), min((j + 1) * s, lo + x.shape[1])
+    return x[:, a - lo:max(a, b) - lo]

@@ -219,31 +219,23 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return embed[tokens]
 
 
-def refuse_mesh(what: str, item: str, verb: str = "train") -> None:
-    """Raise under a mesh step of more than one rank: ``what`` does not
-    ``verb`` (train, serve) sharded yet (its ROADMAP ``item``)."""
-    from repro_torch.runtime.sharding import current_rules
-
-    rules = current_rules()
-    if rules is not None and math.prod(rules.mesh.shape.values()) > 1:
-        raise NotImplementedError(f"{what} does not {verb} on a mesh of several ranks yet "
-                                  f"(ROADMAP {item})")
-
-
-def cache_segment(length: int) -> tuple[int, int, tuple]:
+def cache_segment(length: int, axes_of: int | None = None) -> tuple[int, int, tuple]:
     """(start, size, axes) of this rank's segment of a K/V cache ``length``
     long: its tile along the sequence under a serving mesh step (the
-    "cache_seq" axes of the rules, ``axes``), the whole cache otherwise
-    (``(0, length, ())``)."""
+    "cache_seq" axes of the rules, ``axes``; with ``axes_of``, those of a
+    cache that long: an enc-dec memory tiles as its self-attention cache),
+    the whole cache otherwise (``(0, length, ())``)."""
     from repro_torch.runtime.sharding import current_rules
 
     rules = current_rules()
     if rules is None or rules.kind == "train":
         return 0, length, ()
-    axes = rules.cache_seq_axes(length)
+    axes = rules.cache_seq_axes(length if axes_of is None else axes_of)
     if not axes:
         return 0, length, ()
     n = rules.mesh.axis_size(axes)
+    if length % n:
+        raise ValueError(f"a cache of {length} positions does not split over {axes} ({n})")
     size = length // n
     return rules.mesh.axis_index(axes) * size, size, axes
 

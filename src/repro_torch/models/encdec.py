@@ -15,6 +15,17 @@ the one-token decode's cross-attention through the plain
 :func:`~repro_torch.models.attention.naive_attention`, as the reference
 runs it (``impl="naive"``). The layer loops are Python loops over the
 stacked (L, ...) leaves.
+
+On a mesh step the frames and the tokens are each sharded over "model"
+(``BaseModel.local_batch``): the encoder's self-attention is the sharded
+attention, non-causal; a decoder layer gathers the memory's K/V over
+"model" once and attends its token shard to the whole memory. The prefill
+writes the memory's K/V as tiles over the self-attention cache's
+"cache_seq" axes, cut from the gathered memory as the self-attention
+cache is; a decode step's cross-attention over such a tile is the decode
+kernel with every row at the memory's last position, its partials merged
+over those axes (``runtime/sharded_attention.py``
+``sharded_decode_attention``), where one device runs the plain attention.
 """
 from __future__ import annotations
 
@@ -25,14 +36,20 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.base import BaseModel
 from repro_torch.models.common import (
     ParamSpec,
+    cache_segment,
     chunked_cross_entropy,
-    refuse_mesh,
+    decode_segment,
     embed_lookup,
+    last_shard,
     layer_params,
     rms_norm,
+    seq_positions,
+    seq_shards,
     shift_targets,
+    write_prompt_cache,
 )
 from repro_torch.models.ffn import mlp_apply, mlp_specs
+from repro_torch.runtime.sharding import current_rules, model_parallel
 from repro_torch.models.transformer import (
     attn_block_apply,
     attn_block_decode,
@@ -85,7 +102,7 @@ class EncDecLM(BaseModel):
         cfg, cd = self.cfg, self.compute_dtype
         x = frame_embeds.to(cd) @ params["frame_proj"].to(cd)
         B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device).expand(B, S)
+        positions = seq_positions(B, S, x.device)
 
         def layer(x, lp):
             h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -104,21 +121,46 @@ class EncDecLM(BaseModel):
     # ---- decoder -----------------------------------------------------------
 
     def _cross_kv(self, lp: dict, memory: torch.Tensor):
+        """The memory's cross-attention K and V (B, S_enc, KV, hd); on a
+        sequence shard of a mesh step, the whole memory's, gathered over
+        "model" (one collective a layer; its backward reduce-scatters)."""
         cfg, cd = self.cfg, self.compute_dtype
         KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
         kv = memory.to(cd) @ lp["wkv_x"].to(cd)
         B, S = memory.shape[:2]
         k, v = torch.chunk(kv, 2, dim=-1)
-        return k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
+        k, v = k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
+        rules = model_parallel()
+        if rules is None:
+            return k, v
+        from repro_torch.runtime.collectives import all_gather
+
+        kv = all_gather(torch.stack([k, v]), rules.mesh, "model", dim=2)
+        return kv[0], kv[1]
 
     def _cross_attend(self, lp: dict, x: torch.Tensor, k_mem: torch.Tensor,
                       v_mem: torch.Tensor) -> torch.Tensor:
+        """``x``'s queries against the memory's K/V: the whole memory's, or
+        under a decode mesh step the rank's tile of it (``k_mem`` (B, C,
+        KV, hd) over the self-attention cache's "cache_seq" axes), whose
+        partial attentions merge over those axes."""
         cfg, cd = self.cfg, self.compute_dtype
         H, hd = cfg.n_heads, cfg.resolved_head_dim
         B, S = x.shape[:2]
         q = (x.to(cd) @ lp["wq_x"].to(cd)).reshape(B, S, H, hd)
+        rules = current_rules()
+        axes = decode_segment()[1] if rules is not None and rules.kind == "decode" else ()
         if S > 1:
             out = attn_lib.blockwise_attention(q, k_mem, v_mem, causal=False)
+        elif axes:
+            from repro_torch.runtime.sharded_attention import sharded_decode_attention
+
+            mesh = rules.mesh
+            C = k_mem.shape[1]
+            last = torch.full((B,), C * mesh.axis_size(axes) - 1, dtype=torch.int32,
+                              device=q.device)  # every row sees the whole memory
+            out = sharded_decode_attention(q, k_mem, v_mem, last, mesh,
+                                           start=mesh.axis_index(axes) * C, axes=axes)
         else:
             out = attn_lib.naive_attention(q, k_mem, v_mem, causal=False)
         return out.reshape(B, S, H * hd) @ lp["wo_x"].to(cd)
@@ -139,15 +181,15 @@ class EncDecLM(BaseModel):
     def _embed_tokens(self, params: dict, tokens: torch.Tensor):
         x = embed_lookup(params["embed"], tokens).to(self.compute_dtype)
         B, S = tokens.shape
-        return x, torch.arange(S, device=tokens.device).expand(B, S)
+        return x, seq_positions(B, S, tokens.device)
 
     # ---- public API ----------------------------------------------------------
 
     def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
         """Next-token cross-entropy of ``batch["tokens"]`` (B, S) given
         ``batch["frame_embeds"]`` (B, S_enc, d) -> (loss, {"ce_loss",
-        "tokens"}), f32 scalars."""
-        refuse_mesh("the enc-dec family", "A13")
+        "tokens"}), f32 scalars. On a mesh step the frames and tokens are
+        the rank's rows and shards (each over "model")."""
         cfg = self.cfg
         memory = self._encode(params, batch["frame_embeds"])
         tokens = batch["tokens"]
@@ -167,38 +209,45 @@ class EncDecLM(BaseModel):
         """``batch["frame_embeds"]`` (B, S_enc, d) and ``batch["tokens"]``
         (B, S) -> (logits (B, 1, V_pad) f32 of the last token, cache
         {"k", "v"} (L, B, cache_len or S, KV, hd), zeros past S, and
-        {"k_mem", "v_mem"} (L, B, S_enc, KV, hd), all in the compute dtype)."""
-        refuse_mesh("the enc-dec family", "A13", "serve")
+        {"k_mem", "v_mem"} (L, B, S_enc, KV, hd), all in the compute dtype).
+        Under a serving mesh step the frames and tokens are the rank's rows
+        and shards, the logits its rows', and every cache leaf its tile over
+        the self-attention cache's "cache_seq" axes (the memory's too),
+        cut from the gathered K/V."""
         cfg, cd = self.cfg, self.compute_dtype
         memory = self._encode(params, batch["frame_embeds"])
         tokens = batch["tokens"]
         B, S = tokens.shape
-        if cache_len is not None and cache_len < S:
-            raise ValueError(f"cache_len {cache_len} is shorter than the prompt's {S} tokens")
+        whole = S * seq_shards()
+        if cache_len is not None and cache_len < whole:
+            raise ValueError(f"cache_len {cache_len} is shorter than the prompt's {whole} tokens")
         x, positions = self._embed_tokens(params, tokens)
         dev, KV, hd = x.device, cfg.n_kv_heads, cfg.resolved_head_dim
+        start, size, _ = cache_segment(cache_len or whole)
+        m_start, m_size, _ = cache_segment(memory.shape[1] * seq_shards(),
+                                           axes_of=cache_len or whole)
         alloc = torch.zeros if cache_len else torch.empty
-        shape = (cfg.n_layers, B, cache_len or S, KV, hd)
-        mem_shape = (cfg.n_layers, B, memory.shape[1], KV, hd)
+        shape = (cfg.n_layers, B, size, KV, hd)
+        mem_shape = (cfg.n_layers, B, m_size, KV, hd)
         cache = {"k": alloc(shape, dtype=cd, device=dev), "v": alloc(shape, dtype=cd, device=dev),
                  "k_mem": torch.empty(mem_shape, dtype=cd, device=dev),
                  "v_mem": torch.empty(mem_shape, dtype=cd, device=dev)}
         for i in range(cfg.n_layers):
             x, (k, v), (k_mem, v_mem) = self._decoder_layer(
                 layer_params(params["decoder"], i), x, memory, positions)
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
-            cache["k_mem"][i] = k_mem
-            cache["v_mem"][i] = v_mem
+            write_prompt_cache(cache["k"][i], k, start)
+            write_prompt_cache(cache["v"][i], v, start)
+            write_prompt_cache(cache["k_mem"][i], k_mem, m_start)
+            write_prompt_cache(cache["v_mem"][i], v_mem, m_start)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return self._logits(params, x[:, -1:]), cache
+        return self._logits(params, last_shard(x[:, -1:])), cache
 
     def decode(self, params: dict, cache: dict, batch: dict):
         """One step: ``tokens`` (B, 1), ``positions`` (B,) write index per
         row. Writes the new self-attention entries into ``cache`` in place
         and reads the cross-attention memory; returns (logits (B, 1, V_pad)
-        f32, cache)."""
-        refuse_mesh("the enc-dec family", "A13", "serve")
+        f32, cache). Under a serving mesh step the rows are the rank's and
+        every cache leaf its tile."""
         cfg, cd = self.cfg, self.compute_dtype
         positions = batch["positions"]
         x = embed_lookup(params["embed"], batch["tokens"]).to(cd)
@@ -237,5 +286,8 @@ class EncDecLM(BaseModel):
         return {"frame_embeds": ("batch", "seq", None), "tokens": ("batch", "seq")}
 
     def cache_axes(self, shape: ShapeConfig) -> dict:
+        """Every leaf's sequence on "cache_seq"; a serving mesh step tiles
+        the memory over the self-attention cache's axes (the dry run's
+        shapes give both the same length)."""
         ax = ("layers", "batch", "cache_seq", None, None)
         return {"k": ax, "v": ax, "k_mem": ax, "v_mem": ax}

@@ -1,14 +1,15 @@
 """Mixture-of-Experts layer: top-k routing with grouped dense dispatch.
 
-Own copy of the JAX package's ``models/moe.py``, on one device. Tokens are
-cut into (groups, group_size); each expert takes at most ``capacity =
-group_size * top_k / n_experts * capacity_factor`` tokens of a group, in
-token order, and a token routed past that falls through on the residual
-path. The routing is the reference's, step for step: the router product in
-the compute dtype, the softmax in f32, top-k as K rounds of first-index
-argmax (:func:`~repro_torch.models.common.first_argmax`, whose tie order is
-``jnp.argmax``'s, not ``torch.topk``'s), gates renormalised over the chosen
-experts, and each token's slot from an f32 cumsum over the group.
+Own copy of the JAX package's ``models/moe.py``. Tokens are cut into
+(groups, group_size), row-major over (B, S); each expert takes at most
+``capacity = group_size * top_k / n_experts * capacity_factor`` tokens of a
+group, in token order, and a token routed past that falls through on the
+residual path. The routing is the reference's, step for step: the router
+product in the compute dtype, the softmax in f32, top-k as K rounds of
+first-index argmax (:func:`~repro_torch.models.common.first_argmax`, whose
+tie order is ``jnp.argmax``'s, not ``torch.topk``'s), gates renormalised
+over the chosen experts, and each token's slot from an f32 cumsum over the
+group.
 
 The reference dispatches and combines with one-hot einsums over (group,
 token, expert, slot); here both are index-based: the chosen (token, expert)
@@ -17,15 +18,31 @@ buffer, and each token sums its K experts' outputs at those slots. A slot
 holds at most one token, so the buffer is the reference's dispatch einsum
 exactly; the expert products are batched matmuls over the expert axis
 (every expert computes all its slots, filled or not, as the reference's
-dense dispatch does). The reference's ``constrain`` hint on the expert axis
-(expert parallelism) has no counterpart yet (ROADMAP A14), and the family
-refuses a mesh step of several ranks (ROADMAP A13): its token groups and
-capacity drops depend on how the tokens are grouped.
+dense dispatch does).
+
+On a mesh step (:class:`TokenLayout`) a rank holds its rows' shard of the
+sequence, a slice of the global token list, while the groups, their size
+and the capacity are the global list's, as the reference's GSPMD program
+groups them. A group may span ranks (its size above the sequence shard, or
+a decode step's few rows in one group across the batch axes): a token's slot
+is then its rank's cumsum plus the per-expert counts of the group's earlier
+tokens on other ranks, exchanged as (sub-blocks, experts) counts over the
+axes the groups span, never the tokens. Each rank computes its groups'
+whole buffers (a group that spans k ranks is computed on each of them,
+holding only its own tokens), and the load-balance loss takes the global
+means by ``psum`` over the token axes. Expert weights arrive gathered whole
+per layer, as every layer's tiles do (``models/common.py``
+``ShardedLayer``): the reference's ``constrain`` on the expert axis (expert
+parallelism, each rank keeping 1/n_model of the experts) has no
+counterpart yet (ROADMAP A14), so the dry run's MoE cells count every
+expert gathered per layer: kimi-k2's 384 experts of 7168 x 2048 x 3 are
+33.8 GB a layer in bf16, of which the reference keeps 1/16 a rank.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from dataclasses import dataclass
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -87,12 +104,17 @@ class Routing(NamedTuple):
         return torch.log(chosen.amin(-1)) - torch.log(rest.amax(-1))
 
 
-def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg, compute_dtype: torch.dtype) -> Routing:
+def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg, compute_dtype: torch.dtype, *,
+              group_size: int | None = None, prefix=None) -> Routing:
     """Route ``xt`` (G, gs, d) over ``router`` (d, E), as the reference's
-    ``moe_apply`` does before its dispatch."""
+    ``moe_apply`` does before its dispatch. On a mesh (:func:`moe_apply`)
+    the rows of ``xt`` are sub-blocks of the global groups of
+    ``group_size`` tokens, which sets the capacity, and ``prefix`` maps
+    their per-expert counts (G, E) to those of the tokens before each
+    sub-block in its group, wherever they are held."""
     G, gs, _ = xt.shape
     E, K = cfg.n_experts, cfg.experts_per_token
-    C = moe_capacity(gs, K, E, cfg.capacity_factor)
+    C = moe_capacity(group_size or gs, K, E, cfg.capacity_factor)
     # the router product in the compute dtype, the softmax in f32
     logits = (xt.to(compute_dtype) @ router.to(compute_dtype)).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
@@ -109,50 +131,172 @@ def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg, compute_dtype: torch.
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # capacity: the position of each token in its expert's buffer
     sel = (gates > 0).to(torch.float32)
-    pos = torch.cumsum(sel, dim=1) * sel - 1.0  # -1 where not routed
+    count = torch.cumsum(sel, dim=1)
+    if prefix is not None:
+        count = count + prefix(count[:, -1])[:, None, :]
+    pos = count * sel - 1.0  # -1 where not routed
     keep = (pos >= 0) & (pos < C)
     slot = torch.clamp(pos, 0, C - 1).to(torch.int64)
     return Routing(probs, gates, torch.stack(experts, dim=-1), keep, slot, C)
 
 
-def moe_dispatch(xt: torch.Tensor, r: Routing, compute_dtype: torch.dtype):
+def moe_dispatch(xt: torch.Tensor, r: Routing, compute_dtype: torch.dtype,
+                 groups: torch.Tensor | None = None, n_groups: int | None = None):
     """The tokens of ``xt`` (G, gs, d) in their experts' buffers: ``xe``
     (E, G, C, d) in the compute dtype, zeros in empty slots — the
     reference's dispatch einsum, transposed to expert-major. Also returns,
     per (group, token, k-th choice), the row of the flattened buffer it went
     to (the extra row E G C where it was dropped) and its combine weight
-    (its gate, 0 where dropped)."""
+    (its gate, 0 where dropped). On a mesh the rows of ``xt`` are
+    sub-blocks, ``groups`` (G,) the buffer group each fills (of
+    ``n_groups``)."""
     G, gs, d = xt.shape
     E, C = r.probs.shape[-1], r.capacity
+    Gb = G if n_groups is None else n_groups
     idx = r.experts
     kept = r.keep.gather(-1, idx)
     # an expert chosen twice (only where probabilities underflow to 0) counts once
     kept = kept & ~(idx[..., :, None] == idx[..., None, :]).tril(-1).any(-1)
-    g = torch.arange(G, device=xt.device)[:, None, None]
-    row = (idx * G + g) * C + r.slot.gather(-1, idx)
-    row = torch.where(kept, row, E * G * C)
+    g = (torch.arange(G, device=xt.device) if groups is None else groups)[:, None, None]
+    row = (idx * Gb + g) * C + r.slot.gather(-1, idx)
+    row = torch.where(kept, row, E * Gb * C)
     weight = torch.where(kept, r.gates.gather(-1, idx), 0.0)
-    buf = torch.zeros((E * G * C + 1, d), dtype=compute_dtype, device=xt.device)
+    buf = torch.zeros((E * Gb * C + 1, d), dtype=compute_dtype, device=xt.device)
     src = xt.to(compute_dtype)[:, :, None].expand(G, gs, idx.shape[-1], d)
     # kept rows are distinct; the dropped ones all land on the discarded last row
     buf.index_copy_(0, row.reshape(-1), src.reshape(-1, d))
-    return buf[:-1].view(E, G, C, d), row, weight
+    return buf[:-1].view(E, Gb, C, d), row, weight
+
+
+@dataclass(frozen=True)
+class TokenLayout:
+    """Where a mesh rank's (B_l, S_l) tokens lie in the global token list,
+    row-major over (B, S) = (B_l n_rows, S_l n_seq): the rank holds row
+    block ``row_i`` (over ``row_axes``) and sequence shard ``seq_i`` (over
+    "model" where the sequence is sharded; a decode step's one token is
+    not)."""
+
+    mesh: Any
+    row_axes: tuple
+    row_i: int
+    n_rows: int
+    seq_i: int
+    n_seq: int
+
+    def axes(self) -> tuple:
+        """The mesh axes over which the ranks hold different tokens."""
+        return tuple(a for a in self.mesh.axis_names
+                     if a in self.row_axes or (a == "model" and self.n_seq > 1))
+
+    def plan(self, B: int, S: int, gs: int):
+        """For groups of ``gs`` tokens and the rank's (B, S) tokens cut in
+        sub-blocks of h = gcd(S, gs) (each inside one group and one rank's
+        part): (h, each sub-block's buffer group (tensor), the number of
+        buffer groups, the ``prefix`` of :func:`moe_route`, or None where
+        every sub-block is a whole group)."""
+        h = math.gcd(S, gs)
+        per = S // h  # sub-blocks a row
+
+        def subs(row_i: int, seq_i: int) -> list:
+            """The global sub-block indices of a rank's part, in its order."""
+            return [((row_i * B + b) * self.n_seq + seq_i) * per + j
+                    for b in range(B) for j in range(per)]
+
+        mine = subs(self.row_i, self.seq_i)
+        grp = [u * h // gs for u in mine]
+        first = sorted(set(grp))
+        local = {g: i for i, g in enumerate(first)}
+        dev = self.mesh.device
+        groups = torch.tensor([local[g] for g in grp], dtype=torch.int64, device=dev)
+        if h == gs:
+            return h, groups, len(first), None
+        # the axes a group spans: the sequence shards where a shard is not
+        # whole groups, the row blocks where a block is not
+        axes = tuple(a for a in self.mesh.axis_names
+                     if (a == "model" and self.n_seq > 1 and S % gs)
+                     or (a in self.row_axes and self.n_rows > 1 and (B * S * self.n_seq) % gs))
+        if axes:
+            _, ranks = self.mesh.group(axes)
+            held = []
+            for rank in ranks:
+                c = self.mesh.coords(rank)
+                row_i = self.row_i if not set(axes) & set(self.row_axes) else _index(
+                    self.mesh, self.row_axes, c)
+                seq_i = c["model"] if "model" in axes else self.seq_i
+                held += subs(row_i, seq_i)
+        else:
+            held = mine
+        before = torch.tensor([[held[j] * h // gs == g and held[j] < u for j in range(len(held))]
+                               for u, g in zip(mine, grp)], dtype=torch.float32, device=dev)
+
+        def prefix(counts: torch.Tensor) -> torch.Tensor:
+            """(n_sub, E) counts of the rank's sub-blocks -> the counts of
+            the tokens before each in its group."""
+            every = group_counts(counts, self.mesh, axes)  # (len(held), E)
+            return (before[:, :, None] * every[None]).sum(1)
+
+        return h, groups, len(first), prefix
+
+
+def _index(mesh, axes: tuple, coords: dict) -> int:
+    """A rank's index (row-major) along ``axes`` from its coordinates."""
+    i = 0
+    for a in axes:
+        i = i * mesh.shape[a] + coords[a]
+    return i
+
+
+def group_counts(counts: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
+    """Every rank's sub-block counts along ``axes`` (the ranks' order),
+    stacked: (ranks x n_sub, E); this rank's own where ``axes`` is empty."""
+    if not axes:
+        return counts
+    from repro_torch.runtime.collectives import all_gather_stack
+
+    return all_gather_stack(counts, mesh, axes).reshape(-1, counts.shape[-1])
+
+
+def token_layout(B: int, S: int) -> TokenLayout | None:
+    """The rank's :class:`TokenLayout` under a mesh step that splits the
+    tokens over ranks; None on one device (or where every rank holds every
+    token)."""
+    from repro_torch.runtime.sharding import current_rules, model_parallel
+
+    rules = current_rules()
+    if rules is None:
+        return None
+    mesh = rules.mesh
+    row_axes = tuple(a for a in rules.batch_axes if mesh.shape[a] > 1)
+    n_rows = mesh.axis_size(row_axes) if row_axes else 1
+    n_seq = rules.n_model if model_parallel() is not None else 1
+    if n_rows == 1 and n_seq == 1:
+        return None
+    return TokenLayout(mesh, row_axes, mesh.axis_index(row_axes) if row_axes else 0, n_rows,
+                       mesh.axis_index("model") if n_seq > 1 else 0, n_seq)
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg,
               compute_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """Apply the MoE FFN. ``x``: (B, S, d). Returns (y in ``x``'s dtype,
-    the Switch load-balance aux loss, an f32 scalar)."""
+    """Apply the MoE FFN. ``x``: (B, S, d), on a mesh step the rank's rows
+    and sequence shard. Returns (y in ``x``'s dtype, the Switch
+    load-balance aux loss, an f32 scalar of the global token list)."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
-    T = B * S
-    gs = moe_group_size(cfg, T)
-    G = T // gs
     cd = compute_dtype
-
-    xt = x.reshape(G, gs, d)
-    r = moe_route(p["router"], xt, cfg, cd)
-    xe, row, weight = moe_dispatch(xt, r, cd)
+    layout = token_layout(B, S)
+    if layout is None:
+        T = B * S
+        gs = moe_group_size(cfg, T)
+        xt = x.reshape(T // gs, gs, d)
+        r = moe_route(p["router"], xt, cfg, cd)
+        groups, G = None, T // gs
+    else:
+        T = B * S * layout.n_rows * layout.n_seq
+        gs = moe_group_size(cfg, T)
+        hb, groups, G, prefix = layout.plan(B, S, gs)
+        xt = x.reshape(B * S // hb, hb, d)
+        r = moe_route(p["router"], xt, cfg, cd, group_size=gs, prefix=prefix)
+    xe, row, weight = moe_dispatch(xt, r, cd, groups, G)
     xe = xe.reshape(E, G * r.capacity, d)
     h = torch.bmm(xe, p["w_gate"].to(cd))
     u = torch.bmm(xe, p["w_up"].to(cd))
@@ -160,17 +304,24 @@ def moe_apply(p: dict, x: torch.Tensor, cfg,
     # combine: each token's K experts at its slots, weighted by its gates
     # (in the compute dtype, as the reference's combine tensor), summed in
     # f32; a dropped choice reads any row with weight 0
-    picked = ye[row.clamp(max=ye.shape[0] - 1).reshape(-1)].view(G, gs, K, d).to(torch.float32)
+    picked = ye[row.clamp(max=ye.shape[0] - 1).reshape(-1)].view(*xt.shape[:2], K, d)
     w = weight.to(cd).to(torch.float32)
-    y = torch.einsum("gsk,gskd->gsd", w, picked).to(cd).reshape(B, S, d)
+    y = torch.einsum("gsk,gskd->gsd", w, picked.to(torch.float32)).to(cd).reshape(B, S, d)
 
     if cfg.n_shared_experts:
         xs = x.to(cd)
         hs = F.silu(xs @ p["shared_gate"].to(cd)) * (xs @ p["shared_up"].to(cd))
         y = y + hs @ p["shared_down"].to(cd)
 
-    # Switch-style load balance loss: E * sum_e f_e * p_e
-    frac_routed = (r.gates > 0).to(torch.float32).mean(dim=(0, 1))
-    mean_prob = r.probs.mean(dim=(0, 1))
+    # Switch-style load balance loss: E * sum_e f_e * p_e, of global means
+    routed = (r.gates > 0).to(torch.float32)
+    if layout is None:
+        frac_routed, mean_prob = routed.mean(dim=(0, 1)), r.probs.mean(dim=(0, 1))
+    else:
+        from repro_torch.runtime.collectives import psum
+
+        sums = psum(torch.cat([routed.sum(dim=(0, 1)), r.probs.sum(dim=(0, 1))]),
+                    layout.mesh, layout.axes()) / T
+        frac_routed, mean_prob = sums[:E], sums[E:]
     aux = E * torch.sum(frac_routed * mean_prob) / K
     return y.to(x.dtype), aux

@@ -22,7 +22,12 @@ its load-balance loss enters the training loss as the JAX package adds it.
 A VLM (``cfg.frontend == "vision"``) prepends ``batch["patch_embeds"] @
 vision_proj`` to the token embeddings: the anyres vision tower is a stub,
 as in the JAX package, and positions, the cache and ``last_pos`` count the
-patches.
+patches. On a mesh step a rank's sequence shard is a slice of the whole
+[patches; text] sequence (:meth:`DecoderLM.local_batch`): a rank may hold
+only patches, and the loss's targets shift over the whole sequence with
+the patch positions masked, so the loss is the global token sum over the
+global count as on one device; a MoE layer groups the global token list
+(``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn, moe
-from repro_torch.models.base import BaseModel
+from repro_torch.models.base import BaseModel, _row_block, _seq_block
 from repro_torch.models.common import (
     ParamSpec,
     ShardedLayer,
@@ -46,7 +51,6 @@ from repro_torch.models.common import (
     embed_lookup,
     last_shard,
     layer_params,
-    refuse_mesh,
     rms_norm,
     seq_positions,
     seq_shards,
@@ -178,6 +182,14 @@ def attn_block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, k_cache: torch.
 # ---------------------------------------------------------------------------
 
 
+def _behind(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, T) -> (B, n + T): ``x`` behind n zeros (a VLM shard's patch
+    positions)."""
+    if not n:
+        return x
+    return torch.cat([x.new_zeros((x.shape[0], n)), x], dim=1)
+
+
 class DecoderLM(BaseModel):
     """Dense / MoE / VLM decoder-only language model."""
 
@@ -255,13 +267,20 @@ class DecoderLM(BaseModel):
 
     def _embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
         """(B, S, d) in the compute dtype: the token embeddings, behind the
-        projected patch embeddings (B, n_patches, d) for a VLM."""
+        projected patch embeddings (B, n_patches, d) for a VLM. On a
+        sequence shard of a mesh step (:meth:`local_batch`) a VLM's shard is
+        its patches then its text positions, either possibly empty: the
+        tokens are embedded behind as many placeholders as it holds patches
+        (every "model" rank embeds S_l positions, as the vocab-parallel
+        lookup gathers them), and the patches take the placeholders' rows."""
         cd = self.compute_dtype
-        x = embed_lookup(params["embed"], batch["tokens"]).to(cd)
-        if self.is_vlm:
-            patches = batch["patch_embeds"].to(cd) @ params["vision_proj"].to(cd)
-            x = torch.cat([patches, x], dim=1)
-        return x
+        tokens = batch["tokens"]
+        if not self.is_vlm:
+            return embed_lookup(params["embed"], tokens).to(cd)
+        patches = batch["patch_embeds"].to(cd) @ params["vision_proj"].to(cd)
+        n_p = patches.shape[1] if seq_shards() > 1 else 0
+        x = embed_lookup(params["embed"], _behind(tokens, n_p)).to(cd)
+        return torch.cat([patches, x[:, n_p:]], dim=1)
 
     def _ffn(self, lp: dict, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The layer's FFN: (out, the MoE aux loss or None)."""
@@ -322,8 +341,6 @@ class DecoderLM(BaseModel):
         ``compute_params``); the layer loop is a Python loop over the
         stacked (L, ...) leaves."""
         cfg = self.cfg
-        if self.is_moe or self.is_vlm:
-            refuse_mesh(f"the {'MoE' if self.is_moe else 'VLM'} family", "A13")
         tokens = batch["tokens"]
         x = self._embed_inputs(params, batch)
         B, S, _ = x.shape
@@ -334,9 +351,17 @@ class DecoderLM(BaseModel):
             if layer_aux is not None:
                 aux = aux + layer_aux
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        targets, mask = shift_targets(tokens, batch.get("mask"))
-        if self.is_vlm:  # text hidden states start at the patch offset
+        mask = batch.get("mask")
+        if self.is_vlm and seq_shards() > 1:
+            # a shard of [patches; text]: the targets shift over the whole
+            # sequence and the patch positions (and the last) predict nothing
+            n_p = S - tokens.shape[1]
+            mask = _behind(torch.ones_like(tokens, dtype=torch.float32) if mask is None
+                           else mask.to(torch.float32), n_p)
+            tokens = _behind(tokens, n_p)
+        elif self.is_vlm:  # text hidden states start at the patch offset
             x = x[:, S - tokens.shape[1]:]
+        targets, mask = shift_targets(tokens, mask)
         tot, cnt = chunked_cross_entropy(x, self._head(params), targets, mask,
                                          vocab_size=cfg.vocab_size)
         loss = tot / torch.clamp(cnt, min=1.0)
@@ -356,8 +381,6 @@ class DecoderLM(BaseModel):
         decoding in place. Under a serving mesh step (``runtime/steps.py``
         ``build_prefill_step``) the batch is the rank's rows and sequence
         shard, the logits its rows' and the cache its tile."""
-        if self.is_moe or self.is_vlm:
-            refuse_mesh(f"the {'MoE' if self.is_moe else 'VLM'} family", "A13", "serve")
         last = batch.get("last_pos")
         if last is not None and seq_shards() > 1:
             raise NotImplementedError("prefill with last_pos (the paged steps) does not run on "
@@ -376,8 +399,6 @@ class DecoderLM(BaseModel):
         Under a serving mesh step the rows are the rank's and the cache its
         ``cache_seq`` tile (``attn_block_decode``)."""
         cfg, cd = self.cfg, self.compute_dtype
-        if self.is_moe or self.is_vlm:
-            refuse_mesh(f"the {'MoE' if self.is_moe else 'VLM'} family", "A13", "serve")
         tokens, positions = batch["tokens"], batch["positions"]
         x = embed_lookup(params["embed"], tokens).to(cd)  # (B, 1, d)
         for i in range(cfg.n_layers):
@@ -389,6 +410,25 @@ class DecoderLM(BaseModel):
             x = x + self._ffn(lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps))[0]
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._logits(params, x), cache
+
+    def local_batch(self, batch: dict, rows: tuple[int, int],
+                    shard: tuple[int, int] = (0, 1)) -> dict:
+        """A VLM's sequence is [patches; text], S = P + T: the rank's shard
+        is a slice of that concatenation, so its ``patch_embeds`` are the
+        patches inside the shard and its ``tokens`` (and ``mask``) the text
+        positions inside it, either possibly empty. Other models: the
+        base's."""
+        if not (self.is_vlm and "patch_embeds" in batch and shard[1] > 1):
+            return super().local_batch(batch, rows, shard)
+        P = batch["patch_embeds"].shape[1]
+        S = P + batch["tokens"].shape[1]
+        out = {}
+        for k, x in batch.items():
+            x = _row_block(k, x, rows)
+            if x.ndim >= 2:  # the patches hold positions [0, P), the text [P, S)
+                x = _seq_block(k, x, shard, 0 if k == "patch_embeds" else P, S)
+            out[k] = x.contiguous()
+        return out
 
     def input_specs(self, shape: ShapeConfig) -> dict:
         specs = super().input_specs(shape)

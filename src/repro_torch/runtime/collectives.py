@@ -16,9 +16,10 @@ of a replicated output.
 Staging: on a gloo mesh with CUDA tensors (``mesh.staged``), each
 collective copies its input to host memory, runs there and copies the
 result back; the choice follows the backend, fixed when the mesh was built.
-gloo's reduce-scatter is an all-reduce and a slice (each rank keeps its
-chunk); NCCL's is ``reduce_scatter_tensor``, and so is that of the ``fake``
-group the dry run traces a production mesh with (``launch/dryrun.py``).
+gloo's reduce-scatter is an all-to-all of the chunks, each rank summing
+the ones it receives; NCCL's is ``reduce_scatter_tensor``, and so is that
+of the ``fake`` group the dry run traces a production mesh with
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ def _all_reduce(mesh: Mesh, axes, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torc
 
 def _reduce_scatter(mesh: Mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor:
     group, ranks = mesh.group(axes)
-    n, i = len(ranks), mesh.axis_index(axes)
+    n = len(ranks)
     if x.shape[dim] % n:
         raise ValueError(f"reduce-scatter of dim {dim} ({x.shape[dim]}) over {n} ranks")
     if mesh.backend in ("nccl", "fake"):  # the fake group stands for NCCL's (the dry run)
@@ -63,8 +64,15 @@ def _reduce_scatter(mesh: Mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor
         out = torch.empty((h.shape[0] // n,) + h.shape[1:], dtype=h.dtype, device=h.device)
         dist.reduce_scatter_tensor(out, h, group=group)
         return out.movedim(0, dim)
-    full = _all_reduce(mesh, axes, x)
-    return full.chunk(n, dim=dim)[i].contiguous()
+    # gloo has no reduce-scatter: an all-to-all sends chunk j of every rank
+    # to rank j, which sums the n it receives in rank order (half an
+    # all-reduce's traffic; on the host when staged, so only the chunk comes
+    # back to the card)
+    h = _host(mesh, x).movedim(dim, 0).contiguous()
+    recv = torch.empty_like(h)
+    dist.all_to_all_single(recv, h, group=group)
+    out = recv.reshape(n, h.shape[0] // n, *h.shape[1:]).sum(0)
+    return _back(mesh, out.movedim(0, dim).contiguous(), x)
 
 
 def _ppermute(mesh: Mesh, axis: str, x: torch.Tensor, shift: int) -> torch.Tensor:

@@ -18,8 +18,15 @@ leaves are updated one leading slice at a time, as the reference's
 clipping is taken per slice there, so the numbers are the reference's. The
 update is plain PyTorch: the JAX package computes it outside any Pallas
 kernel. ``state_axes`` gives the state's logical axes (each moment follows
-its param); on a mesh the update runs on each rank's tiles with the global
-grad norm passed in (``runtime/steps.py``).
+its param; Adafactor's factored ``v_row``/``v_col`` strip the last or the
+second-to-last axis); on a mesh the update runs on each rank's tiles with
+the global grad norm passed in (``runtime/steps.py``). Adafactor's means
+over a whole axis or leaf (the factored second moments, their
+normalisation, the update clip's RMS) are then the tile's sums, ``psum``'d
+over the mesh axes that split that axis, over the global length
+(:class:`TileLayout`); its factored moments live as tiles of their own
+specs, moved to the param tile's layout for the update and back; and the
+layerwise update's choice reads the global leaf's shape, as on one device.
 """
 from __future__ import annotations
 
@@ -105,6 +112,85 @@ def _decay_mask(p: torch.Tensor) -> bool:
     return p.ndim >= 2
 
 
+@dataclass(frozen=True)
+class TileLayout:
+    """A leaf's tile on a mesh: the leaf's global ``shape`` (a layer
+    slice's, for the layerwise update), the mesh axes each dim of the
+    param's tile is split over (``dims``), and those of its Adafactor
+    ``v_row`` and ``v_col`` tiles (``row``, ``col``: their own specs, which
+    ZeRO may give other axes than the param's)."""
+
+    mesh: Any
+    shape: tuple
+    dims: tuple
+    row: tuple
+    col: tuple
+
+    @classmethod
+    def of(cls, mesh, shape, spec, row_spec, col_spec) -> "TileLayout":
+        def full(spec, n):
+            return tuple(spec[i] if i < len(spec) else None for i in range(n))
+        n = len(shape)
+        n_row, n_col = (n - 1, n - 1) if n >= 2 else (n, 0)
+        return cls(mesh, tuple(shape), full(spec, n), full(row_spec, n_row), full(col_spec, n_col))
+
+    def slice0(self) -> "TileLayout":
+        """The layout of one slice along the (unsplit) leading dim."""
+        if self.dims[0] is not None:
+            raise ValueError(f"the layerwise update slices dim 0, which is split: {self.dims}")
+        return TileLayout(self.mesh, self.shape[1:], self.dims[1:], self.row[1:], self.col[1:])
+
+    def mean(self, x: torch.Tensor, dim: int, *, rows: bool = False,
+             keepdim: bool = False) -> torch.Tensor:
+        """The global mean over ``dim`` of a tile in the param's layout
+        (``rows``: in the param's without its last dim, as ``v_row``)."""
+        from repro_torch.runtime.collectives import psum
+        from repro_torch.runtime.sharding import _flat
+
+        dims, shape = (self.dims[:-1], self.shape[:-1]) if rows else (self.dims, self.shape)
+        s = x.sum(dim=dim, keepdim=keepdim)
+        axes = _flat(dims[dim])
+        if axes:
+            s = psum(s, self.mesh, axes)
+        return s / shape[dim]
+
+    def mean_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The global mean of a tile in the param's layout."""
+        from repro_torch.runtime.collectives import psum
+        from repro_torch.runtime.sharding import _flat
+
+        s = x.sum()
+        axes = tuple(a for d in self.dims for a in _flat(d))
+        if axes:
+            s = psum(s, self.mesh, axes)
+        return s / math.prod(self.shape)
+
+    def _param_dims(self, which: str) -> tuple:
+        d = self.dims
+        if len(d) < 2:
+            return d if which == "row" else ()
+        return d[:-1] if which == "row" else d[:-2] + d[-1:]
+
+    def to_param(self, x: torch.Tensor, which: str) -> torch.Tensor:
+        """A ``v_row``/``v_col`` tile (``which``) in the param tile's layout."""
+        return _retile(x, getattr(self, which), self._param_dims(which), self.mesh)
+
+    def to_state(self, x: torch.Tensor, which: str) -> torch.Tensor:
+        return _retile(x, self._param_dims(which), getattr(self, which), self.mesh)
+
+
+def _retile(x: torch.Tensor, src: tuple, dst: tuple, mesh) -> torch.Tensor:
+    """A tile split by ``src`` (mesh axes per dim) as the tile split by
+    ``dst``: the dims they split differently gathered, then cut."""
+    if src == dst:
+        return x
+    from repro_torch.runtime.sharding import P, shard, unshard
+
+    diff = [i for i in range(len(src)) if src[i] != dst[i]]
+    whole = unshard(x, P(*(src[i] if i in diff else None for i in range(len(src)))), mesh)
+    return shard(whole, P(*(dst[i] if i in diff else None for i in range(len(dst)))), mesh)
+
+
 def _zeros(params: Any, shape: Callable, dtype: torch.dtype) -> Any:
     """Zeros of ``shape(p)`` for every leaf p, on the leaf's device."""
     return tree_map_with_paths(
@@ -170,11 +256,13 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: Any, state: dict, params: Any, *,
-               grad_norm: torch.Tensor | None = None) -> tuple[Any, dict, dict]:
+               grad_norm: torch.Tensor | None = None,
+               tiles: dict | None = None) -> tuple[Any, dict, dict]:
         """One step: params and moments written in place; returns (params,
         new state, {"lr", "grad_norm"}) with the stats as device scalars.
         ``grad_norm``: the global norm where ``grads`` are one rank's tiles
-        (a mesh step), else computed here from ``grads``."""
+        (a mesh step), else computed here from ``grads``; ``tiles``: there,
+        each leaf's :class:`TileLayout` by path."""
         cfg = self.cfg
         step = state["step"] + 1
         lr = lr_at(cfg, step)
@@ -194,7 +282,7 @@ class Optimizer:
             c1 = 1 - b1 ** step.to(torch.float32)
             c2 = 1 - b2 ** step.to(torch.float32)
 
-            def upd(p, g, m, v):
+            def upd(p, g, m, v, lay=None):
                 g32 = g.to(torch.float32) * gscale
                 m32 = b1 * m.to(torch.float32) + (1 - b1) * g32
                 v32 = b2 * v.to(torch.float32) + (1 - b2) * g32 * g32
@@ -214,21 +302,28 @@ class Optimizer:
             b2t = 1.0 - (step.to(torch.float32) ** -0.8)
             use_m = cfg.first_moment
 
-            def upd(p, g, vr, vc, m=None):
+            def upd(p, g, vr, vc, m=None, lay=None):
+                # lay: a mesh tile's layout, whose means are the global ones
+                mean = (lambda x, d, **kw: x.mean(dim=d, **kw)) if lay is None else lay.mean
                 g32 = g.to(torch.float32) * gscale
                 g2 = g32 * g32 + 1e-30
+                vr_p = vr if lay is None else lay.to_param(vr, "row")
                 if p.ndim >= 2:
-                    vr32 = b2t * vr + (1 - b2t) * g2.mean(dim=-1)
-                    vc32 = b2t * vc + (1 - b2t) * g2.mean(dim=-2)
-                    denom = torch.clamp(vr32.mean(dim=-1, keepdim=True), min=1e-30)
+                    vc_p = vc if lay is None else lay.to_param(vc, "col")
+                    vr32 = b2t * vr_p + (1 - b2t) * mean(g2, -1)
+                    vc32 = b2t * vc_p + (1 - b2t) * mean(g2, -2)
+                    row_mean = (vr32.mean(dim=-1, keepdim=True) if lay is None
+                                else lay.mean(vr32, -1, rows=True, keepdim=True))
+                    denom = torch.clamp(row_mean, min=1e-30)
                     vhat = (vr32[..., :, None] / denom[..., None]) * vc32[..., None, :]
                 else:
-                    vr32 = b2t * vr + (1 - b2t) * g2
+                    vr32 = b2t * vr_p + (1 - b2t) * g2
                     vc32 = vc
                     vhat = vr32
                 u = g32 / torch.sqrt(vhat + cfg.eps)
                 # update clipping (Adafactor §7)
-                rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
+                uu = torch.mean(u * u) if lay is None else lay.mean_all(u * u)
+                rms_u = torch.sqrt(uu + 1e-30)
                 u = u / torch.clamp(rms_u, min=1.0)
                 if use_m:
                     u = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * u
@@ -237,12 +332,14 @@ class Optimizer:
                 if _decay_mask(p):
                     delta = delta + cfg.weight_decay * p.to(torch.float32)
                 p.copy_(p.to(torch.float32) - lr * delta)
-                vr.copy_(vr32)
-                vc.copy_(vc32)
+                vr.copy_(vr32 if lay is None else lay.to_state(vr32, "row"))
+                if p.ndim >= 2:
+                    vc.copy_(vc32 if lay is None else lay.to_state(vc32, "col"))
 
             trees = [state["v_row"], state["v_col"]] + ([state["m"]] if use_m else [])
-            for leaf in zip(p_leaves, g_leaves, *(_leaves(t) for t in trees)):
-                self._leafwise(upd)(*leaf)
+            paths = [path for path, _ in tree_flatten_with_paths(params)]
+            for path, leaf in zip(paths, zip(p_leaves, g_leaves, *(_leaves(t) for t in trees))):
+                self._leafwise(upd)(*leaf, lay=None if tiles is None else tiles[path])
             new_state = {"step": step, "v_row": state["v_row"], "v_col": state["v_col"]}
             if use_m:
                 new_state["m"] = state["m"]
@@ -256,13 +353,16 @@ class Optimizer:
         if not self.cfg.layerwise_update:
             return upd
 
-        def wrapped(p, g, *rest):
-            big = p.ndim >= 3 and p.shape[0] >= 8 and p.numel() >= (1 << 22)
+        def wrapped(p, g, *rest, lay=None):
+            # the reference's test, on the global leaf's shape on a mesh
+            shape = p.shape if lay is None else lay.shape
+            big = len(shape) >= 3 and shape[0] >= 8 and math.prod(shape) >= (1 << 22)
             consistent = all(r.ndim >= 1 and r.shape[:1] == p.shape[:1] for r in rest)
             if big and g.shape == p.shape and consistent:
+                sl = None if lay is None else lay.slice0()
                 for i in range(p.shape[0]):
-                    upd(p[i], g[i], *(r[i] for r in rest))
+                    upd(p[i], g[i], *(r[i] for r in rest), lay=sl)
             else:
-                upd(p, g, *rest)
+                upd(p, g, *rest, lay=lay)
 
         return wrapped

@@ -208,8 +208,9 @@ def shard_slices(spec: P, shape: Sequence[int], mesh) -> tuple[slice, ...]:
 
 
 def shard(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
-    """``x``'s tile on this rank (a contiguous copy)."""
-    return x[shard_slices(spec, x.shape, mesh)].contiguous()
+    """``x``'s tile on this rank (a contiguous copy, never a view of ``x``:
+    the mesh step updates its tiles in place)."""
+    return x[shard_slices(spec, x.shape, mesh)].clone(memory_format=torch.contiguous_format)
 
 
 def spec_axes(spec: P) -> tuple[str, ...]:
@@ -223,23 +224,35 @@ def unshard(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     return unshard_many([x], [spec], mesh)[0]
 
 
+#: the most gathered bytes one collective of :func:`unshard_many` returns
+#: (a leaf above it gathers alone): its forward and backward each hold a
+#: flat buffer that large beside the leaves, so a MoE layer's experts (5 GB
+#: in f32 at phi3.5-moe's width) do not double a rank's peak
+GATHER_BYTES = 1 << 30
+
+
 def unshard_many(tiles: list, specs: list, mesh) -> list:
     """The full leaves of ``tiles`` under ``specs``, in one all-gather per
-    dtype: the flattened tiles side by side, over every mesh axis any of
-    the specs shards (a layer's leaves in one collective, not one per leaf
-    and sharded dim). A leaf not sharded over one of those axes takes the
-    tiles of that axis' index 0, so in the backward only those ranks
-    receive its gradient, the sum over the group, and the others zero: as
-    with one gather per spec, the gradient is whole once summed over the
-    axes the leaf is replicated on, as the mesh step sums it."""
+    dtype (per GATHER_BYTES of gathered leaves): the flattened tiles side by
+    side, over every mesh axis any of the specs shards (a layer's leaves in
+    one collective, or a few, not one per leaf and sharded dim). A leaf not
+    sharded over one of those axes takes the tiles of that axis' index 0,
+    so in the backward only those ranks receive its gradient, the sum over
+    the group, and the others zero: as with one gather per spec, the
+    gradient is whole once summed over the axes the leaf is replicated on,
+    as the mesh step sums it."""
     from repro_torch.runtime.collectives import all_gather_stack
 
     out = list(tiles)
     groups: dict = {}
     for i, (t, spec) in enumerate(zip(tiles, specs)):
         if spec_axes(spec):
-            groups.setdefault(t.dtype, []).append(i)
-    for idx in groups.values():
+            full = t.numel() * t.element_size() * _axis_size(mesh, spec_axes(spec))
+            chunks = groups.setdefault(t.dtype, [[]])
+            if chunks[-1] and sum(b for _, b in chunks[-1]) + full > GATHER_BYTES:
+                chunks.append([])
+            chunks[-1].append((i, full))
+    for idx in ([i for i, _ in chunk] for chunks in groups.values() for chunk in chunks):
         used = {a for i in idx for a in spec_axes(specs[i])}
         axes = tuple(a for a in mesh.axis_names if a in used)  # the group's rank order
         gathered = all_gather_stack(torch.cat([tiles[i].reshape(-1) for i in idx]), mesh, axes)

@@ -46,7 +46,7 @@ from repro_torch.data.batching import shard_batch
 from repro_torch.models.base import BaseModel
 from repro_torch.models.common import first_argmax, torch_dtype
 from repro_torch.runtime.collectives import psum
-from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig, _leaf_sqnorm
+from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig, TileLayout, _leaf_sqnorm
 from repro_torch.runtime.sharding import (
     TENSOR_AXES,
     ShardingRules,
@@ -148,14 +148,43 @@ def build_train_step(model: BaseModel, shape: ShapeConfig, opt_cfg: OptimizerCon
     return train_step
 
 
+def _state_optimizer(opt_state: dict) -> Optimizer:
+    """An optimizer whose state has ``opt_state``'s leaves (their specs
+    depend on the name and the first moment only)."""
+    name = "adafactor" if "v_row" in opt_state else "adamw" if "v" in opt_state else "sgd"
+    return Optimizer(OptimizerConfig(name=name, first_moment="m" in opt_state))
+
+
+def opt_state_shardings(model: BaseModel, opt: Optimizer, mesh) -> dict:
+    """Every optimizer-state leaf's spec, as the reference's ``o_shard``:
+    ``Optimizer.state_axes`` through the param rules (ZeRO included), so
+    Adam's moments follow their params and Adafactor's ``v_row``/``v_col``
+    take the specs of their own shapes; ``step`` whole. Also what
+    ``CheckpointManager.restore(shardings=...)`` takes for the state."""
+    rules = ShardingRules(mesh=mesh, batch_axes=())
+    return rules.shardings(opt.state_axes(model.param_axes()),
+                           opt.state_struct(model.param_struct()), is_param=True)
+
+
 def mesh_train_state(model: BaseModel, params: Any, opt_state: dict, mesh) -> tuple[Any, dict]:
     """Full params and optimizer state -> this rank's tiles of them, as the
-    mesh step keeps them (each moment follows its param; ``step`` whole)."""
-    specs = param_shardings(model, mesh)
-    params = shard_tree(params, specs, mesh)
-    opt_state = {k: (v if k == "step" else shard_tree(v, specs, mesh))
+    mesh step keeps them (:func:`opt_state_shardings`; ``step`` whole)."""
+    specs = opt_state_shardings(model, _state_optimizer(opt_state), mesh)
+    params = shard_tree(params, param_shardings(model, mesh), mesh)
+    opt_state = {k: (v if k == "step" else shard_tree(v, specs[k], mesh))
                  for k, v in opt_state.items()}
     return params, opt_state
+
+
+def _tile_layouts(model: BaseModel, opt: Optimizer, mesh, specs: dict) -> dict:
+    """Each param leaf's :class:`TileLayout` by path (Adafactor's reductions
+    over whole leaves read it)."""
+    shapes = {path: tuple(x.shape) for path, x in tree_flatten_with_paths(model.param_struct())}
+    state = opt_state_shardings(model, opt, mesh)
+    rows = flatten_specs(state["v_row"]) if "v_row" in state else {}
+    cols = flatten_specs(state["v_col"]) if "v_col" in state else {}
+    return {path: TileLayout.of(mesh, shapes[path], spec, rows.get(path, ()), cols.get(path, ()))
+            for path, spec in specs.items()}
 
 
 def build_mesh_train_step(model: BaseModel, shape: ShapeConfig,
@@ -165,45 +194,37 @@ def build_mesh_train_step(model: BaseModel, shape: ShapeConfig,
     one rank of ``mesh``: ``params`` and ``opt_state`` are the rank's tiles
     (:func:`mesh_train_state`), ``batch`` the whole global batch (every rank
     passes the same one, as the reference's step takes global arrays; each
-    keeps its rows and sequence shard). Metrics are alike on every rank.
-    AdamW and SGD only: Adafactor's factored moments would need sums across
-    tiles (ROADMAP A13)."""
+    keeps its rows and sequence shard: ``model.local_batch``). Metrics are
+    alike on every rank. Adafactor's means over whole leaves are taken
+    across the tiles (``runtime/optimizer.py`` ``TileLayout``)."""
     cfg = model.cfg
     opt = Optimizer(opt_cfg or OptimizerConfig(
         name=cfg.optimizer, moment_dtype=cfg.moment_dtype, first_moment=cfg.first_moment))
-    if opt.cfg.name == "adafactor":
-        raise NotImplementedError("Adafactor does not run on a mesh yet (ROADMAP A13)")
-    accum = grad_accum if grad_accum is not None else cfg.grad_accum
+    accum = max(grad_accum if grad_accum is not None else cfg.grad_accum, 1)
     accum_dtype = torch_dtype(cfg.param_dtype)
     rules = make_rules(mesh, shape)
     n_model, n_rows = rules.n_model, mesh.axis_size(rules.batch_axes)
-    B, S = shape.global_batch, shape.seq_len
-    if S % n_model or (B // max(accum, 1)) % n_rows or B % max(accum, 1):
-        raise ValueError(f"batch {B} x {S} does not split: {accum} microbatches, rows over "
-                         f"{rules.batch_axes} ({n_rows}), the sequence over model ({n_model})")
+    B = shape.global_batch
+    if B % accum:
+        raise ValueError(f"{accum} microbatches do not split the batch of {B}")
+    row_i = mesh.axis_index(rules.batch_axes) if rules.batch_axes else 0
+    seq_i = mesh.axis_index("model") if n_model > 1 else 0
+    split = ((row_i, n_rows), (seq_i, n_model))
+    # each input's own split (raises naming the one that does not divide)
+    model.local_batch({k: v[:v.shape[0] // accum] for k, v in model.input_specs(shape).items()},
+                      *split)
     if n_model > 1 and cfg.padded_vocab % n_model:
         raise ValueError(f"vocab {cfg.padded_vocab} does not split over {n_model} model ranks")
     specs = flatten_specs(param_shardings(model, mesh))
     axes = flatten_specs(model.param_axes())
+    tiles = _tile_layouts(model, opt, mesh, specs)
     # each leaf's gradient tile is summed over the axes its param is replicated on
     repl = {path: tuple(a for a in mesh.axis_names if a not in spec_axes(spec))
             for path, spec in specs.items()}
     # a tile's share of the global norm: its square sum counted once per copy
     copies = {path: mesh.axis_size(r) for path, r in repl.items()}
     world = mesh.size
-    row_i = mesh.axis_index(rules.batch_axes) if rules.batch_axes else 0
-    seq_i = mesh.axis_index("model") if n_model > 1 else 0
     dev = mesh.device
-
-    def local_rows(x: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of a global microbatch, and its sequence shard
-        of a (rows, S, ...) input."""
-        b = x.shape[0] // n_rows
-        x = x[row_i * b:(row_i + 1) * b]
-        if n_model > 1 and x.ndim >= 2 and x.shape[1] == S:
-            s = S // n_model
-            x = x[:, seq_i * s:(seq_i + 1) * s]
-        return x.contiguous()
 
     def value_and_grad(leaves, params, batch):
         for p in leaves:
@@ -226,14 +247,14 @@ def build_mesh_train_step(model: BaseModel, shape: ShapeConfig,
         flat = tree_flatten_with_paths(params)
         leaves = [p for _, p in flat]
         if accum <= 1:
-            mb = {k: local_rows(v) for k, v in batch.items()}
-            loss, metrics, grads = value_and_grad(leaves, params, mb)
+            loss, metrics, grads = value_and_grad(leaves, params,
+                                                  model.local_batch(batch, *split))
         else:
             grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device) for p in leaves]
             lsum = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(accum):
-                mb = {k: local_rows(v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i])
-                      for k, v in batch.items()}
+                mb = model.local_batch({k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
+                                        for k, v in batch.items()}, *split)
                 l, _, g = value_and_grad(leaves, params, mb)
                 for acc, gg in zip(grads, g):
                     acc.add_((gg / accum).to(accum_dtype))
@@ -247,7 +268,8 @@ def build_mesh_train_step(model: BaseModel, shape: ShapeConfig,
             gnorm = torch.sqrt(psum(sq, mesh, mesh.axis_names))
         by_path = dict(zip((path for path, _ in flat), grads))
         grad_tree = tree_map_with_paths(lambda path, _: by_path[path], params)
-        params, opt_state, stats = opt.update(grad_tree, opt_state, params, grad_norm=gnorm)
+        params, opt_state, stats = opt.update(grad_tree, opt_state, params, grad_norm=gnorm,
+                                              tiles=tiles)
         return params, opt_state, dict(metrics, loss=loss, **stats)
 
     return train_step
@@ -346,32 +368,29 @@ def serving_cache_specs(rules: ShardingRules, model: BaseModel, shape: ShapeConf
 
 def _serving(model: BaseModel, shape: ShapeConfig, mesh, cache_len: int | None):
     """What the mesh prefill and decode steps share: (rules, whether the
-    weights stay ZeRO tiles, the params' specs and axes, the rows' and
-    sequence's split, the local-rows function)."""
+    weights stay ZeRO tiles, the params' specs, the local-batch function,
+    the weights' load and view)."""
     zero = _serving_zero(model, mesh)
     rules = make_rules(mesh, shape, zero=zero)
     rules.vocab_parallel = False  # the serving steps hold the embedding and head whole
     rules.cache_len = cache_len or shape.seq_len
     n_model, n_rows = rules.n_model, mesh.axis_size(rules.batch_axes)
-    B, S = shape.global_batch, shape.seq_len
     n_cache = mesh.axis_size(rules.cache_seq_axes(rules.cache_len))
-    if B % n_rows or rules.cache_len % n_cache or (shape.kind == "prefill" and S % n_model):
-        raise ValueError(f"{shape.kind} {B} x {S} (cache {rules.cache_len}) does not split: "
-                         f"rows over {rules.batch_axes} ({n_rows}), the prompt over model "
-                         f"({n_model}), the cache over {rules.cache_seq_axes(rules.cache_len)}")
+    if rules.cache_len % n_cache:
+        raise ValueError(f"a cache of {rules.cache_len} does not split over "
+                         f"{rules.cache_seq_axes(rules.cache_len)} ({n_cache})")
+    row_i = mesh.axis_index(rules.batch_axes) if rules.batch_axes else 0
+    seq_i = mesh.axis_index("model") if n_model > 1 else 0
+    split = ((row_i, n_rows), (seq_i, n_model) if shape.kind == "prefill" else (0, 1))
+
+    def local(batch: dict) -> dict:
+        """The rank's rows (and a prompt's sequence shard) of a global batch."""
+        return model.local_batch(batch, *split)
+
+    local(model.input_specs(shape))  # each input's own split: raises naming the one that does not
     nested = param_shardings(model, mesh, zero=zero)
     specs = flatten_specs(nested)
     axes = flatten_specs(model.param_axes())
-    row_i = mesh.axis_index(rules.batch_axes) if rules.batch_axes else 0
-    seq_i = mesh.axis_index("model") if n_model > 1 else 0
-
-    def local(x: torch.Tensor, seq: bool) -> torch.Tensor:
-        b = x.shape[0] // n_rows
-        x = x[row_i * b:(row_i + 1) * b]
-        if seq and n_model > 1:
-            s = x.shape[1] // n_model
-            x = x[:, seq_i * s:(seq_i + 1) * s]
-        return x.contiguous()
 
     def load(params: Any) -> Any:
         """The rank's param tiles -> the params the step takes: without ZeRO
@@ -430,7 +449,7 @@ def build_prefill_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,
 
     @torch.no_grad()
     def prefill(params, batch):
-        batch = {k: local(v, v.ndim >= 2) for k, v in shard_batch(batch, dev).items()}
+        batch = local(shard_batch(batch, dev))
         with activation_rules(rules):
             return model.prefill(view(params), batch, cache_len=rules.cache_len)
 
@@ -448,15 +467,19 @@ def build_decode_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,
     ``model.decode``. On ``mesh`` every rank passes the whole batch and
     keeps its rows; ``cache`` is the rank's tile (:func:`serving_cache_specs`:
     the K/V sequence over the "cache_seq" axes, which take unused data axes
-    too when the batch is too small for them). The bundle's positions are
-    the cache's last entry (a full cache, as the reference's decode reads
-    every entry)."""
+    too when the batch is too small for them; an enc-dec model's memory
+    tiles as its self-attention cache). The self-attention cache is as long
+    as ``model.cache_struct(shape)`` holds it: ``shape.seq_len``, or half
+    of it for an enc-dec model, whose dry-run shapes split the budget
+    between frames and tokens. The bundle's positions are the cache's last
+    entry (a full cache, as the reference's decode reads every entry)."""
     if (mesh is None) == (device is None):
         raise ValueError("build_decode_step takes a device or a mesh")
     B = shape.global_batch
-    batch_struct = {**model.input_specs(shape),
-                    "positions": torch.full((B,), shape.seq_len - 1, dtype=torch.int32)}
     cache_struct = model.cache_struct(shape)
+    length = cache_struct["k"].shape[2] if "k" in cache_struct else shape.seq_len
+    batch_struct = {**model.input_specs(shape),
+                    "positions": torch.full((B,), length - 1, dtype=torch.int32)}
     if mesh is None:
         dev = resolve_device(device)
 
@@ -466,13 +489,13 @@ def build_decode_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,
 
         return StepBundle(decode, (model.compute_params(model.param_struct()), cache_struct,
                                    batch_struct), None, None, None, dev, "decode")
-    rules, zero, specs, local, load, view = _serving(model, shape, mesh, shape.seq_len)
+    rules, zero, specs, local, load, view = _serving(model, shape, mesh, length)
     dev = mesh.device
     cache_specs = serving_cache_specs(rules, model, shape, cache_struct)
 
     @torch.no_grad()
     def decode(params, cache, batch):
-        batch = {k: local(v, False) for k, v in shard_batch(batch, dev).items()}
+        batch = local(shard_batch(batch, dev))
         with activation_rules(rules):
             return model.decode(view(params), cache, batch)
 
@@ -510,7 +533,8 @@ def build_train_bundle(model: BaseModel, shape: ShapeConfig, opt_cfg: OptimizerC
                           resolve_device(device), "train")
     specs = param_shardings(model, mesh)
     p_tiles = _tiles(p_struct, specs, mesh)
-    o_tiles = {k: (v if k == "step" else _tiles(v, specs, mesh)) for k, v in o_struct.items()}
+    o_specs = opt_state_shardings(model, opt, mesh)
+    o_tiles = {k: (v if k == "step" else _tiles(v, o_specs[k], mesh)) for k, v in o_struct.items()}
     rules = make_rules(mesh, shape)
     return StepBundle(fn, (p_tiles, o_tiles, model.input_specs(shape)),
                       (specs, model.input_axes(shape)), specs, rules, mesh.device, "train")

@@ -22,7 +22,7 @@ decode plain version on a cache shard, and the dry run
   cell's peak holds at least the rank's param and moment tiles; the FLOPs
   of all ranks sum to the one-device count of the same global step (train:
   within 1 %; the gaps of prefill and decode are the work each "model" rank
-  repeats, computed and checked); a refused family is recorded as skipped.
+  repeats, computed and checked); a MoE cell traces too.
 
 The cases that start a fake process group run in a subprocess (the group
 is process-wide).
@@ -325,6 +325,11 @@ def test_rank_flops_sum_to_the_one_device_step(dry, mesh):
     assert sum(dec["rank_flops"]) == n_model * (dec["one_flops"] - attn) + attn
 
 
-def test_a_refused_family_is_recorded_as_skipped(dry):
+def test_a_moe_cell_is_traced(dry):
+    """The MoE family's decode cell traces on the fake (2, 2) mesh: its 8
+    rows are one group across both "data" ranks (the routing counts
+    exchanged), with FLOPs and the reference's keys."""
     rec = dry["moe"]
-    assert "hlo" not in rec and "the MoE family" in rec["skipped"] and "A13" in rec["skipped"]
+    assert "skipped" not in rec and rec["hlo"]["flops_per_device"] > 0
+    assert {"memory", "peak_bytes_per_device", "cost_analysis"} <= set(rec)
+    assert rec["hlo"]["collective_bytes_per_device"] > 0

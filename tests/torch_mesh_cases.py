@@ -113,7 +113,9 @@ def _train_steps(mesh, inp):
 def _families(mesh, inp):
     """One mesh step of the reduced rwkv6 and zamba2 (the token shifts,
     the sequence-parallel cores and the shared attention site cross the
-    shards); the MoE, VLM and enc-dec families refuse a mesh."""
+    shards), and of the reduced MoE, VLM and enc-dec families from the JAX
+    weights (``inp["family_cases"]``: the MoE's groups, the VLM's shards of
+    [patches; text], the enc-dec model's frames and tokens each split)."""
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.models import build_model
     from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
@@ -135,17 +137,8 @@ def _families(mesh, inp):
         out[name] = {"metrics": {k: float(v) for k, v in met.items()},
                      "params": {k: _np(v) for k, v in _flat(full).items()}
                      if mesh.rank == 0 else None}
-    for name in ("phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b", "seamless-m4t-medium"):
-        model = build_model(get_arch(name).reduced())
-        params = model.init(torch.Generator().manual_seed(1))
-        state = Optimizer(opt_cfg).init(params)
-        params, state = mesh_train_state(model, params, state, mesh)
-        step = build_train_step(model, ShapeConfig("t", S, B, "train"), opt_cfg, mesh=mesh)
-        try:
-            step(params, state, {"tokens": tokens})
-            out[name] = "ran"
-        except NotImplementedError as exc:
-            out[name] = str(exc)
+    for name, case in inp["family_cases"].items():
+        out[name] = _mesh_family_step(mesh, case)
     return out
 
 
@@ -273,11 +266,12 @@ def grad_compress_cases(rank: int, inp: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _serve_one(mesh, model, params, inp) -> dict:
-    """Prefill the global prompts and decode ``inp["steps"]`` on the mesh:
-    the rank's rows' logits of each call, its cache tile after the prefill
-    and its K/V tiles after the last decode step, and the decode-attention
-    merge at the right and at a one-off shard start."""
+def _serve_one(mesh, model, params, inp, extra: dict | None = None) -> dict:
+    """Prefill the global prompts (beside ``extra`` inputs: a VLM's patch
+    or an enc-dec model's frame embeddings) and decode ``inp["steps"]`` on
+    the mesh: the rank's rows' logits of each call, its cache tile after
+    the prefill and its K/V tiles after the last decode step, and the
+    decode-attention merge at the right and at a one-off shard start."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.models.common import decode_segment
     from repro_torch.runtime.collectives import all_gather
@@ -287,12 +281,17 @@ def _serve_one(mesh, model, params, inp) -> dict:
     from repro_torch.kernels.attention import decode_attention
 
     tokens, steps, cache_len = inp["tokens"], inp["steps"], inp["cache_len"]
+    extra = extra or {}
     B, T = tokens.shape
+    if "patch_embeds" in extra:  # the prompt's positions count the patches
+        T += extra["patch_embeds"].shape[1]
     pre = build_prefill_step(model, ShapeConfig("p", T, B, "prefill"), mesh=mesh,
                              cache_len=cache_len)
-    dec = build_decode_step(model, ShapeConfig("d", cache_len, B, "decode"), mesh=mesh)
+    # an enc-dec model's decode shape holds the frames' half of the budget too
+    dec = build_decode_step(model, ShapeConfig(
+        "d", cache_len * (2 if "frame_embeds" in extra else 1), B, "decode"), mesh=mesh)
     served = pre.load(shard_tree(params, pre.in_specs[0], mesh))  # gathered once
-    logits, cache = pre.fn(served, {"tokens": tokens})
+    logits, cache = pre.fn(served, {"tokens": tokens, **extra})
     out = {"logits": [_np(logits)], "cache": {k: _np(v).copy() for k, v in _flat(cache).items()}}
     for i, tok in enumerate(steps):
         pos = np.full((B,), T + i, np.int32)
@@ -322,11 +321,10 @@ def _serve_one(mesh, model, params, inp) -> dict:
 def serve_mesh_cases(rank: int, inp: dict) -> dict:
     """The serving steps on a (2, 2) ("data", "model") mesh: the reduced
     smollm, rwkv6 and zamba2 from the JAX weights (``inp["params"]``), and
-    the families the mesh refuses."""
-    from repro_torch.configs import ShapeConfig, get_arch
+    the MoE, VLM and enc-dec families' cases of ``inp["families"]``
+    (their weights and extra inputs)."""
+    from repro_torch.configs import get_arch
     from repro_torch.models import build_model, params_from_jax
-    from repro_torch.runtime.steps import build_prefill_step
-
     from repro_torch.runtime import steps
 
     mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
@@ -343,14 +341,210 @@ def serve_mesh_cases(rank: int, inp: dict) -> dict:
             mesh, model, params_from_jax(inp["params"]["smollm-135m"], "cpu"), inp)
     finally:
         steps._serving_zero = zero
-    B, T = inp["tokens"].shape
-    for name in ("phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b", "seamless-m4t-medium"):
+    for name, case in inp["families"].items():
         model = build_model(get_arch(name).reduced())
-        pre = build_prefill_step(model, ShapeConfig("p", T, B, "prefill"), mesh=mesh)
-        params = model.compute_params(model.init(torch.Generator().manual_seed(1)))
+        out[name] = _serve_one(mesh, model, params_from_jax(case["params"], "cpu"), inp,
+                               case["extra"])
+    return out
+
+
+def serve_families_cases(rank: int, inp: dict) -> dict:
+    """The MoE, VLM and enc-dec families' serving steps on the (2, 2)
+    mesh (``_serve_one``), from the JAX weights of each ``inp`` case; a MoE
+    case also records each routing's (tokens, routed, kept) choices."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, moe, params_from_jax
+
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    out = {"coords": mesh.coords()}
+    for name, case in inp.items():
+        model = build_model(get_arch(name).reduced(**case["overrides"]))
+        seen: list = []
+        route = moe.moe_route
+        moe.moe_route = _routed(moe, seen)
         try:
-            pre.fn(params, {"tokens": inp["tokens"]})
-            out[name] = "ran"
-        except NotImplementedError as exc:
-            out[name] = str(exc)
+            out[name] = _serve_one(mesh, model, params_from_jax(case["params"], "cpu"), case,
+                                   case["extra"])
+        finally:
+            moe.moe_route = route
+        out[name]["routes"] = seen
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_mesh_families.py and tests/test_torch_mesh_adafactor.py
+# ---------------------------------------------------------------------------
+
+
+def _routed(moe, seen: list):
+    """A ``moe_route`` that appends each call's (tokens, routed, kept)."""
+    route = moe.moe_route
+
+    def recording(*args, **kwargs):
+        r = route(*args, **kwargs)
+        seen.append((r.gates.shape[0] * r.gates.shape[1], int((r.gates > 0).sum()),
+                     int(r.keep.sum())))
+        return r
+    return recording
+
+
+def _own_counts_only(moe):
+    """A ``group_counts`` that keeps the collective but drops every other
+    rank's counts: a group's slots then ignore the tokens before the
+    rank's part (the mutation the MoE case must catch)."""
+    real = moe.group_counts
+
+    def own(counts, mesh, axes):
+        every = real(counts, mesh, axes)
+        if not axes:
+            return every
+        n, i = counts.shape[0], mesh.axis_index(axes)
+        keep = torch.zeros(every.shape[0], 1, dtype=every.dtype)
+        keep[i * n:(i + 1) * n] = 1.0
+        return every * keep
+    return own
+
+
+def _mesh_family_step(mesh, case: dict) -> dict:
+    """One mesh train step of ``case["arch"]``'s reduced config (with
+    ``case["overrides"]``) from the JAX weights ``case["params"]`` on
+    ``case["batch"]``: the metrics on every rank; on rank 0 every param
+    gathered and the optimizer state's moments gathered; each rank's
+    factored moment tiles with their slices of the global leaves."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models import build_model, params_from_jax
+    from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
+    from repro_torch.runtime.sharding import (flatten_specs, param_shardings, shard_slices,
+                                              unshard_tree)
+    from repro_torch.runtime.steps import build_train_step, mesh_train_state, opt_state_shardings
+
+    model = build_model(get_arch(case["arch"]).reduced(**case["overrides"]))
+    opt = Optimizer(OptimizerConfig(**case["opt"]))
+    params = params_from_jax(case["params"], "cpu")
+    state = opt.init(params)
+    params, state = mesh_train_state(model, params, state, mesh)
+    batch = case["batch"]
+    B, S = batch["tokens"].shape[0], case["seq_len"]
+    step = build_train_step(model, ShapeConfig("t", S, B, "train"), opt.cfg, mesh=mesh)
+    params, state, met = step(params, state, batch)
+    out = {"metrics": {k: float(v) for k, v in met.items()}}
+    ospecs = opt_state_shardings(model, opt, mesh)
+    if "m" in state:
+        m = unshard_tree(state["m"], ospecs["m"], mesh)
+        out["m"] = {k: _np(v) for k, v in _flat(m).items()} if mesh.rank == 0 else None
+    full = unshard_tree(params, param_shardings(model, mesh), mesh)
+    out["params"] = {k: _np(v) for k, v in _flat(full).items()} if mesh.rank == 0 else None
+    if "v_row" in state:  # each rank's factored moment tiles, with their slices
+        struct = opt.state_struct(model.param_struct())
+        out["factored"] = {}
+        for name in ("v_row", "v_col"):
+            specs, shapes = flatten_specs(ospecs[name]), _flat(struct[name])
+            out["factored"][name] = {
+                k: (_np(t), [(s.start, s.stop) for s in shard_slices(specs[k], shapes[k].shape,
+                                                                     mesh)])
+                for k, t in _flat(state[name]).items()}
+    return out
+
+
+def mesh_family_cases(rank: int, inp: dict) -> dict:
+    """Every case of ``inp["cases"]`` once on the (2, 2) mesh; a MoE case
+    also counts its routed and kept choices (summed over its layers and
+    this rank's tokens) and runs again with the groups' slots blind to the
+    other ranks (``_own_counts_only``)."""
+    from repro_torch.models import moe
+
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    out = {"coords": mesh.coords()}
+    for key, case in inp["cases"].items():
+        seen: list = []
+        route = moe.moe_route
+        moe.moe_route = _routed(moe, seen)
+        try:
+            out[key] = _mesh_family_step(mesh, case)
+        finally:
+            moe.moe_route = route
+        if seen:
+            out[key]["routed"] = sum(r for _, r, _ in seen)
+            out[key]["kept"] = sum(k for _, _, k in seen)
+            counts = moe.group_counts
+            moe.group_counts = _own_counts_only(moe)
+            try:
+                out[key]["own_counts_only"] = _mesh_family_step(mesh, case)["metrics"]
+            finally:
+                moe.group_counts = counts
+    return out
+
+
+def _restore_state(mesh, case: dict, directory: str) -> dict:
+    """A one-device Adafactor state saved whole (rank 0 writes) and
+    restored onto the mesh with ``opt_state_shardings``: each rank's tiles
+    against ``mesh_train_state``'s of the same state, bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, params_from_jax
+    from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
+    from repro_torch.runtime.sharding import param_shardings
+    from repro_torch.runtime.steps import mesh_train_state, opt_state_shardings
+
+    model = build_model(get_arch(case["arch"]).reduced(**case["overrides"]))
+    opt = Optimizer(OptimizerConfig(**case["opt"]))
+    from repro_torch.utils import tree_map_with_paths
+
+    params = params_from_jax(case["params"], "cpu")
+    g = torch.Generator().manual_seed(4)
+    state = {k: (v if k == "step" else tree_map_with_paths(
+        lambda _, x: torch.rand(x.shape, generator=g), v)) for k, v in opt.init(params).items()}
+    mgr = CheckpointManager(directory)
+    if mesh.rank == 0:
+        mgr.save(1, {"params": params, "opt": state})
+    dist.barrier()
+    shardings = {"params": param_shardings(model, mesh), "opt": opt_state_shardings(model, opt,
+                                                                                  mesh)}
+    restored, _ = mgr.restore({"params": params, "opt": state}, shardings=shardings, mesh=mesh)
+    want_p, want_o = mesh_train_state(model, params, state, mesh)
+    same = all(torch.equal(a, b) for a, b in zip(
+        _flat({"params": want_p, "opt": want_o}).values(), _flat(restored).values()))
+    return {"bitwise": same, "leaves": len(_flat(restored))}
+
+
+def mesh_adafactor_cases(rank: int, inp: dict, directory: str) -> dict:
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    case = inp["case"]
+    out = {"step": _mesh_family_step(mesh, case),
+           "restore": _restore_state(mesh, case, directory),
+           "clip_scope": _adafactor_clip_scope(mesh, inp["clip_scope"])}
+    return out
+
+
+def _adafactor_clip_scope(mesh, case: dict) -> dict:
+    """Two Adafactor updates of a stacked leaf (8 layers, 2^22 elements:
+    layerwise "big" as a whole, not as a rank's tile) and a norm, on the
+    rank's tiles, from ``case``'s params and per-step gradients: the
+    params gathered after each step (rank 0)."""
+    from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig, TileLayout
+    from repro_torch.runtime.sharding import P, shard, unshard
+
+    opt = Optimizer(OptimizerConfig(**case["opt"]))
+    specs = {"w": P(None, "model", None, "data"), "n": P("data")}
+    rows = {"w": P(None, "model"), "n": P("data")}
+    cols = {"w": P(None, "model", "data"), "n": P()}
+    full = {k: torch.from_numpy(v) for k, v in case["params"].items()}
+    params = {k: shard(v, specs[k], mesh) for k, v in full.items()}
+    state = opt.init(params)  # zeros: any tiling of them is theirs
+    state["v_row"] = {k: shard(torch.zeros(v.shape[:-1] if v.ndim >= 2 else v.shape),
+                               rows[k], mesh) for k, v in full.items()}
+    state["v_col"] = {k: shard(torch.zeros(v.shape[:-2] + v.shape[-1:] if v.ndim >= 2 else ()),
+                               cols[k], mesh) for k, v in full.items()}
+    tiles = {k: TileLayout.of(mesh, tuple(full[k].shape), specs[k], rows[k], cols[k])
+             for k in full}
+    out = []
+    for grads in case["grads"]:
+        g = {k: shard(torch.from_numpy(v), specs[k], mesh) for k, v in grads.items()}
+        norm = torch.sqrt(sum(torch.from_numpy(v).double().square().sum() for v in grads.values())
+                          ).float()
+        params, state, _ = opt.update(g, state, params, grad_norm=norm, tiles=tiles)
+        gathered = {k: _np(unshard(v, specs[k], mesh)) for k, v in params.items()}
+        out.append(gathered if mesh.rank == 0 else None)
     return out
