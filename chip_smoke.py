@@ -159,7 +159,8 @@
    written and merged from position 128 on), 16 decode steps, every call's
    logits held to the one-device steps', and the families case:
    phi3.5-moe (groups across the sequence shards and, in decode, across
-   the "data" ranks; trained under kimi-k2's Adafactor), llava-next (a rank
+   the "data" ranks; trained under kimi-k2's Adafactor; expert-parallel, 8
+   of its 16 experts a rank, tokens moved by all-to-all), llava-next (a rank
    of patches only) and seamless-m4t (frames and tokens split, the memory's
    tiles) at full width and one layer in f32, a train step and serving
    each, against the one-device steps; prints a ``check mesh`` line each, a
@@ -405,7 +406,10 @@ MESH_SERVE_STEPS, MESH_SERVE_REL = 16, 1e-4
 # meet at 712, inside the decode; seamless: FAM_FRAMES frames, whose K/V
 # tiles of 128 each decode step's cross-attention reads, and
 # MESH_SERVE_PROMPT_LEN tokens into MESH_SERVE_CACHE entries), held as the
-# serving check holds smollm
+# serving check holds smollm. phi is expert-parallel in both: each rank keeps
+# and computes 8 of its 16 experts, its train step and prefill move tokens by
+# all-to-all, its decode moves none (each line reads the rank's expert-tile
+# bytes, the expert bytes gathered a layer and the all-to-all bytes)
 MESH_FAMILIES = ("phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b", "seamless-m4t-medium")
 MESH_FAM_ROUTER, MESH_FAM_TRAIN_B, MESH_FAM_PHI_SEQ, MESH_FAM_TOKENS = 100.0, 2, 256, 128
 MESH_FAM_VLM_CACHE, MESH_FAM_UPDATE_REL, MESH_FAM_SGD_LR = 1424, 1e-3, 1.0
@@ -3864,6 +3868,46 @@ def _fam_routes(moe, seen: list):
     return _routes(moe, lambda r: seen.append((int((r.gates > 0).sum()), int(r.keep.sum()))))
 
 
+def _expert_traffic(experts: list, into: dict):
+    """A context that adds to ``into`` the bytes of the expert leaves the
+    step gathers (``unshard_many``'s results for ``experts``, the rank's
+    stacked expert tiles, or their layer slices) and the bytes every
+    all-to-all sends, forward and backward."""
+    import contextlib
+
+    from repro_torch.runtime import collectives, sharding
+
+    into.update(expert_gathered_bytes=0, all_to_all_bytes=0)
+
+    @contextlib.contextmanager
+    def recording():
+        unshard, a2a = sharding.unshard_many, collectives._all_to_all
+
+        def gather(tiles, specs, mesh):
+            out = unshard(tiles, specs, mesh)
+            for t, o in zip(tiles, out):
+                if any(t is e or t._base is e for e in experts):
+                    into["expert_gathered_bytes"] += o.numel() * o.element_size()
+            return out
+
+        def all_to_all(mesh, axes, x, dim):
+            into["all_to_all_bytes"] += x.numel() * x.element_size()
+            return a2a(mesh, axes, x, dim)
+
+        sharding.unshard_many, collectives._all_to_all = gather, all_to_all
+        try:
+            yield
+        finally:
+            sharding.unshard_many, collectives._all_to_all = unshard, a2a
+
+    return recording()
+
+
+def _expert_leaves(params: dict) -> list:
+    """The stacked expert leaves of a MoE param tree (tiles or whole)."""
+    return [params["layers"][k] for k in ("w_gate", "w_up", "w_down")]
+
+
 def _rank_tile(torch, mesh, ref, spec, shape: tuple, dtype):
     """This rank's tile under ``spec`` of rank 0's host tensor ``ref`` (None
     on the other ranks), scattered from rank 0 over the host."""
@@ -3933,16 +3977,26 @@ def _fam_train(torch, mesh, kernels, name: str) -> dict:
     dist.barrier()
     step = build_train_step(model, shape, opt_cfg, mesh=mesh)
     seen: list = []
+    experts = _expert_leaves(tiles) if cfg.n_experts else []
+    traffic: dict = {}
     for k in kernels.KERNELS:
         k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with _fam_routes(moe, seen):
+    with _fam_routes(moe, seen), _expert_traffic(experts, traffic):
         tiles, tstate, met = step(tiles, tstate, batch)
     torch.cuda.synchronize()
     res["mesh_step_s"] = time.perf_counter() - t0
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if cfg.n_experts:  # expert parallelism: the rank's experts and what moved
+        res.update(experts_per_rank=experts[0].shape[1], expert_tile_bytes=sum(
+            e.numel() * e.element_size() for e in experts),
+            expert_gathered_bytes_per_layer=traffic["expert_gathered_bytes"] // cfg.n_layers,
+            all_to_all_bytes=traffic["all_to_all_bytes"])
+        if experts[0].shape[1] * mesh.shape["model"] != cfg.n_experts \
+                or not traffic["all_to_all_bytes"]:
+            raise AssertionError(f"mesh {name} train step is not expert-parallel: {res}")
     res["launches"] = {k.name: k.launches for k in kernels.KERNELS}
     res["metrics"] = {k: float(v) for k, v in met.items()}
     if seen:
@@ -3996,7 +4050,9 @@ def _fam_serve(torch, mesh, kernels, name: str) -> dict:
     from repro_torch.configs import ShapeConfig
     from repro_torch.models import build_model, moe
     from repro_torch.models.common import first_argmax
+    from repro_torch.runtime.sharding import expert_tile, flatten_specs, shard
     from repro_torch.runtime.steps import build_decode_step, build_prefill_step
+    from repro_torch.utils import tree_map_with_paths
 
     cfg = _fam_cfg(name)
     model, dev = build_model(cfg), mesh.device
@@ -4013,36 +4069,48 @@ def _fam_serve(torch, mesh, kernels, name: str) -> dict:
     if pre.rules.zero:
         raise AssertionError(f"the families case serves {name} from whole weights")
     # every rank drew the whole weights: what ``pre.load`` gathers from the
-    # tiles (the smollm serve check takes that route; here it would move a
-    # MoE layer's experts through host memory once more)
-    served = model.compute_params(_fam_params(torch, model, dev))
+    # tiles but for the experts, which stay the rank's "model" tiles (the
+    # smollm serve check takes that route; here it would move the other
+    # leaves through host memory once more)
+    whole = model.compute_params(_fam_params(torch, model, dev))
+    specs, axes = flatten_specs(pre.in_specs[0]), flatten_specs(model.param_axes())
+
+    def tile(path, x):
+        ep = expert_tile(specs[path], axes[path])
+        return x if ep is None else shard(x, ep[0], mesh)
+    served = tree_map_with_paths(tile, whole)
     b = B // mesh.shape["data"]
     rows = slice(mesh.axis_index("data") * b, (mesh.axis_index("data") + 1) * b)
     # one device, the whole batch (a MoE group holds tokens of every row)
     one_pre = build_prefill_step(model, ShapeConfig("one_prefill", seq, B, "prefill"), device=dev,
                                  cache_len=C)
     one_dec = build_decode_step(model, ShapeConfig("one_decode", dlen, B, "decode"), device=dev)
-    logits, cache = one_pre.fn(served, batch)
+    logits, cache = one_pre.fn(whole, batch)
     want, toks = [logits[rows]], []
     for i in range(n):
         tok = first_argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         toks.append(tok)
-        logits, cache = one_dec.fn(served, cache, {"tokens": tok, "positions": torch.full(
+        logits, cache = one_dec.fn(whole, cache, {"tokens": tok, "positions": torch.full(
             (B,), S + i, dtype=torch.int32, device=dev)})
         want.append(logits[rows])
-    del cache
+    del cache, whole
     seen: list = []
+    experts = _expert_leaves(served) if cfg.n_experts else []
+    prefill_traffic: dict = {}
+    decode_traffic: dict = {}
     torch.cuda.synchronize()
     for k in kernels.KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     with _fam_routes(moe, seen):
-        logits, cache = pre.fn(served, batch)
+        with _expert_traffic(experts, prefill_traffic):
+            logits, cache = pre.fn(served, batch)
         got = [logits]
-        for i, tok in enumerate(toks):
-            logits, cache = dec.fn(served, cache, {"tokens": tok, "positions": torch.full(
-                (B,), S + i, dtype=torch.int32)})
-            got.append(logits)
+        with _expert_traffic(experts, decode_traffic):
+            for i, tok in enumerate(toks):
+                logits, cache = dec.fn(served, cache, {"tokens": tok, "positions": torch.full(
+                    (B,), S + i, dtype=torch.int32)})
+                got.append(logits)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels.KERNELS}
@@ -4059,6 +4127,16 @@ def _fam_serve(torch, mesh, kernels, name: str) -> dict:
            "launches": launches}
     if seen:
         res["routed"], res["kept"] = sum(r for r, _ in seen), sum(k for _, k in seen)
+    if cfg.n_experts:  # expert parallelism: tokens move in the prefill, none in decode
+        res.update(experts_per_rank=experts[0].shape[1], expert_tile_bytes=sum(
+            e.numel() * e.element_size() for e in experts),
+            expert_gathered_bytes=prefill_traffic["expert_gathered_bytes"]
+            + decode_traffic["expert_gathered_bytes"],
+            all_to_all_bytes={"prefill": prefill_traffic["all_to_all_bytes"],
+                              "decode": decode_traffic["all_to_all_bytes"]})
+        if (experts[0].shape[1] * mesh.shape["model"] != cfg.n_experts
+                or not prefill_traffic["all_to_all_bytes"] or decode_traffic["all_to_all_bytes"]):
+            raise AssertionError(f"mesh {name} serving is not expert-parallel: {res}")
     if max(errs) > MESH_SERVE_REL or flips:
         raise AssertionError(f"mesh {name} serving vs one device: {res}")
     if launches["decode_attention"] < n * cfg.n_layers * (2 if cfg.n_enc_layers else 1):

@@ -26,9 +26,7 @@ is process-wide, so the dry run owns its process, as the reference's owns
 its process through ``XLA_FLAGS``; callers run it in a subprocess.
 
 ``cell_supported``'s skips come first (long_500k's quadratic archs); any
-failure of a cell is an error and ``main`` exits 1. The MoE cells count
-every expert gathered whole per layer on each rank: the reference keeps
-1/n_model of them a rank (expert parallelism, ROADMAP A14).
+failure of a cell is an error and ``main`` exits 1.
 
 It traces the card's path (fake ``cuda`` tensors) unless ``--device cpu``
 is given. It never touches a GPU, but indexing a fake ``cuda`` tensor needs

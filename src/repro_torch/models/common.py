@@ -13,7 +13,8 @@ rank runs these on its local rows and, with a "model" axis of more than
 one rank, its shard of the sequence; the pieces that mix positions or the
 vocabulary then take their shard's context, where the JAX package's GSPMD
 sees whole arrays: :func:`layer_params` all-gathers a layer's sharded
-leaves, :func:`seq_positions` offsets RoPE positions by the shard's start,
+leaves (an expert leaf only over its ZeRO axes: expert parallelism),
+:func:`seq_positions` offsets RoPE positions by the shard's start,
 :func:`shift_targets` takes the next shard's first token, and
 :func:`embed_lookup` / :func:`chunked_cross_entropy` run the vocab-parallel
 forms of ``runtime/losses.py`` (the reference's wiring), or sum the local
@@ -89,23 +90,31 @@ def tree_leaves(tree: Any) -> list:
 
 
 class ShardedLayer(dict):
-    """One layer's params under a mesh step: the rank's tiles of the leaves
-    the step registered as sharded (and the rest whole), with their specs.
+    """One layer's params under a mesh step (or a serving step's whole
+    tree, gathered once): the rank's tiles of the leaves registered as
+    sharded (and the rest whole), with the specs they gather over.
     :meth:`gather` all-gathers the tiles to the full layer
-    (``runtime/sharding.py`` ``unshard_many``); ``remat_apply`` calls it
-    inside the layer's checkpoint, so the full weights live while the layer
-    runs and its backward's recompute gathers them again."""
+    (``runtime/sharding.py`` ``unshard_many``), but for the expert leaves
+    (``experts``), which stay the rank's "model" tile of the experts
+    (expert parallelism, ``models/moe.py``) and gather only over their
+    other axes, in a collective of their own; ``remat_apply`` calls it
+    inside the layer's checkpoint, so the gathered weights live while the
+    layer runs and its backward's recompute gathers them again."""
 
-    def __init__(self, leaves: dict, specs: dict, mesh):
+    def __init__(self, leaves: dict, specs: dict, mesh, experts: frozenset = frozenset()):
         super().__init__(leaves)
-        self.specs, self.mesh = specs, mesh
+        self.specs, self.mesh, self.experts = specs, mesh, experts
 
     def gather(self) -> dict:
         from repro_torch.runtime.sharding import unshard_many
 
-        keys = list(self.specs)
-        full = unshard_many([self[k] for k in keys], [self.specs[k] for k in keys], self.mesh)
-        return {**self, **dict(zip(keys, full))}
+        out = dict(self)
+        for keys in ([k for k in self.specs if k not in self.experts],
+                     [k for k in self.specs if k in self.experts]):
+            if keys:
+                out.update(zip(keys, unshard_many([self[k] for k in keys],
+                                                  [self.specs[k] for k in keys], self.mesh)))
+        return out
 
 
 def layer_params(stack: dict, i: int) -> dict:
@@ -114,16 +123,17 @@ def layer_params(stack: dict, i: int) -> dict:
     whose tiles of the stack are sharded: a :class:`ShardedLayer` of their
     slices, gathered where the layer runs (its gradient reduce-scatters
     back to the rank's tiles); a serving step, which takes no gradient,
-    gathers them here."""
+    gathers them here. Expert leaves stay "model" tiles either way."""
     from repro_torch.runtime.sharding import current_rules
 
     rules = current_rules()
     out = {k: v[i] for k, v in stack.items()}
-    specs = {} if rules is None else {
+    reg = {} if rules is None else {
         k: rules.stacked[id(v)] for k, v in stack.items() if id(v) in rules.stacked}
-    if not specs:
+    if not reg:
         return out
-    layer = ShardedLayer(out, specs, rules.mesh)
+    layer = ShardedLayer(out, {k: spec for k, (spec, _) in reg.items()}, rules.mesh,
+                         frozenset(k for k, (_, tile) in reg.items() if tile))
     return layer if rules.kind == "train" else layer.gather()
 
 

@@ -27,16 +27,28 @@ groups them. A group may span ranks (its size above the sequence shard, or
 a decode step's few rows in one group across the batch axes): a token's slot
 is then its rank's cumsum plus the per-expert counts of the group's earlier
 tokens on other ranks, exchanged as (sub-blocks, experts) counts over the
-axes the groups span, never the tokens. Each rank computes its groups'
-whole buffers (a group that spans k ranks is computed on each of them,
-holding only its own tokens), and the load-balance loss takes the global
-means by ``psum`` over the token axes. Expert weights arrive gathered whole
-per layer, as every layer's tiles do (``models/common.py``
-``ShardedLayer``): the reference's ``constrain`` on the expert axis (expert
-parallelism, each rank keeping 1/n_model of the experts) has no
-counterpart yet (ROADMAP A14), so the dry run's MoE cells count every
-expert gathered per layer: kimi-k2's 384 experts of 7168 x 2048 x 3 are
-33.8 GB a layer in bf16, of which the reference keeps 1/16 a rank.
+axes the groups span, never the tokens, and the load-balance loss takes the
+global means by ``psum`` over the token axes.
+
+Expert parallelism (the reference's ``constrain`` of the dispatch and
+return buffers to ("moe_groups", "experts"), which GSPMD lowers to an
+all-to-all): where the "model" axis splits the expert count, the expert
+leaves stay each rank's "model" tile of E / n_model experts
+(``runtime/sharding.py`` ``expert_tile``; a layer gathers them over their
+ZeRO axes only, ``models/common.py`` ``ShardedLayer``; the serving steps
+keep them as tiles) and the rank computes only those experts. In train and
+prefill steps, whose "model" ranks hold different sequence shards, an
+all-to-all over "model" carries each expert block of every rank's buffers
+to the block's owner, which sums the partial buffers of a group that spans
+several ranks (disjoint filled slots: the sum is exact) and computes each
+group once; the inverse all-to-all returns the outputs for the combine. In
+a decode step every "model" rank holds the same tokens: nothing moves, each
+rank computes its experts' block of its own buffers and combines only their
+outputs, and a ``psum`` over "model" completes each token (a decode group
+that spans the batch axes is still computed on each of its ranks, holding
+only that rank's tokens). Where the
+"model" axis does not divide the expert count the experts are gathered
+whole, as any layer's leaves, and every rank computes all of them.
 """
 from __future__ import annotations
 
@@ -195,12 +207,9 @@ class TokenLayout:
         buffer groups, the ``prefix`` of :func:`moe_route`, or None where
         every sub-block is a whole group)."""
         h = math.gcd(S, gs)
-        per = S // h  # sub-blocks a row
 
         def subs(row_i: int, seq_i: int) -> list:
-            """The global sub-block indices of a rank's part, in its order."""
-            return [((row_i * B + b) * self.n_seq + seq_i) * per + j
-                    for b in range(B) for j in range(per)]
+            return self._subs(B, S, h, row_i, seq_i)
 
         mine = subs(self.row_i, self.seq_i)
         grp = [u * h // gs for u in mine]
@@ -236,6 +245,21 @@ class TokenLayout:
             return (before[:, :, None] * every[None]).sum(1)
 
         return h, groups, len(first), prefix
+
+    def _subs(self, B: int, S: int, h: int, row_i: int, seq_i: int) -> list:
+        """The global sub-block indices (h tokens each) of a rank's part,
+        in its order."""
+        per = S // h  # sub-blocks a row
+        return [((row_i * B + b) * self.n_seq + seq_i) * per + j
+                for b in range(B) for j in range(per)]
+
+    def model_groups(self, B: int, S: int, gs: int) -> list:
+        """The buffer groups (global indices, ascending: the order of
+        :meth:`plan`'s buffer) of each "model" rank of the rank's row
+        block, in "model" order."""
+        h = math.gcd(S, gs)
+        return [sorted({u * h // gs for u in self._subs(B, S, h, self.row_i, i)})
+                for i in range(self.n_seq)]
 
 
 def _index(mesh, axes: tuple, coords: dict) -> int:
@@ -275,11 +299,81 @@ def token_layout(B: int, S: int) -> TokenLayout | None:
                        mesh.axis_index("model") if n_seq > 1 else 0, n_seq)
 
 
+def _experts(p: dict, xe: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+    """The experts of ``p`` (E', d, f) on their buffers ``xe`` (E', G, C, d):
+    every slot, filled or not, as the reference's dense dispatch."""
+    n, G, C, d = xe.shape
+    xe = xe.reshape(n, G * C, d)
+    h = torch.bmm(xe, p["w_gate"].to(cd))
+    u = torch.bmm(xe, p["w_up"].to(cd))
+    return torch.bmm(F.silu(h) * u, p["w_down"].to(cd)).view(n, G, C, d)
+
+
+def _expert_mesh(p: dict, n_experts: int):
+    """The mesh whose "model" ranks split the experts where ``p`` holds the
+    rank's tile of them (expert parallelism), else None."""
+    held = p["w_gate"].shape[0]
+    if held == n_experts:
+        return None
+    from repro_torch.runtime.sharding import current_rules
+
+    rules = current_rules()
+    if rules is None or rules.n_model * held != n_experts:
+        raise ValueError(f"{held} of {n_experts} experts outside a mesh step whose \"model\" "
+                         f"axis splits them")
+    return rules.mesh
+
+
+def _owner_buffers(recv: torch.Tensor, pos: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """An owner's buffers (El, n_groups, C, d) from the partial buffers
+    ``recv`` (El, senders x Gm, C, d) of its experts, each sender's g-th
+    group at ``pos`` (padding at ``n_groups``, discarded): a group that
+    several senders hold is the sum of their partials, exact as their
+    filled slots are disjoint."""
+    El, _, C, d = recv.shape
+    return recv.new_zeros((El, n_groups + 1, C, d)).index_add(1, pos, recv)[:, :-1]
+
+
+def _exchange(p: dict, xe: torch.Tensor, cd: torch.dtype, mesh, peers: list) -> torch.Tensor:
+    """Expert parallelism where the "model" ranks hold different tokens
+    (train and prefill): the outputs (E, G, C, d) of the rank's buffers
+    ``xe``, of which it computes only its experts' block, for every "model"
+    rank of its row block. ``peers`` lists each such rank's buffer groups
+    (:meth:`TokenLayout.model_groups`). An all-to-all over "model" sends
+    expert block j of every rank's buffers (padded to the most groups a
+    rank holds) to rank j, which sums the partial buffers of a group held
+    by several ranks (their filled slots are disjoint: the sum is exact),
+    computes each group once, and returns each rank its groups' outputs by
+    the inverse all-to-all."""
+    from repro_torch.runtime.collectives import all_to_all
+
+    E, G, C, d = xe.shape
+    n = len(peers)
+    El, Gm = E // n, max(len(g) for g in peers)
+    union = sorted(set().union(*peers))
+    at = {g: u for u, g in enumerate(union)}
+    # each sender's groups in the union's order; padding goes to an extra last row
+    pos = torch.tensor([[at[g] for g in gr] + [len(union)] * (Gm - len(gr)) for gr in peers],
+                       dtype=torch.int64, device=xe.device).reshape(-1)
+    send = F.pad(xe, (0, 0, 0, 0, 0, Gm - G))  # (E, Gm, C, d)
+    recv = all_to_all(send, mesh, "model", dim=0).view(n, El, Gm, C, d)  # by sender
+    buf = _owner_buffers(recv.transpose(0, 1).reshape(El, n * Gm, C, d), pos, len(union))
+    ye = _experts(p, buf, cd)  # (El, groups, C, d): each group once
+    ye = torch.cat([ye, ye.new_zeros((El, 1, C, d))], dim=1)
+    back = ye[:, pos].view(El, n, Gm, C, d).transpose(0, 1).reshape(E, Gm, C, d)
+    return all_to_all(back, mesh, "model", dim=0)[:, :G]
+
+
 def moe_apply(p: dict, x: torch.Tensor, cfg,
               compute_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
     """Apply the MoE FFN. ``x``: (B, S, d), on a mesh step the rank's rows
     and sequence shard. Returns (y in ``x``'s dtype, the Switch
-    load-balance aux loss, an f32 scalar of the global token list)."""
+    load-balance aux loss, an f32 scalar of the global token list). Where
+    ``p``'s experts are the rank's "model" tile of them (expert
+    parallelism), it computes only those: the tokens of train and prefill
+    steps move to their experts' rank (:func:`_exchange`); a decode step's,
+    alike on every "model" rank, stay, and each rank combines its experts'
+    outputs, summed over "model"."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     cd = compute_dtype
@@ -297,16 +391,33 @@ def moe_apply(p: dict, x: torch.Tensor, cfg,
         xt = x.reshape(B * S // hb, hb, d)
         r = moe_route(p["router"], xt, cfg, cd, group_size=gs, prefix=prefix)
     xe, row, weight = moe_dispatch(xt, r, cd, groups, G)
-    xe = xe.reshape(E, G * r.capacity, d)
-    h = torch.bmm(xe, p["w_gate"].to(cd))
-    u = torch.bmm(xe, p["w_up"].to(cd))
-    ye = torch.bmm(F.silu(h) * u, p["w_down"].to(cd)).reshape(-1, d)  # (E G C, d)
+    mesh, partial = _expert_mesh(p, E), False
+    if mesh is None:
+        ye = _experts(p, xe, cd)
+    elif layout is not None and layout.n_seq > 1:
+        ye = _exchange(p, xe, cd, mesh, layout.model_groups(B, S, gs))
+    else:  # the same tokens on every "model" rank: its experts' block only
+        El, lo = p["w_gate"].shape[0], mesh.axis_index("model")
+        ye = _experts(p, xe[lo * El:(lo + 1) * El], cd)
+        # the flattened buffer's rows of this rank's experts, and the rest
+        span = El * G * r.capacity
+        own = (row >= lo * span) & (row < (lo + 1) * span)
+        row = torch.where(own, row - lo * span, 0)
+        weight = torch.where(own, weight, 0.0)
+        partial = True
+    ye = ye.reshape(-1, d)
     # combine: each token's K experts at its slots, weighted by its gates
     # (in the compute dtype, as the reference's combine tensor), summed in
-    # f32; a dropped choice reads any row with weight 0
+    # f32; a dropped choice (or one of another rank's experts) reads any row
+    # with weight 0
     picked = ye[row.clamp(max=ye.shape[0] - 1).reshape(-1)].view(*xt.shape[:2], K, d)
     w = weight.to(cd).to(torch.float32)
-    y = torch.einsum("gsk,gskd->gsd", w, picked.to(torch.float32)).to(cd).reshape(B, S, d)
+    y = torch.einsum("gsk,gskd->gsd", w, picked.to(torch.float32))
+    if partial:  # every rank's experts' share of each token
+        from repro_torch.runtime.collectives import psum
+
+        y = psum(y, mesh, "model")
+    y = y.to(cd).reshape(B, S, d)
 
     if cfg.n_shared_experts:
         xs = x.to(cd)

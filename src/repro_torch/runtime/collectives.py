@@ -1,14 +1,16 @@
 """Collectives over a :class:`~repro_torch.launch.mesh.Mesh` axis, with
 their autograd rules: the port's counterparts of ``jax.lax.all_gather``
-(tiled), ``psum``, ``psum_scatter``, ``pmax`` and ``ppermute`` inside the
-JAX package's ``shard_map`` bodies.
+(tiled), ``psum``, ``psum_scatter``, ``pmax``, ``ppermute`` and
+``all_to_all`` inside the JAX package's ``shard_map`` bodies (and of the
+all-to-all GSPMD makes of the MoE layer's expert-axis constraint).
 
 Gradient convention. Every rank runs its own graph; the objective is the
 sum over ranks of what each rank back-propagates, and each collective's
 backward is its exact transpose (the JAX package's rules under
 ``check_vma=False``): ``psum`` -> ``psum``, tiled ``all_gather`` ->
 reduce-scatter (sum), ``psum_scatter`` -> tiled ``all_gather``,
-``ppermute`` -> the inverse permutation. A loss that every rank holds the
+``ppermute`` -> the inverse permutation, ``all_to_all`` -> itself (chunk
+j of rank i goes to chunk i of rank j, and back). A loss that every rank holds the
 same copy of is back-propagated divided by the number of ranks holding it
 (``runtime/steps.py``), as ``shard_map``'s transpose divides the cotangent
 of a replicated output.
@@ -75,6 +77,19 @@ def _reduce_scatter(mesh: Mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor
     return _back(mesh, out.movedim(0, dim).contiguous(), x)
 
 
+def _all_to_all(mesh: Mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Rank i sends chunk j of ``dim`` (n equal chunks) to rank j and
+    returns the chunks it receives, chunk i from rank i, in rank order."""
+    group, ranks = mesh.group(axes)
+    n = len(ranks)
+    if x.shape[dim] % n:
+        raise ValueError(f"all-to-all of dim {dim} ({x.shape[dim]}) over {n} ranks")
+    h = _host(mesh, x).movedim(dim, 0).contiguous()
+    out = torch.empty_like(h)
+    dist.all_to_all_single(out, h, group=group)
+    return _back(mesh, out.movedim(0, dim).contiguous(), x)
+
+
 def _ppermute(mesh: Mesh, axis: str, x: torch.Tensor, shift: int) -> torch.Tensor:
     """Rank i of the axis sends x to rank (i + shift) mod n and returns what
     it receives from rank (i - shift) mod n."""
@@ -124,6 +139,17 @@ class _PSumScatter(torch.autograd.Function):
         return _all_gather(ctx.mesh, ctx.axes, g, ctx.dim), None, None, None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _all_to_all(mesh, axes, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(ctx.mesh, ctx.axes, g, ctx.dim), None, None, None
+
+
 class _PPermute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, shift):
@@ -165,3 +191,11 @@ def pmax(x: torch.Tensor, mesh: Mesh, axes: str | Sequence[str]) -> torch.Tensor
 def ppermute(x: torch.Tensor, mesh: Mesh, axis: str, *, shift: int = 1) -> torch.Tensor:
     """Rank i of ``axis`` receives rank (i - shift) mod n's ``x``."""
     return _PPermute.apply(x, mesh, axis, int(shift))
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axes: str | Sequence[str], *,
+               dim: int) -> torch.Tensor:
+    """Cut ``dim`` into one equal chunk per rank of ``axes``: rank i sends
+    its chunk j to rank j, and chunk j of its result is rank j's chunk i
+    (every rank passes the same shape)."""
+    return _AllToAll.apply(x, mesh, axes, dim % x.ndim)

@@ -32,7 +32,9 @@ Cost model (:class:`StepCost`, the reference's names):
   chains are taken as fused into their consumers.
 * ``collective_bytes`` (each collective's payload: its input) and
   ``collective_counts`` under the reference's names (``all-gather``,
-  ``all-reduce``, ``reduce-scatter``, ``collective-permute``, ``all-to-all``);
+  ``all-reduce``, ``reduce-scatter``, ``collective-permute``, ``all-to-all``),
+  and by name the payloads' and the results' bytes (an all-gather's
+  result: the leaves it gathers);
   each payload is also tagged by whether its group lies within one node of
   ``launch/roofline.py`` ``NODE_GPUS`` consecutive ranks:
   ``collective_bytes_in_node`` and ``collective_bytes_across_nodes``.
@@ -82,6 +84,9 @@ _COLLECTIVES = {
     "send": ("collective-permute", 0),  # a ppermute is one send and one receive
 }
 _RECEIVES = {"recv_", "recv_any_source_"}
+#: collectives that return only their work handle: the index of the output
+#: argument they write
+_WRITES = {"alltoall_base_": 0}
 
 _PRODUCTS = {"mm", "bmm", "addmm", "baddbmm", "addbmm", "convolution", "_convolution",
              "flash_attention", "flash_attention_lse", "flash_attention_bwd", "decode_attention",
@@ -116,6 +121,10 @@ class StepCost:
     bytes_moved_fused: float = 0.0
     collective_bytes: float = 0.0
     collective_counts: dict = field(default_factory=dict)
+    #: by collective name: the payloads' bytes, and the bytes each returns
+    #: (an all-gather's gathered leaves)
+    collective_bytes_by_kind: dict = field(default_factory=dict)
+    collective_out_bytes_by_kind: dict = field(default_factory=dict)
     collective_bytes_in_node: float = 0.0
     collective_bytes_across_nodes: float = 0.0
     peak_bytes: int = 0
@@ -138,6 +147,8 @@ class StepCost:
             "collective_bytes_in_node_per_device": self.collective_bytes_in_node,
             "collective_bytes_across_nodes_per_device": self.collective_bytes_across_nodes,
             "collectives": dict(self.collective_counts),
+            "collective_bytes_by_kind": dict(self.collective_bytes_by_kind),
+            "collective_out_bytes_by_kind": dict(self.collective_out_bytes_by_kind),
         }
 
 
@@ -264,10 +275,13 @@ class CostMode(TorchDispatchMode):
             return
         kind, i = _COLLECTIVES[name]
         payload = sum(_nbytes(t) for t in _tensors(args[i]))
-        result = sum(_nbytes(t) for t in _tensors(out))
+        result = sum(_nbytes(t) for t in _tensors(args[_WRITES[name]] if name in _WRITES
+                                                  else out))
         c = self.cost
         c.collective_counts[kind] = c.collective_counts.get(kind, 0) + 1
         c.collective_bytes += payload
+        c.collective_bytes_by_kind[kind] = c.collective_bytes_by_kind.get(kind, 0) + payload
+        c.collective_out_bytes_by_kind[kind] = c.collective_out_bytes_by_kind.get(kind, 0) + result
         c.bytes_moved += 2 * result
         c.bytes_moved_fused += payload + result
         ranks = _group_ranks(args)

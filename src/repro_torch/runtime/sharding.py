@@ -67,8 +67,10 @@ class ShardingRules:
     batch_axes: tuple[str, ...] = ()
     zero: bool = True  # FSDP/ZeRO-shard params over the batch axes
     kind: str = "train"  # "train" | "prefill" | "decode"
-    #: stacked param leaves of the running step: id(local tensor) -> spec
-    #: of one layer's slice (``models/common.py`` ``layer_params``)
+    #: stacked param leaves of the running step: id(local tensor) -> (the
+    #: spec one layer's slice gathers over, whether the slice stays the
+    #: rank's "model" tile of the experts: :func:`expert_tile`;
+    #: ``models/common.py`` ``layer_params``)
     stacked: dict = field(default_factory=dict, repr=False)
     #: the embedding and head are the rank's vocab tiles (the train step's
     #: vocab-parallel forms); the serving steps hold them whole
@@ -274,6 +276,25 @@ def unshard_many(tiles: list, specs: list, mesh) -> list:
                 shape.append(t.shape[d] * _axis_size(mesh, entry))
             out[i] = piece.permute(order).reshape(shape)
     return out
+
+
+def expert_tile(spec: P, axes: Sequence[str | None]) -> tuple[P, P] | None:
+    """Expert parallelism, for a leaf whose "experts" dim ``spec`` shards
+    on "model" (``axes``: the leaf's logical names): (the spec of what a
+    rank keeps where its layer runs, its "model" tile of the experts; the
+    spec it gathers there, ``spec`` without that entry: its ZeRO axes).
+    None for every other leaf, among them an expert leaf whose expert count
+    "model" does not divide (its spec keeps the experts whole and puts
+    "model" on "mlp": gathered whole, as any layer leaf)."""
+    if "experts" not in axes:
+        return None
+    i = list(axes).index("experts")
+    if i >= len(spec) or spec[i] != "model":
+        return None
+    rest = [None if j == i else e for j, e in enumerate(spec)]
+    while rest and rest[-1] is None:
+        rest.pop()
+    return P(*([None] * i + ["model"])), P(*rest)
 
 
 def flatten_specs(tree: Any, prefix: str = "") -> dict:

@@ -11,7 +11,9 @@ where the reference's GSPMD partitions one program: each param and its
 Adam moments live as the rank's tile of their ``param_shardings`` spec
 (tensor axes on "model", ZeRO's largest free dim over the data axes); a
 layer's leaves are all-gathered where the layer runs, a few collectives a
-layer (``models/common.py`` ``ShardedLayer``), and their gradients
+layer (``models/common.py`` ``ShardedLayer``; a MoE layer's experts stay
+the rank's "model" tile, gathered over the data axes only, and its tokens
+move instead: ``models/moe.py``), and their gradients
 reduce-scatter back to the tiles; the batch rows split over the data axes and the
 sequence over "model", the ops that mix positions taking their shard's
 context (sharded attention, vocab-parallel embedding and loss, the
@@ -44,13 +46,14 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.service import resolve_device
 from repro_torch.data.batching import shard_batch
 from repro_torch.models.base import BaseModel
-from repro_torch.models.common import first_argmax, torch_dtype
+from repro_torch.models.common import ShardedLayer, first_argmax, torch_dtype
 from repro_torch.runtime.collectives import psum
 from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig, TileLayout, _leaf_sqnorm
 from repro_torch.runtime.sharding import (
     TENSOR_AXES,
     ShardingRules,
     activation_rules,
+    expert_tile,
     flatten_specs,
     param_shardings,
     shard_slices,
@@ -279,7 +282,8 @@ def _mesh_view(params: Any, specs: dict, axes: dict, mesh, stacked: dict,
                vocab_tiles: bool) -> Any:
     """The params as the model reads them on a mesh: stacked layer leaves
     as the rank's tiles (registered in ``stacked``; ``layer_params``
-    gathers them per layer), the rest gathered whole, but, with
+    gathers them per layer, an expert leaf to its "model" tile of the
+    experts only), the rest gathered whole, but, with
     ``vocab_tiles``, for the vocab-sharded embedding and head, which the
     vocab-parallel forms take as tiles."""
     flat = tree_flatten_with_paths(params)
@@ -289,7 +293,9 @@ def _mesh_view(params: Any, specs: dict, axes: dict, mesh, stacked: dict,
         [x for _, x in whole], [specs[path] for path, _ in whole], mesh)))
     for path, x in flat:
         if axes[path][:1] == ("layers",) and specs[path]:
-            stacked[id(x)] = type(specs[path])(*specs[path][1:])
+            tile = expert_tile(specs[path], axes[path])
+            spec = specs[path] if tile is None else tile[1]
+            stacked[id(x)] = (type(spec)(*spec[1:]), tile is not None)
     return tree_map_with_paths(lambda path, x: full.get(path, x), params)
 
 
@@ -308,7 +314,8 @@ class StepBundle:
     ``jit`` and ``lower()`` have no counterpart: :meth:`trace` runs one call
     under fake tensors and the cost counter (``runtime/cost_analysis.py``).
     ``load`` turns the rank's param tiles into the params the step takes
-    (the serving steps gather whole weights once, here)."""
+    (the serving steps gather whole weights once, here, but the experts'
+    "model" tiles)."""
 
     fn: Callable
     in_structs: tuple
@@ -392,15 +399,19 @@ def _serving(model: BaseModel, shape: ShapeConfig, mesh, cache_len: int | None):
     specs = flatten_specs(nested)
     axes = flatten_specs(model.param_axes())
 
+    experts = _expert_tiles(specs, axes)
+
     def load(params: Any) -> Any:
         """The rank's param tiles -> the params the step takes: without ZeRO
-        every leaf gathered whole, once (layer weights in the compute
-        dtype, as the serving path keeps them); with it, the tiles."""
+        every leaf gathered whole, once, but the expert leaves, which stay
+        the rank's "model" tiles of the experts (layer weights in the
+        compute dtype, as the serving path keeps them); with it, the
+        tiles."""
         if zero:
             return params
-        flat = tree_flatten_with_paths(params)
-        full = dict(zip((path for path, _ in flat), unshard_many(
-            [x for _, x in flat], [specs[path] for path, _ in flat], mesh)))
+        flat = dict(tree_flatten_with_paths(params))
+        full = ShardedLayer(flat, {p: experts[p][1] if p in experts else specs[p] for p in flat},
+                            mesh, frozenset(experts)).gather()
         return model.compute_params(tree_map_with_paths(lambda path, _: full[path], params))
 
     def view(params: Any) -> Any:
@@ -412,11 +423,24 @@ def _serving(model: BaseModel, shape: ShapeConfig, mesh, cache_len: int | None):
     return rules, zero, nested, local, load, view
 
 
+def _expert_tiles(specs: dict, axes: dict) -> dict:
+    """{path: ``expert_tile``'s (kept, gathered) specs} of the expert
+    leaves that a mesh step keeps as "model" tiles of the experts."""
+    tiles = {path: expert_tile(spec, axes[path]) for path, spec in specs.items()}
+    return {path: t for path, t in tiles.items() if t is not None}
+
+
 def _serving_structs(model: BaseModel, mesh, zero: bool, specs: Any) -> Any:
     """The params a serving step takes, as ``meta`` structs: whole (in the
-    serving dtypes) or, with ZeRO, the rank's tiles."""
+    serving dtypes) but for the expert leaves' "model" tiles or, with ZeRO,
+    the rank's tiles."""
     struct = model.param_struct()
-    return _tiles(struct, specs, mesh) if zero else model.compute_params(struct)
+    if zero:
+        return _tiles(struct, specs, mesh)
+    experts = _expert_tiles(flatten_specs(specs), flatten_specs(model.param_axes()))
+    return model.compute_params(tree_map_with_paths(
+        lambda path, x: _tile_struct(x, experts[path][0], mesh) if path in experts else x,
+        struct))
 
 
 def build_prefill_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,

@@ -333,3 +333,71 @@ def test_a_moe_cell_is_traced(dry):
     assert "skipped" not in rec and rec["hlo"]["flops_per_device"] > 0
     assert {"memory", "peak_bytes_per_device", "cost_analysis"} <= set(rec)
     assert rec["hlo"]["collective_bytes_per_device"] > 0
+
+
+_EXPERT_CELLS = """
+    import json
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.runtime import steps
+    shape = ShapeConfig("train", 64, 8, "train")
+    out = {}
+    for arch in ("phi3.5-moe-42b-a6.6b", "smollm-135m"):
+        for tiles in (True, False):
+            keep = steps.expert_tile
+            if not tiles:  # every layer leaf gathered whole, the experts too
+                steps.expert_tile = lambda spec, axes: None
+            try:
+                rec = dryrun.run_cell(arch, "train", multi_pod=False, device="cpu",
+                                      cfg=get_arch(arch).reduced(), mesh_shape=(2, 2),
+                                      shape=shape, verbose=False)
+            finally:
+                steps.expert_tile = keep
+            out[f"{arch}/{tiles}"] = {k: rec[k] for k in ("hlo", "peak_bytes_per_device",
+                                                          "memory")}
+    print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def expert_cells():
+    return _run(_EXPERT_CELLS)
+
+
+def test_a_moe_train_cell_gathers_its_expert_tiles_and_moves_tokens(expert_cells):
+    """phi3.5-moe reduced's train cell on the fake (2, 2) mesh: its
+    all-gathers return the expert leaves' "model" tiles, 1/n_model of what
+    the whole gather of every layer leaf returned (the bytes all-gathered
+    fall by (1 - 1/n_model) of the whole expert leaves), and its
+    collectives include the all-to-alls of the tokens, two a layer forward
+    and two backward, which the whole gather has none of; the FLOPs of the
+    heavier rank stay (its groups are whole on each rank: no work was
+    repeated)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch("phi3.5-moe-42b-a6.6b").reduced()
+    struct = build_model(cfg).param_struct()["layers"]
+    experts = sum(struct[k].numel() * struct[k].element_size()
+                  for k in ("w_gate", "w_up", "w_down"))
+    n_model = 2
+    ep = expert_cells["phi3.5-moe-42b-a6.6b/True"]["hlo"]
+    whole = expert_cells["phi3.5-moe-42b-a6.6b/False"]["hlo"]
+    gathered = ep["collective_out_bytes_by_kind"]["all-gather"]
+    assert gathered == whole["collective_out_bytes_by_kind"]["all-gather"] \
+        - experts * (1 - 1 / n_model)
+    assert ep["collectives"]["all-to-all"] == 4 * cfg.n_layers
+    assert "all-to-all" not in whole["collectives"]
+    assert ep["collective_bytes_by_kind"]["all-to-all"] > 0
+    assert ep["collective_out_bytes_by_kind"]["all-to-all"] \
+        == ep["collective_bytes_by_kind"]["all-to-all"]
+    assert ep["flops_per_device"] == whole["flops_per_device"]
+
+
+def test_a_dense_cell_reads_as_before(expert_cells, dry):
+    """smollm-135m's train cell is the same record whether or not expert
+    leaves would stay tiles, and the same as the dry run's (2, 2) cell."""
+    ep = expert_cells["smollm-135m/True"]
+    assert ep == expert_cells["smollm-135m/False"]
+    assert ep["hlo"] == dry["2x2/train"]["hlo"]
+    assert ep["peak_bytes_per_device"] == dry["2x2/train"]["peak_bytes_per_device"]

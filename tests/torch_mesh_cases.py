@@ -548,3 +548,164 @@ def _adafactor_clip_scope(mesh, case: dict) -> dict:
         gathered = {k: _np(unshard(v, specs[k], mesh)) for k, v in params.items()}
         out.append(gathered if mesh.rank == 0 else None)
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_expert_parallel.py
+# ---------------------------------------------------------------------------
+
+
+class _ExpertSpies:
+    """Records, while active, what expert parallelism must show: the
+    expert counts each expert product holds (``moe._experts``), each
+    gather of an expert leaf (its axes and the experts it returns:
+    ``unshard_many``, the leaves told apart by identity with ``experts``,
+    the rank's stacked expert tiles), the all-to-alls by step kind (calls
+    and bytes, forward and backward), and the "model" all-reduces of
+    ``d_model``-wide sums (the decode combine)."""
+
+    def __init__(self, moe, experts: list, d_model: int):
+        from repro_torch.runtime import collectives, sharding
+
+        self.moe, self.coll, self.sharding = moe, collectives, sharding
+        self.experts, self.d = experts, d_model
+        self.held, self.gathers, self.a2a, self.a2a_bytes, self.combine = set(), [], {}, {}, {}
+        self.quiet = 0  # inside ``unshard_tree``: a test's gather of its results
+
+    def _kind(self) -> str:
+        rules = self.sharding.current_rules()
+        return "none" if rules is None else rules.kind
+
+    def __enter__(self):
+        moe, coll, sharding = self.moe, self.coll, self.sharding
+        from repro_torch.runtime import steps
+
+        self.saved = (moe._experts, sharding.unshard_many, coll._all_to_all, coll._all_reduce,
+                      sharding.unshard_tree)
+        experts, unshard, a2a, reduce, tree = self.saved
+
+        def held(p, xe, cd):
+            self.held.add((int(p["w_gate"].shape[0]), int(xe.shape[0])))
+            return experts(p, xe, cd)
+
+        def gather(tiles, specs, mesh):
+            out = unshard(tiles, specs, mesh)
+            for t, spec, o in zip(tiles, specs, out):
+                if not self.quiet and any(t is e or t._base is e for e in self.experts):
+                    self.gathers.append((list(sharding.spec_axes(spec)), int(o.shape[-3])))
+            return out
+
+        def all_to_all(mesh, axes, x, dim):
+            k = self._kind()
+            self.a2a[k] = self.a2a.get(k, 0) + 1
+            self.a2a_bytes[k] = self.a2a_bytes.get(k, 0) + x.numel() * x.element_size()
+            return a2a(mesh, axes, x, dim)
+
+        def all_reduce(mesh, axes, x, *args, **kwargs):
+            if axes == "model" and x.shape[-1] == self.d:
+                k = self._kind()
+                self.combine[k] = self.combine.get(k, 0) + 1
+            return reduce(mesh, axes, x, *args, **kwargs)
+
+        def unshard_tree(*args):
+            self.quiet += 1
+            try:
+                return tree(*args)
+            finally:
+                self.quiet -= 1
+
+        moe._experts, sharding.unshard_many = held, gather
+        coll._all_to_all, coll._all_reduce = all_to_all, all_reduce
+        sharding.unshard_tree, steps.unshard_many = unshard_tree, gather
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.runtime import steps
+
+        moe, coll, sharding = self.moe, self.coll, self.sharding
+        (moe._experts, sharding.unshard_many, coll._all_to_all, coll._all_reduce,
+         sharding.unshard_tree) = self.saved
+        steps.unshard_many = self.saved[1]
+
+    def record(self) -> dict:
+        return {"held": sorted(self.held), "gathers": self.gathers, "a2a": self.a2a,
+                "a2a_bytes": self.a2a_bytes, "combine": self.combine}
+
+
+def _one_sender_only():
+    """An ``_owner_buffers`` that keeps one sender's partial buffer of a
+    group held by several (``index_copy``: the last sender's overwrites the
+    others'): the mutation the parity cases must catch."""
+    def owner(recv, pos, n_groups):
+        El, _, C, d = recv.shape
+        return recv.new_zeros((El, n_groups + 1, C, d)).index_copy(1, pos, recv)[:, :-1]
+    return owner
+
+
+def _expert_leaves(tiles, experts: list):
+    """Note the stacked expert leaves of a param tree of tiles (any other
+    tree as is: ``shard_tree``'s subtrees); return it."""
+    if isinstance(tiles, dict) and "layers" in tiles:
+        experts.extend(tiles["layers"][k] for k in ("w_gate", "w_up", "w_down"))
+    return tiles
+
+
+def _expert_case(mesh, case: dict) -> dict:
+    """``case`` on ``mesh`` under :class:`_ExpertSpies`: a train case is
+    ``_mesh_family_step`` (the rank's expert tiles: what
+    ``mesh_train_state`` cuts), a serve case ``_serve_one`` (ZeRO-tiled
+    weights where ``case["zero"]``; the tiles: what ``shard_tree`` cuts
+    for ``bundle.load``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, moe, params_from_jax
+    from repro_torch.runtime import sharding, steps
+
+    cfg = get_arch(case["arch"]).reduced(**case["overrides"])
+    experts: list = []
+    saved = steps.mesh_train_state, sharding.shard_tree, steps._serving_zero
+    cut, shard, zero = saved
+    def keep(*args):
+        params, state = cut(*args)
+        return _expert_leaves(params, experts), state
+
+    steps.mesh_train_state = keep
+    if case["kind"] == "serve":
+        sharding.shard_tree = lambda *a: _expert_leaves(shard(*a), experts)
+    if case.get("zero"):
+        steps._serving_zero = lambda model_, mesh_: True
+    try:
+        with _ExpertSpies(moe, experts, cfg.d_model) as spy:
+            if case["kind"] == "train":
+                out = _mesh_family_step(mesh, case)
+            else:
+                out = _serve_one(mesh, build_model(cfg), params_from_jax(case["params"], "cpu"),
+                                 case)
+    finally:
+        steps.mesh_train_state, sharding.shard_tree, steps._serving_zero = saved
+    out["spy"] = spy.record()
+    return out
+
+
+def expert_parallel_cases(rank: int, inp: dict) -> dict:
+    """Every case of ``inp["cases"]`` on its mesh, (2, 2) or (1, 4)
+    ("data", "model"), under the spies; the cases named in
+    ``inp["one_sender_only"]`` run again with the owners keeping one
+    sender's partial buffer of a group (``_one_sender_only``): their
+    metrics or logits."""
+    from repro_torch.models import moe
+
+    meshes = {"2x2": make_mesh((2, 2), ("data", "model"), device="cpu"),
+              "1x4": make_mesh((1, 4), ("data", "model"), device="cpu")}
+    out = {"coords": {k: m.coords() for k, m in meshes.items()}}
+    for key, case in inp["cases"].items():
+        out[key] = _expert_case(meshes[case["mesh"]], case)
+    owner = moe._owner_buffers
+    moe._owner_buffers = _one_sender_only()
+    try:
+        for key in inp["one_sender_only"]:
+            case = inp["cases"][key]
+            got = _expert_case(meshes[case["mesh"]], case)
+            out[key]["one_sender_only"] = got["metrics"] if "metrics" in got else got["logits"]
+    finally:
+        moe._owner_buffers = owner
+    return out
