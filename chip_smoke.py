@@ -3776,36 +3776,39 @@ def _mesh_serve(torch, mesh, kernels) -> dict:
     dec = build_decode_step(model, ShapeConfig("mesh_decode", C, B, "decode"), mesh=mesh)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     t0 = time.perf_counter()
-    served = pre.load(shard_tree(params, pre.in_specs[0], mesh))  # gathered once
+    served = pre.load(shard_tree(params, pre.in_specs[0], mesh))  # the rank's tiles
     load_s = time.perf_counter() - t0
-    del params
+    whole = model.compute_params(params)  # the one-device steps'
     b = B // mesh.shape["data"]
     rows = slice(mesh.axis_index("data") * b, (mesh.axis_index("data") + 1) * b)
     # one device, the rank's rows: greedy tokens and every call's logits
     one_pre = build_prefill_step(model, ShapeConfig("one_prefill", T, b, "prefill"), device=dev,
                                  cache_len=C)
     one_dec = build_decode_step(model, ShapeConfig("one_decode", C, b, "decode"), device=dev)
-    logits, cache = one_pre.fn(served, {"tokens": prompts[rows]})
+    logits, cache = one_pre.fn(whole, {"tokens": prompts[rows]})
     want, toks = [logits], []
     for i in range(n):
         tok = first_argmax(want[-1][:, -1], dim=-1).to(torch.int32)[:, None]
         toks.append(tok)
-        logits, cache = one_dec.fn(served, cache, {"tokens": tok, "positions": torch.full(
+        logits, cache = one_dec.fn(whole, cache, {"tokens": tok, "positions": torch.full(
             (b,), T + i, dtype=torch.int32, device=dev)})
         want.append(logits)
-    del cache
+    tp = _tp_weights(model, whole, served)
+    del cache, whole, params
+    traffic: dict = {}
     torch.cuda.synchronize()
     for k in kernels.KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
-    logits, cache = pre.fn(served, {"tokens": prompts})
-    got = [logits]
-    for i, tok in enumerate(toks):
-        every = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-        every[rows] = tok  # this rank's rows; the others are other ranks'
-        logits, cache = dec.fn(served, cache, {"tokens": every, "positions": torch.full(
-            (B,), T + i, dtype=torch.int32)})
-        got.append(logits)
+    with _tp_traffic(traffic):
+        logits, cache = pre.fn(served, {"tokens": prompts})
+        got = [logits]
+        for i, tok in enumerate(toks):
+            every = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+            every[rows] = tok  # this rank's rows; the others are other ranks'
+            logits, cache = dec.fn(served, cache, {"tokens": every, "positions": torch.full(
+                (B,), T + i, dtype=torch.int32)})
+            got.append(logits)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels.KERNELS}
@@ -3821,12 +3824,83 @@ def _mesh_serve(torch, mesh, kernels) -> dict:
            "worst_logit_rel_err": max(errs), "sure_token_flips": flips, "load_s": load_s,
            "wall_s": wall, "launches": launches,
            "tol": f"logits {MESH_SERVE_REL} x max|logit|; tokens where the top-2 gap > "
-                  f"{RESCORE_GAP}"}
+                  f"{RESCORE_GAP}", **_tp_readings(tp, traffic, n)}
     if max(errs) > MESH_SERVE_REL or flips:
         raise AssertionError(f"mesh serving vs one device: {res}")
     if launches["decode_attention"] < n * cfg.n_layers:
         raise AssertionError(f"mesh serving launched the decode kernel {launches} times")
     return res
+
+
+def _tp_weights(model, whole: dict, served: dict) -> dict:
+    """What tensor-parallel serving holds: the bytes of the whole served
+    weights, of the rank's tiles of them, and of the leaves a decode step
+    gathers whole over "model" (``model.GATHERED_IN_DECODE``, the small
+    vectors)."""
+    from repro_torch.utils import tree_flatten_with_paths
+
+    def nbytes(tree, names=None):
+        return sum(x.numel() * x.element_size() for p, x in tree_flatten_with_paths(tree)
+                   if names is None or p.rsplit("/", 1)[-1] in names)
+    return {"whole": nbytes(whole), "held": nbytes(served),
+            "vectors": nbytes(whole, set(model.GATHERED_IN_DECODE))}
+
+
+def _tp_traffic(into: dict):
+    """A context that adds to ``into``, by step kind, the bytes of the
+    weights ``unshard_many`` gathers over "model" and the ``psum``s over
+    "model" of products' partial sums (``row_product``'s, a MoE layer's
+    fold of its combine)."""
+    import contextlib
+
+    from repro_torch.runtime import collectives, sharding
+
+    def kind() -> str:
+        rules = sharding.current_rules()
+        return "none" if rules is None else rules.kind
+
+    @contextlib.contextmanager
+    def recording():
+        unshard, psum = sharding.unshard_many, collectives.psum
+
+        def gather(tiles, specs, mesh):
+            out = unshard(tiles, specs, mesh)
+            for spec, o in zip(specs, out):
+                if "model" in sharding.spec_axes(spec):
+                    key = f"{kind()}_gathered"
+                    into[key] = into.get(key, 0) + o.numel() * o.element_size()
+            return out
+
+        def psum_(x, mesh, axes):
+            if axes == "model" and sys._getframe(1).f_code.co_name in ("row_product",
+                                                                      "moe_apply"):
+                into[f"{kind()}_psums"] = into.get(f"{kind()}_psums", 0) + 1
+            return psum(x, mesh, axes)
+
+        sharding.unshard_many, collectives.psum = gather, psum_
+        try:
+            yield
+        finally:
+            sharding.unshard_many, collectives.psum = unshard, psum
+
+    return recording()
+
+
+def _tp_readings(tp: dict, traffic: dict, steps: int) -> dict:
+    """A serving case's tensor-parallel readings (a rank's): the weight
+    bytes it holds (and the whole weights'), the weight bytes its decode
+    steps gathered over "model" (which must be the small vectors' only, a
+    step) and its prefill's, and the ``psum``s of partial products a decode
+    step."""
+    out = {"weight_bytes_held": tp["held"], "weight_bytes_whole": tp["whole"],
+           "decode_weight_bytes_gathered_over_model": traffic.get("decode_gathered", 0),
+           "decode_vector_bytes": steps * tp["vectors"],
+           "prefill_weight_bytes_gathered_over_model": traffic.get("prefill_gathered", 0),
+           "decode_psums_per_step": traffic.get("decode_psums", 0) / steps}
+    if tp["held"] >= tp["whole"] or out["decode_weight_bytes_gathered_over_model"] \
+            != out["decode_vector_bytes"] or not out["decode_psums_per_step"]:
+        raise AssertionError(f"serving is not tensor-parallel: {out}")
+    return out
 
 
 def _fam_cfg(name: str):
@@ -4050,9 +4124,8 @@ def _fam_serve(torch, mesh, kernels, name: str) -> dict:
     from repro_torch.configs import ShapeConfig
     from repro_torch.models import build_model, moe
     from repro_torch.models.common import first_argmax
-    from repro_torch.runtime.sharding import expert_tile, flatten_specs, shard
+    from repro_torch.runtime.sharding import shard_tree
     from repro_torch.runtime.steps import build_decode_step, build_prefill_step
-    from repro_torch.utils import tree_map_with_paths
 
     cfg = _fam_cfg(name)
     model, dev = build_model(cfg), mesh.device
@@ -4068,17 +4141,11 @@ def _fam_serve(torch, mesh, kernels, name: str) -> dict:
     dec = build_decode_step(model, ShapeConfig("fam_decode", dlen, B, "decode"), mesh=mesh)
     if pre.rules.zero:
         raise AssertionError(f"the families case serves {name} from whole weights")
-    # every rank drew the whole weights: what ``pre.load`` gathers from the
-    # tiles but for the experts, which stay the rank's "model" tiles (the
-    # smollm serve check takes that route; here it would move the other
-    # leaves through host memory once more)
-    whole = model.compute_params(_fam_params(torch, model, dev))
-    specs, axes = flatten_specs(pre.in_specs[0]), flatten_specs(model.param_axes())
-
-    def tile(path, x):
-        ep = expert_tile(specs[path], axes[path])
-        return x if ep is None else shard(x, ep[0], mesh)
-    served = tree_map_with_paths(tile, whole)
+    # every rank drew the whole weights (the one-device steps'), and serves
+    # its tiles of them, as ``pre.load`` keeps them
+    params = _fam_params(torch, model, dev)
+    served = pre.load(shard_tree(params, pre.in_specs[0], mesh))
+    whole = model.compute_params(params)
     b = B // mesh.shape["data"]
     rows = slice(mesh.axis_index("data") * b, (mesh.axis_index("data") + 1) * b)
     # one device, the whole batch (a MoE group holds tokens of every row)
@@ -4093,16 +4160,18 @@ def _fam_serve(torch, mesh, kernels, name: str) -> dict:
         logits, cache = one_dec.fn(whole, cache, {"tokens": tok, "positions": torch.full(
             (B,), S + i, dtype=torch.int32, device=dev)})
         want.append(logits[rows])
-    del cache, whole
+    tp = _tp_weights(model, whole, served)
+    del cache, whole, params
     seen: list = []
     experts = _expert_leaves(served) if cfg.n_experts else []
     prefill_traffic: dict = {}
     decode_traffic: dict = {}
+    traffic: dict = {}
     torch.cuda.synchronize()
     for k in kernels.KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
-    with _fam_routes(moe, seen):
+    with _fam_routes(moe, seen), _tp_traffic(traffic):
         with _expert_traffic(experts, prefill_traffic):
             logits, cache = pre.fn(served, batch)
         got = [logits]
@@ -4124,7 +4193,7 @@ def _fam_serve(torch, mesh, kernels, name: str) -> dict:
     res = {"prompts": [B, S], "cache": C, "steps": n,
            "cache_tiles": {k: list(v.shape) for k, v in cache.items()},
            "worst_logit_rel_err": max(errs), "sure_token_flips": flips, "wall_s": wall,
-           "launches": launches}
+           "launches": launches, **_tp_readings(tp, traffic, n)}
     if seen:
         res["routed"], res["kept"] = sum(r for r, _ in seen), sum(k for _, k in seen)
     if cfg.n_experts:  # expert parallelism: tokens move in the prefill, none in decode
@@ -4196,6 +4265,12 @@ def mesh_rank(rank: int, directory: str) -> dict:
     return out
 
 
+def _tp_of(reading: dict) -> dict:
+    """A serving reading's tensor-parallel part (``_tp_readings``)."""
+    return {k: reading[k] for k in ("weight_bytes_held", "decode_weight_bytes_gathered_over_model",
+                                    "decode_psums_per_step")}
+
+
 def _family_parts(rank: dict) -> dict:
     """A rank's families-case readings by part (its "s" is the case's)."""
     return {k: v for k, v in rank["families"].items() if k != "s"}
@@ -4216,6 +4291,7 @@ def _families_report(ranks: list, kernels) -> dict:
             line.update(routed=routed, kept=kept, dropped_share=1 - kept / routed)
         if "worst_logit_rel_err" in first:
             line["worst_logit_rel_err"] = max(e["worst_logit_rel_err"] for e in every)
+            line["tensor_parallel_per_rank"] = [_tp_of(e) for e in every]
             line["tol"] = (f"logits {MESH_SERVE_REL} x max|logit|; tokens where the top-2 gap > "
                            f"{RESCORE_GAP}")
         else:
@@ -4266,7 +4342,8 @@ def mesh_path(torch, kernels) -> dict:
              "worst_logit_rel_err": max(r["serve"]["worst_logit_rel_err"] for r in ranks),
              "decode_launches_per_rank": [r["serve"]["launches"]["decode_attention"]
                                           for r in ranks],
-             "cache_tiles": [r["serve"]["cache_tile"] for r in ranks]}
+             "cache_tiles": [r["serve"]["cache_tile"] for r in ranks],
+             "tensor_parallel_per_rank": [_tp_of(r["serve"]) for r in ranks]}
     print("check mesh serve " + json.dumps(serve))
     families = _families_report(ranks, kernels)
     train = ranks[0]["train"]

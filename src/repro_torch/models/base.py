@@ -13,6 +13,7 @@ from repro_torch.models.common import (
     spec_struct,
     torch_dtype,
     tree_leaves,
+    vocab_logits,
 )
 
 
@@ -25,6 +26,12 @@ class BaseModel:
     #: prefill honours ``batch["last_pos"]`` and its cache is the standard
     #: (L, B, S, KV, hd) {"k", "v"} dict
     SUPPORTS_PAGED = False
+
+    #: names of the leaves sharded on "model" that a serving decode step
+    #: reads whole (small per-channel vectors), gathered where their layer
+    #: runs; every other "model" leaf stays the rank's tile there, and the
+    #: products take it tensor-parallel (``runtime/steps.py``)
+    GATHERED_IN_DECODE: tuple = ()
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
@@ -62,8 +69,9 @@ class BaseModel:
         return params
 
     def _logits(self, params: Any, x: torch.Tensor) -> torch.Tensor:
-        """(..., V_pad) f32 logits: an f32 product with the ``lm_head``."""
-        return x.to(torch.float32) @ params["lm_head"].to(torch.float32)
+        """(..., V_pad) f32 logits: an f32 product with the ``lm_head`` (its
+        vocab tile, the logits gathered, under a serving mesh step)."""
+        return vocab_logits(x, params["lm_head"], self.cfg.padded_vocab)
 
     # ---- compute ---------------------------------------------------------
 

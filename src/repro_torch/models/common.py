@@ -13,7 +13,10 @@ rank runs these on its local rows and, with a "model" axis of more than
 one rank, its shard of the sequence; the pieces that mix positions or the
 vocabulary then take their shard's context, where the JAX package's GSPMD
 sees whole arrays: :func:`layer_params` all-gathers a layer's sharded
-leaves (an expert leaf only over its ZeRO axes: expert parallelism),
+leaves (an expert leaf only over its ZeRO axes: expert parallelism; in a
+serving decode step every "model" tile of a weight stays a tile, and
+:func:`column_products` / :func:`row_product` run the tensor-parallel
+products on it),
 :func:`seq_positions` offsets RoPE positions by the shard's start,
 :func:`shift_targets` takes the next shard's first token, and
 :func:`embed_lookup` / :func:`chunked_cross_entropy` run the vocab-parallel
@@ -90,31 +93,49 @@ def tree_leaves(tree: Any) -> list:
 
 
 class ShardedLayer(dict):
-    """One layer's params under a mesh step (or a serving step's whole
-    tree, gathered once): the rank's tiles of the leaves registered as
-    sharded (and the rest whole), with the specs they gather over.
-    :meth:`gather` all-gathers the tiles to the full layer
-    (``runtime/sharding.py`` ``unshard_many``), but for the expert leaves
-    (``experts``), which stay the rank's "model" tile of the experts
-    (expert parallelism, ``models/moe.py``) and gather only over their
-    other axes, in a collective of their own; ``remat_apply`` calls it
-    inside the layer's checkpoint, so the gathered weights live while the
-    layer runs and its backward's recompute gathers them again."""
+    """One layer's params under a mesh step (or a serving step's unstacked
+    leaves): the rank's tiles of the leaves registered as sharded (and the
+    rest whole), with their specs (``specs``). :meth:`gather` all-gathers
+    the tiles to the full layer (``runtime/sharding.py`` ``unshard_many``),
+    but for the leaves of ``tiles`` ({name: ``model_tile``'s (kept,
+    gathered) specs}), which stay the rank's "model" tile and gather only
+    over their other axes (ZeRO's), in a collective of their own: the
+    experts (expert parallelism, ``models/moe.py``), and in a serving
+    decode step every tensor-parallel product's weight. ``remat_apply``
+    calls it inside the layer's checkpoint, so the gathered weights live
+    while the layer runs and its backward's recompute gathers them again."""
 
-    def __init__(self, leaves: dict, specs: dict, mesh, experts: frozenset = frozenset()):
+    def __init__(self, leaves: dict, specs: dict, mesh, tiles: dict | None = None):
         super().__init__(leaves)
-        self.specs, self.mesh, self.experts = specs, mesh, experts
+        self.specs, self.mesh, self.tiles = specs, mesh, tiles or {}
 
     def gather(self) -> dict:
-        from repro_torch.runtime.sharding import unshard_many
+        """The layer as it runs: a dict, or :class:`ModelTiles` where some
+        leaves stay "model" tiles."""
+        from repro_torch.runtime.sharding import spec_axes, unshard_many
 
         out = dict(self)
-        for keys in ([k for k in self.specs if k not in self.experts],
-                     [k for k in self.specs if k in self.experts]):
+        whole = [k for k in self.specs if k not in self.tiles]
+        kept = [k for k in self.specs if k in self.tiles and spec_axes(self.tiles[k][1])]
+        for keys, specs in ((whole, [self.specs[k] for k in whole]),
+                            (kept, [self.tiles[k][1] for k in kept])):
             if keys:
-                out.update(zip(keys, unshard_many([self[k] for k in keys],
-                                                  [self.specs[k] for k in keys], self.mesh)))
-        return out
+                out.update(zip(keys, unshard_many([self[k] for k in keys], specs, self.mesh)))
+        if not self.tiles:
+            return out
+        return ModelTiles(out, {k: t[0] for k, t in self.tiles.items()}, self.mesh)
+
+
+class ModelTiles(dict):
+    """Params of which the leaves named in ``tiles`` are the rank's "model"
+    tiles, each with the spec of that tile ({name: spec}, e.g. ``P(None,
+    "model")``: the output dim of a weight). :func:`column_products` and
+    :func:`row_product` multiply by them tensor-parallel; everything else
+    reads the leaves as plain tensors."""
+
+    def __init__(self, leaves: dict, tiles: dict, mesh):
+        super().__init__(leaves)
+        self.tiles, self.mesh = tiles, mesh
 
 
 def layer_params(stack: dict, i: int) -> dict:
@@ -123,7 +144,8 @@ def layer_params(stack: dict, i: int) -> dict:
     whose tiles of the stack are sharded: a :class:`ShardedLayer` of their
     slices, gathered where the layer runs (its gradient reduce-scatters
     back to the rank's tiles); a serving step, which takes no gradient,
-    gathers them here. Expert leaves stay "model" tiles either way."""
+    gathers them here. The leaves registered as "model" tiles stay tiles
+    (the experts; in a serving decode step the product weights too)."""
     from repro_torch.runtime.sharding import current_rules
 
     rules = current_rules()
@@ -133,8 +155,87 @@ def layer_params(stack: dict, i: int) -> dict:
     if not reg:
         return out
     layer = ShardedLayer(out, {k: spec for k, (spec, _) in reg.items()}, rules.mesh,
-                         frozenset(k for k, (_, tile) in reg.items() if tile))
+                         {k: t for k, (_, t) in reg.items() if t})
     return layer if rules.kind == "train" else layer.gather()
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel products (a serving decode step's "model" tiles)
+# ---------------------------------------------------------------------------
+
+
+def _split_dim(p: dict, name: str) -> int | None:
+    """The dim of ``p[name]`` that "model" splits where ``p`` holds it as
+    the rank's tile (0: the input dim, 1: the output dim), else None."""
+    spec = getattr(p, "tiles", {}).get(name)
+    return None if spec is None else len(spec) - 1
+
+
+def row_parallel(p: dict, name: str) -> bool:
+    """Whether ``p[name]`` is the rank's tile of its input dim."""
+    return _split_dim(p, name) == 0
+
+
+def column_products(p: dict, pairs: list, cd: torch.dtype, *, gather: bool = True) -> list:
+    """``[x @ p[name] for name, x in pairs]`` in the compute dtype ``cd``.
+    Where ``p[name]`` is the rank's tile of its output dim (column-parallel),
+    the product is the rank's slice of the output: all-gathered over
+    "model" along the last dim (one collective for every such product of
+    the call: the narrow activations, never a weight), or with ``gather``
+    False left as the slice (the next product is row-parallel)."""
+    outs = [x.to(cd) @ p[name].to(cd) for name, x in pairs]
+    cols = [i for i, (name, _) in enumerate(pairs) if _split_dim(p, name) == 1]
+    if gather and cols:
+        g = _gathered_slices(torch.cat([outs[i] for i in cols], dim=-1), p.mesh)
+        off = 0
+        for i in cols:
+            w = outs[i].shape[-1]
+            outs[i] = g[..., off:off + w].reshape(*outs[i].shape[:-1], -1)
+            off += w
+    return outs
+
+
+def _gathered_slices(x: torch.Tensor, mesh) -> torch.Tensor:
+    """(..., w) -> (..., n_model, w): every "model" rank's ``x``, in rank
+    order (the tiles of an output dim side by side)."""
+    from repro_torch.runtime.collectives import all_gather_stack
+
+    return all_gather_stack(x, mesh, "model").movedim(0, -2)
+
+
+def _rank_slice(x: torch.Tensor, width: int, mesh) -> torch.Tensor:
+    """The rank's slice of ``x``'s last dim, ``width`` wide: the part of a
+    whole input that its "model" tile of an input dim multiplies."""
+    j = mesh.axis_index("model")
+    return x[..., j * width:(j + 1) * width]
+
+
+def column_product(p: dict, name: str, x: torch.Tensor, cd: torch.dtype, *,
+                   gather: bool = True) -> torch.Tensor:
+    """One :func:`column_products` product."""
+    return column_products(p, [(name, x)], cd, gather=gather)[0]
+
+
+def row_product(p: dict, name: str, x: torch.Tensor, cd: torch.dtype, *,
+                reduce: bool = True) -> torch.Tensor:
+    """``x @ p[name]`` in the compute dtype ``cd``. Where ``p[name]`` is the
+    rank's tile of its input dim (row-parallel): the rank's slice of ``x``'s
+    last dim (``x`` whole, or already that slice: a column-parallel output
+    left ungathered), the local product in f32 (the compute dtype's values,
+    accumulated in f32), summed over "model" and cast once, so a bf16 step
+    rounds once as the one-device product does; with ``reduce`` False the
+    f32 partial product, for a caller that folds it into a sum of its own."""
+    w = p[name]
+    if not row_parallel(p, name):
+        return x.to(cd) @ w.to(cd)
+    if x.shape[-1] != w.shape[0]:
+        x = _rank_slice(x, w.shape[0], p.mesh)
+    part = x.to(cd).to(torch.float32) @ w.to(cd).to(torch.float32)
+    if not reduce:
+        return part
+    from repro_torch.runtime.collectives import psum
+
+    return psum(part, p.mesh, "model").to(cd)
 
 
 def spec_struct(specs: SpecTree) -> Any:
@@ -218,15 +319,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding rows for ``tokens`` (any shape of int ids); vocab-parallel
     (``runtime/losses.py``) under a mesh step with a "model" axis, where
-    ``embed`` is the rank's vocab slice."""
-    from repro_torch.runtime.sharding import model_parallel
+    ``embed`` is the rank's vocab slice (or, where "model" does not divide
+    the vocab, the whole table: the first rank's slice then holds every
+    token): the sequence-sharded form in train and prefill steps, the
+    ``psum`` form in a decode step, whose tokens every "model" rank holds
+    alike."""
+    from repro_torch.runtime.sharding import current_rules
 
-    rules = model_parallel()
-    if rules is not None and rules.vocab_parallel and tokens.ndim == 2:
-        from repro_torch.runtime.losses import vocab_parallel_embed
+    rules = current_rules()
+    if rules is not None and rules.n_model > 1 and tokens.ndim == 2:
+        from repro_torch.runtime.losses import vocab_parallel_embed, vocab_parallel_lookup
 
+        if rules.kind == "decode":
+            return vocab_parallel_lookup(tokens, embed, rules)
         return vocab_parallel_embed(tokens, embed, rules)
     return embed[tokens]
+
+
+def vocab_logits(x: torch.Tensor, head: torch.Tensor, vocab: int) -> torch.Tensor:
+    """(..., ``vocab``) f32 logits: an f32 product with the head (d, V).
+    Under a serving mesh step the head is the rank's vocab tile (d, V /
+    n_model): the tile's logits, all-gathered over "model"."""
+    logits = x.to(torch.float32) @ head.to(torch.float32)
+    if head.shape[-1] == vocab:
+        return logits
+    from repro_torch.runtime.collectives import all_gather
+    from repro_torch.runtime.sharding import current_rules
+
+    return all_gather(logits, current_rules().mesh, "model", dim=-1)
 
 
 def cache_segment(length: int, axes_of: int | None = None) -> tuple[int, int, tuple]:

@@ -38,11 +38,13 @@ from repro_torch.models.common import (
     ParamSpec,
     cache_segment,
     chunked_cross_entropy,
+    column_product,
     decode_segment,
     embed_lookup,
     last_shard,
     layer_params,
     rms_norm,
+    row_product,
     seq_positions,
     seq_shards,
     shift_targets,
@@ -147,7 +149,7 @@ class EncDecLM(BaseModel):
         cfg, cd = self.cfg, self.compute_dtype
         H, hd = cfg.n_heads, cfg.resolved_head_dim
         B, S = x.shape[:2]
-        q = (x.to(cd) @ lp["wq_x"].to(cd)).reshape(B, S, H, hd)
+        q = column_product(lp, "wq_x", x, cd).reshape(B, S, H, hd)
         rules = current_rules()
         axes = decode_segment()[1] if rules is not None and rules.kind == "decode" else ()
         if S > 1:
@@ -163,7 +165,7 @@ class EncDecLM(BaseModel):
                                            start=mesh.axis_index(axes) * C, axes=axes)
         else:
             out = attn_lib.naive_attention(q, k_mem, v_mem, causal=False)
-        return out.reshape(B, S, H * hd) @ lp["wo_x"].to(cd)
+        return row_product(lp, "wo_x", out.reshape(B, S, H * hd), cd)
 
     def _decoder_layer(self, lp: dict, x: torch.Tensor, memory: torch.Tensor,
                        positions: torch.Tensor):

@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import ParamSpec, column_products, row_product
 
 
 def mlp_specs(d_model: int, d_ff: int, n_layers: int | None, dtype: torch.dtype, *,
@@ -23,11 +23,16 @@ def mlp_specs(d_model: int, d_ff: int, n_layers: int | None, dtype: torch.dtype,
 
 def mlp_apply(p: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """``x @ w`` in the compute dtype; ``.to`` is free when the serving path
-    has cast the weights once at load (``DecoderLM.compute_params``)."""
-    x = x.to(compute_dtype)
-    u = x @ p["w_up"].to(compute_dtype)
-    if "w_gate" in p:  # SwiGLU
-        u = F.silu(x @ p["w_gate"].to(compute_dtype)) * u
+    has cast the weights once at load (``DecoderLM.compute_params``). With
+    ``p``'s weights the rank's "model" tiles (tensor-parallel serving) the
+    up and gate products are column-parallel, their slices kept, and the
+    down product row-parallel."""
+    cd = compute_dtype
+    x = x.to(cd)
+    names = ["w_up", "w_gate"] if "w_gate" in p else ["w_up"]
+    u, *g = column_products(p, [(n, x) for n in names], cd, gather=False)
+    if g:  # SwiGLU
+        u = F.silu(g[0]) * u
     else:  # classic 2-matrix MLP (starcoder2); jax.nn.gelu's tanh form
         u = F.gelu(u, approximate="tanh")
-    return u @ p["w_down"].to(compute_dtype)
+    return row_product(p, "w_down", u, cd)

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamSpec, rms_norm
+from repro_torch.models.common import ParamSpec, column_product, rms_norm, row_product
 from repro_torch.runtime.sharding import model_parallel
 
 
@@ -114,6 +114,12 @@ def mamba_specs(cfg, n_layers: int, dtype: torch.dtype) -> dict:
     }
 
 
+#: a block's leaves on "model" that a decode step reads whole: the conv's
+#: and the SSD norm's per-channel weights (the conv and SSD states are
+#: whole on every "model" rank)
+GATHERED_IN_DECODE = ("conv_w", "conv_b", "ssd_norm")
+
+
 def mamba_state_struct(cfg, n_layers: int, batch: int, compute_dtype: torch.dtype) -> dict:
     """The recurrent states of ``n_layers`` blocks as ``meta`` tensors:
     "conv" (L, B, K - 1, channels) in the compute dtype, "ssd" (L, B, H, P,
@@ -144,7 +150,7 @@ def mamba_apply(cfg, lp: dict, x: torch.Tensor, state: dict | None, *,
     B_, T, _ = x.shape
 
     h = rms_norm(x, lp["norm"], cfg.norm_eps)
-    zxbcdt = h.to(cd) @ lp["w_in"].to(cd)
+    zxbcdt = column_product(lp, "w_in", h, cd)  # tiles gathered before the split
     z, xs, Bm, Cm, dt = torch.split(zxbcdt, [di, di, ds, ds, H], dim=-1)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
     conv_state = None if state is None else state["conv"]
@@ -177,5 +183,5 @@ def mamba_apply(cfg, lp: dict, x: torch.Tensor, state: dict | None, *,
         y, new_ssd = fn(xh, dt, A, Bg, Cg, lp["D"].to(torch.float32), S0)
     y = y.reshape(B_, T, di) * F.silu(z.to(torch.float32))
     y = rms_norm(y.to(cd), lp["ssd_norm"], cfg.norm_eps)
-    out = y @ lp["w_out"].to(cd)
+    out = row_product(lp, "w_out", y, cd)
     return out, {"conv": new_conv.to(cd), "ssd": new_ssd}

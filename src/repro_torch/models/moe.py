@@ -34,7 +34,7 @@ Expert parallelism (the reference's ``constrain`` of the dispatch and
 return buffers to ("moe_groups", "experts"), which GSPMD lowers to an
 all-to-all): where the "model" axis splits the expert count, the expert
 leaves stay each rank's "model" tile of E / n_model experts
-(``runtime/sharding.py`` ``expert_tile``; a layer gathers them over their
+(``runtime/sharding.py`` ``model_tile``; a layer gathers them over their
 ZeRO axes only, ``models/common.py`` ``ShardedLayer``; the serving steps
 keep them as tiles) and the rank computes only those experts. In train and
 prefill steps, whose "model" ranks hold different sequence shards, an
@@ -46,7 +46,8 @@ a decode step every "model" rank holds the same tokens: nothing moves, each
 rank computes its experts' block of its own buffers and combines only their
 outputs, and a ``psum`` over "model" completes each token (a decode group
 that spans the batch axes is still computed on each of its ranks, holding
-only that rank's tokens). Where the
+only that rank's tokens); the shared experts' row-parallel down product
+(tensor-parallel serving) rides in the same ``psum``. Where the
 "model" axis does not divide the expert count the experts are gathered
 whole, as any layer's leaves, and every rank computes all of them.
 """
@@ -59,7 +60,13 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamSpec, first_argmax
+from repro_torch.models.common import (
+    ParamSpec,
+    column_product,
+    first_argmax,
+    row_parallel,
+    row_product,
+)
 
 
 def moe_specs(cfg, n_layers: int | None, dtype: torch.dtype) -> dict:
@@ -412,17 +419,28 @@ def moe_apply(p: dict, x: torch.Tensor, cfg,
     # with weight 0
     picked = ye[row.clamp(max=ye.shape[0] - 1).reshape(-1)].view(*xt.shape[:2], K, d)
     w = weight.to(cd).to(torch.float32)
-    y = torch.einsum("gsk,gskd->gsd", w, picked.to(torch.float32))
-    if partial:  # every rank's experts' share of each token
+    y = torch.einsum("gsk,gskd->gsd", w, picked.to(torch.float32)).reshape(B, S, d)
+    # sums over "model", f32, in one psum: every rank's experts' share of
+    # each token, and the shared experts' row-parallel down product (each
+    # cast to the compute dtype after its sum, before they are added, as
+    # the reference rounds the combine and the product)
+    sums, shared = [y] if partial else [], None
+    if cfg.n_shared_experts:
+        hs = F.silu(column_product(p, "shared_gate", x, cd, gather=False)) \
+            * column_product(p, "shared_up", x, cd, gather=False)
+        if row_parallel(p, "shared_down"):
+            sums.append(row_product(p, "shared_down", hs, cd, reduce=False))
+        else:
+            shared = hs @ p["shared_down"].to(cd)
+    if sums:
         from repro_torch.runtime.collectives import psum
 
-        y = psum(y, mesh, "model")
-    y = y.to(cd).reshape(B, S, d)
-
-    if cfg.n_shared_experts:
-        xs = x.to(cd)
-        hs = F.silu(xs @ p["shared_gate"].to(cd)) * (xs @ p["shared_up"].to(cd))
-        y = y + hs @ p["shared_down"].to(cd)
+        sums = list(psum(torch.stack(sums), mesh if partial else p.mesh, "model"))
+        y = sums.pop(0) if partial else y
+        shared = sums.pop(0).to(cd) if sums else shared
+    y = y.to(cd)
+    if shared is not None:
+        y = y + shared
 
     # Switch-style load balance loss: E * sum_e f_e * p_e, of global means
     routed = (r.gates > 0).to(torch.float32)

@@ -31,12 +31,15 @@ from repro_torch.models.base import BaseModel
 from repro_torch.models.common import (
     ParamSpec,
     chunked_cross_entropy,
+    column_product,
+    column_products,
     embed_lookup,
     group_norm,
     last_shard,
     layer_params,
     prev_row,
     rms_norm,
+    row_product,
     shift_targets,
 )
 from repro_torch.models.transformer import remat_apply
@@ -110,6 +113,9 @@ def wkv6_chunked(r, k, v, w, u, state, *, chunk: int = 32):
 
 
 class Rwkv6LM(BaseModel):
+    #: the per-channel vectors a decode step reads whole (the WKV state is)
+    GATHERED_IN_DECODE = ("decay_base", "wkv_norm_scale", "wkv_norm_bias")
+
     def param_specs(self) -> dict:
         cfg = self.cfg
         d, L = cfg.d_model, cfg.n_layers
@@ -168,13 +174,14 @@ class Rwkv6LM(BaseModel):
         delta = torch.einsum("btfr,frd->btfd", s, lp["tm_lora_b"].to(cd))  # (B, T, 5, d)
         mix = lp["tm_mix"].to(cd)[None, None] + delta
         xw, xk, xv, xr, xg = [(x + xx * mix[:, :, i]).to(cd) for i in range(5)]
-        r = (xr @ lp["w_r"].to(cd)).reshape(B, T, H, N)
-        k = (xk @ lp["w_k"].to(cd)).reshape(B, T, H, N)
-        v = (xv @ lp["w_v"].to(cd)).reshape(B, T, H, N)
-        g = F.silu(xg @ lp["w_g"].to(cd))
-        dlogit = lp["decay_base"].to(torch.float32) + (
-            torch.tanh(xw @ lp["decay_lora_a"].to(cd)) @ lp["decay_lora_b"].to(cd)
-        ).to(torch.float32)
+        # column-parallel where the weights are "model" tiles: the heads
+        # gathered whole (the WKV state is)
+        r, k, v, g = column_products(lp, [("w_r", xr), ("w_k", xk), ("w_v", xv), ("w_g", xg)],
+                                     cd)
+        r, k, v = (a.reshape(B, T, H, N) for a in (r, k, v))
+        g = F.silu(g)
+        dlogit = lp["decay_base"].to(torch.float32) + column_product(
+            lp, "decay_lora_b", torch.tanh(xw @ lp["decay_lora_a"].to(cd)), cd).to(torch.float32)
         w = torch.exp(-torch.exp(dlogit.reshape(B, T, H, N)))  # (0, 1) per channel
 
         def to_bhtn(a):
@@ -193,7 +200,7 @@ class Rwkv6LM(BaseModel):
             o, wkv_state = fn(to_bhtn(r), to_bhtn(k), to_bhtn(v), to_bhtn(w), u, wkv_state)
         o = o.transpose(1, 2).reshape(B, T, H * N)
         o = group_norm(o, H, lp["wkv_norm_scale"], lp["wkv_norm_bias"], 64e-5)
-        out = (o.to(cd) * g) @ lp["w_o"].to(cd)
+        out = row_product(lp, "w_o", o.to(cd) * g, cd)
         return out, x[:, -1], wkv_state
 
     def _channel_mix(self, lp: dict, x: torch.Tensor, shift_state: torch.Tensor):
@@ -204,8 +211,8 @@ class Rwkv6LM(BaseModel):
         xx = prev - x
         xk = (x + xx * lp["cm_mix_k"].to(x.dtype)).to(cd)
         xr = (x + xx * lp["cm_mix_r"].to(x.dtype)).to(cd)
-        kk = torch.square(F.relu(xk @ lp["cm_k"].to(cd)))
-        out = torch.sigmoid(xr @ lp["cm_r"].to(cd)) * (kk @ lp["cm_v"].to(cd))
+        kk = torch.square(F.relu(column_product(lp, "cm_k", xk, cd, gather=False)))
+        out = torch.sigmoid(xr @ lp["cm_r"].to(cd)) * row_product(lp, "cm_v", kk, cd)
         return out, x[:, -1]
 
     def _layer_apply(self, lp: dict, x: torch.Tensor, states: dict | None, *, chunked: bool):

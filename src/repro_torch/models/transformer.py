@@ -47,15 +47,18 @@ from repro_torch.models.common import (
     apply_rope,
     cache_segment,
     chunked_cross_entropy,
+    column_product,
     decode_segment,
     embed_lookup,
     last_shard,
     layer_params,
     rms_norm,
+    row_product,
     seq_positions,
     seq_shards,
     shift_targets,
     tree_leaves,
+    vocab_logits,
     write_prompt_cache,
 )
 
@@ -155,9 +158,13 @@ def attn_block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, k_cache: torch.
     Under a serving mesh step the caches are the rank's ``cache_seq`` tiles:
     only the rank whose tile holds a row's position writes its entry, and
     the tiles' partial attentions merge over the cache axes
-    (``runtime/sharded_attention.py`` ``sharded_decode_attention``)."""
+    (``runtime/sharded_attention.py`` ``sharded_decode_attention``). With
+    ``p``'s weights the rank's "model" tiles (tensor-parallel serving) the
+    QKV product is column-parallel, its tiles of the fused [q | k | v]
+    columns all-gathered before the split, so the heads and the cache are
+    whole on every "model" rank, and the output product row-parallel."""
     cd = compute_dtype
-    qkv = x.to(cd) @ p["wqkv"].to(cd)
+    qkv = column_product(p, "wqkv", x, cd)
     q, k, v = _split_qkv(cfg, qkv)
     q, k = _qk_norm(cfg, p, q, k)
     pos = positions[:, None]  # (B, 1)
@@ -174,7 +181,7 @@ def attn_block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, k_cache: torch.
                                        start=start, axes=axes)
     else:
         out = attn_lib.decode_attention(q, k_cache, v_cache, positions=positions)
-    return out.reshape(x.shape[0], 1, -1) @ p["wo"].to(cd), (k_cache, v_cache)
+    return row_product(p, "wo", out.reshape(x.shape[0], 1, -1), cd), (k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -260,8 +267,7 @@ class DecoderLM(BaseModel):
         return params["lm_head"].T
 
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        return x.to(torch.float32) @ self._head(params).T.to(torch.float32)
-
+        return vocab_logits(x, self._head(params).T, self.cfg.padded_vocab)
 
     # ---- forward ---------------------------------------------------------
 

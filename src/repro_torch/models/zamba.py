@@ -42,6 +42,8 @@ from repro_torch.models.transformer import (
 
 
 class ZambaLM(BaseModel):
+    GATHERED_IN_DECODE = mamba2.GATHERED_IN_DECODE
+
     @property
     def n_sites(self) -> int:
         return math.ceil(self.cfg.n_layers / self.cfg.shared_block_every)

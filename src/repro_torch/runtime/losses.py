@@ -8,7 +8,9 @@ sequence, computes logits against its vocab slice in sequence chunks, and
 the softmax's max and sum run as ``pmax`` and ``psum`` over "model". The
 JAX ``shard_map`` bodies run here as each rank's own code on its local
 tiles; their backward goes through the collectives' autograd rules
-(``runtime/collectives.py``).
+(``runtime/collectives.py``). A serving decode step's tokens are alike on
+every "model" rank, not sequence shards: its lookup sums the vocab slices'
+hits with a ``psum`` (:func:`vocab_parallel_lookup`).
 """
 from __future__ import annotations
 
@@ -76,3 +78,18 @@ def vocab_parallel_cross_entropy(x: torch.Tensor, head: torch.Tensor, targets: t
     if rules.batch_axes:
         tot = psum(tot, mesh, rules.batch_axes)
     return tot, cnt
+
+
+def vocab_parallel_lookup(tokens: torch.Tensor, embed: torch.Tensor, rules) -> torch.Tensor:
+    """Embedding lookup of tokens that every "model" rank holds alike (a
+    decode step's (B_l, 1), not sequence shards) with a vocab-sharded
+    table, ``embed`` (V_pad / n_model, d) the rank's slice: each rank
+    embeds the hits of its slice (zeros elsewhere), and a ``psum`` over
+    "model" adds the one hit of each token to the zeros (exact)."""
+    mesh = rules.mesh
+    vshard = embed.shape[0]
+    t_loc = tokens.to(torch.long) - mesh.axis_index("model") * vshard
+    in_range = (t_loc >= 0) & (t_loc < vshard)
+    x = embed[torch.clamp(t_loc, 0, vshard - 1)]
+    x = torch.where(in_range[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return psum(x, mesh, "model")

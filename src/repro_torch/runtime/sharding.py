@@ -68,13 +68,10 @@ class ShardingRules:
     zero: bool = True  # FSDP/ZeRO-shard params over the batch axes
     kind: str = "train"  # "train" | "prefill" | "decode"
     #: stacked param leaves of the running step: id(local tensor) -> (the
-    #: spec one layer's slice gathers over, whether the slice stays the
-    #: rank's "model" tile of the experts: :func:`expert_tile`;
-    #: ``models/common.py`` ``layer_params``)
+    #: spec of one layer's slice, its :func:`model_tile` where the slice
+    #: stays the rank's "model" tile, else None; ``models/common.py``
+    #: ``layer_params``)
     stacked: dict = field(default_factory=dict, repr=False)
-    #: the embedding and head are the rank's vocab tiles (the train step's
-    #: vocab-parallel forms); the serving steps hold them whole
-    vocab_parallel: bool = True
     #: a serving step's global K/V cache length (its "cache_seq" tiles)
     cache_len: int | None = None
 
@@ -278,18 +275,18 @@ def unshard_many(tiles: list, specs: list, mesh) -> list:
     return out
 
 
-def expert_tile(spec: P, axes: Sequence[str | None]) -> tuple[P, P] | None:
-    """Expert parallelism, for a leaf whose "experts" dim ``spec`` shards
-    on "model" (``axes``: the leaf's logical names): (the spec of what a
-    rank keeps where its layer runs, its "model" tile of the experts; the
-    spec it gathers there, ``spec`` without that entry: its ZeRO axes).
-    None for every other leaf, among them an expert leaf whose expert count
-    "model" does not divide (its spec keeps the experts whole and puts
-    "model" on "mlp": gathered whole, as any layer leaf)."""
-    if "experts" not in axes:
-        return None
-    i = list(axes).index("experts")
-    if i >= len(spec) or spec[i] != "model":
+def model_tile(spec: P, axes: Sequence[str | None]) -> tuple[P, P] | None:
+    """For a leaf whose ``spec`` shards a tensor-axis dim on "model"
+    (``axes``: the leaf's logical names): (the spec of what a rank keeps,
+    its "model" tile of that dim; the spec it gathers to that tile,
+    ``spec`` without that entry: its ZeRO axes). None for every other leaf,
+    among them one whose tensor dims "model" does not divide (its spec
+    keeps them whole). Which leaves stay such tiles is the step's choice:
+    the experts (expert parallelism) and the vocab (the vocab-parallel
+    forms) wherever "model" splits them, and in a serving decode step the
+    weights of the tensor-parallel products too (``runtime/steps.py``)."""
+    i = next((j for j, e in enumerate(spec) if e == "model" and axes[j] in TENSOR_AXES), None)
+    if i is None:
         return None
     rest = [None if j == i else e for j, e in enumerate(spec)]
     while rest and rest[-1] is None:

@@ -46,20 +46,20 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.service import resolve_device
 from repro_torch.data.batching import shard_batch
 from repro_torch.models.base import BaseModel
-from repro_torch.models.common import ShardedLayer, first_argmax, torch_dtype
+from repro_torch.models.common import ModelTiles, ShardedLayer, first_argmax, torch_dtype
 from repro_torch.runtime.collectives import psum
 from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig, TileLayout, _leaf_sqnorm
 from repro_torch.runtime.sharding import (
     TENSOR_AXES,
+    P,
     ShardingRules,
     activation_rules,
-    expert_tile,
     flatten_specs,
+    model_tile,
     param_shardings,
     shard_slices,
     shard_tree,
     spec_axes,
-    unshard_many,
 )
 from repro_torch.utils.tree import tree_flatten_with_paths, tree_map_with_paths
 
@@ -220,6 +220,7 @@ def build_mesh_train_step(model: BaseModel, shape: ShapeConfig,
         raise ValueError(f"vocab {cfg.padded_vocab} does not split over {n_model} model ranks")
     specs = flatten_specs(param_shardings(model, mesh))
     axes = flatten_specs(model.param_axes())
+    kept = _kept_tiles(specs, axes)
     tiles = _tile_layouts(model, opt, mesh, specs)
     # each leaf's gradient tile is summed over the axes its param is replicated on
     repl = {path: tuple(a for a in mesh.axis_names if a not in spec_axes(spec))
@@ -236,7 +237,7 @@ def build_mesh_train_step(model: BaseModel, shape: ShapeConfig,
         try:
             with activation_rules(rules):
                 loss, metrics = model.loss(
-                    _mesh_view(params, specs, axes, mesh, rules.stacked, n_model > 1), batch)
+                    _mesh_view(params, specs, axes, mesh, rules.stacked, kept), batch)
                 grads = torch.autograd.grad(loss, leaves,
                                             grad_outputs=torch.full_like(loss, 1.0 / world))
         finally:
@@ -278,25 +279,58 @@ def build_mesh_train_step(model: BaseModel, shape: ShapeConfig,
     return train_step
 
 
-def _mesh_view(params: Any, specs: dict, axes: dict, mesh, stacked: dict,
-               vocab_tiles: bool) -> Any:
+def _kept_tiles(specs: dict, axes: dict, decode_gathered: tuple | None = None) -> dict:
+    """{path: ``model_tile``'s (kept, gathered) specs} of the leaves a mesh
+    step keeps as the rank's "model" tiles: the experts where "model"
+    splits the expert count (expert parallelism), the vocab-sharded
+    embedding and head (the vocab-parallel forms) and, in a serving decode
+    step (``decode_gathered``: the names of the leaves it reads whole),
+    every other leaf on "model": the tensor-parallel products' weights."""
+    out = {}
+    for path, spec in specs.items():
+        tile = model_tile(spec, axes[path])
+        if tile is None:
+            continue
+        on = axes[path][len(tile[0]) - 1]  # the logical axis "model" splits
+        if "experts" in axes[path]:
+            keep = on == "experts"
+        else:
+            keep = on == "vocab" or (decode_gathered is not None
+                                     and path.rsplit("/", 1)[-1] not in decode_gathered)
+        if keep:
+            out[path] = tile
+    return out
+
+
+def _mesh_view(params: Any, specs: dict, axes: dict, mesh, stacked: dict, tiles: dict) -> Any:
     """The params as the model reads them on a mesh: stacked layer leaves
     as the rank's tiles (registered in ``stacked``; ``layer_params``
-    gathers them per layer, an expert leaf to its "model" tile of the
-    experts only), the rest gathered whole, but, with
-    ``vocab_tiles``, for the vocab-sharded embedding and head, which the
-    vocab-parallel forms take as tiles."""
+    gathers them per layer), the rest gathered here; a leaf of ``tiles``
+    (:func:`_kept_tiles`) only over its other axes (ZeRO's), staying the
+    rank's "model" tile, and a block of unstacked leaves holding such tiles
+    (Zamba2's shared block) read as :class:`ModelTiles`."""
     flat = tree_flatten_with_paths(params)
-    whole = [(path, x) for path, x in flat if axes[path][:1] != ("layers",)
-             and not (vocab_tiles and "vocab" in axes[path])]
-    full = dict(zip((path for path, _ in whole), unshard_many(
-        [x for _, x in whole], [specs[path] for path, _ in whole], mesh)))
+    layer = {path for path, _ in flat if axes[path][:1] == ("layers",)}
     for path, x in flat:
-        if axes[path][:1] == ("layers",) and specs[path]:
-            tile = expert_tile(specs[path], axes[path])
-            spec = specs[path] if tile is None else tile[1]
-            stacked[id(x)] = (type(spec)(*spec[1:]), tile is not None)
-    return tree_map_with_paths(lambda path, x: full.get(path, x), params)
+        if path in layer and specs[path]:
+            tile = tiles.get(path)
+            stacked[id(x)] = (P(*specs[path][1:]),
+                              None if tile is None else tuple(P(*t[1:]) for t in tile))
+    rest = {path: x for path, x in flat if path not in layer}
+    full = ShardedLayer(rest, {path: specs[path] for path in rest}, mesh,
+                        {path: tiles[path] for path in rest if path in tiles}).gather()
+    return _with_tiles(tree_map_with_paths(lambda path, x: full.get(path, x), params),
+                       getattr(full, "tiles", {}), mesh)
+
+
+def _with_tiles(tree: Any, kept: dict, mesh, prefix: str = "") -> Any:
+    """``tree`` with every dict that holds a leaf of ``kept`` ({path: the
+    spec of its "model" tile}) as :class:`ModelTiles`."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _with_tiles(v, kept, mesh, f"{prefix}{k}/") for k, v in tree.items()}
+    mine = {k: kept[f"{prefix}{k}"] for k in tree if f"{prefix}{k}" in kept}
+    return ModelTiles(out, mine, mesh) if mine else out
 
 
 # ---------------------------------------------------------------------------
@@ -314,8 +348,8 @@ class StepBundle:
     ``jit`` and ``lower()`` have no counterpart: :meth:`trace` runs one call
     under fake tensors and the cost counter (``runtime/cost_analysis.py``).
     ``load`` turns the rank's param tiles into the params the step takes
-    (the serving steps gather whole weights once, here, but the experts'
-    "model" tiles)."""
+    (the serving steps keep the tiles, the layer weights cast to the
+    compute dtype: no weight is gathered whole for the bundle's life)."""
 
     fn: Callable
     in_structs: tuple
@@ -339,8 +373,8 @@ class StepBundle:
 
 def _serving_zero(model: BaseModel, mesh) -> bool:
     """Serving shards weights over the batch axes too when the model-axis
-    shard alone would not fit HBM (the 1T config); small models keep weights
-    whole on every rank, gathered once, so that no step moves weights."""
+    tile alone would not fit HBM (the 1T config); otherwise each rank keeps
+    its "model" tiles, so that no step moves a weight matrix whole."""
     from repro_torch.utils.tree import tree_bytes
 
     per_chip = tree_bytes(model.param_struct()) / mesh.shape.get("model", 1)
@@ -364,8 +398,9 @@ def serving_cache_specs(rules: ShardingRules, model: BaseModel, shape: ShapeConf
                         struct: Any) -> Any:
     """The serving cache's tile specs: rows over the batch axes and the K/V
     sequence over the "cache_seq" axes (``model.cache_axes``); tensor axes
-    of the recurrent states (Mamba2's conv channels, "mlp") stay whole, as
-    no tensor-parallel product runs on the serving path (ROADMAP A17)."""
+    of the recurrent states (Mamba2's conv channels, "mlp") stay whole: the
+    tensor-parallel products gather their outputs whole before the states
+    are read (ROADMAP C15)."""
     def untensor(axes):
         if isinstance(axes, dict):
             return {k: untensor(v) for k, v in axes.items()}
@@ -374,12 +409,18 @@ def serving_cache_specs(rules: ShardingRules, model: BaseModel, shape: ShapeConf
 
 
 def _serving(model: BaseModel, shape: ShapeConfig, mesh, cache_len: int | None):
-    """What the mesh prefill and decode steps share: (rules, whether the
-    weights stay ZeRO tiles, the params' specs, the local-batch function,
-    the weights' load and view)."""
+    """What the mesh prefill and decode steps share: (rules, the params'
+    specs, the local-batch function, the weights' view). Every leaf stays
+    the rank's tile of its spec for the bundle's life (ZeRO's too where the
+    "model" tiles alone would not fit, ``rules.zero``). A decode step
+    multiplies by the "model" tiles tensor-parallel (``models/common.py``
+    ``column_products`` and ``row_product``), gathering only the small
+    vectors it reads whole (``model.GATHERED_IN_DECODE``) and, with ZeRO,
+    each layer's tiles over the data axes; a prefill step, whose sequence
+    is sharded on "model", gathers each layer's tiles where the layer runs,
+    but for the experts. Both take the embedding and head as vocab tiles."""
     zero = _serving_zero(model, mesh)
     rules = make_rules(mesh, shape, zero=zero)
-    rules.vocab_parallel = False  # the serving steps hold the embedding and head whole
     rules.cache_len = cache_len or shape.seq_len
     n_model, n_rows = rules.n_model, mesh.axis_size(rules.batch_axes)
     n_cache = mesh.axis_size(rules.cache_seq_axes(rules.cache_len))
@@ -398,49 +439,20 @@ def _serving(model: BaseModel, shape: ShapeConfig, mesh, cache_len: int | None):
     nested = param_shardings(model, mesh, zero=zero)
     specs = flatten_specs(nested)
     axes = flatten_specs(model.param_axes())
-
-    experts = _expert_tiles(specs, axes)
-
-    def load(params: Any) -> Any:
-        """The rank's param tiles -> the params the step takes: without ZeRO
-        every leaf gathered whole, once, but the expert leaves, which stay
-        the rank's "model" tiles of the experts (layer weights in the
-        compute dtype, as the serving path keeps them); with it, the
-        tiles."""
-        if zero:
-            return params
-        flat = dict(tree_flatten_with_paths(params))
-        full = ShardedLayer(flat, {p: experts[p][1] if p in experts else specs[p] for p in flat},
-                            mesh, frozenset(experts)).gather()
-        return model.compute_params(tree_map_with_paths(lambda path, _: full[path], params))
+    tiles = _kept_tiles(specs, axes,
+                        model.GATHERED_IN_DECODE if shape.kind == "decode" else None)
 
     def view(params: Any) -> Any:
-        if not zero:
-            return params
         rules.stacked = {}
-        return _mesh_view(params, specs, axes, mesh, rules.stacked, False)
+        return _mesh_view(params, specs, axes, mesh, rules.stacked, tiles)
 
-    return rules, zero, nested, local, load, view
-
-
-def _expert_tiles(specs: dict, axes: dict) -> dict:
-    """{path: ``expert_tile``'s (kept, gathered) specs} of the expert
-    leaves that a mesh step keeps as "model" tiles of the experts."""
-    tiles = {path: expert_tile(spec, axes[path]) for path, spec in specs.items()}
-    return {path: t for path, t in tiles.items() if t is not None}
+    return rules, nested, local, view
 
 
-def _serving_structs(model: BaseModel, mesh, zero: bool, specs: Any) -> Any:
-    """The params a serving step takes, as ``meta`` structs: whole (in the
-    serving dtypes) but for the expert leaves' "model" tiles or, with ZeRO,
-    the rank's tiles."""
-    struct = model.param_struct()
-    if zero:
-        return _tiles(struct, specs, mesh)
-    experts = _expert_tiles(flatten_specs(specs), flatten_specs(model.param_axes()))
-    return model.compute_params(tree_map_with_paths(
-        lambda path, x: _tile_struct(x, experts[path][0], mesh) if path in experts else x,
-        struct))
+def _serving_structs(model: BaseModel, mesh, specs: Any) -> Any:
+    """The params a serving step takes, as ``meta`` structs: the rank's
+    tiles, in the serving dtypes."""
+    return model.compute_params(_tiles(model.param_struct(), specs, mesh))
 
 
 def build_prefill_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,
@@ -453,9 +465,10 @@ def build_prefill_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,
     whole batch and keeps its rows (over the batch axes) and its sequence
     shard (over "model"), as the train step does; the sharded attention,
     the sequence-parallel cores and the RoPE offset take the shard's
-    context; the logits are the rank's rows' and the cache its tile by
-    :func:`serving_cache_specs`. ``params`` are what ``bundle.load`` makes
-    of the rank's tiles."""
+    context; each layer gathers its weights' tiles where it runs; the
+    logits are the rank's rows' (the head's vocab tiles, gathered) and the
+    cache its tile by :func:`serving_cache_specs`. ``params`` are what
+    ``bundle.load`` makes of the rank's tiles."""
     if (mesh is None) == (device is None):
         raise ValueError("build_prefill_step takes a device or a mesh")
     batch_struct = model.input_specs(shape)
@@ -468,7 +481,7 @@ def build_prefill_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,
 
         return StepBundle(prefill, (model.compute_params(model.param_struct()), batch_struct),
                           None, None, None, dev, "prefill")
-    rules, zero, specs, local, load, view = _serving(model, shape, mesh, cache_len)
+    rules, specs, local, view = _serving(model, shape, mesh, cache_len)
     dev = mesh.device
 
     @torch.no_grad()
@@ -479,8 +492,9 @@ def build_prefill_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,
 
     cache_shape = ShapeConfig(shape.name, rules.cache_len, shape.global_batch, "decode")
     out_specs = serving_cache_specs(rules, model, cache_shape, model.cache_struct(cache_shape))
-    return StepBundle(prefill, (_serving_structs(model, mesh, zero, specs), batch_struct),
-                      (specs, model.input_axes(shape)), out_specs, rules, dev, "prefill", load)
+    return StepBundle(prefill, (_serving_structs(model, mesh, specs), batch_struct),
+                      (specs, model.input_axes(shape)), out_specs, rules, dev, "prefill",
+                      model.compute_params)
 
 
 def build_decode_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,
@@ -489,7 +503,9 @@ def build_decode_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,
     (B, 1, V_pad) f32, cache)``, the cache written in place; ``batch``:
     ``tokens`` (B, 1) and ``positions`` (B,). On one ``device`` it is
     ``model.decode``. On ``mesh`` every rank passes the whole batch and
-    keeps its rows; ``cache`` is the rank's tile (:func:`serving_cache_specs`:
+    keeps its rows, and multiplies by its weights' "model" tiles
+    (tensor-parallel: :func:`_serving`); ``cache`` is the rank's tile
+    (:func:`serving_cache_specs`:
     the K/V sequence over the "cache_seq" axes, which take unused data axes
     too when the batch is too small for them; an enc-dec model's memory
     tiles as its self-attention cache). The self-attention cache is as long
@@ -513,7 +529,7 @@ def build_decode_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,
 
         return StepBundle(decode, (model.compute_params(model.param_struct()), cache_struct,
                                    batch_struct), None, None, None, dev, "decode")
-    rules, zero, specs, local, load, view = _serving(model, shape, mesh, length)
+    rules, specs, local, view = _serving(model, shape, mesh, length)
     dev = mesh.device
     cache_specs = serving_cache_specs(rules, model, shape, cache_struct)
 
@@ -523,10 +539,10 @@ def build_decode_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,
         with activation_rules(rules):
             return model.decode(view(params), cache, batch)
 
-    return StepBundle(decode, (_serving_structs(model, mesh, zero, specs),
+    return StepBundle(decode, (_serving_structs(model, mesh, specs),
                                _tiles(cache_struct, cache_specs, mesh), batch_struct),
                       (specs, cache_specs, model.input_axes(shape)), cache_specs, rules, dev,
-                      "decode", load)
+                      "decode", model.compute_params)
 
 
 def build_step(model: BaseModel, shape: ShapeConfig, *, mesh=None,

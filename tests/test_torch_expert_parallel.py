@@ -261,8 +261,11 @@ def test_each_rank_holds_and_computes_only_its_experts(ran, key):
 def test_tokens_move_by_all_to_all_in_train_and_prefill_not_in_decode(ran, key):
     """Train (forward and backward) and prefill steps run all-to-alls over
     "model", two a layer in the forward; decode steps run none, and sum
-    each layer's combine over "model" instead; the 3-expert case moves no
-    token."""
+    each layer's combine over "model" instead (kimi-k2's shared expert's
+    row-parallel product folded into the same sum), beside the two other
+    d_model-wide sums of tensor-parallel serving: each layer's attention
+    output (row-parallel) and the step's vocab-parallel embedding lookup;
+    the 3-expert case moves no token."""
     _, res = ran
     model = key.split("/")[0]
     layers = OVER[model].get("n_layers", 2)
@@ -272,7 +275,7 @@ def test_tokens_move_by_all_to_all_in_train_and_prefill_not_in_decode(ran, key):
             assert not spy["a2a"], spy
         elif key.endswith("serve"):
             assert spy["a2a"] == {"prefill": 2 * layers}, spy["a2a"]
-            assert spy["combine"].get("decode", 0) == STEPS * layers, spy["combine"]
+            assert spy["combine"].get("decode", 0) == STEPS * (2 * layers + 1), spy["combine"]
         else:
             assert spy["a2a"] == {"train": 4 * layers}, spy["a2a"]  # and the backward's
             assert not spy["combine"], spy["combine"]

@@ -266,12 +266,13 @@ def grad_compress_cases(rank: int, inp: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _serve_one(mesh, model, params, inp, extra: dict | None = None) -> dict:
+def _serve_one(mesh, model, params, inp, extra: dict | None = None, on_served=None) -> dict:
     """Prefill the global prompts (beside ``extra`` inputs: a VLM's patch
     or an enc-dec model's frame embeddings) and decode ``inp["steps"]`` on
     the mesh: the rank's rows' logits of each call, its cache tile after
     the prefill and its K/V tiles after the last decode step, and the
-    decode-attention merge at the right and at a one-off shard start."""
+    decode-attention merge at the right and at a one-off shard start.
+    ``on_served`` is called with the params the steps take."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.models.common import decode_segment
     from repro_torch.runtime.collectives import all_gather
@@ -290,7 +291,9 @@ def _serve_one(mesh, model, params, inp, extra: dict | None = None) -> dict:
     # an enc-dec model's decode shape holds the frames' half of the budget too
     dec = build_decode_step(model, ShapeConfig(
         "d", cache_len * (2 if "frame_embeds" in extra else 1), B, "decode"), mesh=mesh)
-    served = pre.load(shard_tree(params, pre.in_specs[0], mesh))  # gathered once
+    served = pre.load(shard_tree(params, pre.in_specs[0], mesh))  # the rank's tiles
+    if on_served is not None:
+        on_served(served)
     logits, cache = pre.fn(served, {"tokens": tokens, **extra})
     out = {"logits": [_np(logits)], "cache": {k: _np(v).copy() for k, v in _flat(cache).items()}}
     for i, tok in enumerate(steps):
@@ -562,7 +565,8 @@ class _ExpertSpies:
     ``unshard_many``, the leaves told apart by identity with ``experts``,
     the rank's stacked expert tiles), the all-to-alls by step kind (calls
     and bytes, forward and backward), and the "model" all-reduces of
-    ``d_model``-wide sums (the decode combine)."""
+    ``d_model``-wide sums (the decode combine, and tensor-parallel
+    serving's other sums of that width)."""
 
     def __init__(self, moe, experts: list, d_model: int):
         from repro_torch.runtime import collectives, sharding
@@ -578,8 +582,6 @@ class _ExpertSpies:
 
     def __enter__(self):
         moe, coll, sharding = self.moe, self.coll, self.sharding
-        from repro_torch.runtime import steps
-
         self.saved = (moe._experts, sharding.unshard_many, coll._all_to_all, coll._all_reduce,
                       sharding.unshard_tree)
         experts, unshard, a2a, reduce, tree = self.saved
@@ -616,16 +618,13 @@ class _ExpertSpies:
 
         moe._experts, sharding.unshard_many = held, gather
         coll._all_to_all, coll._all_reduce = all_to_all, all_reduce
-        sharding.unshard_tree, steps.unshard_many = unshard_tree, gather
+        sharding.unshard_tree = unshard_tree
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.runtime import steps
-
         moe, coll, sharding = self.moe, self.coll, self.sharding
         (moe._experts, sharding.unshard_many, coll._all_to_all, coll._all_reduce,
          sharding.unshard_tree) = self.saved
-        steps.unshard_many = self.saved[1]
 
     def record(self) -> dict:
         return {"held": sorted(self.held), "gathers": self.gathers, "a2a": self.a2a,
@@ -708,4 +707,143 @@ def expert_parallel_cases(rank: int, inp: dict) -> dict:
             out[key]["one_sender_only"] = got["metrics"] if "metrics" in got else got["logits"]
     finally:
         moe._owner_buffers = owner
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_tensor_parallel_serving.py
+# ---------------------------------------------------------------------------
+
+
+class _ServeSpies:
+    """Records, while active, what tensor-parallel serving must show, by
+    step kind: each gather of a served weight (``unshard_many``: its path,
+    told apart by identity with the served leaves, or their layer slices;
+    the axes it gathers over; the bytes it returns), each ``psum`` of
+    products' partial sums (by the function that runs it: ``row_product``,
+    or ``moe_apply``'s fold of the experts' combine and the shared experts'
+    product) and each all-gather of activations (by the function that runs
+    it: ``_gathered_slices``, the column-parallel outputs; ``vocab_logits``,
+    the head's)."""
+
+    def __init__(self):
+        from repro_torch.runtime import collectives, sharding
+
+        self.coll, self.sharding = collectives, sharding
+        self.paths: dict = {}
+        self.gathers, self.psums, self.act_gathers = [], {}, {}
+
+    def served(self, tree):
+        from repro_torch.utils import tree_flatten_with_paths
+
+        self.paths = {id(x): p for p, x in tree_flatten_with_paths(tree)}
+        self.shapes = {p: list(x.shape) for p, x in tree_flatten_with_paths(tree)}
+
+    def _kind(self) -> str:
+        rules = self.sharding.current_rules()
+        return "none" if rules is None else rules.kind
+
+    def _count(self, into: dict, axes):
+        """Count a collective under the function that runs it (past the
+        collectives' own wrappers) and its axes."""
+        import sys
+
+        f = sys._getframe(2)
+        while f.f_code.co_name == "all_gather_stack":
+            f = f.f_back
+        key = (self._kind(), f.f_code.co_name, axes if isinstance(axes, str) else "/".join(axes))
+        into[key] = into.get(key, 0) + 1
+
+    def __enter__(self):
+        coll, sharding = self.coll, self.sharding
+        self.saved = sharding.unshard_many, coll.psum, coll.all_gather
+        unshard, psum, all_gather = self.saved
+
+        def gather(tiles, specs, mesh):
+            out = unshard(tiles, specs, mesh)
+            for t, spec, o in zip(tiles, specs, out):
+                path = self.paths.get(id(t), self.paths.get(id(t._base)))
+                if path is not None:
+                    self.gathers.append((self._kind(), path, list(sharding.spec_axes(spec)),
+                                         o.numel() * o.element_size()))
+            return out
+
+        def psum_(x, mesh, axes):
+            self._count(self.psums, axes)
+            return psum(x, mesh, axes)
+
+        def all_gather_(x, mesh, axes, *, dim):
+            self._count(self.act_gathers, axes)
+            return all_gather(x, mesh, axes, dim=dim)
+
+        sharding.unshard_many, coll.psum, coll.all_gather = gather, psum_, all_gather_
+        return self
+
+    def __exit__(self, *exc):
+        self.sharding.unshard_many, self.coll.psum, self.coll.all_gather = self.saved
+
+    def record(self) -> dict:
+        return {"shapes": self.shapes, "gathers": self.gathers,
+                "psums": [[*k, n] for k, n in sorted(self.psums.items())],
+                "act_gathers": [[*k, n] for k, n in sorted(self.act_gathers.items())]}
+
+
+def _slice_one_off(x, width, mesh):
+    """A ``_rank_slice`` one tile off: the mutation the parity cases must
+    catch."""
+    j = (mesh.axis_index("model") + 1) % mesh.shape["model"]
+    return x[..., j * width:(j + 1) * width]
+
+
+def _gathered_out_of_order(gathered):
+    """A ``_gathered_slices`` whose ranks' tiles come back rotated by one:
+    the mutation the parity cases must catch."""
+    def rotated(x, mesh):
+        return gathered(x, mesh).roll(1, dims=-2)
+    return rotated
+
+
+def _tp_case(mesh, case: dict) -> dict:
+    """``case`` served on ``mesh`` (``_serve_one``) under
+    :class:`_ServeSpies` (ZeRO tiles where ``case["zero"]``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, params_from_jax
+    from repro_torch.runtime import steps
+
+    model = build_model(get_arch(case["arch"]).reduced(**case["overrides"]))
+    zero = steps._serving_zero
+    if case.get("zero"):
+        steps._serving_zero = lambda model_, mesh_: True
+    try:
+        with _ServeSpies() as spy:
+            out = _serve_one(mesh, model, params_from_jax(case["params"], "cpu"), case,
+                             case["extra"], on_served=spy.served)
+    finally:
+        steps._serving_zero = zero
+    out["spy"] = spy.record()
+    return out
+
+
+def tensor_parallel_cases(rank: int, inp: dict) -> dict:
+    """Every case of ``inp["cases"]`` on its mesh, (2, 2) or (1, 4)
+    ("data", "model"), under the spies; the cases named in
+    ``inp["mutated"]`` run again with a row-parallel slice one tile off
+    and with the column tiles gathered out of order: their logits."""
+    from repro_torch.models import common
+
+    meshes = {"2x2": make_mesh((2, 2), ("data", "model"), device="cpu"),
+              "1x4": make_mesh((1, 4), ("data", "model"), device="cpu")}
+    out = {"coords": {k: m.coords() for k, m in meshes.items()}}
+    for key, case in inp["cases"].items():
+        out[key] = _tp_case(meshes[case["mesh"]], case)
+    for name, (attr, fn) in {"slice_one_off": ("_rank_slice", lambda f: _slice_one_off),
+                             "out_of_order": ("_gathered_slices", _gathered_out_of_order)}.items():
+        saved = getattr(common, attr)
+        setattr(common, attr, fn(saved))
+        try:
+            for key in inp["mutated"]:
+                case = inp["cases"][key]
+                out[key][name] = _tp_case(meshes[case["mesh"]], case)["logits"]
+        finally:
+            setattr(common, attr, saved)
     return out
