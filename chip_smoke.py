@@ -9,7 +9,9 @@
 3. prints the host's CPU and launch rate (so runs on different hosts can
    be told apart), then holds every kernel against its plain PyTorch
    version at the main path's shapes, on the same inputs, with the
-   tolerance printed (for the attention kernels per element, and shown to
+   tolerance printed (the Mini-App kernels through their ``torch.library``
+   ops, ``torch.ops.repro_torch.kmeans_assign`` and the others, as the main
+   path calls them; for the attention kernels per element, and shown to
    fail a mask off by one; ``kmeans_assign`` in each regime its plan
    chooses, narrow 80 000 x 3 x 10 and wide 65 536 x 128 x 1024, f32 and
    bf16, and the chunked regime at 4096 x 20 000 x 2 and 15, with the
@@ -156,8 +158,14 @@
    serving steps on the mesh: smollm-135m at full width and depth in f32, 4
    prompts of 120 tokens prefilled into a 256-entry cache whose sequence is
    split over "model" (the second rank's tile empty for the first 8 steps,
-   written and merged from position 128 on), 16 decode steps, every call's
-   logits held to the one-device steps', and the families case:
+   written and merged from position 128 on), 16 greedy decode steps, the
+   one-device steps fed the mesh's tokens, every call's logits held to
+   theirs; (i') the same in bf16 (C16), every served token the one-device
+   bf16 argmax wherever its top-2 gap exceeds 0.05 (a ``check mesh serve
+   bf16`` line), its row-parallel products' shapes kept; then, in this
+   process on the card alone, what those products' f32 copies of their
+   inputs and tiles cost a decode step (A18: an ``a18 row_product`` line
+   with the card's name and power limit); and the families case:
    phi3.5-moe (groups across the sequence shards and, in decode, across
    the "data" ranks; trained under kimi-k2's Adafactor; expert-parallel, 8
    of its 16 experts a rank, tokens moved by all-to-all), llava-next (a rank
@@ -172,17 +180,22 @@
    and the backward pair at a causal query offset (a sequence shard's rows)
    at smollm's and llava's shard shapes, per element, with an offset one
    off shown to fail, timed beside SDPA with an equal boolean mask;
-10. runs the dry-run phase (``dryrun_path``, within 45 s): the decode kernel
+10. runs the dry-run phase (``dryrun_path``, within 60 s): the decode kernel
    on a cache shard (its start and log-sum-exp) at qwen3-14b's decode_32k
    rank shard against its plain version, its 16 shards merged against the
    whole-cache kernel, empty rows 0 and -inf, a start one off shown to fail;
    smollm-135m's training, prefill and decode steps traced under fake
    tensors (``runtime/cost_analysis.py``) and run on the card, the FLOPs
    equal and the traced peak within 10 % of the card's, with wall p50 and
-   ``mfu``; and one production cell (qwen3-14b x decode_32k on the 16 x 16
-   mesh) through ``python -m repro_torch.launch.dryrun`` in a process of its
-   own; prints ``check decode_attention shard``, ``estimate``, ``dryrun
-   cell`` and ``path dryrun`` lines;
+   ``mfu``; the dry run's four Mini-App cells (a K-Means batch narrow and
+   wide, a GridRec and an ML-EM batch of 8 frames of 360 x 1448 into
+   1448 x 1448) traced and run on the card, the FLOPs equal to
+   ``FlopCounterMode``'s and to the kernels' formulas, the peaks side by
+   side (``estimate miniapp`` lines); and one production cell (qwen3-14b x
+   decode_32k on the 16 x 16 mesh) through ``python -m
+   repro_torch.launch.dryrun`` in a process of its own; prints ``check
+   decode_attention shard``, ``estimate``, ``dryrun cell`` and ``path
+   dryrun`` lines;
 11. prints one JSON line ``{"kernels": [...]}`` and, last, one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -423,7 +436,7 @@ MESH_FAM_TOKENS_HALF = MESH_FAM_TOKENS // 2
 # equal, the traced peak (less the inputs) within DRY_PEAK_REL of the card's,
 # DRY_REPS timed runs; one production cell, DRY_CELL, through the dry run
 DRY_SHARD = (8, 2048, 16, (40, 8, 128))  # rows, entries a shard, shards, heads
-DRY_PEAK_REL, DRY_TIMEOUT_S, DRY_REPS, DRY_CACHE = 0.10, 45, 5, 512
+DRY_PEAK_REL, DRY_TIMEOUT_S, DRY_REPS, DRY_CACHE = 0.10, 60, 5, 512
 DRY_CELL = ("qwen3-14b", "decode_32k")
 
 # a served token must be the re-scoring forward's argmax wherever the top-2
@@ -689,28 +702,30 @@ def assign_close(torch, kmeans, name: str, points, centroids, labels, dist) -> d
 
 def check_assign(torch, kmeans, n: int, d: int, k: int, dtype, clustered: bool,
                  gen, timing: bool, floor_ms: float) -> dict:
-    """``kmeans_assign`` in the regime ``assign_plan`` chooses for the shape,
-    held to :func:`assign_close`; timed, with its bound (wide f32: also the
+    """The ``repro_torch::kmeans_assign`` op on CUDA tensors (the kernel, in
+    the regime ``assign_plan`` chooses for the shape), held to
+    :func:`assign_close`; timed, with its bound (wide f32: also the
     bound of the 3 TF32 products its design issues) and ``floor_ms``, the
     least kernel's device time, beside it."""
+    op = torch.ops.repro_torch.kmeans_assign
     points, centroids = assign_inputs(torch, n, d, k, dtype, clustered, gen)
-    labels, dist = kmeans.assign_cuda(points, centroids)
+    labels, dist = op(points, centroids)
     plan = kmeans.assign_plan(d, k, dtype)
     out = {"regime": plan.regime, "launch_floor_ms": floor_ms,
            **assign_close(torch, kmeans, "kmeans_assign", points, centroids, labels, dist)}
     if timing:
         elem = points.element_size()
         n_bytes = n * d * elem + k * d * elem + n * 8
-        n_ops = 2 * n * k * d + 3 * n * k + 2 * n * d
+        n_ops = kmeans.assign_flops(n, d, k)
         out["bound_ms"], out["bound_by"] = bound(
             n_bytes, n_ops, BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S)
         if plan.regime == "wide" and dtype == torch.float32:
             out["tf32x3_bound_ms"], out["tf32x3_bound_by"] = bound(
                 n_bytes, 3 * 2 * n * k * d, TF32_OPS_PER_S)
-        out["ms"] = graph_ms(torch, lambda: kmeans.assign_cuda(points, centroids), 50)
+        out["ms"] = graph_ms(torch, lambda: op(points, centroids), 50)
         out["plain_ms"] = graph_ms(torch, lambda: kmeans.assign_ref(points, centroids), 20)
         out["library_ms"] = graph_ms(torch, lambda: torch.cdist(points, centroids).min(1), 20)
-        out["call_ms"] = time_ms(torch, lambda: kmeans.assign_cuda(points, centroids), 50, 5)
+        out["call_ms"] = time_ms(torch, lambda: op(points, centroids), 50, 5)
     return out
 
 
@@ -763,40 +778,44 @@ def update_phase_ms(torch, kmeans, points, labels, k: int) -> dict:
 
 
 def check_update(torch, kmeans, n: int, d: int, k: int, gen, floor_ms: float) -> dict:
-    """``kmeans_update`` on N x D points with labels from ``kmeans_assign``
-    on clustered points (the cluster source's data), held to
-    :func:`update_close` and timed, with its regime, its launches' times,
-    ``floor_ms`` (the least kernel's time), its bound, the plain version
-    (``index_add_`` twice) and one ``index_add_`` of the sums; also masked
-    (70 % of the rows weigh 1) and with every row on one label (timed)."""
+    """The ``repro_torch::kmeans_update`` op on CUDA tensors (the kernel) on
+    N x D points with labels from ``kmeans_assign`` on clustered points
+    (the cluster source's data), held to :func:`update_close` and timed,
+    with its regime, its launches' times, ``floor_ms`` (the least kernel's
+    time), its bound, the plain version (``index_add_`` twice) and one
+    ``index_add_`` of the sums; also masked (70 % of the rows weigh 1) and
+    with every row on one label (timed)."""
+    op = torch.ops.repro_torch.kmeans_update
     points, centroids = assign_inputs(torch, n, d, k, torch.float32, True, gen)
-    labels, _ = kmeans.assign_cuda(points, centroids)
+    labels, _ = torch.ops.repro_torch.kmeans_assign(points, centroids)
     out = {"regime": kmeans.update_plan(d, k, points.dtype).regime, "launch_floor_ms": floor_ms,
-           **update_close(torch, "kmeans_update", lambda: kmeans.update_cuda(points, labels, k),
+           **update_close(torch, "kmeans_update", lambda: op(points, labels, k, None),
                           points, labels, k)}
     out["labels_used"] = int((torch.bincount(labels.long(), minlength=k) > 0).sum())
-    out["bound_ms"], out["bound_by"] = bound(n * d * 4 + n * 4 + k * d * 4 + k * 4, n * d)
-    out["ms"] = graph_ms(torch, lambda: kmeans.update_cuda(points, labels, k), 20)
+    out["bound_ms"], out["bound_by"] = bound(n * d * 4 + n * 4 + k * d * 4 + k * 4,
+                                           kmeans.update_flops(n, d))
+    out["ms"] = graph_ms(torch, lambda: op(points, labels, k, None), 20)
     out["phase_ms"] = update_phase_ms(torch, kmeans, points, labels, k)
     out["plain_ms"] = graph_ms(torch, lambda: kmeans.update_scatter_ref(points, labels, k), 20)
     idx = labels.long()
     zeros = torch.zeros((k, d), device=points.device)
     out["library_ms"] = graph_ms(torch, lambda: zeros.index_add_(0, idx, points), 20)
-    out["call_ms"] = time_ms(torch, lambda: kmeans.update_cuda(points, labels, k), 50, 5)
+    out["call_ms"] = time_ms(torch, lambda: op(points, labels, k, None), 50, 5)
     mask = torch.rand(n, generator=gen, device=points.device) < 0.7
     out["masked"] = update_close(torch, "kmeans_update masked",
-                                 lambda: kmeans.update_cuda(points, labels, k, mask),
+                                 lambda: op(points, labels, k, mask),
                                  points, labels, k, mask)
     one = torch.full_like(labels, k // 2)
     out["one_label"] = update_close(torch, "kmeans_update one label",
-                                    lambda: kmeans.update_cuda(points, one, k), points, one, k)
-    out["one_label_ms"] = graph_ms(torch, lambda: kmeans.update_cuda(points, one, k), 20)
+                                    lambda: op(points, one, k, None), points, one, k)
+    out["one_label_ms"] = graph_ms(torch, lambda: op(points, one, k, None), 20)
     return out
 
 
 def check_tomo(torch, tomo, gen) -> tuple[dict, dict]:
-    """Both projectors at the light-source path's shapes: 8 frames,
-    360 angles, 1448 bins, n = 1448."""
+    """Both projector ops (``repro_torch::tomo_backproject``,
+    ``tomo_project``) on CUDA tensors, the kernels, at the light-source
+    path's shapes: 8 frames, 360 angles, 1448 bins, n = 1448."""
     dev = torch.device("cuda", 0)
     b, a, n_det, n = 8, FRAME_ANGLES, FRAME_BINS, RECON_N
     angles = torch.from_numpy(tomo.angle_grid(a)).to(dev)
@@ -804,9 +823,9 @@ def check_tomo(torch, tomo, gen) -> tuple[dict, dict]:
     sinos = torch.rand((b, a, n_det), generator=gen, device=dev)
     imgs = torch.rand((b, n, n), generator=gen, device=dev)
 
-    bp = tomo.backproject_cuda(sinos, cos_t, sin_t, n)
+    bp = torch.ops.repro_torch.tomo_backproject(sinos, cos_t, sin_t, n)
     bp_ref = tomo.backproject_plain(sinos, cos_t, sin_t, n)
-    fp = tomo.project_cuda(imgs, cos_t, sin_t, n_det)
+    fp = torch.ops.repro_torch.tomo_project(imgs, cos_t, sin_t, n_det)
     fp_ref = tomo.project_plain(imgs, cos_t, sin_t, n_det)
     torch.cuda.synchronize()
     results = []
@@ -831,14 +850,14 @@ def check_tomo(torch, tomo, gen) -> tuple[dict, dict]:
 
     # one interpolation per (frame, pixel, angle): 4 f32 operations, and 6
     # per (pixel, angle) for s, floor(s) and the two weights
-    n_ops = b * n * n * a * 4 + n * n * a * 6
+    n_ops = tomo.projector_flops(b, a, n)
     trig_bytes = 2 * a * 4
     bp_bytes = b * a * n_det * 4 + trig_bytes + b * n * n * 4
     fp_bytes = b * n * n * 4 + trig_bytes + b * a * n_det * 4
-    for res, bytes_, kern, plain, x in (
-            (results[0], bp_bytes, tomo.backproject_cuda, tomo.backproject_plain, sinos),
-            (results[1], fp_bytes, tomo.project_cuda, tomo.project_plain, imgs)):
-        size = n if kern is tomo.backproject_cuda else n_det
+    ops = torch.ops.repro_torch
+    for res, bytes_, kern, plain, x, size in (
+            (results[0], bp_bytes, ops.tomo_backproject, tomo.backproject_plain, sinos, n),
+            (results[1], fp_bytes, ops.tomo_project, tomo.project_plain, imgs, n_det)):
         res["bound_ms"], res["bound_by"] = bound(bytes_, n_ops)
         res["ms"] = time_ms(torch, lambda: kern(x, cos_t, sin_t, size), 5, 1)
         res["plain_ms"] = time_ms(torch, lambda: plain(x, cos_t, sin_t, size), 2, 1)
@@ -870,7 +889,7 @@ def check_project_sparse(torch, tomo, gen) -> dict:
         lit = torch.randint(0, n * n, (64,), generator=gen, device=dev)
         imgs[f].view(-1)[lit] = 1.0
     lit = int((imgs > 0).flatten(1).sum(1).max())
-    out = tomo.project_cuda(imgs, cos_t, sin_t, n_det)
+    out = torch.ops.repro_torch.tomo_project(imgs, cos_t, sin_t, n_det)
     ref = tomo.project_plain(imgs, cos_t, sin_t, n_det)
     torch.cuda.synchronize()
     err = (out - ref).abs()
@@ -896,7 +915,7 @@ def check_backproject_sparse(torch, tomo, gen) -> dict:
     sinos = torch.zeros((b, a, n_det), device=dev)
     sinos[..., [0, 1, n_det // 2, n_det - 2, n_det - 1]] = 1.0
     sinos.scatter_(2, torch.randint(0, n_det, (b, a, 8), generator=gen, device=dev), 1.0)
-    out = tomo.backproject_cuda(sinos, cos_t, sin_t, n)
+    out = torch.ops.repro_torch.tomo_backproject(sinos, cos_t, sin_t, n)
     ref = tomo.backproject_plain(sinos, cos_t, sin_t, n)
     torch.cuda.synchronize()
     err = (out - ref).abs()
@@ -3746,26 +3765,30 @@ def _worst_of(ranks: list, key: str) -> dict:
     return errs(copy.deepcopy(ranks[0][key]), [r[key] for r in ranks])
 
 
-def _mesh_serve(torch, mesh, kernels) -> dict:
+def _mesh_serve(torch, mesh, kernels, compute_dtype: str = "float32") -> dict:
     """(i): the serving steps on the 2 x 2 mesh (``runtime/steps.py``
     ``build_prefill_step`` and ``build_decode_step``): smollm-135m at full
-    width and depth in f32, weights drawn alike on every rank, cut to the
-    rank's tiles and gathered once (``bundle.load``); MESH_SERVE_PROMPTS
-    prompts of MESH_SERVE_PROMPT_LEN tokens into a MESH_SERVE_CACHE-entry
-    cache, then MESH_SERVE_STEPS decode steps, across the cache tiles'
-    boundary. Held to the one-device prefill and decode
-    steps on the rank's rows (same weights, the one-device steps' greedy
-    tokens fed to both): every call's logits within MESH_SERVE_REL x
-    max|logit|, the argmax equal wherever the one-device top-2 gap exceeds
-    RESCORE_GAP. The launch counts of the mesh calls (set to 0 before, read
-    after) must show the decode kernel on every rank."""
+    width and depth in ``compute_dtype``, weights drawn alike on every rank,
+    cut to the rank's tiles (``bundle.load``); MESH_SERVE_PROMPTS prompts of
+    MESH_SERVE_PROMPT_LEN tokens into a MESH_SERVE_CACHE-entry cache, then
+    MESH_SERVE_STEPS greedy decode steps, across the cache tiles' boundary.
+    The one-device prefill and decode steps (same weights) are then fed the
+    mesh's tokens on the rank's rows: every served token must be the
+    one-device argmax wherever the one-device top-2 gap exceeds RESCORE_GAP;
+    in f32 every call's logits also within MESH_SERVE_REL x max|logit| (in
+    bf16 their largest difference is a reading: C16). The launch counts of
+    the mesh calls (set to 0 before, read after) must show the decode
+    kernel on every rank. In bf16 the shapes and dtypes of every
+    row-parallel product's input slice and weight tile in the first decode
+    step are kept (``row_products``: A18's f32 copies, timed by
+    ``row_product_copies``)."""
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.models import build_model
     from repro_torch.models.common import first_argmax
     from repro_torch.runtime.sharding import shard_tree
     from repro_torch.runtime.steps import build_decode_step, build_prefill_step
 
-    cfg = get_arch("smollm-135m").replace(compute_dtype="float32")
+    cfg = get_arch("smollm-135m").replace(compute_dtype=compute_dtype)
     model = build_model(cfg)
     dev = mesh.device
     B, T, C, n = MESH_SERVE_PROMPTS, MESH_SERVE_PROMPT_LEN, MESH_SERVE_CACHE, MESH_SERVE_STEPS
@@ -3778,32 +3801,19 @@ def _mesh_serve(torch, mesh, kernels) -> dict:
     t0 = time.perf_counter()
     served = pre.load(shard_tree(params, pre.in_specs[0], mesh))  # the rank's tiles
     load_s = time.perf_counter() - t0
-    whole = model.compute_params(params)  # the one-device steps'
     b = B // mesh.shape["data"]
     rows = slice(mesh.axis_index("data") * b, (mesh.axis_index("data") + 1) * b)
-    # one device, the rank's rows: greedy tokens and every call's logits
-    one_pre = build_prefill_step(model, ShapeConfig("one_prefill", T, b, "prefill"), device=dev,
-                                 cache_len=C)
-    one_dec = build_decode_step(model, ShapeConfig("one_decode", C, b, "decode"), device=dev)
-    logits, cache = one_pre.fn(whole, {"tokens": prompts[rows]})
-    want, toks = [logits], []
-    for i in range(n):
-        tok = first_argmax(want[-1][:, -1], dim=-1).to(torch.int32)[:, None]
-        toks.append(tok)
-        logits, cache = one_dec.fn(whole, cache, {"tokens": tok, "positions": torch.full(
-            (b,), T + i, dtype=torch.int32, device=dev)})
-        want.append(logits)
-    tp = _tp_weights(model, whole, served)
-    del cache, whole, params
-    traffic: dict = {}
+    traffic: dict = {"row_products": [] if compute_dtype == "bfloat16" else None}
     torch.cuda.synchronize()
     for k in kernels.KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     with _tp_traffic(traffic):
         logits, cache = pre.fn(served, {"tokens": prompts})
-        got = [logits]
-        for i, tok in enumerate(toks):
+        got, toks = [logits], []
+        for i in range(n):
+            tok = first_argmax(got[-1][:, -1], dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
             every = torch.zeros((B, 1), dtype=torch.int32, device=dev)
             every[rows] = tok  # this rank's rows; the others are other ranks'
             logits, cache = dec.fn(served, cache, {"tokens": every, "positions": torch.full(
@@ -3812,20 +3822,42 @@ def _mesh_serve(torch, mesh, kernels) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels.KERNELS}
-    errs, flips = [], 0
-    for g, w in zip(got, want):
+    cache_tile = list(cache["k"].shape)
+    del cache
+    # one device, the rank's rows, fed the mesh's tokens
+    whole = model.compute_params(params)
+    tp = _tp_weights(model, whole, served)
+    one_pre = build_prefill_step(model, ShapeConfig("one_prefill", T, b, "prefill"), device=dev,
+                                 cache_len=C)
+    one_dec = build_decode_step(model, ShapeConfig("one_decode", C, b, "decode"), device=dev)
+    logits, cache = one_pre.fn(whole, {"tokens": prompts[rows]})
+    want = [logits]
+    for i, tok in enumerate(toks):
+        logits, cache = one_dec.fn(whole, cache, {"tokens": tok, "positions": torch.full(
+            (b,), T + i, dtype=torch.int32, device=dev)})
+        want.append(logits)
+    del cache, whole, params
+    errs, flips, gaps = [], 0, []
+    for i, (g, w) in enumerate(zip(got, want)):
         errs.append(float((g - w).abs().max()) / float(w.abs().max()))
-        top2 = w[:, -1].topk(2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > RESCORE_GAP
-        same = first_argmax(g[:, -1], dim=-1) == first_argmax(w[:, -1], dim=-1)
-        flips += int((sure & ~same).sum())
-    res = {"arch": cfg.name, "compute_dtype": "float32", "prompts": [B, T], "cache": C,
-           "steps": n, "rows": [rows.start, rows.stop], "cache_tile": list(cache["k"].shape),
-           "worst_logit_rel_err": max(errs), "sure_token_flips": flips, "load_s": load_s,
+        if i == n:
+            break  # no token served from the last call
+        top2 = w[:, -1].float().topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        same = toks[i][:, 0] == first_argmax(w[:, -1], dim=-1)
+        flips += int(((gap > RESCORE_GAP) & ~same).sum())
+        gaps += [float(x) for x in gap[~same]]
+    res = {"arch": cfg.name, "compute_dtype": compute_dtype, "prompts": [B, T], "cache": C,
+           "steps": n, "rows": [rows.start, rows.stop], "cache_tile": cache_tile,
+           "worst_logit_rel_err": max(errs), "sure_token_flips": flips,
+           "tokens_served": n * b, "differing_tokens_gaps": gaps, "load_s": load_s,
            "wall_s": wall, "launches": launches,
-           "tol": f"logits {MESH_SERVE_REL} x max|logit|; tokens where the top-2 gap > "
-                  f"{RESCORE_GAP}", **_tp_readings(tp, traffic, n)}
-    if max(errs) > MESH_SERVE_REL or flips:
+           "tol": (f"logits {MESH_SERVE_REL} x max|logit|; " if compute_dtype == "float32"
+                   else "") + f"tokens where the one-device top-2 gap > {RESCORE_GAP}",
+           **_tp_readings(tp, traffic, n)}
+    if traffic["row_products"] is not None:
+        res["row_products"] = traffic["row_products"][:len(traffic["row_products"]) // n]
+    if flips or (compute_dtype == "float32" and max(errs) > MESH_SERVE_REL):
         raise AssertionError(f"mesh serving vs one device: {res}")
     if launches["decode_attention"] < n * cfg.n_layers:
         raise AssertionError(f"mesh serving launched the decode kernel {launches} times")
@@ -3850,7 +3882,9 @@ def _tp_traffic(into: dict):
     """A context that adds to ``into``, by step kind, the bytes of the
     weights ``unshard_many`` gathers over "model" and the ``psum``s over
     "model" of products' partial sums (``row_product``'s, a MoE layer's
-    fold of its combine)."""
+    fold of its combine); where ``into["row_products"]`` is a list, each
+    decode ``row_product``'s input slice and weight tile (shapes, dtypes)
+    and compute dtype are appended to it."""
     import contextlib
 
     from repro_torch.runtime import collectives, sharding
@@ -3872,9 +3906,16 @@ def _tp_traffic(into: dict):
             return out
 
         def psum_(x, mesh, axes):
-            if axes == "model" and sys._getframe(1).f_code.co_name in ("row_product",
-                                                                      "moe_apply"):
+            caller = sys._getframe(1)
+            if axes == "model" and caller.f_code.co_name in ("row_product", "moe_apply"):
                 into[f"{kind()}_psums"] = into.get(f"{kind()}_psums", 0) + 1
+                if into.get("row_products") is not None and kind() == "decode" \
+                        and caller.f_code.co_name == "row_product":
+                    xs, w = caller.f_locals["x"], caller.f_locals["w"]
+                    into["row_products"].append(
+                        {"x": list(xs.shape), "x_dtype": str(xs.dtype).split(".")[-1],
+                         "w": list(w.shape), "w_dtype": str(w.dtype).split(".")[-1],
+                         "cd": str(caller.f_locals["cd"]).split(".")[-1]})
             return psum(x, mesh, axes)
 
         sharding.unshard_many, collectives.psum = gather, psum_
@@ -4233,7 +4274,7 @@ def _mesh_families(torch, mesh, kernels) -> dict:
 def mesh_rank(rank: int, directory: str) -> dict:
     """One rank of the mesh phase: a process of the 4-rank gloo group on
     cuda:0, a (2, 2) ("data", "model") mesh. It loads the kernels the parent
-    built (it never builds) and runs (b)-(g), (i) and (j); returns its
+    built (it never builds) and runs (b)-(g), (i), (i') and (j); returns its
     readings."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -4256,6 +4297,7 @@ def mesh_rank(rank: int, directory: str) -> dict:
                      ("compress", lambda: _mesh_compress(torch, mesh, gen)),
                      ("restore", lambda: _mesh_restore(torch, mesh, directory, gen)),
                      ("serve", lambda: _mesh_serve(torch, mesh, kernels)),
+                     ("serve_bf16", lambda: _mesh_serve(torch, mesh, kernels, "bfloat16")),
                      ("families", lambda: _mesh_families(torch, mesh, kernels))):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4338,16 +4380,24 @@ def mesh_path(torch, kernels) -> dict:
         raise AssertionError(f"mesh coordinates {[r['coords'] for r in ranks]}")
     for key in ("attention", "losses", "sequence", "compress", "restore"):
         print(f"check mesh {key} " + json.dumps(_worst_of(ranks, key)))
-    serve = {**{k: v for k, v in ranks[0]["serve"].items() if k != "launches"},
-             "worst_logit_rel_err": max(r["serve"]["worst_logit_rel_err"] for r in ranks),
-             "decode_launches_per_rank": [r["serve"]["launches"]["decode_attention"]
-                                          for r in ranks],
-             "cache_tiles": [r["serve"]["cache_tile"] for r in ranks],
-             "tensor_parallel_per_rank": [_tp_of(r["serve"]) for r in ranks]}
-    print("check mesh serve " + json.dumps(serve))
+    rows = [r for r in ranks if r["coords"]["model"] == 0]  # one rank a block of rows
+    for key, label in (("serve", "serve"), ("serve_bf16", "serve bf16")):
+        serve = {**{k: v for k, v in ranks[0][key].items()
+                    if k not in ("launches", "row_products", "differing_tokens_gaps")},
+                 "worst_logit_rel_err": max(r[key]["worst_logit_rel_err"] for r in ranks),
+                 "sure_token_flips": sum(r[key]["sure_token_flips"] for r in rows),
+                 "tokens_served": sum(r[key]["tokens_served"] for r in rows),
+                 "differing_tokens_gaps": sorted(g for r in rows
+                                                 for g in r[key]["differing_tokens_gaps"]),
+                 "decode_launches_per_rank": [r[key]["launches"]["decode_attention"]
+                                              for r in ranks],
+                 "cache_tiles": [r[key]["cache_tile"] for r in ranks],
+                 "tensor_parallel_per_rank": [_tp_of(r[key]) for r in ranks]}
+        print(f"check mesh {label} " + json.dumps(serve))
     families = _families_report(ranks, kernels)
     train = ranks[0]["train"]
     launches = {k.name: sum(r["train"]["launches"][k.name] + r["serve"]["launches"][k.name]
+                            + r["serve_bf16"]["launches"][k.name]
                             + sum(f["launches"][k.name] for f in _family_parts(r).values())
                             for r in ranks) for k in kernels.KERNELS}
     report = {"mesh": dict(zip(("data", "model"), MESH_SHAPE)), "backend": ranks[0]["backend"],
@@ -4355,13 +4405,61 @@ def mesh_path(torch, kernels) -> dict:
               "seconds": wall, "phase_s": {k: max(r[k]["s"] for r in ranks)
                                            for k in ("attention", "train", "losses",
                                                      "sequence", "compress", "restore",
-                                                     "serve", "families")},
+                                                     "serve", "serve_bf16", "families")},
               "families_s": {part: line["s"] for part, line in families.items()},
               "train": {k: v for k, v in train.items() if k != "launches"},
               "peak_gb_per_rank": [r["train"]["peak_gb"] for r in ranks],
               "launches": launches, "world_of_one_nccl": h}
     print("path mesh " + json.dumps(report))
-    return {"launches": launches, "report": report}
+    return {"launches": launches, "report": report,
+            "row_products": ranks[0]["serve_bf16"]["row_products"],
+            "serve_bf16_wall_s": ranks[0]["serve_bf16"]["wall_s"]}
+
+
+def row_product_copies(torch, products: list, serve_wall_s: float) -> dict:
+    """A18: what ``row_product``'s f32 partial products cost a bf16 decode
+    step, at the row-parallel products one rank's decode step ran in the
+    mesh phase (``products``: each input slice's and weight tile's shape
+    and dtype), on this process's card alone: device ms a step, from a
+    replayed CUDA graph, of the f32 copies of the inputs and tiles
+    (``x.to(cd).to(f32)``, ``w.to(cd).to(f32)``), of the f32 products on
+    them, and of the same products in the compute dtype as one device runs
+    them; the copies' bytes and their bound; beside the mesh serve's wall a
+    call (its prefill and decode steps, host-staged gloo: not the
+    device's)."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+
+    def tensor(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
+
+    pairs = [(tensor(p["x"], p["x_dtype"]), tensor(p["w"], p["w_dtype"]), getattr(torch, p["cd"]))
+             for p in products]
+    f32 = [(x.to(cd).to(torch.float32), w.to(cd).to(torch.float32)) for x, w, cd in pairs]
+
+    def copies():
+        for x, w, cd in pairs:
+            x.to(cd).to(torch.float32)
+            w.to(cd).to(torch.float32)
+
+    def products_f32():
+        for xf, wf in f32:
+            xf @ wf
+
+    def products_cd():
+        for x, w, cd in pairs:
+            x.to(cd) @ w.to(cd)
+
+    copy_bytes = sum(x.numel() * (x.element_size() + 4) + w.numel() * (w.element_size() + 4)
+                     for x, w, _ in pairs)
+    return {"card": card_line(), "row_products_per_step": len(pairs),
+            "shapes": sorted({(tuple(p["x"]), tuple(p["w"])) for p in products}),
+            "f32_copy_bytes_per_step": copy_bytes,
+            "f32_copies_ms_per_step": graph_ms(torch, copies, 5),
+            "f32_products_ms_per_step": graph_ms(torch, products_f32, 5),
+            "cd_products_ms_per_step": graph_ms(torch, products_cd, 5),
+            "copies_bound_ms": copy_bytes / HBM_BYTES_PER_S * 1e3,
+            "mesh_serve_wall_ms_per_call": serve_wall_s * 1e3 / (MESH_SERVE_STEPS + 1)}
 
 
 def nccl_world_of_one(torch) -> dict:
@@ -4743,6 +4841,56 @@ def estimate_vs_card(torch, kernels) -> dict:
     return {"cases": out, "launches": launches, "peaks": H100.name}
 
 
+def miniapp_estimate(torch, kernels) -> dict:
+    """The dry run's Mini-App cells (``launch/dryrun.py`` ``MINIAPP_CELLS``)
+    on the card: each cell's batch (``miniapp_batch``: a K-Means
+    ``minibatch_update``, a GridRec or an ML-EM batch) traced under fake
+    tensors (``runtime/cost_analysis.py``) and run on the card on inputs of
+    its shapes (the cluster source's points, uniform sinograms): the traced
+    FLOPs equal ``FlopCounterMode``'s over the card's call, and both the
+    kernels' formulas; the traced peak less the inputs beside the card's
+    most allocated less what was allocated before (a reading: a library
+    call's workspace, cuFFT's, is not traced); the wall p50 of DRY_REPS
+    runs. Returns the readings and the runs' launch counts."""
+    from repro_torch.launch import dryrun
+    from repro_torch.runtime.cost_analysis import trace_cost
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    out, launches, faults = {}, {k.name: 0 for k in kernels.KERNELS}, []
+    for app, shape in dryrun.MINIAPP_CELLS:
+        fn, args, kernel_flops = dryrun.miniapp_batch(app, shape)
+        _, cost = trace_cost(fn, *args)
+        if app == "kmeans":
+            (n, d), k = args[0].shape, args[1].shape[0]
+            real = assign_inputs(torch, n, d, k, torch.float32, True, gen)
+        else:
+            real = (torch.rand(args[0].shape, generator=gen, device=dev), args[1].to(dev),
+                    args[2])
+        kernels.reset_launches()
+        card = _card_run(torch, fn, real, DRY_REPS)
+        for k in kernels.KERNELS:
+            launches[k.name] += k.launches
+        traced_peak = cost.peak_bytes - cost.input_bytes
+        out[f"{app} {shape}"] = {
+            "flops_traced": cost.flops, "flops_card": card["flops"], "flops_kernels": kernel_flops,
+            "bytes_fused_traced": cost.bytes_moved_fused, "peak_traced_bytes": traced_peak,
+            "peak_card_bytes": card["peak_bytes"],
+            "peak_rel_err": abs(traced_peak - card["peak_bytes"]) / max(card["peak_bytes"], 1),
+            "input_bytes": cost.input_bytes, "trace_s": cost.seconds, "wall_s": card["wall_s"],
+            "wall_p50_s": card["wall_p50_s"],
+            "launches": {k.name: k.launches for k in kernels.KERNELS if k.launches}}
+        if not cost.flops == card["flops"] == kernel_flops:
+            faults.append(f"{app} {shape}: traced FLOPs {cost.flops}, the card's {card['flops']}, "
+                          f"the kernels' formulas' {kernel_flops}")
+    if faults:
+        raise AssertionError(f"the Mini-App cells against the card: {faults}; {out}")
+    for name in ("kmeans_assign", "kmeans_update", "tomo_backproject", "tomo_project"):
+        if launches[name] < 1:
+            raise AssertionError(f"the Mini-App cells' runs launched no {name}: {launches}")
+    return {"cells": out, "launches": launches}
+
+
 def production_cell() -> subprocess.Popen:
     """DRY_CELL on the single-pod 16 x 16 mesh through ``python -m
     repro_torch.launch.dryrun`` in a process of its own (its fake process
@@ -4756,9 +4904,10 @@ def production_cell() -> subprocess.Popen:
 
 def dryrun_path(torch, kernels, cell: subprocess.Popen) -> dict:
     """The dry-run phase, within DRY_TIMEOUT_S: the decode shard check; the
-    estimate against the card; the record of the production cell, whose
-    trace (``cell``, from ``production_cell``) ran in its own process
-    meanwhile. Prints its lines and seconds."""
+    estimate against the card; the Mini-App cells against the card; the
+    record of the production cell, whose trace (``cell``, from
+    ``production_cell``) ran in its own process meanwhile. Prints its lines
+    and seconds."""
     from repro_torch.kernels import attention
 
     t0 = time.perf_counter()
@@ -4768,6 +4917,9 @@ def dryrun_path(torch, kernels, cell: subprocess.Popen) -> dict:
         est = estimate_vs_card(torch, kernels)
         for name, r in est["cases"].items():
             print(f"estimate {name} " + json.dumps(r))
+        streams = miniapp_estimate(torch, kernels)
+        for name, r in streams["cells"].items():
+            print(f"estimate miniapp {name} " + json.dumps(r))
         out, err = cell.communicate(timeout=max(1.0, DRY_TIMEOUT_S - (time.perf_counter() - t0)))
     finally:
         if cell.poll() is None:
@@ -4780,14 +4932,16 @@ def dryrun_path(torch, kernels, cell: subprocess.Popen) -> dict:
     if len(records) != 1:
         raise AssertionError(f"dry run of {DRY_CELL} printed {len(records)} records: {out[-2000:]}")
     print("dryrun cell " + records[0])
+    launches = {name: est["launches"][name] + streams["launches"][name]
+                for name in est["launches"]}
     seconds = time.perf_counter() - t0
     print("path dryrun " + json.dumps({"seconds": seconds, "limit_s": DRY_TIMEOUT_S,
                                       "cell_trace_s": json.loads(records[0])["trace_s"],
-                                      "peaks": est["peaks"], "launches": est["launches"]}))
+                                      "peaks": est["peaks"], "launches": launches}))
     if seconds > DRY_TIMEOUT_S:
         raise AssertionError(f"the dry-run phase took {seconds:.1f} s > {DRY_TIMEOUT_S} s")
-    return {"launches": est["launches"], "shard": shard, "estimate": est["cases"],
-            "seconds": seconds}
+    return {"launches": launches, "shard": shard, "estimate": est["cases"],
+            "miniapp_estimate": streams["cells"], "seconds": seconds}
 
 
 def main() -> None:
@@ -4977,6 +5131,8 @@ def run(torch, cell: subprocess.Popen) -> None:
     torch.cuda.empty_cache()  # the ranks share the card
     ms = mesh_path(torch, kernels)
     torch.cuda.empty_cache()
+    print("a18 row_product " + json.dumps(row_product_copies(torch, ms["row_products"],
+                                                           ms["serve_bf16_wall_s"])))
     dr = dryrun_path(torch, kernels, cell)
     paths = {"kmeans_path": km["launches"], "kmeans_wide_path": kw["launches"],
              "lightsource_path": rc["launches"], "serve_path": sv["launches"],

@@ -18,7 +18,8 @@ log-sum-exp written.
 
 The kernels are ``torch.library`` ops (``repro_torch::flash_attention``,
 ``flash_attention_lse``, ``flash_attention_bwd``, ``decode_attention``,
-``decode_attention_lse``), defined with ``torch.library.Library``: the
+``decode_attention_lse``), defined with ``torch.library.Library``
+(``kernels/_library.py``, beside the Mini-App kernels' ops): the
 dispatcher sends CUDA tensors to the kernel's launch and CPU tensors to
 the plain version; a fake tensor (``FakeTensorMode``) takes the op's fake
 implementation, which gives the outputs' shapes and dtypes only, and any
@@ -86,6 +87,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._build import CudaKernel, CudaLibrary
+from repro_torch.kernels._library import define_op, fake_only
 from repro_torch.kernels.attention.ref import (
     decode_attention_plain,
     flash_attention_bwd_plain,
@@ -291,33 +293,9 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
 
 
 # ---------------------------------------------------------------------------
-# the torch.library ops: CUDA -> the kernel, CPU -> the plain version
+# the torch.library ops (``kernels/_library.py``): CUDA -> the kernel, CPU
+# -> the plain version, fake tensors -> the shapes
 # ---------------------------------------------------------------------------
-
-
-def _fake_only(name: str, *tensors: torch.Tensor) -> None:
-    """The fake implementations serve fake tensors only: a ``meta`` tensor
-    outside ``FakeTensorMode`` has no kernel, as any other device."""
-    from torch._subclasses.fake_tensor import is_fake
-
-    if not all(is_fake(t) for t in tensors):
-        raise ValueError(f"no {name} for device {tensors[0].device} (fake tensors take shapes "
-                         f"only; the kernel takes CUDA tensors, the plain version CPU ones)")
-
-
-#: the ops' library: each op a schema, a CUDA kernel (the launch), a CPU
-#: kernel (the plain version) and a fake implementation; the dispatcher
-#: raises for any other device
-_LIB = torch.library.Library("repro_torch", "DEF")
-
-
-def _op(schema: str, cuda, cpu, fake):
-    name = schema.split("(")[0]
-    _LIB.define(schema)
-    _LIB.impl(name, cuda, "CUDA")
-    _LIB.impl(name, cpu, "CPU")
-    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIB)
-    return getattr(torch.ops.repro_torch, name)
 
 
 def _flash_cuda(q, k, v, causal, q_offset):
@@ -330,7 +308,7 @@ def _flash_cpu(q, k, v, causal, q_offset):
 
 
 def _flash_fake(q, k, v, causal, q_offset):
-    _fake_only("flash attention", q, k, v)
+    fake_only("flash attention", q, k, v)
     return q.new_empty(q.shape, dtype=v.dtype)
 
 
@@ -347,7 +325,7 @@ def _flash_lse_cpu(q, k, v, causal, q_offset):
 
 
 def _flash_lse_fake(q, k, v, causal, q_offset):
-    _fake_only("flash attention", q, k, v)
+    fake_only("flash attention", q, k, v)
     B, Sq, H, _ = q.shape
     return q.new_empty(q.shape, dtype=v.dtype), q.new_empty((B, H, Sq), dtype=torch.float32)
 
@@ -362,7 +340,7 @@ def _flash_bwd_cpu(q, k, v, out, lse, dout, causal, q_offset):
 
 
 def _flash_bwd_fake(q, k, v, out, lse, dout, causal, q_offset):
-    _fake_only("flash attention backward", q, k, v, out, lse, dout)
+    fake_only("flash attention backward", q, k, v, out, lse, dout)
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
@@ -376,7 +354,7 @@ def _decode_cpu(q, k_cache, v_cache, positions, start):
 
 
 def _decode_fake(q, k_cache, v_cache, positions, start):
-    _fake_only("decode attention", q, k_cache, v_cache, positions)
+    fake_only("decode attention", q, k_cache, v_cache, positions)
     return q.new_empty(q.shape, dtype=v_cache.dtype)
 
 
@@ -393,32 +371,33 @@ def _decode_lse_cpu(q, k_cache, v_cache, positions, start):
 
 
 def _decode_lse_fake(q, k_cache, v_cache, positions, start):
-    _fake_only("decode attention", q, k_cache, v_cache, positions)
+    fake_only("decode attention", q, k_cache, v_cache, positions)
     B, _, H, _ = q.shape
     return q.new_empty(q.shape, dtype=v_cache.dtype), q.new_empty((B, H), dtype=torch.float32)
 
 
 #: prefill attention (B, Sq, H, hd) in v's dtype
-flash_attention_op = _op("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
-                         "int q_offset) -> Tensor", _flash_cuda, _flash_cpu, _flash_fake)
+flash_attention_op = define_op(
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal, int q_offset) -> Tensor",
+    _flash_cuda, _flash_cpu, _flash_fake)
 #: (out (B, Sq, H, hd) in v's dtype, lse (B, H, Sq) f32)
-flash_attention_lse_op = _op("flash_attention_lse(Tensor q, Tensor k, Tensor v, bool causal, "
-                             "int q_offset) -> (Tensor, Tensor)", _flash_lse_cuda,
-                             _flash_lse_cpu, _flash_lse_fake)
+flash_attention_lse_op = define_op(
+    "flash_attention_lse(Tensor q, Tensor k, Tensor v, bool causal, int q_offset) -> "
+    "(Tensor, Tensor)", _flash_lse_cuda, _flash_lse_cpu, _flash_lse_fake)
 #: (dq, dk, dv) in the dtypes of q, k and v: the backward pair
-flash_attention_bwd_op = _op("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
-                             "Tensor lse, Tensor dout, bool causal, int q_offset) -> "
-                             "(Tensor, Tensor, Tensor)", _flash_bwd_cuda, _flash_bwd_cpu,
-                             _flash_bwd_fake)
+flash_attention_bwd_op = define_op(
+    "flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, Tensor dout, "
+    "bool causal, int q_offset) -> (Tensor, Tensor, Tensor)", _flash_bwd_cuda, _flash_bwd_cpu,
+    _flash_bwd_fake)
 #: one-token attention over a cache shard, (B, 1, H, hd) in v's dtype
-decode_attention_op = _op("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
-                          "Tensor positions, int start) -> Tensor", _decode_cuda, _decode_cpu,
-                          _decode_fake)
+decode_attention_op = define_op(
+    "decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, Tensor positions, int start) "
+    "-> Tensor", _decode_cuda, _decode_cpu, _decode_fake)
 #: (out (B, 1, H, hd) in v's dtype, lse (B, H) f32; -inf and 0 out where a
 #: row has no valid entry in the shard)
-decode_attention_lse_op = _op("decode_attention_lse(Tensor q, Tensor k_cache, Tensor v_cache, "
-                              "Tensor positions, int start) -> (Tensor, Tensor)",
-                              _decode_lse_cuda, _decode_lse_cpu, _decode_lse_fake)
+decode_attention_lse_op = define_op(
+    "decode_attention_lse(Tensor q, Tensor k_cache, Tensor v_cache, Tensor positions, "
+    "int start) -> (Tensor, Tensor)", _decode_lse_cuda, _decode_lse_cpu, _decode_lse_fake)
 
 
 # -- FLOP formulas: the kernels' own work (PERF.md §6's bounds) --------------

@@ -5,6 +5,16 @@
 launches ``kmeans_assign`` (``kernels/csrc/kmeans_assign.cu``) or raises.
 There is no fallback between the two.
 
+Both kernels are ``torch.library`` ops (``repro_torch::kmeans_assign``,
+``repro_torch::kmeans_update``; ``kernels/_library.py``), so a dispatch
+mode sees them: the dispatcher sends CUDA tensors to the launch
+(:func:`assign_cuda`, :func:`update_cuda`, in the regime :func:`assign_plan`
+or :func:`update_plan` chooses), CPU tensors to the plain version, fake
+tensors to the shapes. Each has a FLOP formula, the counts of ``PERF.md``
+§6's bounds (:func:`assign_flops`, :func:`update_flops`), and the update
+its workspace's bytes, so a traced K-Means batch counts its cost
+(``runtime/cost_analysis.py``, ``launch/dryrun.py``).
+
 Kernel note — ``kmeans_assign`` replaces the Pallas TPU kernel
 ``repro/kernels/kmeans/kernel.py`` (``assign_pallas`` / ``_assign_kernel``).
 Every regime computes the reference's f32 form |p|^2 - 2 p.c + |c|^2, the
@@ -55,8 +65,10 @@ import functools
 from dataclasses import dataclass
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._build import CudaKernel, CudaLibrary
+from repro_torch.kernels._library import define_op, fake_only
 from repro_torch.kernels.kmeans.ref import assign_ref, update_scatter_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -173,15 +185,12 @@ def assign_cuda(points: torch.Tensor, centroids: torch.Tensor, plan: AssignPlan 
 
 
 def assign(points: torch.Tensor, centroids: torch.Tensor):
-    """K-Means assignment: (labels (N,) int32, dist2 (N,) f32). The plain
-    version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    """K-Means assignment: (labels (N,) int32, dist2 (N,) f32), through the
+    ``repro_torch::kmeans_assign`` op: the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors."""
     if points.device != centroids.device:
         raise ValueError(f"points on {points.device}, centroids on {centroids.device}")
-    if points.device.type == "cpu":
-        return assign_ref(points, centroids)
-    if points.device.type == "cuda":
-        return assign_cuda(points, centroids)
-    raise ValueError(f"no K-Means assignment for device {points.device}")
+    return kmeans_assign_op(points, centroids)
 
 
 @dataclass(frozen=True)
@@ -242,6 +251,18 @@ def update_plan(d: int, k: int, dtype: torch.dtype, regime: str | None = None) -
                       sort_rows=SORT_ROWS)
 
 
+def _workspace_sizes(plan: UpdatePlan, n: int, d: int, k: int) -> tuple[int, int]:
+    """The int32 and f32 elements of :func:`update_workspace`."""
+    if plan.regime == "partials":
+        blocks = -(-n // plan.block_rows(n))
+        ints, floats = blocks * k, 2 * blocks * k * d
+    else:
+        units = max(-(-n // plan.sort_rows), 1)
+        spill = units * 8 * k if 8 * k * 4 > 48 * 1024 else 0
+        ints, floats = k + 1 + n + 2 * units * k + k + spill, 2 * -(-n // plan.seg_rows) * d
+    return max(ints, 1), max(floats, 1)
+
+
 def update_workspace(plan: UpdatePlan, n: int, d: int, k: int, device) -> tuple:
     """The int32 and f32 workspace of ``kmeans_update`` for N rows.
     ``partials``: per-block counts (blocks x K) and sums and compensations
@@ -250,15 +271,9 @@ def update_workspace(plan: UpdatePlan, n: int, d: int, k: int, device) -> tuple:
     counts, the counts of the blocks before each (2 x blocks x K), the
     labels' totals (K; and per-warp counts where 8 K ints pass 48 KB), and
     the segments' head and tail partials (2 x segments x D)."""
-    if plan.regime == "partials":
-        blocks = -(-n // plan.block_rows(n))
-        ints, floats = blocks * k, 2 * blocks * k * d
-    else:
-        units = max(-(-n // plan.sort_rows), 1)
-        spill = units * 8 * k if 8 * k * 4 > 48 * 1024 else 0
-        ints, floats = k + 1 + n + 2 * units * k + k + spill, 2 * -(-n // plan.seg_rows) * d
-    return (torch.empty((max(ints, 1),), dtype=torch.int32, device=device),
-            torch.empty((max(floats, 1),), dtype=torch.float32, device=device))
+    ints, floats = _workspace_sizes(plan, n, d, k)
+    return (torch.empty((ints,), dtype=torch.int32, device=device),
+            torch.empty((floats,), dtype=torch.float32, device=device))
 
 
 def update_launch(points: torch.Tensor, labels: torch.Tensor, k: int,
@@ -313,13 +328,10 @@ def update_cuda(points: torch.Tensor, labels: torch.Tensor, k: int,
 def update_scatter(points: torch.Tensor, labels: torch.Tensor, k: int,
                    mask: torch.Tensor | None = None):
     """Centroid sums (K, D) f32 and counts (K,) f32 over the labels; ``mask``
-    gives rows weight 0. ``index_add_`` in row order for CPU tensors (the
-    reference's order), the fixed-order CUDA kernel for CUDA tensors."""
-    if points.device.type == "cpu":
-        return update_scatter_ref(points, labels, k, mask)
-    if points.device.type == "cuda":
-        return update_cuda(points, labels, k, mask)
-    raise ValueError(f"no K-Means update for device {points.device}")
+    gives rows weight 0. Through the ``repro_torch::kmeans_update`` op:
+    ``index_add_`` in row order for CPU tensors (the reference's order),
+    the fixed-order CUDA kernel for CUDA tensors."""
+    return kmeans_update_op(points, labels, int(k), mask)
 
 
 def minibatch_update(points: torch.Tensor, centroids: torch.Tensor, *, decay: float = 0.9):
@@ -352,3 +364,76 @@ def minibatch_update_masked(points: torch.Tensor, centroids: torch.Tensor, n_val
     inertia = torch.where(mask, dist, torch.zeros_like(dist)).sum()
     labels = torch.where(mask, labels, torch.full_like(labels, -1))
     return new_centroids.to(centroids.dtype), labels, inertia
+
+
+# ---------------------------------------------------------------------------
+# the torch.library ops (``kernels/_library.py``): CUDA -> the kernel, CPU ->
+# the plain version, fake tensors -> the shapes
+# ---------------------------------------------------------------------------
+
+
+def assign_flops(n: int, d: int, k: int) -> int:
+    """The assignment's operations (``PERF.md`` §6's bound): 2NKD for the
+    products, 3NK to form and compare each d^2, 2ND for |p|^2."""
+    return 2 * n * k * d + 3 * n * k + 2 * n * d
+
+
+def update_flops(n: int, d: int) -> int:
+    """The update's adds: D into the sums and one into the counts a row."""
+    return n * (d + 1)
+
+
+def _assign_cuda(points, centroids):
+    return assign_cuda(points, centroids)
+
+
+def _assign_cpu(points, centroids):
+    return assign_ref(points, centroids)
+
+
+def _assign_fake(points, centroids):
+    fake_only("kmeans_assign", points, centroids)
+    n = points.shape[0]
+    return (points.new_empty((n,), dtype=torch.int32),
+            points.new_empty((n,), dtype=torch.float32))
+
+
+def _update_cuda(points, labels, k, mask):
+    return update_cuda(points, labels, k, mask)
+
+
+def _update_cpu(points, labels, k, mask):
+    return update_scatter_ref(points, labels, k, mask)
+
+
+def _update_fake(points, labels, k, mask):
+    fake_only("kmeans_update", points, labels, *([] if mask is None else [mask]))
+    return (points.new_empty((k, points.shape[1]), dtype=torch.float32),
+            points.new_empty((k,), dtype=torch.float32))
+
+
+def _update_workspace(points, labels, k, mask) -> int:
+    n, d = points.shape
+    ints, floats = _workspace_sizes(update_plan(d, k, points.dtype), n, d, k)
+    return 4 * (ints + floats)
+
+
+#: (labels (N,) int32, d^2 (N,) f32) of points (N, D) against centroids (K, D)
+kmeans_assign_op = define_op(
+    "kmeans_assign(Tensor points, Tensor centroids) -> (Tensor, Tensor)",
+    _assign_cuda, _assign_cpu, _assign_fake)
+#: (sums (K, D) f32, counts (K,) f32) of points (N, D) over labels (N,);
+#: ``mask`` (N,) bool gives rows weight 0
+kmeans_update_op = define_op(
+    "kmeans_update(Tensor points, Tensor labels, int k, Tensor? mask) -> (Tensor, Tensor)",
+    _update_cuda, _update_cpu, _update_fake, workspace=_update_workspace)
+
+
+@register_flop_formula(torch.ops.repro_torch.kmeans_assign, get_raw=True)
+def _assign_flop(points, centroids, *args, out_val=None, **kwargs) -> int:
+    return assign_flops(points.shape[0], points.shape[1], centroids.shape[0])
+
+
+@register_flop_formula(torch.ops.repro_torch.kmeans_update, get_raw=True)
+def _update_flop(points, labels, k, mask, *args, out_val=None, **kwargs) -> int:
+    return update_flops(points.shape[0], points.shape[1])

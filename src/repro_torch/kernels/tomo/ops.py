@@ -3,7 +3,14 @@
 :func:`backproject_batch` and :func:`project_batch` are the wrappers: CPU
 tensors take the plain versions (``ref.py``), CUDA tensors launch
 ``tomo_backproject`` / ``tomo_project`` (``kernels/csrc/tomo.cu``) or
-raise. There is no fallback between the two. The batch axis is a grid
+raise. There is no fallback between the two. Both kernels are
+``torch.library`` ops (``repro_torch::tomo_backproject``,
+``repro_torch::tomo_project``; ``kernels/_library.py``): the dispatcher
+sends CUDA tensors to the launch, CPU tensors to the plain version and fake
+tensors to the shapes; each has a FLOP formula, the count of ``PERF.md``
+§6's bound (:func:`projector_flops`), and the projection its scratch's
+bytes, so a traced GridRec or ML-EM batch counts its cost
+(``runtime/cost_analysis.py``, ``launch/dryrun.py``). The batch axis is a grid
 dimension of the kernels (in chunks of 8 frames), so the single-frame
 forms are a batch of one.
 GridRec's ramp filter stays a library FFT (``torch.fft``), as the JAX
@@ -40,8 +47,10 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._build import CudaKernel, CudaLibrary
+from repro_torch.kernels._library import define_op, fake_only
 from repro_torch.kernels.tomo.ref import (
     backproject_plain,
     project_plain,
@@ -107,26 +116,77 @@ def project_cuda(imgs: torch.Tensor, cos_t: torch.Tensor, sin_t: torch.Tensor,
     return out
 
 
+def projector_flops(b: int, a: int, n: int) -> int:
+    """Either projector's operations (``PERF.md`` §6's bound) for B frames,
+    A angles and an n x n image: 4 a (frame, pixel, angle) for the
+    interpolation, 6 a (pixel, angle) for s, floor(s) and the two weights."""
+    return 4 * b * n * n * a + 6 * n * n * a
+
+
+def _backproject_cuda(sinos, cos_t, sin_t, n):
+    return backproject_cuda(sinos, cos_t, sin_t, n)
+
+
+def _backproject_cpu(sinos, cos_t, sin_t, n):
+    return backproject_plain(sinos, cos_t, sin_t, n)
+
+
+def _backproject_fake(sinos, cos_t, sin_t, n):
+    fake_only("tomo_backproject", sinos, cos_t, sin_t)
+    return sinos.new_empty((sinos.shape[0], n, n), dtype=torch.float32)
+
+
+def _project_cuda(imgs, cos_t, sin_t, n_det):
+    return project_cuda(imgs, cos_t, sin_t, n_det)
+
+
+def _project_cpu(imgs, cos_t, sin_t, n_det):
+    return project_plain(imgs, cos_t, sin_t, n_det)
+
+
+def _project_fake(imgs, cos_t, sin_t, n_det):
+    fake_only("tomo_project", imgs, cos_t, sin_t)
+    return imgs.new_empty((imgs.shape[0], cos_t.shape[0], n_det), dtype=torch.float32)
+
+
+def _project_workspace(imgs, cos_t, sin_t, n_det) -> int:
+    return imgs.numel() * imgs.element_size()  # the transposed copy of the images
+
+
+#: images (B, n, n) f32 of sinograms (B, A, n_det), on cos/sin (A,)
+tomo_backproject_op = define_op(
+    "tomo_backproject(Tensor sinos, Tensor cos_t, Tensor sin_t, int n) -> Tensor",
+    _backproject_cuda, _backproject_cpu, _backproject_fake)
+#: sinograms (B, A, n_det) f32 of images (B, n, n), on cos/sin (A,)
+tomo_project_op = define_op(
+    "tomo_project(Tensor imgs, Tensor cos_t, Tensor sin_t, int n_det) -> Tensor",
+    _project_cuda, _project_cpu, _project_fake, workspace=_project_workspace)
+
+
+@register_flop_formula(torch.ops.repro_torch.tomo_backproject, get_raw=True)
+def _backproject_flop(sinos, cos_t, sin_t, n, *args, out_val=None, **kwargs) -> int:
+    return projector_flops(sinos.shape[0], cos_t.shape[0], n)
+
+
+@register_flop_formula(torch.ops.repro_torch.tomo_project, get_raw=True)
+def _project_flop(imgs, cos_t, sin_t, n_det, *args, out_val=None, **kwargs) -> int:
+    return projector_flops(imgs.shape[0], cos_t.shape[0], imgs.shape[-1])
+
+
 def backproject_batch(sinos: torch.Tensor, angles: torch.Tensor, n: int) -> torch.Tensor:
-    """sinograms (B, A, n_det) -> images (B, n, n): the plain version for
-    CPU tensors, ``tomo_backproject`` for CUDA tensors."""
+    """sinograms (B, A, n_det) -> images (B, n, n), through the
+    ``repro_torch::tomo_backproject`` op: the plain version for CPU
+    tensors, the kernel for CUDA tensors."""
     cos_t, sin_t = trig(angles.to(sinos.device))
-    if sinos.device.type == "cpu":
-        return backproject_plain(sinos, cos_t, sin_t, n)
-    if sinos.device.type == "cuda":
-        return backproject_cuda(sinos, cos_t, sin_t, n)
-    raise ValueError(f"no backprojection for device {sinos.device}")
+    return tomo_backproject_op(sinos, cos_t, sin_t, int(n))
 
 
 def project_batch(imgs: torch.Tensor, angles: torch.Tensor, n_det: int) -> torch.Tensor:
-    """images (B, n, n) -> sinograms (B, A, n_det): the plain version for
-    CPU tensors, ``tomo_project`` for CUDA tensors."""
+    """images (B, n, n) -> sinograms (B, A, n_det), through the
+    ``repro_torch::tomo_project`` op: the plain version for CPU tensors,
+    the kernel for CUDA tensors."""
     cos_t, sin_t = trig(angles.to(imgs.device))
-    if imgs.device.type == "cpu":
-        return project_plain(imgs, cos_t, sin_t, n_det)
-    if imgs.device.type == "cuda":
-        return project_cuda(imgs, cos_t, sin_t, n_det)
-    raise ValueError(f"no projection for device {imgs.device}")
+    return tomo_project_op(imgs, cos_t, sin_t, int(n_det))
 
 
 def backproject(sino: torch.Tensor, angles: torch.Tensor, n: int) -> torch.Tensor:

@@ -28,6 +28,19 @@ its process through ``XLA_FLAGS``; callers run it in a subprocess.
 ``cell_supported``'s skips come first (long_500k's quadratic archs); any
 failure of a cell is an error and ``main`` exits 1.
 
+The Mini-App streams are cells too (:data:`MINIAPP_CELLS`, in ``--all``
+after the LM grid, or by ``--arch`` and ``--shape``): one batch of each
+stream's processing as ``chip_smoke.py`` drives it, on one device (mesh
+``1``), traced the same way: a K-Means batch (``minibatch_update``: the
+``kmeans_assign`` and ``kmeans_update`` ops and the decayed centroids),
+narrow (16 messages of 5000 x 3 points, 10 centres) and wide (16 of 4096 x
+128, 1024 centres); a GridRec and an ML-EM batch (``gridrec_batch``,
+``mlem_batch`` at the app's 4 iterations: the ``tomo_backproject`` and
+``tomo_project`` ops) of 8 frames of 360 x 1448 into 1448 x 1448 images.
+Each record states the batch's FLOPs (the kernels' formulas), bytes and
+peak live bytes on the device, under the LM cells' keys, with ``kind``
+``stream`` and the kernels' compute ``dtype``.
+
 It traces the card's path (fake ``cuda`` tensors) unless ``--device cpu``
 is given. It never touches a GPU, but indexing a fake ``cuda`` tensor needs
 a PyTorch built with CUDA: on a CPU-only build pass ``--device cpu``, which
@@ -36,6 +49,7 @@ CUDA allocator's 512-byte blocks differs).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-14b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mlem --shape 360x1448 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--out out.json]
 """
 from __future__ import annotations
@@ -141,6 +155,78 @@ def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool, verbose: bool 
     return rec
 
 
+#: the Mini-App streams' cells: (app, shape) -> one batch's sizes, those of
+#: ``chip_smoke.py``'s streams (batches of 16 messages; 8 frames; ML-EM at
+#: ``ReconstructionApp``'s 4 iterations)
+MINIAPP_CELLS = {
+    ("kmeans", "narrow"): {"points": 16 * 5000, "dim": 3, "k": 10},
+    ("kmeans", "wide"): {"points": 16 * 4096, "dim": 128, "k": 1024},
+    ("gridrec", "360x1448"): {"frames": 8, "angles": 360, "bins": 1448, "n": 1448},
+    ("mlem", "360x1448"): {"frames": 8, "angles": 360, "bins": 1448, "n": 1448, "iters": 4},
+}
+
+
+def dry_run_cells() -> list[tuple[str, str]]:
+    """``--all``'s cells: the LM grid (arch x shape), then the Mini-App streams'."""
+    return all_cells() + list(MINIAPP_CELLS)
+
+
+def miniapp_batch(app: str, shape: str):
+    """(fn, args, kernel FLOPs) of one batch of a Mini-App cell: ``fn(*args)``
+    is the stream's processing on the device, ``args`` ``meta`` structs (and
+    the angles), the FLOPs those of its kernels' formulas."""
+    from repro_torch.kernels import kmeans, tomo
+
+    size = MINIAPP_CELLS[(app, shape)]
+    meta = torch.device("meta")
+    if app == "kmeans":
+        n, d, k = size["points"], size["dim"], size["k"]
+        args = (torch.empty((n, d), device=meta), torch.empty((k, d), device=meta))
+        return (kmeans.minibatch_update, args,
+                kmeans.ops.assign_flops(n, d, k) + kmeans.ops.update_flops(n, d))
+    b, a, n_det, n = size["frames"], size["angles"], size["bins"], size["n"]
+    args = (torch.empty((b, a, n_det), device=meta), torch.from_numpy(tomo.angle_grid(a)), n)
+    one = tomo.ops.projector_flops(b, a, n)
+    if app == "gridrec":
+        return tomo.gridrec_batch, args, one
+    iters = size["iters"]
+    return (lambda sinos, angles, n: tomo.mlem_batch(sinos, angles, n, iters=iters), args,
+            (2 * iters + 1) * one)
+
+
+def run_miniapp_cell(app: str, shape: str, *, device: str = "cuda",
+                     verbose: bool = True) -> dict:
+    """Trace one batch of a Mini-App cell on one device; its dry-run record."""
+    from repro_torch.runtime.cost_analysis import trace_cost
+
+    fn, args, kernel_flops = miniapp_batch(app, shape)
+    t0 = time.time()
+    _, cost = trace_cost(fn, *args, device=device)
+    alias = cost.alias_bytes
+    rec = {"arch": app, "shape": shape, "mesh": "1", "chips": 1, "kind": "stream",
+           "device": device, "dtype": "float32", "batch": MINIAPP_CELLS[(app, shape)],
+           "memory": {"argument_bytes": int(cost.input_bytes),
+                      "output_bytes": int(cost.output_bytes),
+                      "temp_bytes": int(cost.peak_bytes - cost.input_bytes - cost.output_bytes
+                                        + alias),
+                      "alias_bytes": int(alias)},
+           "peak_bytes_per_device": int(cost.peak_bytes),
+           "cost_analysis": {"flops": cost.flops, "bytes_accessed": cost.bytes_moved},
+           "hlo": cost.record(), "kernel_flops": kernel_flops, "ops": cost.ops,
+           "trace_s": round(time.time() - t0, 2)}
+    if cost.flops != kernel_flops:
+        raise AssertionError(f"{app} x {shape}: traced FLOPs {cost.flops} != the kernels' "
+                             f"formulas' {kernel_flops}")
+    if verbose:
+        h = rec["hlo"]
+        print(f"[dryrun] {app} x {shape} (1 device): trace {rec['trace_s']}s, "
+              f"peak/device {rec['peak_bytes_per_device'] / 2**30:.3f} GiB, "
+              f"flops/device {h['flops_per_device']:.3e}, "
+              f"fused bytes/device {h['bytes_fused_per_device']:.3e}")
+        sys.stdout.flush()
+    return rec
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -159,11 +245,19 @@ def main(argv: list[str] | None = None) -> None:
     if not args.all and not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all")
 
-    cells = all_cells() if args.all else [(args.arch, args.shape)]
+    cells = dry_run_cells() if args.all else [(args.arch, args.shape)]
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
 
     records, failures = [], []
     for arch, shape in cells:
+        if (arch, shape) in MINIAPP_CELLS:  # one device: no mesh
+            try:
+                records.append(run_miniapp_cell(arch, shape, device=args.device))
+            except Exception as e:  # a failure here is a bug in the system
+                traceback.print_exc()
+                failures.append((arch, shape, None, repr(e)))
+                records.append({"arch": arch, "shape": shape, "mesh": "1", "error": repr(e)})
+            continue
         ok, why = cell_supported(arch, shape)
         if not ok:
             records.append({"arch": arch, "shape": shape, "skipped": why})

@@ -14,6 +14,13 @@ ideal_compute_time / max(term), the score a perfect overlap schedule would
 reach given the traced operators; decode shapes are scored against the
 memory roofline (params and cache read once a step).
 
+A Mini-App stream's cell (``kind`` ``stream``: one K-Means, GridRec or
+ML-EM batch, ``launch/dryrun.py``) runs its kernels in f32 on the CUDA
+cores: its compute term is its FLOPs (the kernels' formulas) over the f32
+rate, its useful FLOPs are those FLOPs, and its score is the larger of the
+compute and the bytes its inputs and outputs need (read and written once)
+over max(term); a stream's rows get a table of their own.
+
 The peaks are NVIDIA's datasheet figures for the H100 SXM5 80GB (700 W),
 not measurements: 989e12 dense bf16 FLOP/s on the tensor cores, 3.35e12 B/s
 of HBM3, NVLink 900 GB/s a GPU (450 GB/s each way, the rate a collective's
@@ -48,20 +55,23 @@ class Peaks:
     hbm: float
     link_in_node: float
     link_across_nodes: float
+    #: f32 FLOP/s outside the tensor cores (the Mini-App kernels' rate);
+    #: None: ``flops``
+    flops_f32: float | None = None
 
 
 #: NVIDIA H100 SXM5 80GB (700 W) datasheet figures (not measured): dense
 #: bf16 on the tensor cores, HBM3, NVLink's 900 GB/s a GPU taken as 450 GB/s
 #: each way, one 400 Gb/s NIC a GPU
 H100 = Peaks("H100 SXM5 80GB (700 W), datasheet", flops=989e12, hbm=3.35e12,
-             link_in_node=450e9, link_across_nodes=50e9)
+             link_in_node=450e9, link_across_nodes=50e9, flops_f32=67e12)
 #: GPUs a node (consecutive ranks) share NVLink among; a collective whose
 #: group spans more crosses the NIC (``runtime/cost_analysis.py`` splits
 #: the payloads by it)
 NODE_GPUS = 8
 #: the same datasheet's f32 rate outside the tensor cores and dense TF32
 #: rate on them (the kernel checks of ``chip_smoke.py`` bound f32 work by them)
-H100_F32_FLOPS = 67e12
+H100_F32_FLOPS = H100.flops_f32
 H100_TF32_FLOPS = 494.5e12
 
 _PARAM_CACHE: dict[str, tuple[int, int]] = {}
@@ -104,6 +114,7 @@ class RooflineRow:
     #: against the *memory* roofline (params + cache read once per step)
     mem_fraction: float = 0.0
     peak_gb: float = 0.0
+    kind: str = ""
 
     @property
     def useful_ratio(self) -> float:
@@ -153,9 +164,28 @@ def collective_seconds(hlo: dict, peaks: Peaks = H100) -> float:
             + hlo["collective_bytes_across_nodes_per_device"] / peaks.link_across_nodes)
 
 
+def analyze_stream(rec: dict, peaks: Peaks = H100) -> RooflineRow:
+    """A Mini-App stream's cell: f32 compute, the ideal the larger of its
+    FLOPs at the f32 rate and its inputs' and outputs' bytes at the HBM rate."""
+    hlo = rec["hlo"]
+    compute = hlo["flops_per_device"] / (peaks.flops_f32 or peaks.flops)
+    memory = hlo.get("bytes_fused_per_device", hlo["bytes_per_device"]) / peaks.hbm
+    collective = collective_seconds(hlo, peaks)
+    terms = {"compute": compute, "memory": memory, "collective": collective}
+    dominant = max(terms, key=terms.get)
+    io = rec["memory"]["argument_bytes"] + rec["memory"]["output_bytes"]
+    ideal = max(compute, io / peaks.hbm)
+    return RooflineRow(rec["arch"], rec["shape"], rec["mesh"], compute, memory, collective,
+                       dominant, hlo["flops_per_device"], hlo["flops_per_device"],
+                       ideal / max(max(terms.values()), 1e-30), 0.0,
+                       rec.get("peak_bytes_per_device", 0) / 1e9, "stream")
+
+
 def analyze_record(rec: dict, peaks: Peaks = H100) -> RooflineRow | None:
     if "hlo" not in rec:
         return None
+    if rec.get("kind") == "stream":
+        return analyze_stream(rec, peaks)
     from repro_torch.configs.registry import get_shape
 
     shape = get_shape(rec["shape"])
@@ -219,6 +249,18 @@ def render_cells(rows: list[RooflineRow]) -> str:
     return "\n".join(out)
 
 
+def render_streams(rows: list[RooflineRow]) -> str:
+    """The Mini-App streams' cells: one batch's peak GB, FLOPs and compute,
+    memory and collective seconds, bottleneck and score."""
+    out = ["| stream | batch | peak GB | FLOPs | compute / memory / collective s | bound | "
+           "roofline fraction |", "|---|---|---|---|---|---|---|"]
+    for r in rows:
+        out.append(f"| {r.arch} | {r.shape} | {r.peak_gb:.3f} | {r.hlo_flops:.4g} | "
+                   f"{r.compute_s:.3g} / {r.memory_s:.3g} / {r.collective_s:.3g} | "
+                   f"**{r.dominant}** | {r.score:.1%} |")
+    return "\n".join(out)
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--in", dest="infile", required=True)
@@ -236,9 +278,14 @@ def main(argv: list[str] | None = None) -> None:
         row = analyze_record(rec)
         if row:
             rows.append(row)
-    md = render_markdown(rows) + "\n\n" + render_cells(rows)
-    md += f"\n\nPeaks: {H100.name}: {H100.flops:.3e} FLOP/s, {H100.hbm:.3e} B/s HBM, " \
-          f"{H100.link_in_node:.3e} B/s in a node, {H100.link_across_nodes:.3e} B/s across nodes."
+    lm = [r for r in rows if r.kind != "stream"]
+    streams = [r for r in rows if r.kind == "stream"]
+    parts = ([render_markdown(lm), render_cells(lm)] if lm else []) + (
+        [render_streams(streams)] if streams else [])
+    md = "\n\n".join(parts)
+    md += (f"\n\nPeaks: {H100.name}: {H100.flops:.3e} FLOP/s, {H100.hbm:.3e} B/s HBM, "
+           f"{H100.link_in_node:.3e} B/s in a node, {H100.link_across_nodes:.3e} B/s across "
+           f"nodes, {H100.flops_f32:.3e} f32 FLOP/s (the streams' kernels).")
     md += "\n\nSkipped cells:\n" + "\n".join(
         f"- {s['arch']} x {s['shape']}: {s['skipped']}" for s in skips
     )

@@ -18,15 +18,17 @@ to f32); they have no counterpart.
 Cost model (:class:`StepCost`, the reference's names):
 
 * ``flops``: ``torch.utils.flop_counter``'s formulas (``FlopCounterMode``),
-  among them the attention kernels' own (``kernels/attention/ops.py``): a
-  step counts the same FLOPs whether a kernel or its plain version runs.
+  among them the hand-written kernels' own (``kernels/attention/ops.py``,
+  ``kernels/kmeans/ops.py``, ``kernels/tomo/ops.py``): a step or a
+  Mini-App batch counts the same FLOPs whether a kernel or its plain
+  version runs.
 * ``bytes_moved``, the reference's every-op model: each operator writes its
   output once and it is read about once downstream, 2 x its output bytes,
   plus the step's inputs read once; views, ``empty`` and metadata are free;
   an in-place scatter (``index_put_``, ``index_copy_``, ``scatter_``)
   writes its values, not the whole buffer it updates.
 * ``bytes_moved_fused``, the reference's fused model: the products'
-  operands and outputs (matmuls, convolutions, the attention kernels), the
+  operands and outputs (matmuls, convolutions, the hand-written kernels), the
   collectives' payloads and outputs, the data-movement operators' outputs
   (gather, index, scatter, cat, copy, clone) and the inputs; elementwise
   chains are taken as fused into their consumers.
@@ -44,7 +46,11 @@ Cost model (:class:`StepCost`, the reference's names):
   freed (autograd's saved tensors stay until the backward frees them); on
   a ``cuda`` trace each is rounded up to the CUDA caching allocator's
   512-byte blocks, as ``torch.cuda.max_memory_allocated`` counts them.
-  Workspaces a kernel allocates inside its launch are not seen.
+  A workspace a kernel op allocates inside its launch counts where its op
+  registered its bytes (``kernels/_library.py`` ``WORKSPACES``: the
+  K-Means update's, the projection's transposed images), live beside the
+  op's inputs and outputs and, in both byte models, written and read once;
+  the attention kernels' partials are not seen.
 
 The decode kernel's FLOPs depend on the rows' positions, which a fake
 tensor does not hold: the trace keeps the values of small integer tensors
@@ -66,6 +72,7 @@ from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_mod
 from torch.utils._pytree import tree_flatten, tree_map
 from torch.utils.weak import WeakTensorKeyDictionary
 
+from repro_torch.kernels._library import WORKSPACES
 from repro_torch.launch.roofline import NODE_GPUS
 
 #: c10d operator -> the reference's collective name; the index of its
@@ -90,7 +97,8 @@ _WRITES = {"alltoall_base_": 0}
 
 _PRODUCTS = {"mm", "bmm", "addmm", "baddbmm", "addbmm", "convolution", "_convolution",
              "flash_attention", "flash_attention_lse", "flash_attention_bwd", "decode_attention",
-             "decode_attention_lse"}
+             "decode_attention_lse", "kmeans_assign", "kmeans_update", "tomo_project",
+             "tomo_backproject"}
 _MOVES = {"index", "_unsafe_index", "index_select", "gather", "embedding", "take_along_dim",
           "cat", "copy_", "clone", "slice_scatter", "select_scatter", "as_strided_scatter"}
 #: in-place scatters: the bytes of their values (the last tensor argument)
@@ -267,8 +275,18 @@ class CostMode(TorchDispatchMode):
                     c.bytes_moved_fused += out_b
         for t in _tensors(out):
             self.track(t)
+        if ns == "repro_torch" and name in WORKSPACES:
+            self._workspace(WORKSPACES[name](*args, **kwargs))
         self._propagate(func, args, kwargs, out)
         return out
+
+    def _workspace(self, n: int) -> None:
+        """A kernel's workspace: live beside the op's inputs and outputs
+        during its launch, written and read once."""
+        c = self.cost
+        c.peak_bytes = max(c.peak_bytes, self._now + -(-n // self.granule) * self.granule)
+        c.bytes_moved += 2 * n
+        c.bytes_moved_fused += 2 * n
 
     def _collective(self, name: str, args, out) -> None:
         if name in _RECEIVES or name not in _COLLECTIVES:

@@ -24,6 +24,11 @@ decode plain version on a cache shard, and the dry run
   1 % (train, prefill and decode: tensor-parallel serving repeats no
   product on the "model" ranks); a decode cell's arguments hold 1/n_model
   of every weight sharded on "model"; a MoE cell traces too.
+* The Mini-App streams: one K-Means batch and one ML-EM batch traced under
+  fake tensors count exactly their kernels' formulas (``PERF.md`` §6); the
+  dry run lists the four Mini-App cells (``--all``), and each, traced at
+  its full size on fake CPU tensors through the CLI, states its FLOPs,
+  bytes and peak under the LM cells' keys and reads as a roofline row.
 
 The cases that start a fake process group run in a subprocess (the group
 is process-wide).
@@ -433,3 +438,78 @@ def test_a_dense_cell_reads_as_before(expert_cells, dry):
     assert ep == expert_cells["smollm-135m/False"]
     assert ep["hlo"] == dry["2x2/train"]["hlo"]
     assert ep["peak_bytes_per_device"] == dry["2x2/train"]["peak_bytes_per_device"]
+
+
+# -- the Mini-App streams ---------------------------------------------------------------
+
+
+def test_a_kmeans_batch_counts_its_kernels_formulas():
+    """One K-Means batch (``minibatch_update``: the assignment, the update
+    and the decayed centroids) traced under fake tensors counts exactly
+    2NKD + 3NK + 2ND + N (D + 1): the elementwise work counts nothing, as in
+    every traced step."""
+    from repro_torch.kernels import kmeans
+
+    n, d, k = 5000, 3, 10
+    args = (torch.empty((n, d), device="meta"), torch.empty((k, d), device="meta"))
+    _, cost = trace_cost(kmeans.minibatch_update, *args, device="cpu")
+    assert cost.flops == 2 * n * k * d + 3 * n * k + 2 * n * d + n * (d + 1)
+    assert cost.peak_bytes >= cost.input_bytes + n * 8 + k * d * 4
+
+
+def test_an_mlem_batch_counts_its_kernels_formulas():
+    """One ML-EM batch of B frames at ``iters`` iterations runs iters + 1
+    backprojections and iters projections: (2 iters + 1) (4 B n^2 A + 6 n^2 A)."""
+    from repro_torch.kernels import tomo
+
+    b, a, n_det, n, iters = 3, 12, 40, 32, 4
+    sinos = torch.empty((b, a, n_det), device="meta")
+    angles = torch.from_numpy(tomo.angle_grid(a))
+    _, cost = trace_cost(lambda s, t: tomo.mlem_batch(s, t, n, iters=iters), sinos, angles,
+                         device="cpu")
+    assert cost.flops == (2 * iters + 1) * (4 * b * n * n * a + 6 * n * n * a)
+    # the projection's scratch (a transposed copy of the B images) is live
+    # beside x, norm and the batch's sinograms
+    assert cost.peak_bytes >= 3 * b * n * n * 4 + 2 * b * a * n_det * 4
+
+
+def test_the_dry_run_lists_the_miniapp_cells():
+    from repro_torch.launch import dryrun
+
+    cells = dryrun.dry_run_cells()
+    assert [c for c in cells if c in dryrun.MINIAPP_CELLS] == [
+        ("kmeans", "narrow"), ("kmeans", "wide"), ("gridrec", "360x1448"), ("mlem", "360x1448")]
+
+
+@pytest.mark.parametrize("app,shape", [("kmeans", "narrow"), ("kmeans", "wide"),
+                                       ("gridrec", "360x1448"), ("mlem", "360x1448")])
+def test_a_miniapp_cell_states_its_flops_bytes_and_peak_with_no_card(app, shape, tmp_path,
+                                                                        capsys):
+    """The dry run's CLI on one Mini-App cell at its full size, on fake CPU
+    tensors: a record under the LM cells' keys, its FLOPs the kernels'
+    formulas, its peak at least its inputs and outputs, a roofline row."""
+    from repro_torch.launch import dryrun, roofline
+
+    out = tmp_path / "cell.json"
+    dryrun.main(["--arch", app, "--shape", shape, "--device", "cpu", "--out", str(out)])
+    assert "all 1 cells OK" in capsys.readouterr().out
+    (rec,) = json.loads(out.read_text())
+    size = dryrun.MINIAPP_CELLS[(app, shape)]
+    assert rec["kind"] == "stream" and rec["mesh"] == "1" and rec["chips"] == 1
+    assert set(rec["memory"]) == {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes"}
+    if app == "kmeans":
+        n, d, k = size["points"], size["dim"], size["k"]
+        flops = 2 * n * k * d + 3 * n * k + 2 * n * d + n * (d + 1)
+        assert rec["memory"]["argument_bytes"] == (n + k) * d * 4
+    else:
+        b, a, n = size["frames"], size["angles"], size["n"]
+        flops = (4 * b * n * n * a + 6 * n * n * a) * (2 * size.get("iters", 0) + 1)
+        assert rec["memory"]["output_bytes"] == b * n * n * 4
+    assert rec["hlo"]["flops_per_device"] == rec["cost_analysis"]["flops"] == flops
+    assert rec["hlo"]["bytes_fused_per_device"] > 0 and rec["cost_analysis"]["bytes_accessed"] > 0
+    m = rec["memory"]
+    assert rec["peak_bytes_per_device"] >= m["argument_bytes"] + m["output_bytes"]
+    row = roofline.analyze_record(rec)
+    assert row.kind == "stream" and row.hlo_flops == flops
+    assert row.compute_s == flops / roofline.H100.flops_f32
+    assert f"| {app} | {shape} |" in roofline.render_streams([row])

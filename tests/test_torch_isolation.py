@@ -192,7 +192,6 @@ def test_cuda_tensor_goes_to_the_kernel_not_the_plain_version(monkeypatch):
     monkeypatch.setattr(kmeans_ops, "assign_cuda", lambda *a: calls.append("assign") or "k")
     monkeypatch.setattr(kmeans_ops, "update_scatter_ref", plain)
     monkeypatch.setattr(kmeans_ops, "update_cuda", lambda *a: calls.append("update") or "k")
-    monkeypatch.setattr(tomo_ops, "trig", lambda angles: (angles, angles))
     monkeypatch.setattr(tomo_ops, "backproject_plain", plain)
     monkeypatch.setattr(tomo_ops, "project_plain", plain)
     monkeypatch.setattr(tomo_ops, "backproject_cuda", lambda *a: calls.append("bp") or "k")
@@ -203,17 +202,18 @@ def test_cuda_tensor_goes_to_the_kernel_not_the_plain_version(monkeypatch):
     monkeypatch.setattr(attn_ops, "decode_attention_cuda",
                         lambda *a, **k: calls.append("da") or "k")
     x = _FakeCuda()
-    assert kmeans_ops.assign(x, x) == "k"
-    assert kmeans_ops.update_scatter(x, x, 3) == "k"
-    assert tomo_ops.backproject_batch(x, x, 8) == "k"
-    assert tomo_ops.project_batch(x, x, 8) == "k"
-    # the attention wrappers hand their tensors to torch.library ops, whose
+    # every wrapper hands its tensors to a torch.library op, whose
     # dispatcher picks the implementation by device (a stand-in cannot pass
     # through it): each op's CUDA implementation is the kernel's launch
-    for op in ("flash_attention", "flash_attention_lse", "flash_attention_bwd",
+    for op in ("kmeans_assign", "kmeans_update", "tomo_backproject", "tomo_project",
+               "flash_attention", "flash_attention_lse", "flash_attention_bwd",
                "decode_attention", "decode_attention_lse"):
         assert torch._C._dispatch_has_kernel_for_dispatch_key(f"repro_torch::{op}", "CUDA")
         assert torch._C._dispatch_has_kernel_for_dispatch_key(f"repro_torch::{op}", "CPU")
+    assert kmeans_ops._assign_cuda(x, x) == "k"
+    assert kmeans_ops._update_cuda(x, x, 3, None) == "k"
+    assert tomo_ops._backproject_cuda(x, x, x, 8) == "k"
+    assert tomo_ops._project_cuda(x, x, x, 8) == "k"
     assert attn_ops._flash_cuda(x, x, x, True, 0) == "k"
     assert attn_ops._decode_cuda(x, x, x, x, 0) == "k"
     assert calls == ["assign", "update", "bp", "fp", "fa", "da"]

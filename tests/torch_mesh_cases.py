@@ -351,6 +351,61 @@ def serve_mesh_cases(rank: int, inp: dict) -> dict:
     return out
 
 
+def serve_bf16_cases(rank: int, inp: dict) -> dict:
+    """bf16 tensor-parallel serving on a (2, 2) ("data", "model") mesh: the
+    reduced smollm at bf16 compute from the JAX weights, the prompts
+    prefilled and ``inp["n_steps"]`` greedy decode steps on the mesh (each
+    rank's tokens the argmax of its rows' logits); then the one-device bf16
+    steps fed the mesh's tokens on the rank's rows. Returns the rank's
+    rows, the mesh's tokens and both logits of every call; with
+    ``inp["mutate"]``, a row-parallel slice one tile off."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models import build_model, common, params_from_jax
+    from repro_torch.models.common import first_argmax
+    from repro_torch.runtime.sharding import shard_tree
+    from repro_torch.runtime.steps import build_decode_step, build_prefill_step
+
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    model = build_model(get_arch("smollm-135m").reduced(compute_dtype="bfloat16"))
+    params = params_from_jax(inp["params"], "cpu")
+    tokens, cache_len, n = torch.as_tensor(inp["tokens"]), inp["cache_len"], inp["n_steps"]
+    B, T = tokens.shape
+    b = B // mesh.shape["data"]
+    rows = slice(mesh.axis_index("data") * b, (mesh.axis_index("data") + 1) * b)
+    pre = build_prefill_step(model, ShapeConfig("p", T, B, "prefill"), mesh=mesh,
+                             cache_len=cache_len)
+    dec = build_decode_step(model, ShapeConfig("d", cache_len, B, "decode"), mesh=mesh)
+    served = pre.load(shard_tree(params, pre.in_specs[0], mesh))
+    rank_slice = common._rank_slice
+    if inp.get("mutate"):
+        common._rank_slice = _slice_one_off
+    try:
+        logits, cache = pre.fn(served, {"tokens": tokens})
+        got, toks = [logits], []
+        for i in range(n):
+            tok = first_argmax(got[-1][:, -1], dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+            every = torch.zeros((B, 1), dtype=torch.int32)
+            every[rows] = tok
+            logits, cache = dec.fn(served, cache, {"tokens": every, "positions": torch.full(
+                (B,), T + i, dtype=torch.int32)})
+            got.append(logits)
+    finally:
+        common._rank_slice = rank_slice
+    whole = model.compute_params(params)
+    one_pre = build_prefill_step(model, ShapeConfig("p1", T, b, "prefill"), device="cpu",
+                                 cache_len=cache_len)
+    one_dec = build_decode_step(model, ShapeConfig("d1", cache_len, b, "decode"), device="cpu")
+    logits, cache = one_pre.fn(whole, {"tokens": tokens[rows]})
+    want = [logits]
+    for i, tok in enumerate(toks):
+        logits, cache = one_dec.fn(whole, cache, {"tokens": tok, "positions": torch.full(
+            (b,), T + i, dtype=torch.int32)})
+        want.append(logits)
+    return {"rows": [rows.start, rows.stop], "tokens": [_np(t) for t in toks],
+            "mesh_logits": [_np(x) for x in got], "one_logits": [_np(x) for x in want]}
+
+
 def serve_families_cases(rank: int, inp: dict) -> dict:
     """The MoE, VLM and enc-dec families' serving steps on the (2, 2)
     mesh (``_serve_one``), from the JAX weights of each ``inp`` case; a MoE
