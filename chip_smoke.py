@@ -180,6 +180,20 @@
    and the backward pair at a causal query offset (a sequence shard's rows)
    at smollm's and llava's shard shapes, per element, with an offset one
    off shown to fail, timed beside SDPA with an equal boolean mask;
+9'. runs the train group phase (``train_group_path``, ROADMAP A16's app
+   part): smollm-135m at full width and 5 of its 30 layers in f32 through
+   ``LMTrainApp(mesh=...)``, fed from the broker through the micro-batch
+   engine on a rank group of the app's own: a (2, 2) gloo group on
+   ``cuda:0`` x 4 for 3 batches, then ``stream.rescale`` onto a (4, 1)
+   group, a (2, 1) group and back to ``cuda:0`` alone (a world-of-one NCCL
+   group: the app keeps a group), 2 batches each, the live state gathered
+   into host memory at each move (no checkpoint file); every loss and the
+   final params and moments held to a one-device ``LMTrainApp`` fed the same
+   batches from the same seed, the NCCL group's steps bitwise against the
+   one-device app's from the state it was handed, every rank of every
+   group launching the flash forward and backward kernels; prints one
+   ``path train_group`` line (each group's start seconds, backend, step
+   p50 and launches a rank; each rescale's seconds and host bytes);
 10. runs the dry-run phase (``dryrun_path``, within 60 s): the decode kernel
    on a cache shard (its start and log-sum-exp) at qwen3-14b's decode_32k
    rank shard against its plain version, its 16 shards merged against the
@@ -427,6 +441,20 @@ MESH_FAMILIES = ("phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b", "seamless-m4t-
 MESH_FAM_ROUTER, MESH_FAM_TRAIN_B, MESH_FAM_PHI_SEQ, MESH_FAM_TOKENS = 100.0, 2, 256, 128
 MESH_FAM_VLM_CACHE, MESH_FAM_UPDATE_REL, MESH_FAM_SGD_LR = 1424, 1e-3, 1.0
 MESH_FAM_TOKENS_HALF = MESH_FAM_TOKENS // 2
+# the train group phase (ROADMAP A16's app part): smollm-135m at full width
+# and MESH_TRAIN_LAYERS layers in f32 through LMTrainApp(mesh=...), a rank
+# group of the app's own, fed from the broker through the micro-batch engine
+# (one message of TRAIN_BATCH x TRAIN_SEQ zipf tokens a batch). GROUP_STAGES:
+# each group's shape and the batches it takes before the next
+# ``stream.rescale``: a (2, 2) gloo group on cuda:0 x 4, then (4, 1), then
+# (2, 1), then back to cuda:0 alone, which for an app built with a mesh is a
+# (1, 1) group: a world-of-one NCCL group. Every batch's loss and the final
+# params and moments held to a one-device LMTrainApp fed the same batches
+# from the same seed (TRAIN_*); the NCCL group's steps bitwise against the
+# one-device app's from the state handed to it; each group's ranks must
+# launch the flash forward and backward pair; within GROUP_TIMEOUT_S
+GROUP_STAGES = (((2, 2), 3), ((4, 1), 2), ((2, 1), 2), ((1, 1), 2))
+GROUP_TIMEOUT_S = 180
 # the dry-run phase (DRY_TIMEOUT_S at most): the decode kernel at qwen3-14b's
 # decode_32k rank shard (DRY_SHARD: 128 / 16 rows, 32 768 / 16 entries, 40
 # over 8 heads of 128, bf16), the 16 shards merged against the whole-cache
@@ -4507,6 +4535,146 @@ def nccl_world_of_one(torch) -> dict:
         dist.destroy_process_group()
 
 
+def _host_leaves(tree) -> dict:
+    """{path: a host copy} of a tree of tensors."""
+    return {p: x.detach().to("cpu", copy=True) for p, x in _mesh_leaves(tree).items()}
+
+
+def train_group_path(torch, kernels, dev) -> dict:
+    """The train group phase (GROUP_STAGES): a one-device ``LMTrainApp`` on
+    ``dev`` takes every batch first (the reference; its state kept on the
+    host, its card memory freed); then the group app, built with a (2, 2)
+    mesh over ``dev`` x 4, draws the same state from SEED on ``dev`` and
+    hands it to its group, and a stream on a kafka and a spark pilot feeds
+    it the same batches, ``stream.rescale`` moving the live state onto each
+    next group (gathered into host memory, no checkpoint file). Checks each
+    loss and the final params and moments against the reference (TRAIN_*),
+    the last group's steps bitwise against a one-device app given the state
+    that group was handed, and every rank of every group launching the
+    flash forward and both backward kernels. Prints one ``path
+    train_group`` line: each group's start seconds, backend, step p50 and
+    launches a rank, each rescale's seconds by part and host bytes."""
+    import types
+
+    from repro_torch.broker import Producer
+    from repro_torch.configs import get_arch
+    from repro_torch.core import PilotComputeService
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.miniapps import LMTrainApp
+    from repro_torch.miniapps.masa import GroupState
+    from repro_torch.runtime.optimizer import OptimizerConfig
+
+    t0 = time.perf_counter()
+    cfg = get_arch("smollm-135m").replace(n_layers=MESH_TRAIN_LAYERS, compute_dtype="float32")
+    kw = dict(opt_cfg=OptimizerConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                                      total_steps=TRAIN_STEPS),
+              seqs_per_step=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    n = sum(k for _, k in GROUP_STAGES)
+    batches = [b["tokens"] for b in train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, n, seed=SEED + 3)]
+
+    def msg(tokens):
+        return [types.SimpleNamespace(value=tokens)]
+
+    one = LMTrainApp(cfg, device=dev, **kw)
+    state = one.init_state(SEED)
+    start = _host_leaves(state["params"])
+    for tokens in batches:
+        state = one.process(state, msg(tokens))
+    ref_losses, ref = one.losses, _host_leaves(state)
+    del one, state
+
+    (first, _), *_ = GROUP_STAGES
+    app = LMTrainApp(cfg, mesh=MeshSpec(first, [dev] * math.prod(first)), **kw)
+    svc = PilotComputeService(devices=[dev])
+    try:
+        cluster = svc.submit_pilot({"number_of_nodes": 1, "type": "kafka"}).get_context()
+        cluster.create_topic("group-tokens", 1)
+        ctx = svc.submit_pilot({"number_of_nodes": 1, "type": "spark"}).get_context()
+        stream = ctx.stream(cluster, "group-tokens", group="train-group",
+                            process_fn=app.process, state=app.init_state(SEED),
+                            batch_interval=0.05, max_batch_records=1, backpressure=False)
+        stream.on_rescale = lambda devices: app.on_rescale(devices)(stream.state)
+        producer = Producer(cluster, "group-tokens", serializer="npy")
+        stream.start()
+        done = 0
+        for i, (shape, k) in enumerate(GROUP_STAGES):
+            if i:
+                if i == len(GROUP_STAGES) - 1:
+                    handed = stream.state.gather()  # for the bitwise check
+                stream.rescale([dev] * math.prod(shape))
+            if not (isinstance(stream.state, GroupState) and stream.state.step == done
+                    and app.mesh.shape == shape):
+                raise AssertionError(f"after the rescale to {shape}: {stream.state}, {app.mesh}")
+            for tokens in batches[done:done + k]:
+                producer.send(tokens)
+            done += k
+            stream.await_batches(done, timeout=MESH_TIMEOUT_S)
+        stream.stop()
+        final = _host_leaves(stream.state.gather())
+    finally:
+        svc.cancel()
+        app.close()
+    losses = app.losses
+    last = GROUP_STAGES[-1][1]
+    solo = LMTrainApp(cfg, device=dev, **kw)
+    state = solo.place_state(handed)
+    for tokens in batches[-last:]:
+        state = solo.process(state, msg(tokens))
+    solo_losses, solo_state = solo.losses, _host_leaves(state)
+    del solo, state, handed
+
+    update = {p: float((final[f"params/{p}"] - ref[f"params/{p}"]).norm()
+                       / (ref[f"params/{p}"] - start[p]).norm()) for p in start}
+    moments = {k: max(float((final[f"opt/{k}/{p}"] - ref[f"opt/{k}/{p}"]).abs().max()
+                            / ref[f"opt/{k}/{p}"].abs().max()) for p in start) for k in ("m", "v")}
+    groups = [{"shape": g["shape"], "backend": g["backend"], "start_s": g["start_s"],
+               "processes_spawned": g["spawned"], "steps": len(g["step_s"]), "step_s": g["step_s"],
+               "step_p50_s": sorted(g["step_s"])[len(g["step_s"]) // 2],
+               "launches_per_rank": {name: [r[name] for r in g["launches"]]
+                                     for name in ("flash_attention", "flash_attention_bwd_dq",
+                                                  "flash_attention_bwd_dkdv")}}
+              for g in app.groups]
+    res = {"path": "train_group", "card": card_line(), "arch": cfg.name, "layers": cfg.n_layers,
+           "dtype": "float32", "batch": [TRAIN_BATCH, TRAIN_SEQ], "ranks_on": str(dev),
+           "losses": losses, "one_device_losses": ref_losses,
+           "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+           "update_rel_err": max(update.values()), "update_worst_leaf": max(update, key=update.get),
+           "m_worst_err_over_leaf_max": moments["m"], "v_worst_err_over_leaf_max": moments["v"],
+           "tol": {"loss_rel": TRAIN_LOSS_REL, "update_rel": TRAIN_UPDATE_REL,
+                   "moments_over_leaf_max": TRAIN_MOMENT_REL},
+           "last_group_bitwise": {
+               "backend": app.groups[-1]["backend"], "steps": last,
+               "losses": solo_losses == losses[-last:],
+               "state": all(torch.equal(final[p], solo_state[p]) for p in final)},
+           "groups": groups,
+           "rescales": [{**r, "from": str(r["from"]), "to": str(r["to"])} for r in app.rescales],
+           "state_bytes": sum(x.numel() * x.element_size() for x in final.values())}
+    res["seconds"] = time.perf_counter() - t0
+    print("path " + json.dumps(res))
+    if len(losses) != n or not (res["loss_rel_err"] <= TRAIN_LOSS_REL
+                                and res["update_rel_err"] <= TRAIN_UPDATE_REL
+                                and max(moments.values()) <= TRAIN_MOMENT_REL):
+        raise AssertionError("the train group's losses or state against one device: see the "
+                             "path train_group line")
+    if not (res["last_group_bitwise"]["losses"] and res["last_group_bitwise"]["state"]):
+        raise AssertionError("the last group's steps differ from the one-device app's")
+    backends = ["gloo"] * (len(GROUP_STAGES) - 1) + ["nccl" if dev.type == "cuda" else "gloo"]
+    if [g["shape"] for g in app.groups] != [list(shape) for shape, _ in GROUP_STAGES] \
+            or [g["backend"] for g in groups] != backends \
+            or any(r["bytes"] != res["state_bytes"] for r in app.rescales):
+        raise AssertionError("the groups, their backends or the bytes moved differ from "
+                             "GROUP_STAGES")
+    if res["seconds"] > GROUP_TIMEOUT_S:
+        raise AssertionError(f"the train group phase took {res['seconds']:.1f} s")
+    for g in groups:
+        if min(min(v) for v in g["launches_per_rank"].values()) < 1:
+            raise AssertionError(f"a rank of the {g['shape']} group launched no flash kernel: "
+                                 f"{g['launches_per_rank']}")
+    return {"report": res, "launches": {k.name: sum(r[k.name] for g in app.groups
+                                                    for r in g["launches"])
+                                        for k in kernels.KERNELS}}
+
+
 def checkpoint_round_trip(torch, params) -> dict:
     """``CheckpointManager`` saves the serving phase's smollm-135m
     parameters on the card — as stored (f32) and cast to the serving
@@ -5133,6 +5301,8 @@ def run(torch, cell: subprocess.Popen) -> None:
     torch.cuda.empty_cache()
     print("a18 row_product " + json.dumps(row_product_copies(torch, ms["row_products"],
                                                            ms["serve_bf16_wall_s"])))
+    torch.cuda.empty_cache()  # the group's ranks share the card
+    tg = train_group_path(torch, kernels, torch.device("cuda", 0))
     dr = dryrun_path(torch, kernels, cell)
     paths = {"kmeans_path": km["launches"], "kmeans_wide_path": kw["launches"],
              "lightsource_path": rc["launches"], "serve_path": sv["launches"],
@@ -5140,7 +5310,7 @@ def run(torch, cell: subprocess.Popen) -> None:
              "train_path": tn["launches"], "families_train_path": ftr["launches"],
              "pipeline_path": pl["launches"], "continuous_path": ct["launches"],
              "transport_path": tr["launches"], "mesh_path": ms["launches"],
-             "dryrun_path": dr["launches"]}
+             "train_group_path": tg["launches"], "dryrun_path": dr["launches"]}
     launches = {k.name: sum(p[k.name] for p in paths.values()) for k in kernels.KERNELS}
     print("launches " + json.dumps(paths))
     for name, count in launches.items():

@@ -5,8 +5,9 @@ tree *plus* the consumer offsets in one atomic unit (directory rename), so
 recovery = restore state + rewind consumers to the stored offsets.
 ``restore(device=...)`` places the leaves on another device than the one
 that saved them (elastic restart); ``restore(shardings=..., mesh=...)``
-keeps each rank's tile of every leaf, onto another mesh than the saver's. Async mode overlaps the file write with
-compute.
+keeps each rank's tile of every leaf, onto another mesh than the saver's
+(``save`` gathers a rank group's state into full leaves). Async mode
+overlaps the file write with compute.
 
 The on-disk format is the JAX package's, byte for byte: ``arrays.npz``
 with one ``a{i}`` entry per leaf (bf16 stored as its uint16 bits) and
@@ -97,7 +98,12 @@ class CheckpointManager:
     # ---- write -----------------------------------------------------------
 
     def save(self, step: int, state: Any, *, meta: dict | None = None) -> str:
-        """Write checkpoint ``step``; returns its path. Atomic via tmp+rename."""
+        """Write checkpoint ``step``; returns its path. Atomic via tmp+rename.
+        A state held elsewhere, by a rank group (``miniapps/masa.py``
+        ``GroupState``), is gathered first (its ``gather()``): the file
+        holds full leaves whatever the placement."""
+        if callable(getattr(state, "gather", None)):
+            state = state.gather()
         flat = tree_flatten_with_paths(state)
         host = [(path, _to_numpy(x), _dtype_name(x)) for path, x in flat]
         if self.async_save:

@@ -30,13 +30,14 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.service import resolve_device
 from repro_torch.kernels import kmeans as kmeans_ops
 from repro_torch.kernels import tomo as tomo_ops
+from repro_torch.launch.mesh import MeshSpec, RankGroup, RankPool, shared_host_copy
 from repro_torch.models import build_model
 from repro_torch.models.common import first_argmax
 from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
-from repro_torch.runtime.steps import build_train_step
+from repro_torch.runtime.steps import TrainRank, build_train_step
 from repro_torch.serving import ContinuousBatcher, Request
 from repro_torch.streaming.dispatch import AsyncWindow, LatencyWindow, ShapeBuckets, pad_rows
-from repro_torch.utils.tree import tree_map_with_paths
+from repro_torch.utils.tree import tree_bytes, tree_map_with_paths
 
 
 @dataclass
@@ -228,6 +229,20 @@ class LMTrainApp(_HotPathApp):
     run the flash kernels. The JAX app's compile counts have no
     counterpart.
 
+    With ``mesh`` (a :class:`~repro_torch.launch.mesh.MeshSpec`: a shape
+    and one device a rank; ``device`` is then the first rank's) the app
+    trains on a rank group of its own (``launch/mesh.py`` ``RankGroup``,
+    started at first use): each rank keeps its tiles of the state and runs
+    the mesh step (``runtime/steps.py`` ``TrainRank``) on every global
+    batch, and the state the stream carries is a :class:`GroupState`, a
+    handle on the group's state. The ranks are processes of the app's
+    ``RankPool``: a rescale's new group takes the old one's processes of
+    its devices, each having left the old process group. ``groups`` keeps
+    a record of each group the app ran (shape, backend, start seconds,
+    processes spawned for it, rank 0's step seconds, each rank's kernel
+    launches, read when it stopped), ``rescales`` one of each move between
+    placements. ``close()`` stops the group and ends the processes.
+
     A token stream trains every family whose batch is its tokens: the
     dense and MoE ones, RWKV6 and Zamba2. A VLM or an enc-dec model also
     needs patch or frame embeddings, which a token message does not carry:
@@ -235,7 +250,8 @@ class LMTrainApp(_HotPathApp):
     through ``build_train_step`` with the embeddings in its batch.
     """
 
-    def __init__(self, cfg, *, opt_cfg: OptimizerConfig | None = None, seqs_per_step: int = 8,
+    def __init__(self, cfg, *, mesh: MeshSpec | None = None,
+                 opt_cfg: OptimizerConfig | None = None, seqs_per_step: int = 8,
                  seq_len: int = 128, async_depth: int = 2, metrics: Any = None,
                  device: torch.device | str = "cuda"):
         if cfg.family in ("vlm", "encdec"):
@@ -244,28 +260,116 @@ class LMTrainApp(_HotPathApp):
                 f"{'patch' if cfg.family == 'vlm' else 'frame'} embeddings beside its tokens; "
                 "LMTrainApp trains on token messages only: train it through "
                 "repro_torch.runtime.steps.build_train_step with the embeddings in the batch")
-        self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)
         self.shape = ShapeConfig("stream", seq_len, seqs_per_step, "train")
         self.opt_cfg = opt_cfg
-        self.step_fn = build_train_step(self.model, self.shape, opt_cfg, device=self.device)
+        #: an app built with a mesh keeps a rank group whatever a rescale's
+        #: devices are (so one card can drive it)
+        self._keeps_group = mesh is not None
+        self.mesh: MeshSpec | None = None
+        self.group: RankGroup | None = None
+        self._pool: RankPool | None = None
+        self.groups: list[dict] = []
+        self.rescales: list[dict] = []
+        self._place(mesh, device)
         self._init_hotpath(async_depth=async_depth, metrics=metrics, name="lm_train")
         self._losses: list[float] = []
 
-    def init_state(self, seed: int = 0) -> dict:
+    def _place(self, mesh: MeshSpec | None, device) -> None:
+        """Train on one device, or on a rank group over ``mesh`` (started
+        at first use): the step function or the group's spec."""
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.step_fn = build_train_step(self.model, self.shape, self.opt_cfg,
+                                            device=self.device)
+        else:
+            for d in mesh.devices:
+                resolve_device(d)
+            self.device = mesh.devices[0]
+            self.step_fn = None
+
+    def _group(self) -> RankGroup:
+        if self.group is None:
+            if self._pool is None:
+                self._pool = RankPool()
+            self.group = RankGroup(self.mesh, TrainRank, (self.cfg, self.shape, self.opt_cfg),
+                                   self._pool)
+            self.groups.append({"shape": list(self.mesh.shape),
+                                "devices": [str(d) for d in self.mesh.devices],
+                                "backend": self.mesh.backend,
+                                "start_s": self.group.start_seconds,
+                                "spawned": self.group.spawned, "step_s": [], "launches": None})
+        return self.group
+
+    def _stop_group(self) -> None:
+        """Stop the rank group, its ranks' kernel launches read first
+        where it is sound."""
+        group, self.group = self.group, None
+        if group is None:
+            return
+        try:
+            if group.error is None:
+                self.groups[-1]["launches"] = group.call("launches")
+        finally:
+            group.stop()
+
+    def close(self) -> None:
+        """Land in-flight steps, stop the rank group, if any, and end the
+        rank processes."""
+        try:
+            self.sync()
+        finally:
+            self._stop_group()
+            if self._pool is not None:
+                self._pool.close()
+                self._pool = None
+
+    def init_state(self, seed: int = 0):
         """Random params drawn from a ``torch.Generator`` seeded ``seed`` on
-        the app's device, and zero optimizer state. As the JAX app does,
-        the state is made for ``OptimizerConfig(name=cfg.optimizer)`` when
-        no ``opt_cfg`` was given (the step's optimizer also reads the
-        config's moment dtype and first-moment flag)."""
+        the app's device (a group's: its first rank's), and zero optimizer
+        state. As the JAX app does, the state is made for
+        ``OptimizerConfig(name=cfg.optimizer)`` when no ``opt_cfg`` was
+        given (the step's optimizer also reads the config's moment dtype and
+        first-moment flag). A group app hands it to its group and returns
+        the :class:`GroupState`."""
         params = self.model.init(torch.Generator(device=self.device).manual_seed(seed))
         opt = Optimizer(self.opt_cfg or OptimizerConfig(name=self.cfg.optimizer))
-        return {"params": params, "opt": opt.init(params)}
+        state = {"params": params, "opt": opt.init(params)}
+        return state if self.mesh is None else self.place_state(state)
+
+    def place_state(self, state: dict):
+        """A full train state (tensors on any device, such as
+        ``train_state_from_jax``'s or a restored checkpoint's) as this app
+        trains it: on its device, or handed to its rank group through
+        shared host memory, each rank keeping its tiles; then the group's
+        :class:`GroupState`."""
+        if self.mesh is None:
+            return tree_map_with_paths(lambda _, x: x.to(self.device), state)
+        host = tree_map_with_paths(lambda _, x: shared_host_copy(x.detach()), state)
+        group = self._group()
+        group.call("load", host)
+        return GroupState(group, int(host["opt"]["step"]))
+
+    def restore(self, ckpt, step: int | None = None) -> tuple[Any, dict]:
+        """(state, meta) of checkpoint ``step`` (the latest by default) of
+        ``ckpt`` (a ``CheckpointManager``), placed as :meth:`place_state`
+        places a state: on a group each rank reads its own tiles
+        (``TrainRank.restore``), so a checkpoint saved from any placement
+        restores onto any other."""
+        if self.mesh is None:
+            return ckpt.restore(self.init_state(), step)
+        group = self._group()
+        got = group.call("restore", ckpt.directory, step)[0]
+        return GroupState(group, got["opt_step"]), got["meta"]
 
     def process(self, state, msgs):
         if state is None:
             state = self.init_state()
+        elif self.mesh is not None and not (isinstance(state, GroupState)
+                                            and state.group is self.group):
+            state = self.place_state(state)
         toks = np.concatenate([np.asarray(m.value) for m in msgs])  # (n_seqs, S)
         B = self.shape.global_batch
         n_steps = len(toks) // B
@@ -275,17 +379,30 @@ class LMTrainApp(_HotPathApp):
             if len(batch) < B:  # pad the tail window
                 width = batch.shape[1] if batch.size else self.shape.seq_len
                 batch = np.concatenate([batch, np.zeros((B - len(batch), width), np.int32)])
-            params, opt, metrics = self.step_fn(
-                state["params"], state["opt"], {"tokens": batch.astype(np.int32)})
-            state = {"params": params, "opt": opt}
+            batch = batch.astype(np.int32)
+            if self.mesh is None:
+                params, opt, metrics = self.step_fn(state["params"], state["opt"],
+                                                    {"tokens": batch})
+                state = {"params": params, "opt": opt}
+            else:
+                reply = self.group.submit("step", batch)
+                state = GroupState(self.group, state.step + 1)
         self.stats.messages += len(msgs)
         self.stats.items += int(len(toks)) * self.shape.seq_len
         self.stats.batches += 1
-        self._submit(metrics["loss"], t0=t0)
+        if self.mesh is None:
+            self._submit(metrics["loss"], t0=t0)
+        else:  # the group's record takes rank 0's step seconds
+            self._submit(reply, meta=self.groups[-1], t0=t0)
         return state
 
     def _on_complete(self, result, meta, dt):
-        self._losses.append(float(result))
+        if meta is None:
+            self._losses.append(float(result))
+            return
+        out = result.result()[0]
+        self._losses.append(out["loss"])
+        meta["step_s"].append(out["s"])
 
     @property
     def losses(self) -> list[float]:
@@ -294,28 +411,78 @@ class LMTrainApp(_HotPathApp):
         return self._losses
 
     def on_rescale(self, devices):
-        """Elastic hook: in-flight steps land, then the state and later
-        steps go to the slots' device. The slots of one card are all
-        ``cuda:0``. Distinct devices raise: the JAX app reshards onto a mesh
-        of them, but the port's mesh step runs one process per rank
-        (``runtime/steps.py``), and the app would need a rank group of its
-        own, which one card cannot show (ROADMAP A16)."""
-        distinct = list(dict.fromkeys(torch.device(d) for d in devices))
-        if len(distinct) != 1:
-            raise NotImplementedError(
-                f"LMTrainApp trains on one device; got {distinct} (a rank group of its own "
-                "over several cards is ROADMAP A16)")
+        """Elastic hook, the reference's rule: a ``(len(devices), 1)``
+        ("data", "model") rank group over ``devices``, except that one
+        device, or a list of one device repeated (the slots of one card),
+        gives the one-device app with plain tensors, unless the app was
+        built with a mesh: such an app keeps a group whatever the list
+        holds (ROADMAP C17). In order: in-flight steps land; the full state
+        comes to host memory (gathered from the old group's tiles, or as
+        the one device holds it), with no checkpoint file; the old group
+        stops; the new placement takes the state (a new group is started
+        and handed it). ``rescales`` records each move that involves a
+        group: its seconds by part and the host bytes moved."""
+        target = _rescale_mesh(devices, keeps_group=self._keeps_group)
 
         def f(state):
             self.sync()  # in-flight steps must land before buffers move
-            self.device = distinct[0]
-            self.step_fn = build_train_step(self.model, self.shape, self.opt_cfg,
-                                            device=self.device)
+            t0 = time.perf_counter()
+            grouped = self.mesh is not None or target is not None
+            before = self.mesh.shape if self.mesh is not None else str(self.device)
+            if isinstance(state, GroupState):
+                state = state.gather()
+            moved = 0 if state is None else tree_bytes(state)
+            t1 = time.perf_counter()
+            self._stop_group()
+            t2 = time.perf_counter()
+            self._place(target, devices[0])
             if state is not None:
-                state = tree_map_with_paths(lambda _, x: x.to(self.device), state)
+                state = self.place_state(state)
+            if grouped:
+                start = self.groups[-1]["start_s"] if self.group is not None else 0.0
+                self.rescales.append({
+                    "from": before, "to": target.shape if target else str(self.device),
+                    "bytes": moved,
+                    "seconds": time.perf_counter() - t0, "gather_s": t1 - t0,
+                    "stop_s": t2 - t1, "start_s": start,
+                    "load_s": time.perf_counter() - t2 - start})
             return state
 
         return f
+
+
+def _rescale_mesh(devices, *, keeps_group: bool) -> MeshSpec | None:
+    """The placement a rescale onto ``devices`` gives (``LMTrainApp
+    .on_rescale``): None for the one-device app, else the group's mesh."""
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("a rescale needs at least one device")
+    if not keeps_group and len(set(devices)) == 1:
+        return None
+    return MeshSpec((len(devices), 1), devices)
+
+
+class GroupState:
+    """The train state a rank group holds, each rank its tiles: what the
+    stream carries between batches in place of the tensors, so nothing
+    large crosses per batch. ``step`` is the optimizer's step count;
+    :meth:`gather` brings the full state into host memory (a checkpoint's
+    save or a rescale). Pickled, it keeps its step only."""
+
+    def __init__(self, group: RankGroup | None, step: int):
+        self.group, self.step = group, step
+
+    def gather(self) -> dict:
+        if self.group is None:
+            raise RuntimeError("this GroupState was pickled: its rank group is not here")
+        return self.group.call("gather")[0]
+
+    def __getstate__(self):
+        return {"group": None, "step": self.step}
+
+    def __repr__(self) -> str:
+        shape = None if self.group is None else self.group.spec.shape
+        return f"GroupState(group={shape}, step={self.step})"
 
 
 class LMServeApp(_HotPathApp):

@@ -136,8 +136,8 @@ JAX_ONLY_OPTIONS = {
     "buckets": "nothing is compiled per shape, so no batch is padded to a bucket",
     "batched": "ML-EM takes the whole batch in one call",
     "batch_buckets": "nothing is compiled per shape, so no batch is padded to a bucket",
-    "mesh": "the apps run on their stage's device; a mesh is a torch.distributed rank group "
-            "that runs build_train_step(mesh=...) in every rank, not an app option",
+    "mesh": "only LMTrainApp takes a mesh (a launch.mesh.MeshSpec: a rank group of its own); "
+            "the other apps run on their stage's device",
 }
 
 

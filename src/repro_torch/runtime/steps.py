@@ -37,6 +37,7 @@ reads it.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -45,6 +46,7 @@ import torch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.service import resolve_device
 from repro_torch.data.batching import shard_batch
+from repro_torch.launch.mesh import shared_host_copy
 from repro_torch.models.base import BaseModel
 from repro_torch.models.common import ModelTiles, ShardedLayer, first_argmax, torch_dtype
 from repro_torch.runtime.collectives import psum
@@ -60,6 +62,7 @@ from repro_torch.runtime.sharding import (
     shard_slices,
     shard_tree,
     spec_axes,
+    unshard_tree,
 )
 from repro_torch.utils.tree import tree_flatten_with_paths, tree_map_with_paths
 
@@ -277,6 +280,89 @@ def build_mesh_train_step(model: BaseModel, shape: ShapeConfig,
         return params, opt_state, dict(metrics, loss=loss, **stats)
 
     return train_step
+
+
+class TrainRank:
+    """One rank's side of a streaming train step on a rank group
+    (``launch/mesh.py`` ``RankGroup``, which ``miniapps/masa.py``
+    ``LMTrainApp`` drives). Built in the rank from the model config, the
+    ``ShapeConfig`` and the ``OptimizerConfig`` on the rank's ``mesh``, it
+    keeps the rank's tiles of the train state ``{"params", "opt"}`` between
+    commands and runs the mesh step (:func:`build_mesh_train_step`) on each
+    global batch it is sent: every rank takes the same batch, as the
+    reference's step takes global arrays."""
+
+    def __init__(self, mesh, cfg, shape: ShapeConfig, opt_cfg: OptimizerConfig | None):
+        from repro_torch.models import build_model
+
+        self.mesh, self.cfg, self.opt_cfg = mesh, cfg, opt_cfg
+        self.model = build_model(cfg)
+        self.step_fn = build_mesh_train_step(self.model, shape, opt_cfg, mesh)
+        self.params: Any = None
+        self.opt: dict | None = None
+        self._launched = self._launch_counts()  # the process's, from groups before
+
+    def _specs(self, opt: Optimizer) -> dict:
+        return {"params": param_shardings(self.model, self.mesh),
+                "opt": opt_state_shardings(self.model, opt, self.mesh)}
+
+    def load(self, state: dict) -> None:
+        """Keep this rank's tiles of the full (host) ``state`` on its device."""
+        params, opt = mesh_train_state(self.model, state["params"], state["opt"], self.mesh)
+        dev = self.mesh.device
+        self.params = tree_map_with_paths(lambda _, x: x.to(dev), params)
+        # the tiles are copies already (``shard``); ``step`` is the sender's
+        self.opt = tree_map_with_paths(lambda path, x: x.to(dev, copy=path == "step"), opt)
+
+    def step(self, tokens) -> dict | None:
+        """One step on the global batch ``tokens``; rank 0 answers the loss,
+        the grad norm and the step's wall seconds, the others None."""
+        t0 = time.perf_counter()
+        self.params, self.opt, met = self.step_fn(self.params, self.opt, {"tokens": tokens})
+        if self.mesh.rank:
+            return None
+        out = {k: float(met[k]) for k in ("loss", "grad_norm")}
+        out["s"] = time.perf_counter() - t0
+        return out
+
+    def gather(self) -> dict | None:
+        """The full state, gathered over the mesh (``unshard_tree``); rank 0
+        answers it in shared host memory (each leaf copied there once), the
+        others None."""
+        full = unshard_tree({"params": self.params, "opt": self.opt},
+                            self._specs(_state_optimizer(self.opt)), self.mesh)
+        if self.mesh.rank:
+            return None
+        return tree_map_with_paths(lambda _, x: shared_host_copy(x), full)
+
+    def restore(self, directory: str, step: int | None) -> dict | None:
+        """Keep this rank's tiles of checkpoint ``step`` in ``directory``
+        (the latest by default): each leaf is read whole and cut to the
+        tile, ``CheckpointManager.restore(shardings=..., mesh=...)``. Rank 0
+        answers the checkpoint's step, its meta and the optimizer's step."""
+        from repro_torch.checkpoint import CheckpointManager
+
+        opt = Optimizer(self.opt_cfg or OptimizerConfig(name=self.cfg.optimizer))
+        struct = self.model.param_struct()
+        mgr = CheckpointManager(directory)
+        step = mgr.latest_step() if step is None else step
+        state, meta = mgr.restore({"params": struct, "opt": opt.state_struct(struct)}, step,
+                                  device=self.mesh.device, shardings=self._specs(opt),
+                                  mesh=self.mesh)
+        self.params, self.opt = state["params"], state["opt"]
+        return None if self.mesh.rank else {"step": step, "meta": meta,
+                                            "opt_step": int(self.opt["step"])}
+
+    @staticmethod
+    def _launch_counts() -> dict:
+        from repro_torch.kernels import KERNELS
+
+        return {k.name: k.launches for k in KERNELS}
+
+    def launches(self) -> dict:
+        """This rank's launches of every kernel (``CudaKernel.launches``)
+        since it joined this group."""
+        return {k: n - self._launched[k] for k, n in self._launch_counts().items()}
 
 
 def _kept_tiles(specs: dict, axes: dict, decode_gathered: tuple | None = None) -> dict:

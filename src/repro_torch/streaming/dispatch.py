@@ -115,9 +115,13 @@ def _first_tensor(obj: Any) -> torch.Tensor | None:
     return None
 
 
-def completion_event(result: Any) -> torch.cuda.Event | None:
+def completion_event(result: Any) -> Any:
     """An event recorded on the current stream of the device that holds
-    ``result`` (its first tensor), or None when it lives on the CPU."""
+    ``result`` (its first tensor), or None when it lives on the CPU. A
+    result that is its own event (a rank group's ``Reply``: its
+    ``synchronize()`` waits for the ranks' answers) is returned as it is."""
+    if hasattr(result, "synchronize"):
+        return result
     t = _first_tensor(result)
     if t is None or t.device.type != "cuda":
         return None

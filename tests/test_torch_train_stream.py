@@ -1,8 +1,10 @@
 """The port's streaming training on the CPU: ``LMTrainApp`` over a token
 stream (the loss drops, as ``tests/test_system.py`` holds the JAX app to),
-its batching, padding and rescale hook, train states checkpointed by one
-package and continued by the other, the launcher ``python -m
-repro_torch.launch.train`` with ``--resume``, and the data helpers.
+its batching, padding and rescale hook (its rule, and a move onto a rank
+group and back), train states checkpointed by one package and continued by
+the other, the launcher ``python -m repro_torch.launch.train`` with
+``--resume``, on one device and on a lease of two, and the data helpers.
+The group app against the JAX package: ``tests/test_torch_train_group.py``.
 
 A state that crosses a checkpoint is compared bitwise; the step each
 package then takes from it is held to ``tests/test_torch_train.py``'s
@@ -35,9 +37,11 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.core import PilotComputeService
 from repro_torch.data import DevicePrefetcher, batch_messages, shard_batch
+from repro_torch.launch.mesh import MeshSpec
 from repro_torch.miniapps import LMTrainApp, SourceConfig, TokenSource
+from repro_torch.miniapps.masa import GroupState, _rescale_mesh
 from repro_torch.runtime.optimizer import OptimizerConfig
-from repro_torch.utils import tree_flatten_with_paths
+from repro_torch.utils import tree_flatten_with_paths, tree_map_with_paths
 
 torch.set_num_threads(1)
 
@@ -110,15 +114,59 @@ def test_process_pads_a_short_window_and_steps_per_full_batch(monkeypatch):
 
 
 def test_on_rescale_keeps_the_state_on_the_slots_device():
+    """The slots of one device give the one-device app with plain tensors;
+    distinct devices give a rank group of that size (ROADMAP C17): here
+    ``cpu`` and ``cpu:0``, which ``torch.device`` tells apart, stand for
+    two devices. Back on one device, the state is plain tensors again,
+    each step the same as the app that never left it."""
     app = LMTrainApp(get_arch("smollm-135m").reduced(), seqs_per_step=2, seq_len=16,
                      device="cpu")
     state = app.process(None, [Msg(_tokens(0, 2, 16))])
     moved = app.on_rescale([CPU, CPU])(state)
-    assert app.device == CPU
+    assert app.device == CPU and app.mesh is None and app.group is None
     assert {x.device for _, x in tree_flatten_with_paths(moved)} == {CPU}
-    app.process(moved, [Msg(_tokens(1, 2, 16))])
-    with pytest.raises(NotImplementedError, match="A16"):
-        app.on_rescale([CPU, torch.device("meta")])
+    moved = app.process(moved, [Msg(_tokens(1, 2, 16))])
+    alone = LMTrainApp(get_arch("smollm-135m").reduced(), seqs_per_step=2, seq_len=16,
+                       device="cpu")
+    kept = alone.place_state(tree_map_with_paths(lambda _, x: x.clone(), moved))
+    two = [CPU, torch.device("cpu", 0)]
+    try:
+        grouped = app.on_rescale(two)(moved)
+        assert isinstance(grouped, GroupState) and grouped.step == 2
+        assert app.mesh == MeshSpec((2, 1), two) and app.group.size == 2
+        grouped = app.process(grouped, [Msg(_tokens(2, 2, 16))])
+        back = app.on_rescale([CPU])(grouped)
+        assert app.mesh is None and app.group is None
+        assert [g["shape"] for g in app.groups] == [[2, 1]]
+        assert [(r["from"], r["to"]) for r in app.rescales] == [("cpu", (2, 1)), ((2, 1), "cpu")]
+    finally:
+        app.close()
+    assert {x.device for _, x in tree_flatten_with_paths(back)} == {CPU}
+    assert int(back["opt"]["step"]) == 3
+    kept = alone.process(kept, [Msg(_tokens(2, 2, 16))])
+    np.testing.assert_allclose(app.losses[-1], alone.losses[-1], rtol=1e-5)
+    for (path, a), (_, b) in zip(tree_flatten_with_paths(back), tree_flatten_with_paths(kept)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5, err_msg=path)
+
+
+@pytest.mark.parametrize("devices, keeps_group, shape, backend", [
+    ([CPU, CPU], False, None, None),
+    ([torch.device("cuda", 0)] * 4, False, None, None),
+    ([torch.device("cuda", 0), torch.device("cuda", 1)], False, (2, 1), "nccl"),
+    ([torch.device("cuda", 0)] * 4, True, (4, 1), "gloo"),
+    ([CPU], True, (1, 1), "gloo"),
+    ([torch.device("cuda", 1)], True, (1, 1), "nccl"),
+])
+def test_the_rescale_rule(devices, keeps_group, shape, backend):
+    """``on_rescale``'s placement: one device (or one repeated) is the
+    one-device app unless the app was built with a mesh; otherwise a
+    (len(devices), 1) group, NCCL over distinct cards, else gloo."""
+    target = _rescale_mesh(devices, keeps_group=keeps_group)
+    if shape is None:
+        assert target is None
+    else:
+        assert target.shape == shape and target.backend == backend
+        assert list(target.devices) == devices
 
 
 def _close_step(tp, to, tmet, jp, js, jmet, before):
@@ -195,6 +243,22 @@ def test_the_launcher_trains_checkpoints_and_resumes(tmp_path):
     second = _launch("--resume", tmp_path=tmp_path)
     assert second.returncode == 0, second.stderr
     assert f"[train] resumed from step {last}" in second.stdout
+
+
+def test_the_launcher_trains_on_a_lease_of_two_devices_and_resumes(tmp_path):
+    """``--devices 2``: the training pilot leases two CPU slots and the app
+    trains on a (2, 1) gloo group over them; its checkpoints (gathered
+    full leaves) resume onto a group again, each rank reading its tiles."""
+    first = _launch("--devices", "2", tmp_path=tmp_path)
+    assert first.returncode == 0, first.stderr
+    assert "on a (2, 1) gloo group of cpu, cpu" in first.stdout
+    steps = sorted((tmp_path / "ck").glob("step_*"))
+    assert len(steps) == 2
+    last = int(steps[-1].name.split("_")[1])
+    second = _launch("--resume", "--devices", "2", tmp_path=tmp_path)
+    assert second.returncode == 0, second.stderr
+    assert f"[train] resumed from step {last}" in second.stdout
+    assert "on a (2, 1) gloo group" in second.stdout
 
 
 def test_batch_messages_matches_jax_and_shard_batch_places_the_tree():

@@ -902,3 +902,19 @@ def tensor_parallel_cases(rank: int, inp: dict) -> dict:
         finally:
             setattr(common, attr, saved)
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_train_group.py
+# ---------------------------------------------------------------------------
+
+
+class Echo:
+    """A rank group's handler (``RankGroup(spec, Echo, (), pool)``) whose
+    answer names the rank and the command it answers."""
+
+    def __init__(self, mesh):
+        self.rank = mesh.rank
+
+    def echo(self, tag):
+        return self.rank, tag
