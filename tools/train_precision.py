@@ -3,7 +3,8 @@
 same step on the host CPU, in bf16 and in f32 compute, on one GPU, and
 where a bf16 evaluation departs from the f32 one.
 
-    python3 tools/train_precision.py [--models NAME ...] [--spread N]
+    python3 tools/train_precision.py [--models NAME ...] [--spread N] [--trained]
+                                     [--flag-off]
 
 Each family at ``chip_smoke.py``'s card-against-CPU size
 (``chip_smoke.family_check``: full width, TRAIN_CHECK_LAYERS layers, f32
@@ -17,7 +18,7 @@ CPU over the CPU's norm) with its leaf. Two evaluations that round at other
 places agree to what the step's arithmetic allows: this says which compute
 dtype a card-against-CPU check of a family can hold to a tolerance.
 
-Then one ``departure`` JSON line per family: step 1 once more with
+Then ``departure`` JSON lines per family: step 1 once more with
 ``remat="none"`` on the CPU and the card in each compute dtype, every
 evaluation against the CPU's f32 one: the loss, the grad norm, each leaf's
 gradient (median and worst relative L2), and, in the order the forward and
@@ -28,15 +29,31 @@ Mamba2's conv and SSD outputs). The first intermediate whose distance
 jumps is where rounding is amplified; one that departs on the card alone
 is a fault of the card's path.
 
+The card's evaluations run with ``torch.backends.cuda.matmul.
+allow_bf16_reduced_precision_reduction`` as torch sets it (on: cuBLAS may
+then sum a bf16 product's split-K partials in bf16, rounding it twice) and,
+with ``--flag-off``, once more with it off (summed in f32 and rounded once,
+as the reference's products are): one ``departure`` line for each, the
+flag's state in every line (the CPU's evaluations, which the flag does not
+touch, are the same in both).
+
 With ``--spread N`` (on the CPU, and on the card when there is one; no
 card needed): instead, N copies of each family's ``family_check`` weights,
 each leaf times (1 + SPREAD_REL x a unit normal draw seeded by the copy's
 index), each evaluated in f32 and in bf16 as in ``departure``. A relative
 change of SPREAD_REL moves an f32 evaluation by about as much, but changes
 which way some bf16 roundings go: the spread of the bf16 evaluations'
-distance from f32 over the copies is what a bf16 evaluation of this step
-can come out at on one device. One ``spread`` JSON line per family and
-device.
+distance from f32 over the copies (the loss's and each leaf gradient's) is
+what a bf16 evaluation of this step can come out at on one device. One
+``spread`` JSON line per family and device, and on the card per state of
+the flag that is run.
+
+With ``--trained`` (needs the card): ``departure`` and ``--spread`` start
+from each family's trained weights instead of the drawn ones, at
+``chip_smoke.py``'s trained phase (``chip_smoke.train_family``: full width,
+FAM_TCHECK_LAYERS layer, TRAINED_STEPS f32 steps on the card from SEED),
+and evaluate ``family_check``'s batch at that depth; the ``precision``
+lines are left out.
 """
 from __future__ import annotations
 
@@ -114,6 +131,10 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--models", nargs="*", default=None)
     ap.add_argument("--spread", type=int, default=0)
+    ap.add_argument("--trained", action="store_true",
+                    help="start departure and --spread from the trained phase's weights (card)")
+    ap.add_argument("--flag-off", action="store_true",
+                    help="evaluate on the card also with allow_bf16_reduced_precision_reduction off")
     args = ap.parse_args()
 
     import torch
@@ -124,13 +145,16 @@ def main() -> None:
     from repro_torch.runtime.optimizer import Optimizer, OptimizerConfig
     from repro_torch.utils import tree_flatten_with_paths, tree_map_with_paths
 
-    if not torch.cuda.is_available() and not args.spread:
+    if not torch.cuda.is_available() and (args.trained or not args.spread):
         raise SystemExit("train_precision: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if torch.cuda.is_available():
         print(cs.card_line())
         kernels.build_all()
+    flags = tuple(dict.fromkeys(
+        (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,)
+        + ((False,) if args.flag_off else ())))
 
     def grads(model, params, batch, device):
         flat = tree_flatten_with_paths(params)
@@ -148,74 +172,125 @@ def main() -> None:
         return {"worst_leaf_rel_l2": rel[leaf], "worst_leaf": leaf,
                 "median_leaf_rel_l2": sorted(rel.values())[len(rel) // 2]}
 
-    def departure(name: str) -> dict:
-        runs = {}
-        for where in ("cpu", "cuda"):
-            for compute in ("float32", "bfloat16"):
-                cfg, batches = cs.family_check(name, compute)
-                model = build_model(cfg.replace(remat="none"))
-                start = model.init(torch.Generator().manual_seed(cs.SEED))
-                params = tree_map_with_paths(lambda _, x: x.to(where, copy=True), start)
-                tracer = Tracer()
-                tracer.install()
-                try:
-                    loss, g = grads(model, params, batches[0], where)
-                finally:
-                    tracer.remove()
-                g = {k: v.double().cpu() for k, v in g.items()}
-                runs[where, compute] = (loss, g, tracer)
-                del params, start
-        loss0, g0, t0 = runs["cpu", "float32"]
-        out = {"model": name, "reference": "cpu float32",
-               "grad_norm_reference": float(sum(x.norm() ** 2 for x in g0.values()) ** 0.5)}
-        keys = t0.order + ["d" + k for k in reversed(t0.order) if "d" + k in t0.values]
-        for (where, compute), (loss, g, tracer) in runs.items():
-            if (where, compute) == ("cpu", "float32"):
-                continue
-            leaf = {k: rel(g[k], g0[k]) for k in g0}
-            out[f"{where} {compute}"] = {
-                "loss_rel": abs(loss - loss0) / abs(loss0),
-                "grad_norm": float(sum(x.norm() ** 2 for x in g.values()) ** 0.5),
-                "median_leaf_rel_l2": sorted(leaf.values())[len(leaf) // 2],
-                "worst_leaf": max(leaf, key=leaf.get), "worst_leaf_rel_l2": max(leaf.values()),
-                "leaf_rel_l2": leaf,
-                "traced_rel_l2": {k: rel(tracer.values[k], t0.values[k]) for k in keys
-                                  if k in tracer.values}}
-        return out
+    def weights(name: str, compute: str, start):
+        """The model at the check's depth (FAM_TCHECK_LAYERS from trained
+        weights, else TRAIN_CHECK_LAYERS), its first batch, and its weights
+        on the CPU: ``start``, or drawn from SEED."""
+        layers = cs.FAM_TCHECK_LAYERS if start is not None else cs.TRAIN_CHECK_LAYERS
+        cfg, batches = cs.family_check(name, compute, layers)
+        model = build_model(cfg.replace(remat="none"))
+        if start is None:
+            start = model.init(torch.Generator().manual_seed(cs.SEED))
+        return model, batches[0], start
 
-    def spread(name: str, where: str, n: int) -> dict:
+    def departure(name: str, start=None) -> list:
+        """One line for each state of the flag in ``flags``: every evaluation
+        against the CPU's f32 one (the CPU's run once, the card's under each
+        state)."""
+
+        def evaluate(where, compute):
+            model, batch, base = weights(name, compute, start)
+            params = tree_map_with_paths(lambda _, x: x.to(where, copy=True), base)
+            tracer = Tracer()
+            tracer.install()
+            try:
+                loss, g = grads(model, params, batch, where)
+            finally:
+                tracer.remove()
+            return loss, {k: v.double().cpu() for k, v in g.items()}, tracer
+
+        cpu = {("cpu", c): evaluate("cpu", c) for c in ("float32", "bfloat16")}
+        loss0, g0, t0 = cpu["cpu", "float32"]
+        keys = t0.order + ["d" + k for k in reversed(t0.order) if "d" + k in t0.values]
+        lines = []
+        for allow in flags:
+            with cs.reduction(torch, allow):
+                runs = {**cpu, **{("cuda", c): evaluate("cuda", c)
+                                  for c in ("float32", "bfloat16")}}
+            out = {"model": name, "weights": "drawn" if start is None else "trained",
+                   "allow_bf16_reduced_precision_reduction": allow, "reference": "cpu float32",
+                   "grad_norm_reference": float(sum(x.norm() ** 2 for x in g0.values()) ** 0.5)}
+            for (where, compute), (loss, g, tracer) in runs.items():
+                if (where, compute) == ("cpu", "float32"):
+                    continue
+                leaf = {k: rel(g[k], g0[k]) for k in g0}
+                out[f"{where} {compute}"] = {
+                    "loss_rel": abs(loss - loss0) / abs(loss0),
+                    "grad_norm": float(sum(x.norm() ** 2 for x in g.values()) ** 0.5),
+                    "median_leaf_rel_l2": sorted(leaf.values())[len(leaf) // 2],
+                    "worst_leaf": max(leaf, key=leaf.get),
+                    "worst_leaf_rel_l2": max(leaf.values()), "leaf_rel_l2": leaf,
+                    "traced_rel_l2": {k: rel(tracer.values[k], t0.values[k]) for k in keys
+                                      if k in tracer.values}}
+            lines.append(out)
+            del runs
+        return lines
+
+    def spread(name: str, where: str, n: int, start=None) -> dict:
         samples = []
         for i in range(n):
             gen = torch.Generator().manual_seed(i)
-            g = {}
+            g, loss = {}, {}
             for compute in ("float32", "bfloat16"):
-                cfg, batches = cs.family_check(name, compute)
-                model = build_model(cfg.replace(remat="none"))
-                start = model.init(torch.Generator().manual_seed(cs.SEED))
-                if i:  # copy 0 is the weights as drawn
-                    start = tree_map_with_paths(lambda _, x: x * (1 + SPREAD_REL * torch.randn(
-                        x.shape, generator=gen)), start)
-                params = tree_map_with_paths(lambda _, x: x.to(where, copy=True), start)
-                _, got = grads(model, params, batches[0], where)
+                model, batch, base = weights(name, compute, start)
+                if i:  # copy 0 is the weights as they are
+                    base = tree_map_with_paths(lambda _, x: x * (1 + SPREAD_REL * torch.randn(
+                        x.shape, generator=gen)), base)
+                params = tree_map_with_paths(lambda _, x: x.to(where, copy=True), base)
+                loss[compute], got = grads(model, params, batch, where)
                 g[compute] = {k: v.double().cpu() for k, v in got.items()}
-                del params, start
+                del params, base
             leaf = {k: rel(g["bfloat16"][k], g["float32"][k]) for k in g["float32"]}
             samples.append({
+                "loss_rel": abs(loss["bfloat16"] - loss["float32"]) / abs(loss["float32"]),
                 "grad_norm_f32": float(sum(x.norm() ** 2 for x in g["float32"].values()) ** 0.5),
                 "grad_norm_bf16": float(sum(x.norm() ** 2 for x in g["bfloat16"].values()) ** 0.5),
                 "median_leaf_rel_l2": sorted(leaf.values())[len(leaf) // 2],
                 "worst_leaf": max(leaf, key=leaf.get), "worst_leaf_rel_l2": max(leaf.values())})
-        return {"model": name, "device": where, "rel": SPREAD_REL, "samples": samples}
+        return {"model": name, "device": where,
+                "weights": "drawn" if start is None else "trained",
+                "allow_bf16_reduced_precision_reduction":
+                    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+                "rel": SPREAD_REL, "samples": samples}
 
-    if args.spread:
-        for name in args.models or cs.FAMILIES:
-            for where in ("cpu", "cuda") if torch.cuda.is_available() else ("cpu",):
-                print("spread " + json.dumps(spread(name, where, args.spread)), flush=True)
+    def trained(name: str):
+        """The trained phase's weights of ``name``, on the CPU."""
+        from repro_torch import miniapps
+        from repro_torch.core import PilotComputeService
+
+        dev = torch.device("cuda", 0)
+        svc = PilotComputeService(devices=[dev])
+        try:
+            cluster = svc.submit_pilot({"number_of_nodes": 1, "type": "kafka"}).get_context()
+            ctx = svc.submit_pilot({"number_of_nodes": 1, "type": "spark"}).get_context()
+            params, report, _ = cs.train_family(torch, kernels, miniapps, cluster, ctx, name, dev)
+        finally:
+            svc.cancel()
+        print("trained " + json.dumps(report), flush=True)
+        params = tree_map_with_paths(lambda _, x: x.cpu(), params)
+        torch.cuda.empty_cache()
+        return params
+
+    names = args.models or (cs.FAM_TCHECK_F32 if args.trained else cs.FAMILIES)
+    if args.trained or args.spread:
+        for name in names:
+            start = trained(name) if args.trained else None
+            if not args.spread:
+                for line in departure(name, start):
+                    print("departure " + json.dumps(line), flush=True)
+                continue
+            print("spread " + json.dumps(spread(name, "cpu", args.spread, start)), flush=True)
+            if torch.cuda.is_available():
+                for allow in flags:
+                    with cs.reduction(torch, allow):
+                        line = spread(name, "cuda", args.spread, start)
+                    print("spread " + json.dumps(line), flush=True)
+            torch.cuda.empty_cache()
         return
 
     opt_cfg = OptimizerConfig(learning_rate=cs.TRAIN_LR, warmup_steps=cs.TRAIN_WARMUP,
                               total_steps=cs.TRAIN_STEPS)
-    for name in args.models or cs.FAMILIES:
+    for name in names:
         for compute in ("bfloat16", "float32"):
             cfg, batches = cs.family_check(name, compute)
             model = build_model(cfg)
@@ -232,12 +307,16 @@ def main() -> None:
                 del params
             (c1, cg1, c2, cg2), (d1, dg1, d2, dg2) = side["cpu"], side["cuda"]
             print("precision " + json.dumps({
-                "model": name, "compute_dtype": compute, "loss_cpu": [c1, c2], "loss_card": [d1, d2],
+                "model": name, "compute_dtype": compute,
+                "allow_bf16_reduced_precision_reduction":
+                    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+                "loss_cpu": [c1, c2], "loss_card": [d1, d2],
                 "loss_rel": [abs(d1 - c1) / abs(c1), abs(d2 - c2) / abs(c2)],
                 "step1": worst(cg1, dg1), "step2": worst(cg2, dg2)}), flush=True)
             del side
             torch.cuda.empty_cache()
-        print("departure " + json.dumps(departure(name)), flush=True)
+        for line in departure(name):
+            print("departure " + json.dumps(line), flush=True)
         torch.cuda.empty_cache()
 
 
